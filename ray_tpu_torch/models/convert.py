@@ -1,0 +1,89 @@
+"""Parameter trees between numpy and the port's tensors.
+
+The layout is the JAX package's (``gpt2_init``); only the leaves change
+type.  This is how weights cross from JAX to the port in the tests, and
+how ``checkpoint_path`` pickles load in ``serve/llm.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.device import DeviceLike, resolve_device
+from ray_tpu_torch.models.gpt2 import GPT2Config
+
+
+def _expected_shapes(cfg: GPT2Config) -> Dict[str, Any]:
+    L, d, f, h, hd = (cfg.n_layer, cfg.d_model, cfg.d_ff, cfg.n_head,
+                      cfg.head_dim)
+    if cfg.n_experts:
+        E = cfg.n_experts
+        ff = {"moe": {"gate": (L, d, E), "w1": (L, E, d, f),
+                      "b1": (L, E, f), "w2": (L, E, f, d),
+                      "b2": (L, E, d)}}
+    else:
+        ff = {"mlp": {"fc_w": (L, d, f), "fc_b": (L, f),
+                      "proj_w": (L, f, d), "proj_b": (L, d)}}
+    return {
+        "wte": (cfg.padded_vocab, d), "wpe": (cfg.max_seq, d),
+        "ln_f": {"scale": (d,), "bias": (d,)},
+        "blocks": {
+            "ln1": {"scale": (L, d), "bias": (L, d)},
+            "ln2": {"scale": (L, d), "bias": (L, d)},
+            "attn": {"qkv_w": (L, d, 3, h, hd), "qkv_b": (L, 3, h, hd),
+                     "o_w": (L, h, hd, d), "o_b": (L, d)},
+            **ff,
+        },
+    }
+
+
+def _leaf_to_tensor(leaf, device: torch.device) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own (JAX's comes from
+        # ml_dtypes); widening to f32 is exact, narrowing back is too
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    # np.array copies: the tensor owns writable memory even when the
+    # source array is read-only (as JAX's host arrays are)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def gpt2_params_from_numpy(tree, cfg: GPT2Config,
+                           device: DeviceLike = None) -> Dict[str, Any]:
+    """A GPT-2 parameter tree of numpy arrays (or anything np.asarray
+    takes) → the same tree of tensors on ``device``, dtypes kept.
+    Raises ValueError when the keys or shapes do not match ``cfg``."""
+    dev = resolve_device(device)
+
+    def walk(node, want, path):
+        if isinstance(want, dict):
+            if not isinstance(node, dict) or set(node) != set(want):
+                got = sorted(node) if isinstance(node, dict) else node
+                raise ValueError(f"GPT-2 params at {path or 'root'}: "
+                                 f"expected keys {sorted(want)}, got "
+                                 f"{got}")
+            return {k: walk(node[k], want[k], f"{path}/{k}")
+                    for k in want}
+        t = _leaf_to_tensor(node, dev)
+        if tuple(t.shape) != want:
+            raise ValueError(f"GPT-2 param {path}: expected shape {want}, "
+                             f"got {tuple(t.shape)}")
+        return t
+
+    return walk(tree, _expected_shapes(cfg), "")
+
+
+def gpt2_params_to_numpy(params) -> Dict[str, Any]:
+    """The inverse: a tree of tensors → a tree of numpy arrays on the
+    host.  bfloat16 leaves come back as float32 (exact), since numpy
+    has no bfloat16."""
+    if isinstance(params, dict):
+        return {k: gpt2_params_to_numpy(v) for k, v in params.items()}
+    t = params.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

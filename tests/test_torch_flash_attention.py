@@ -1,0 +1,141 @@
+"""The port's flash attention forward against the JAX package's.
+
+Inputs come from numpy and go to both packages.  On the CPU the port's
+wrapper runs its plain version; the JAX kernel runs in Pallas interpret
+mode, as the JAX package's own tests run it.  The CUDA kernel itself is
+held against the plain version by tests/test_torch_flash_kernel.py
+(marked ``cuda``, skipped without a card) and by chip_smoke.py.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+# the packages' ops/__init__ export a function of the same name, so the
+# modules are looked up by path
+jfa = importlib.import_module("ray_tpu.ops.flash_attention")
+tfa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+# f32 forward tolerance of the JAX package's own flash tests
+# (tests/test_flash_attention.py): same math, different summation order
+F32_TOL = 2e-5
+# bf16 keeps 8 mantissa bits; the two packages round P and O at
+# different places
+BF16_TOL = 5e-2
+
+
+def _qkv(seed, B, T, H, D):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, T, H, D)).astype(np.float32)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal,T,block", [
+    (True, 128, 32), (False, 128, 32), (True, 96, 64), (False, 96, 64)])
+def test_flash_forward_matches_jax(causal, T, block):
+    q, k, v = _qkv(0, 2, T, 2, 64)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal,
+                               block_q=block, block_k=block,
+                               interpret=True)
+    got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal,
+                              block_q=block, block_k=block)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_flash_resident_variants_match_jax(resident):
+    q, k, v = _qkv(1, 1, 256, 2, 64)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=True,
+                               resident_kv=resident, interpret=True)
+    got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=True,
+                              resident_kv=resident)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal,T", [(True, 128), (False, 128),
+                                      (True, 96)])
+def test_flash_fwd_lse_matches_jax(causal, T):
+    q, k, v = (x.reshape(2, T, 32) for x in _qkv(2, 2, T, 1, 32))
+    scale = 1.0 / np.sqrt(32)
+    o_j, lse_j = jfa._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          scale=scale, block_q=32, block_k=32,
+                          causal=causal, interpret=True)
+    o_t, lse_t = tfa.flash_attention_fwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        scale=scale, causal=causal)
+    assert lse_t.shape == (2, 1, T) and lse_t.dtype == torch.float32
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j),
+                               atol=F32_TOL, rtol=F32_TOL)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j),
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_flash_forward_bf16_matches_jax():
+    q, k, v = _qkv(3, 1, 128, 2, 64)
+    want = jfa.flash_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), causal=True,
+        block_q=64, block_k=64, interpret=True)
+    got = tfa.flash_attention(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+        causal=True, block_q=64, block_k=64)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=BF16_TOL, rtol=BF16_TOL)
+
+
+def test_flash_requires_grad_raises():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(4, 1, 32, 1, 32))
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tfa.flash_attention(q, k, v)
+    with torch.no_grad():
+        assert tfa.flash_attention(q, k, v).shape == q.shape
+
+
+def test_flash_cpu_path_launches_no_kernel():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(5, 1, 64, 2, 32))
+    before = tfa.FLASH_FWD_LAUNCHES
+    tfa.flash_attention(q, k, v)
+    assert tfa.FLASH_FWD_LAUNCHES == before
+
+
+def test_flash_rejects_bad_inputs():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(6, 1, 32, 1, 32))
+    with pytest.raises(ValueError, match="block_q"):
+        tfa.flash_attention(q, k, v, block_q=0)
+    with pytest.raises(ValueError, match="resident_kv"):
+        tfa.flash_attention(q, k, v, resident_kv="on")
+    with pytest.raises(ValueError, match="shape"):
+        tfa.flash_attention_fwd(q[0], k[0, :16], v[0])
+    meta = torch.empty((2, 32, 32), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tfa.flash_attention_fwd(meta, meta, meta)
+
+
+@pytest.mark.parametrize("T", [512, 1024, 2048, 4096, 3000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_block_policies_match_jax(T, causal):
+    assert tfa._resident_plan(T, causal) == jfa._resident_plan(T, causal)
+    assert tfa.auto_blocks(T) == jfa.auto_blocks(T)
+
+
+@pytest.mark.parametrize("env,mode", [(None, "auto"), (None, "on"),
+                                      (None, "off"), ("1", "off"),
+                                      ("0", "on")])
+def test_resident_mode_matches_jax(monkeypatch, env, mode):
+    if env is None:
+        monkeypatch.delenv("RAYTPU_FLASH_RESIDENT", raising=False)
+    else:
+        monkeypatch.setenv("RAYTPU_FLASH_RESIDENT", env)
+    assert tfa.resolve_resident_mode(mode) == \
+        jfa.resolve_resident_mode(mode)
