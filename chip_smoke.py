@@ -13,11 +13,28 @@ Phases, each fatal on failure (any failure exits non-zero):
             bf16 and f32), and time it beside the plain version, a
             PyTorch library call computing the same function, and the
             card's bound.
-4. serve  — build the GPT-2-124M engine (full width, seeded random
+4. kernel-bwd — hold the flash backward kernels (dQ, dK/dV) against
+            their plain PyTorch versions at B*H=24, T=1024, 1000 and 77,
+            D=32, 64 and 128, causal and not, bf16 and f32, then hold
+            them and the forward against their plain versions at the
+            training shape (B=24, H=12, T=1024, D=64, causal, bf16),
+            where they are timed beside their plain versions, their
+            bounds and scaled_dot_product_attention.
+5. serve  — build the GPT-2-124M engine (full width, seeded random
             weights, bf16 compute) on the card, answer 8 concurrent
             512-token requests and one ragged batch, check the replies,
             check that the prefill went through the kernel (its launch
             counter, zeroed just before), and time prefill and decode.
+6. train  — time GPT-2-124M AdamW steps at full width and depth (B=24,
+            T=1024, remat mlp_only, dense CE) through
+            ray_tpu_torch.bench.time_config; check that every step
+            launched the forward and both backward kernels once per
+            layer (counters zeroed just before) and that the loss is
+            finite and falls on the repeated batch; compare the loss,
+            the gradient norm and the qkv_w gradient with those of
+            plain attention (use_flash=False) on the same weights and
+            batch, time the two steps in turns, and profile one flash
+            step (torch.profiler: device time by kernel).
 
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  There is no CPU path.
@@ -39,7 +56,8 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
-B, H, D = 8, 12, 64
+B, H, D = 8, 12, 64          # serve shape
+TRAIN_B, TRAIN_T = 24, 1024  # training shape (bench.py's GPT-2 step)
 # kernel vs plain version, max |difference| allowed:
 # f32 O: the tolerance of the JAX package's flash tests; the kernel and
 #   the plain version sum in different orders
@@ -49,10 +67,42 @@ B, H, D = 8, 12, 64
 #   ~10, summed in another order
 TOL = {("f32", "o"): 2e-5, ("bf16", "o"): 5e-2, ("f32", "lse"): 1e-4,
        ("bf16", "lse"): 1e-4}
+# backward kernels vs plain versions, |kernel - plain| <= atol + rtol *
+# |plain| elementwise and ||kernel - plain|| / ||plain|| <= BWD_REL_NORM
+# per tensor: f32 at the JAX package's gradient tolerance (sums in
+# another order); bf16: both round P and dS to bf16 before the products
+# and the f32 sums to bf16 once, so an element can land one bf16 step
+# (2**-7 relative, under rtol) from the plain version's; atol covers
+# elements near 0 (a P/dS term rounded the other way is ~2**-9 of a term
+# <~ 1) and is a tenth of a typical dK/dV element at T=1024 (~0.05), so
+# a dropped part of a sum shows; few elements round apart, so the
+# relative norm stays far below one bf16 step (<= 1.4e-4 on an H100 at
+# every shape of phase 4; f32 <= 2.5e-7)
+BWD_TOL = {"f32": (1e-4, 1e-4), "bf16": (5e-3, 2e-2)}
+BWD_REL_NORM = {"f32": 1e-5, "bf16": 2e-3}
+# one GPT-2-124M step, flash kernels vs plain attention on the same
+# weights and batch, bf16 through 12 layers (on an H100: loss |diff|
+# 4.1e-5, grad-norm relative diff 7.6e-6, q/k/v parts <= 1.53e-2; each
+# bound is set well above that): the loss (~10.98 at this init), the global gradient
+# norm, relative, and the relative norm of the difference of each of
+# the q, k and v parts of the qkv_w gradient, which dq, dk and dv feed
+# directly; the plain path rounds the scores and P to bf16 where the
+# kernels keep f32, so its gradient differs elementwise by up to a bf16
+# step
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GRAD_NORM_RTOL = 1e-3
+TRAIN_QKV_GRAD_RTOL = 0.1
 # prefill last-token logits, flash kernel vs plain attention, bf16
 # through 12 layers: the paths round P and O to bf16 at different
 # places; logits are O(1) at this init
 LOGIT_TOL = 0.1
+
+
+# kinds of device work in the training-step profile, by kernel name
+PROFILE_KINDS = (("flash kernels", ("flash_",)),
+                 ("matmuls (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
+                 ("copies and casts", ("Memcpy", "Memset", "copy_kernel")),
+                 ("reductions", ("reduce_kernel",)))
 
 
 def fail(msg: str) -> None:
@@ -75,18 +125,75 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(T: int, causal: bool, dtype: str) -> tuple:
-    """Least time for one (B, H, T, D) attention forward on this card:
-    q, k, v read once, o and lse written once; 4*D operations per
-    visible (query, key) pair."""
-    elem = 2 if dtype == "bf16" else 4
-    nbytes = 4 * B * H * T * D * elem + B * H * T * 4
-    pairs = T * (T + 1) // 2 if causal else T * T
-    flops = 4 * B * H * D * pairs
+def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple:
+    """(least time on this card in ms, "bytes" or "operations"): the
+    larger of the bytes over the memory rate and the operations over
+    the peak rate of their type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def visible_pairs(T: int, causal: bool) -> int:
+    return T * (T + 1) // 2 if causal else T * T
+
+
+def attention_bound_ms(T: int, causal: bool, dtype: str,
+                       bh: int = B * H) -> tuple:
+    """Least time for one (BH, T, D) attention forward on this card:
+    q, k, v read once, o and lse written once; 4*D operations per
+    visible (query, key) pair."""
+    elem = 2 if dtype == "bf16" else 4
+    nbytes = 4 * bh * T * D * elem + bh * T * 4
+    return bound_ms(nbytes, 4 * bh * D * visible_pairs(T, causal), dtype)
+
+
+def bwd_bounds_ms(bh: int, T: int, d: int, causal: bool,
+                  dtype: str) -> dict:
+    """Least times of the backward's parts, each tensor read or written
+    once, per visible (query, key) pair: dQ kernel 6*D operations
+    (S, dP, dS.K; reads q, k, v, dO, lse, delta; writes dq), dK/dV
+    kernel 8*D (S, dP, P^T.dO, dS^T.Q; writes dk, dv), the whole
+    backward 10*D (reads q, k, v, o, dO, lse; writes dq, dk, dv)."""
+    elem = 2 if dtype == "bf16" else 4
+    mat, row = bh * T * d * elem, bh * T * 4
+    flops = bh * d * visible_pairs(T, causal)
+    return {"dq": bound_ms(5 * mat + 2 * row, 6 * flops, dtype),
+            "dkv": bound_ms(6 * mat + 2 * row, 8 * flops, dtype),
+            "whole": bound_ms(8 * mat + row, 10 * flops, dtype)}
+
+
+def bwd_compare(got, want, dtype: str) -> dict:
+    """max |got - want|, the relative norm of the difference, and
+    whether both are within BWD_TOL and BWD_REL_NORM."""
+    atol, rtol = BWD_TOL[dtype]
+    err = (got.float() - want.float()).abs()
+    excess = (err - atol - rtol * want.float().abs()).max().item()
+    rel = (err.norm() / want.float().norm()).item()
+    return {"max": err.max().item(), "rel": rel,
+            "ok": excess <= 0 and rel <= BWD_REL_NORM[dtype]
+            and bool(got.isfinite().all())}
+
+
+def bwd_report(cmp: dict, names=("dq", "dk", "dv")) -> str:
+    return ", ".join(f"{n} max|d| {c['max']:.3e} rel {c['rel']:.3e}"
+                     for n, c in zip(names, cmp))
+
+
+COUNTERS = ("FLASH_FWD_LAUNCHES", "FLASH_BWD_DQ_LAUNCHES",
+            "FLASH_BWD_DKV_LAUNCHES")
+
+
+def zero_counts(fa) -> None:
+    for c in COUNTERS:
+        setattr(fa, c, 0)
+
+
+def read_counts(fa) -> dict:
+    return {"flash_fwd": fa.FLASH_FWD_LAUNCHES,
+            "flash_bwd_dq": fa.FLASH_BWD_DQ_LAUNCHES,
+            "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES}
 
 
 def phase_card(torch) -> tuple:
@@ -221,16 +328,18 @@ def phase_serve(torch, np, fa, card: str) -> int:
 
     # the main path: 8 concurrent equal-length requests, one batch
     prompts = prompts_of([t_prompt] * 8)
-    fa.FLASH_FWD_LAUNCHES = 0
+    zero_counts(fa)
     t0 = time.perf_counter()
     outs = asyncio.run(_serve_all(engine, prompts))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fa.FLASH_FWD_LAUNCHES
+    counts = read_counts(fa)
+    launches = counts["flash_fwd"]
     check(prompts, outs)
-    if launches != cfg.n_layer:
-        fail(f"flash kernel launched {launches} times for the "
-             f"equal-length prefill, expected {cfg.n_layer}")
+    if counts != {"flash_fwd": cfg.n_layer, "flash_bwd_dq": 0,
+                  "flash_bwd_dkv": 0}:
+        fail(f"kernel launches {counts} for the equal-length prefill, "
+             f"expected {cfg.n_layer} forward and no backward")
     print(f"[serve] 8 x {t_prompt}-token requests: {launches} flash "
           f"kernel launches; {8 * max_new} tokens in {wall * 1e3:.1f} ms "
           f"wall = {8 * max_new / wall:.1f} served tokens/s [{card}]",
@@ -289,7 +398,304 @@ def phase_serve(torch, np, fa, card: str) -> int:
           f"{med['flash']:.2f} ms with the flash kernel, "
           f"{med['plain']:.2f} ms with plain attention; decode B=8: "
           f"{decode_ms:.2f} ms/token step [{card}]", flush=True)
-    return launches
+    return counts
+
+
+def check_train_shape(torch, fa, seed: int = 2) -> dict:
+    """Hold the forward kernel (o, lse) and the backward kernels (dq,
+    dk, dv) against their plain versions at the training shape (B=24,
+    H=12, T=1024, D=64, causal, bf16); fail if any disagrees.  Returns
+    the inputs and outputs, for timing."""
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bh, T = TRAIN_B * H, TRAIN_T
+    kw = dict(scale=1.0 / math.sqrt(D), causal=True)
+    t = dict(zip(("q4", "k4", "v4", "do4"), (
+        torch.randn((TRAIN_B, T, H, D), generator=gen, device=dev)
+        .to(torch.bfloat16) for _ in range(4))))
+    for n in ("q", "k", "v", "do"):
+        t[f"{n}3"] = t[f"{n}4"].transpose(1, 2).reshape(bh, T, D)
+    with torch.no_grad():
+        q3, k3, v3, do3 = (t[n] for n in ("q3", "k3", "v3", "do3"))
+        o3, lse = fa.flash_attention_fwd(q3, k3, v3, **kw)
+        o_ref, lse_ref = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
+        torch.cuda.synchronize()
+        err_o = (o3.float() - o_ref.float()).abs().max().item()
+        err_lse = (lse - lse_ref).abs().max().item()
+        del o_ref, lse_ref
+        print(f"[kernel-bwd] training shape B={TRAIN_B} T={T} H={H} D={D} "
+              f"causal bf16: forward max|o-plain| {err_o:.3e} (tol "
+              f"{TOL[('bf16', 'o')]:.0e}), max|lse-plain| {err_lse:.3e} "
+              f"(tol {TOL[('bf16', 'lse')]:.0e})", flush=True)
+        if err_o > TOL[("bf16", "o")] or err_lse > TOL[("bf16", "lse")]:
+            fail("the forward kernel disagrees with its plain version at "
+                 "the training shape")
+        delta = fa.flash_bwd_delta(o3, do3)
+        args = (q3, k3, v3, do3, lse, delta)
+        got = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
+        want = (fa.flash_bwd_dq_reference(*args, **kw),
+                *fa.flash_bwd_dkv_reference(*args, **kw))
+        torch.cuda.synchronize()
+        cmp = [bwd_compare(g, w, "bf16") for g, w in zip(got, want)]
+        del got, want
+    print(f"[kernel-bwd] training shape backward: {bwd_report(cmp)} (tol "
+          f"{BWD_TOL['bf16'][0]:.0e} + {BWD_TOL['bf16'][1]:.0e}*|plain|, "
+          f"rel {BWD_REL_NORM['bf16']:.0e})", flush=True)
+    if not all(c["ok"] for c in cmp):
+        fail("backward kernels disagree with their plain version at the "
+             "training shape")
+    t.update(o3=o3, lse=lse, delta=delta,
+             err={"dq": cmp[0]["max"], "dkv": max(cmp[1]["max"],
+                                                 cmp[2]["max"])})
+    return t
+
+
+def phase_kernel_bwd(torch, fa, card: str) -> dict:
+    F = torch.nn.functional
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+    cases = [(T, d, causal, dt) for dt in ("bf16", "f32")
+             for causal in (True, False) for T in (1024, 1000, 77)
+             for d in (32, 64, 128)]
+    with torch.no_grad():
+        for T, d, causal, dt in cases:
+            q3, k3, v3, do3 = (torch.randn((24, T, d), generator=gen,
+                                           device=dev).to(dtypes[dt])
+                               for _ in range(4))
+            scale = d ** -0.5
+            o3, lse = fa.flash_attention_fwd_reference(
+                q3, k3, v3, scale=scale, causal=causal)
+            want = fa.flash_attention_bwd_reference(
+                q3, k3, v3, o3, lse, do3, scale=scale, causal=causal)
+            got = fa.flash_attention_bwd(q3, k3, v3, o3, lse, do3,
+                                         scale=scale, causal=causal)
+            torch.cuda.synchronize()
+            cmp = [bwd_compare(g, w, dt) for g, w in zip(got, want)]
+            print(f"[kernel-bwd] BH=24 T={T} D={d} causal={causal} {dt}: "
+                  f"{bwd_report(cmp)} (tol {BWD_TOL[dt][0]:.0e} + "
+                  f"{BWD_TOL[dt][1]:.0e}*|plain|, rel "
+                  f"{BWD_REL_NORM[dt]:.0e})", flush=True)
+            if not all(c["ok"] for c in cmp):
+                fail(f"backward kernels disagree with their plain version "
+                     f"at T={T} D={d} causal={causal} {dt}")
+            del q3, k3, v3, do3, o3, lse, want, got
+
+    t = check_train_shape(torch, fa)
+    q4, k4, v4, do4, q3, k3, v3, do3, o3, lse, delta = (
+        t[n] for n in ("q4", "k4", "v4", "do4", "q3", "k3", "v3", "do3",
+                       "o3", "lse", "delta"))
+    err = t["err"]
+    bh, T = TRAIN_B * H, TRAIN_T
+    kw = dict(scale=1.0 / math.sqrt(D), causal=True)
+    args = (q3, k3, v3, do3, lse, delta)
+    with torch.no_grad():
+        ms = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq(*args, **kw)),
+              "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv(*args, **kw)),
+              "whole": time_ms(torch, lambda: fa.flash_attention_bwd(
+                  q3, k3, v3, o3, lse, do3, **kw)),
+              "fwd": time_ms(torch, lambda: fa.flash_attention_fwd(
+                  q3, k3, v3, **kw))}
+        plain = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq_reference(
+                     *args, **kw), iters=5),
+                 "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv_reference(
+                     *args, **kw), iters=5),
+                 "whole": time_ms(torch, lambda: fa.
+                                  flash_attention_bwd_reference(
+                                      q3, k3, v3, o3, lse, do3, **kw),
+                                  iters=5),
+                 "fwd": time_ms(torch, lambda: fa.
+                                flash_attention_fwd_reference(
+                                    q3, k3, v3, **kw), iters=5)}
+        qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
+                           for x in (q4, k4, v4, do4))
+        sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True))
+    qh, kh, vh = (x.requires_grad_(True) for x in (qh, kh, vh))
+    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (qh, kh, vh), doh, retain_graph=True))
+    bounds = bwd_bounds_ms(bh, T, D, True, "bf16")
+    fwd_bound = attention_bound_ms(T, True, "bf16", bh=bh)
+    for name in ("dq", "dkv", "whole"):
+        print(f"[kernel-bwd]   {name:5s}: kernel {ms[name]:.4f} ms, plain "
+              f"{plain[name]:.4f} ms, bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}) [{card}]", flush=True)
+    print(f"[kernel-bwd]   backward of scaled_dot_product_attention "
+          f"(dq, dk, dv): {sdpa_bwd:.4f} ms [{card}]", flush=True)
+    print(f"[kernel-bwd]   forward: kernel {ms['fwd']:.4f} ms, plain "
+          f"{plain['fwd']:.4f} ms, scaled_dot_product_attention "
+          f"{sdpa_fwd:.4f} ms, bound {fwd_bound[0]:.4f} ms "
+          f"({fwd_bound[1]}) [{card}]", flush=True)
+    whole = {"ms": ms["whole"], "plain_ms": plain["whole"],
+             "bound_ms": bounds["whole"][0],
+             "bound_by": bounds["whole"][1], "library_ms": sdpa_bwd,
+             "library": "backward of F.scaled_dot_product_attention("
+                        "is_causal=True): dq, dk, dv"}
+    records = {name: {"max_abs_err": err[name], "ms": ms[name],
+                  "plain_ms": plain[name], "bound_ms": bounds[name][0],
+                  "bound_by": bounds[name][1],
+                  # no one PyTorch call computes dQ (or dK/dV) alone;
+                  # the library's whole backward is under "whole"
+                  "library_ms": None, "whole_backward": whole}
+           for name in ("dq", "dkv")}
+    records["fwd_train_shape"] = {"ms": ms["fwd"], "plain_ms": plain["fwd"],
+                              "bound_ms": fwd_bound[0],
+                              "bound_by": fwd_bound[1],
+                              "library_ms": sdpa_fwd}
+    return records
+
+
+def check_flash_vs_plain_step(torch, cfg) -> tuple:
+    """One GPT-2 loss and gradient with the flash kernels and with
+    plain attention (use_flash=False) on the same seeded weights and
+    batch; fail unless the losses, the gradient norms and the q, k, v
+    parts of the qkv_w gradient agree.  Returns (params, batch,
+    {"flash": health, "plain": health})."""
+    from ray_tpu_torch.models.gpt2 import gpt2_init, gpt2_loss
+    from ray_tpu_torch.train.optim import tree_leaves, tree_unflatten
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = gpt2_init(cfg, gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_T + 1),
+                           generator=gen, device="cuda")
+    batch = {"tokens": tokens}
+    health, qkv_grad = {}, {}
+    for name, flash in (("flash", True), ("plain", False)):
+        c = dataclasses.replace(cfg, use_flash=flash)
+        live = [x.detach().requires_grad_(True)
+                for x in tree_leaves(params)]
+        loss = gpt2_loss(tree_unflatten(params, live), batch, c)
+        grads = torch.autograd.grad(loss, live)
+        health[name] = {"loss": loss.item(), "grad_norm": torch.stack(
+            [g.float().square().sum() for g in grads]).sum().sqrt().item(),
+            "nonfinite": sum(int((~g.isfinite()).sum()) for g in grads)}
+        qkv_grad[name] = tree_unflatten(params, list(grads))[
+            "blocks"]["attn"]["qkv_w"].float()
+        del loss, grads, live
+    dl = abs(health["flash"]["loss"] - health["plain"]["loss"])
+    dg = abs(health["flash"]["grad_norm"] - health["plain"]["grad_norm"]) \
+        / health["plain"]["grad_norm"]
+    # qkv_w is (L, d, 3, h, hd): its q, k and v columns get their
+    # gradient only through dQ, dK and dV, so each part is compared
+    # alone (a kernel that dropped dK moves the k part by 1)
+    dqkv = {n: ((qkv_grad["flash"][:, :, i] - qkv_grad["plain"][:, :, i])
+                .norm() / qkv_grad["plain"][:, :, i].norm()).item()
+            for i, n in enumerate("qkv")}
+    print(f"[train] one step, flash kernels vs plain attention: loss "
+          f"{health['flash']['loss']:.5f} vs {health['plain']['loss']:.5f}"
+          f" (|diff| {dl:.3e}, tol {TRAIN_LOSS_TOL}), grad norm "
+          f"{health['flash']['grad_norm']:.5f} vs "
+          f"{health['plain']['grad_norm']:.5f} (rel diff {dg:.3e}, tol "
+          f"{TRAIN_GRAD_NORM_RTOL}), qkv_w gradient ||flash - plain|| / "
+          f"||plain|| of its q, k, v parts " + ", ".join(
+              f"{n} {x:.3e}" for n, x in dqkv.items()) +
+          f" (tol {TRAIN_QKV_GRAD_RTOL}), nonfinite "
+          f"{health['flash']['nonfinite']}/{health['plain']['nonfinite']}",
+          flush=True)
+    if dl > TRAIN_LOSS_TOL or dg > TRAIN_GRAD_NORM_RTOL or \
+            max(dqkv.values()) > TRAIN_QKV_GRAD_RTOL or \
+            health["flash"]["nonfinite"] or health["plain"]["nonfinite"]:
+        fail("the flash and plain-attention steps disagree")
+    return params, batch, health
+
+
+def phase_train(torch, fa, card: str) -> dict:
+    from ray_tpu_torch.bench import H100_BF16_PEAK_FLOPS, time_config
+    from ray_tpu_torch.models.gpt2 import (gpt2_config, gpt2_loss,
+                                           gpt2_param_count)
+    from ray_tpu_torch.train import adamw, build_train_step
+    from ray_tpu_torch.train.optim import tree_map
+
+    n_steps = 5
+    # the main path: bench.py's GPT-2 step (remat mlp_only, dense CE)
+    zero_counts(fa)
+    tok_s, mfu, _, _, cost = time_config(
+        TRAIN_B, seq=TRAIN_T, n_steps=n_steps, remat_policy="mlp_only")
+    torch.cuda.synchronize()
+    counts = read_counts(fa)
+    cfg = gpt2_config("gpt2", max_seq=TRAIN_T, remat_policy="mlp_only")
+    runs = cost["steps_run"]
+    want = {name: cfg.n_layer * runs for name in counts}
+    losses = cost["losses"]
+    print(f"[train] GPT-2 {cfg.n_layer} layers, d={cfg.d_model}, B="
+          f"{TRAIN_B} T={TRAIN_T}, remat {cfg.remat_policy}, ce "
+          f"{cfg.ce_impl}, compute {cfg.dtype}: {runs} steps launched "
+          f"{counts} (expected {cfg.n_layer} of each per step); losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    if counts != want:
+        fail(f"kernel launches {counts} over {runs} steps, expected "
+             f"{want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"the loss is not finite and falling: {losses}")
+    print(f"[train] {n_steps} timed steps: {cost['step_ms']:.2f} ms/step, "
+          f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} (6*N*tokens/s against "
+          f"989 TFLOP/s) [{card}]", flush=True)
+
+    params, batch, health = check_flash_vs_plain_step(torch, cfg)
+    cfgs = {"flash": cfg, "plain": dataclasses.replace(cfg,
+                                                       use_flash=False)}
+    tx = adamw(3e-4, weight_decay=0.1)
+
+    # the two steps in turns (flash, plain, plain, flash, ...)
+    state = {}
+    for name, c in cfgs.items():
+        p = tree_map(torch.clone, params)
+        state[name] = [build_train_step(lambda p, b, c=c: gpt2_loss(p, b, c),
+                                        tx), p, tx.init(p)]
+    wall = {"flash": [], "plain": []}
+    for name in ["flash", "plain", "plain", "flash"] * 2:
+        step, p, s = state[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state[name][1:] = step(p, s, batch)[:2]
+        torch.cuda.synchronize()
+        wall[name].append(time.perf_counter() - t0)
+    # where one flash step's device time goes (torch.profiler, CUPTI)
+    step, p, s = state["flash"]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state["flash"][1:] = step(p, s, batch)[:2]
+        torch.cuda.synchronize()
+    # kernels and copies themselves, not the host ops that launch them
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    flash_ms = sorted(wall["flash"])[len(wall["flash"]) // 2] * 1e3
+    print(f"[train] profile of one flash step: {device_ms:.2f} ms of "
+          f"device time in {len(events)} distinct kernels, "
+          f"{device_ms / flash_ms:.3f} of the unprofiled median step "
+          f"({flash_ms:.2f} ms) [{card}]", flush=True)
+    kinds = {}
+    for e in events:
+        kind = next((k for k, marks in PROFILE_KINDS if any(
+            m in e.key for m in marks)), "other elementwise")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    print("[train]   by kind: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in sorted(kinds.items(),
+                                              key=lambda kv: -kv[1])),
+          flush=True)
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms "
+              f"x{e.count:<5d} {e.key[:90]}", flush=True)
+
+    n_params = gpt2_param_count(cfg)
+    result = {"counts": counts, "steps_run": runs, "step_ms":
+              cost["step_ms"], "tokens_per_s": tok_s, "mfu": mfu,
+              "losses": losses, "health": health}
+    for name, secs in wall.items():
+        med = sorted(secs)[len(secs) // 2]
+        tps = TRAIN_B * TRAIN_T / med
+        result[f"{name}_step_ms"] = med * 1e3
+        print(f"[train] {name:5s} step, median of {len(secs)} in turns: "
+              f"{med * 1e3:.2f} ms, {tps:.1f} tokens/s, MFU "
+              f"{6 * n_params * tps / H100_BF16_PEAK_FLOPS:.4f} [{card}]",
+              flush=True)
+    return result
 
 
 def main() -> int:
@@ -306,14 +712,35 @@ def main() -> int:
     phase_build(kernels)
     with torch.inference_mode():
         headline = phase_kernel(torch, fa, card)
-    launches = phase_serve(torch, np, fa, card)
+    bwd = phase_kernel_bwd(torch, fa, card)
+    serve_counts = phase_serve(torch, np, fa, card)
+    train = phase_train(torch, fa, card)
 
-    record = {"name": "flash_fwd", "route": "cuda",
-              "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-              "replaces": "ray_tpu/ops/flash_attention.py:68",
-              "also_replaces": "ray_tpu/ops/flash_attention.py:294",
-              "launches": launches, **headline}
-    print(json.dumps({"kernels": [record]}))
+    def launches(name):
+        by_path = {"serve": serve_counts[name],
+                   "train": train["counts"][name]}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "launches_per_train_step":
+                    train["counts"][name] / train["steps_run"]}
+
+    src = "ray_tpu/ops/flash_attention.py"
+    records = [
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
+         "replaces": f"{src}:68", "also_replaces": f"{src}:294",
+         **launches("flash_fwd"), **headline,
+         "train_shape": bwd["fwd_train_shape"]},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+         "replaces": f"{src}:148", "also_replaces": f"{src}:358",
+         **launches("flash_bwd_dq"), **bwd["dq"]},
+        {"name": "flash_bwd_dkv", "route": "cuda",
+         "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+         "replaces": f"{src}:186", "also_replaces": f"{src}:395",
+         **launches("flash_bwd_dkv"), **bwd["dkv"]},
+    ]
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,4 +1,4 @@
-"""GPT-2 family: config, presets, parameter init and LayerNorm.
+"""GPT-2 family: config, presets, parameter init, training forward, loss.
 
 Counterpart of ``ray_tpu/models/gpt2.py``.  Parameters are a plain dict
 of tensors keyed exactly like the JAX pytree (``gpt2_init``): ``blocks``
@@ -7,19 +7,27 @@ stacked on a leading layer axis, ``qkv_w`` (L, d, 3, h, hd), ``o_w``
 between the packages through numpy unchanged (models/convert.py).
 
 The training forward (``gpt2_hidden``, ``gpt2_forward``, ``gpt2_loss``)
-comes with the training slice (ROADMAP.md, queue 1 item 1); the decode
-path (models/gpt2_decode.py) needs only what is here.
+is eager PyTorch over the stacked layers, differentiable with
+``torch.autograd``; attention goes through the flash kernels on CUDA
+(ops/flash_attention.py).  Not ported yet, each raising
+NotImplementedError naming its ROADMAP.md item: ``ce_impl``
+"streaming_xla"/"pallas" and remat policies "dots"/"dots_nb"/"attn_out"
+(queue 1 item 1, the next slice), MoE blocks and sequence parallelism
+(queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
+from ray_tpu_torch.ops.attention import causal_attention, flash_auto_dispatch
 
 #: The three lm-head + cross-entropy implementations (GPT2Config.ce_impl),
 #: named as in the JAX package: "dense" materializes f32 (B,T,V)
@@ -221,3 +229,243 @@ def _layernorm(x, scale, bias, eps: float = 1e-5):
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * scale + bias).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+#: remat policies of the JAX package that wait for the next slice
+_REMAT_TO_PORT = ("dots", "dots_nb", "attn_out")
+
+
+def _attention(x, p, cfg: GPT2Config):
+    """Flattened-qkv attention sublayer (the JAX ``_attention`` without
+    its Megatron einsum, which belongs to tensor parallelism)."""
+    B, T, d = x.shape
+    h, hd = cfg.n_head, cfg.head_dim
+    w = p["qkv_w"].to(cfg.dtype).reshape(d, 3 * h * hd)
+    qkv = (x @ w).reshape(B, T, 3, h, hd) + p["qkv_b"].to(cfg.dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, T, H, hd)
+    o = causal_attention(q, k, v, use_flash=cfg.use_flash,
+                         resident=cfg.flash_resident)
+    wo = p["o_w"].to(cfg.dtype).reshape(h * hd, d)
+    return o.reshape(B, T, h * hd) @ wo + p["o_b"].to(cfg.dtype)
+
+
+def _mlp(x, p, cfg: GPT2Config):
+    h = x @ p["fc_w"].to(cfg.dtype) + p["fc_b"].to(cfg.dtype)
+    h = F.gelu(h, approximate="tanh")  # jax.nn.gelu is the tanh form
+    return h @ p["proj_w"].to(cfg.dtype) + p["proj_b"].to(cfg.dtype)
+
+
+def _attn_half(x, p, cfg: GPT2Config):
+    return x + _attention(_layernorm(x, p["ln1"]["scale"],
+                                     p["ln1"]["bias"]), p["attn"], cfg)
+
+
+def _mlp_half(x, p, cfg: GPT2Config):
+    return x + _mlp(_layernorm(x, p["ln2"]["scale"], p["ln2"]["bias"]),
+                    p["mlp"], cfg)
+
+
+def _block(x, p, cfg: GPT2Config):
+    return _mlp_half(_attn_half(x, p, cfg), p, cfg)
+
+
+def _flash_active(cfg: GPT2Config, T: int, device) -> bool:
+    """Whether attention will take the flash kernels at seq T on
+    ``device``: the precondition of mlp_only remat (without flash the
+    un-rematted attention would save its O(T^2) scores).  Mirrors
+    causal_attention's dispatch."""
+    if cfg.use_flash is False or cfg.seq_parallel:
+        return False
+    if cfg.use_flash is True:
+        return True
+    return flash_auto_dispatch(T, cfg.head_dim, device)
+
+
+def _layers(blocks, n_layer: int) -> List[Dict[str, Any]]:
+    """Per-layer views of the stacked block parameters, one unbind(0)
+    per leaf: its backward stacks the layers' gradients once, where
+    indexing ``w[i]`` per layer would write a zero-filled gradient the
+    size of the whole stack for every layer."""
+    per_leaf = {name: {k: v.unbind(0) for k, v in sub.items()}
+                for name, sub in blocks.items()}
+    return [{name: {k: vs[i] for k, vs in sub.items()}
+             for name, sub in per_leaf.items()} for i in range(n_layer)]
+
+
+def _checkpoint(fn, *args):
+    # no randomness in the model, so no RNG state to stash and restore
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def gpt2_hidden(params, tokens, cfg: GPT2Config):
+    """tokens (B, T) int → post-ln_f hidden states (B, T, d_model) in
+    the compute dtype.  (The JAX version's ``return_aux``, the MoE
+    load-balance loss, comes with the MoE blocks.)
+
+    Remat, as the JAX ``gpt2_hidden``: ``remat=False`` saves every
+    activation; ``remat_policy="mlp_only"`` with flash active
+    recomputes only the MLP half of each block (the flash backward
+    recomputes its score tiles from O(T) residuals, so the attention
+    half is not rerun); ``"full"``, or ``"mlp_only"`` without flash,
+    recomputes the whole block in the backward
+    (``torch.utils.checkpoint``)."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            "MoE blocks (n_experts > 0) are not ported yet: ROADMAP.md "
+            "queue 1 item 7 (models/moe.py)")
+    if cfg.seq_parallel:
+        raise NotImplementedError(
+            "sequence parallelism is not ported yet: ROADMAP.md queue 1 "
+            "item 7 (parallel/, ops/ring_attention.py)")
+    if cfg.remat and cfg.remat_policy in _REMAT_TO_PORT:
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet: "
+            f"ROADMAP.md queue 1 item 1 (the next training slice); use "
+            f"'full' or 'mlp_only'")
+    B, T = tokens.shape
+    x = params["wte"].to(cfg.dtype)[tokens.long()]
+    x = x + params["wpe"].to(cfg.dtype)[:T]
+    mlp_only = (cfg.remat and cfg.remat_policy == "mlp_only"
+                and _flash_active(cfg, T, tokens.device))
+    for p in _layers(params["blocks"], cfg.n_layer):
+        if mlp_only:
+            x = _checkpoint(_mlp_half, _attn_half(x, p, cfg), p, cfg)
+        elif cfg.remat:
+            x = _checkpoint(_block, x, p, cfg)
+        else:
+            x = _block(x, p, cfg)
+    return _layernorm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
+
+
+class _LogitsMatmul(torch.autograd.Function):
+    """(N, d) x (V, d)^T in the compute dtype with float32 logits, as
+    the JAX ``_tied_logits`` asks (bf16 operands, f32 accumulation, f32
+    output).  bf16 on CUDA: one ``torch.mm(..., out_dtype=float32)``;
+    the gradients, like an XLA f32 x bf16 product at the TPU's default
+    precision, round the f32 cotangent to the compute dtype and run in
+    it.  float32 (and the CPU): plain f32 products."""
+
+    @staticmethod
+    def forward(ctx, h2, w):
+        ctx.save_for_backward(h2, w)
+        if h2.dtype == torch.float32:
+            return h2 @ w.t()
+        if h2.device.type == "cuda":
+            return torch.mm(h2, w.t(), out_dtype=torch.float32)
+        # the CPU has no mm.dtype kernel; bf16 products are exact in f32
+        return h2.float() @ w.float().t()
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, w = ctx.saved_tensors
+        g = g.to(h2.dtype)
+        return g @ w, g.t() @ h2
+
+
+def _logits(hidden, w_c):
+    """hidden (..., d), w_c (V, d) in the compute dtype → (..., V) f32."""
+    lead = hidden.shape[:-1]
+    out = _LogitsMatmul.apply(hidden.reshape(-1, hidden.shape[-1]), w_c)
+    return out.reshape(*lead, w_c.shape[0])
+
+
+def _tied_logits(hidden, wte, cfg: GPT2Config):
+    """Tied-embedding projection: compute-dtype operands, float32
+    logits (B, T, padded_vocab)."""
+    return _logits(hidden, wte.to(cfg.dtype))
+
+
+def gpt2_forward(params, tokens, cfg: GPT2Config) -> torch.Tensor:
+    """tokens (B, T) int → logits (B, T, padded_vocab) float32."""
+    return _tied_logits(gpt2_hidden(params, tokens, cfg), params["wte"],
+                        cfg)
+
+
+def nll_from_logits(logits, targets, vocab_size: int, padded_vocab: int):
+    """Per-token negative log likelihood with the padded-vocab tail
+    masked to -1e9 (as the JAX ``nll_from_logits``): logsumexp minus
+    the target's logit.  The JAX version picks the target with an
+    iota compare for the sake of sharding; a gather picks the same
+    value."""
+    if padded_vocab != vocab_size:
+        cols = torch.arange(padded_vocab, device=logits.device)
+        logits = logits.masked_fill(cols >= vocab_size, -1e9)
+    lse = torch.logsumexp(logits, dim=-1)
+    target = logits.gather(-1, targets.long().unsqueeze(-1)).squeeze(-1)
+    return lse - target
+
+
+def _nll_from_logits(logits, targets, cfg: GPT2Config):
+    return nll_from_logits(logits, targets, cfg.vocab_size,
+                           cfg.padded_vocab)
+
+
+def _chunk_sums(hc, wte_c, tc, mc, cfg: GPT2Config):
+    nll = _nll_from_logits(_logits(hc, wte_c), tc, cfg)
+    return (nll * mc).sum(), mc.sum()
+
+
+def _chunked_ce(hidden, wte, targets, mask, cfg: GPT2Config):
+    """Cross-entropy over ``cfg.loss_chunks`` sequence chunks: only one
+    chunk's f32 logits exist at a time, each recomputed in the
+    backward (``torch.utils.checkpoint``, as the JAX version's
+    ``jax.checkpoint``)."""
+    B, T, d = hidden.shape
+    C = cfg.loss_chunks
+    if T % C:
+        raise ValueError(f"loss_chunks={C} must divide T={T}")
+    Tc = T // C
+    wte_c = wte.to(cfg.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(C):
+        cols = slice(c * Tc, (c + 1) * Tc)
+        s, n = _checkpoint(_chunk_sums, hidden[:, cols], wte_c,
+                           targets[:, cols], mask[:, cols], cfg)
+        total = total + s
+        count = count + n
+    return total / count.clamp_min(1.0)
+
+
+def lm_head_nll(hidden, w_vocab_major, targets, cfg) -> torch.Tensor:
+    """Per-token nll through the non-dense CE implementations (the JAX
+    ``lm_head_nll``).  Neither is ported yet: "streaming_xla"
+    (ops/vocab_ce.py) and "pallas" (the fused lm-head + CE kernels of
+    ops/fused_ce.py) come with the next training slice."""
+    raise NotImplementedError(
+        f"ce_impl={cfg.ce_impl!r} is not ported yet: ROADMAP.md queue 1 "
+        f"item 1 (the next training slice: the fused lm-head + CE "
+        f"kernels and ops/vocab_ce.py); use ce_impl='dense'")
+
+
+def gpt2_loss(params, batch, cfg: GPT2Config) -> torch.Tensor:
+    """Next-token cross-entropy, a float32 scalar.  batch =
+    {"tokens": (B, T+1) int} or {"inputs": (B, T), "targets": (B, T)},
+    either with an optional "mask" (B, T); the padded-vocab tail is
+    masked out."""
+    if "tokens" in batch:
+        inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    else:
+        inputs, targets = batch["inputs"], batch["targets"]
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask.to(torch.float32)
+    hidden = gpt2_hidden(params, inputs, cfg)
+    if cfg.ce_impl != "dense":
+        nll = lm_head_nll(hidden, params["wte"], targets, cfg)
+    elif cfg.loss_chunks > 1:
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=targets.device)
+        return _chunked_ce(hidden, params["wte"], targets, mask, cfg)
+    else:
+        nll = _nll_from_logits(_tied_logits(hidden, params["wte"], cfg),
+                               targets, cfg)
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

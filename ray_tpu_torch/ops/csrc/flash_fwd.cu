@@ -52,13 +52,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kBlockM = 64;  // q rows per CTA
 constexpr int kBlockN = 64;  // k/v rows per tile
 constexpr float kNegInf = -1e30f;
-
-using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor-core kernel
@@ -66,64 +66,10 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kMmaThreads = 128;  // 4 warps x 16 q rows
 
-// padded row stride (elements) of the bf16 tiles in shared memory: rows
-// start 16 bytes apart mod 128, so 8 lanes reading 8 rows hit 8
-// different 4-bank groups (fragment loads and ldmatrix alike)
-template <int D>
-constexpr int kBf16Stride = D + 8;
-
 template <int D>
 constexpr size_t bf16_smem_bytes() {
   return static_cast<size_t>(kBlockM + 2 * kBlockN) * kBf16Stride<D> *
          sizeof(bf16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two 8x8 bf16 matrices, transposed: rows come from the addresses of
-// lanes 0-7 (matrix 0) and 8-15 (matrix 1)
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const bf16* p) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [row0, row0 + kBlockN) of a (seq_len, D) matrix into a padded
-// shared tile, 16 bytes per thread per step; rows past the end are zero
-template <int D>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
-                                           int row0, int seq_len) {
-  constexpr int S = kBf16Stride<D>;
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < kBlockN * kChunks; idx += kMmaThreads) {
-    const int r = idx / kChunks, c = idx % kChunks;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < seq_len)
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(row) * D + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * S + c * 8) = val;
-  }
 }
 
 template <int D>
@@ -152,7 +98,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row_a = q0 + warp * 16 + g;  // this thread's two rows
   const int row_b = row_a + 8;
 
-  stage_tile<D>(q_s, q + base, q0, seq_len);
+  stage_tile<D, kBlockM, kMmaThreads>(q_s, q + base, q0, seq_len);
   __syncthreads();
   uint32_t qa[KD][4];  // A fragments of the warp's 16 q rows
 #pragma unroll
@@ -175,8 +121,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kv_end = causal ? min(seq_len, q0 + kBlockM) : seq_len;
   for (int n0 = 0; n0 < kv_end; n0 += kBlockN) {
     __syncthreads();  // all reads of the previous k/v tiles are done
-    stage_tile<D>(k_s, k + base, n0, seq_len);
-    stage_tile<D>(v_s, v + base, n0, seq_len);
+    stage_tile<D, kBlockN, kMmaThreads>(k_s, k + base, n0, seq_len);
+    stage_tile<D, kBlockN, kMmaThreads>(v_s, v + base, n0, seq_len);
     __syncthreads();
 
     // S = Q K^T for the warp's 16 rows x 64 kv columns

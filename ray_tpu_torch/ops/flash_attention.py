@@ -1,21 +1,25 @@
-"""Flash attention forward for Hopper: wrapper, plain version, knobs.
+"""Flash attention for Hopper: wrappers, plain versions, autograd, knobs.
 
-Counterpart of ``ray_tpu/ops/flash_attention.py``, forward only.  The
-kernel (``ops/csrc/flash_fwd.cu``: tensor cores for bfloat16, f32 FMA
-for float32) computes the online-softmax
-recurrence of the JAX package's ``_fwd_kernel`` and ``_fwd_res_kernel``:
-one CTA per (batch*head, 64-row query tile) walks the key/value tiles
-in a loop that stops at the causal diagonal, keeping m, l and the
-output accumulator in f32, so the T x T score matrix never reaches
-device memory.
+Counterpart of ``ray_tpu/ops/flash_attention.py``.  Three CUDA kernels
+(tensor cores for bfloat16, f32 FMA for float32):
+
+* forward (``ops/csrc/flash_fwd.cu``): the online-softmax recurrence of
+  the JAX package's ``_fwd_kernel`` and ``_fwd_res_kernel``; one CTA
+  per (batch*head, 64-row query tile) walks the key/value tiles in a
+  loop that stops at the causal diagonal, so the T x T score matrix
+  never reaches device memory;
+* dQ and dK/dV (``ops/csrc/flash_bwd.cu``): ``_bwd_dq_kernel`` /
+  ``_bwd_dq_res_kernel`` and ``_bwd_dkv_kernel`` /
+  ``_bwd_dkv_res_kernel``; each recomputes P = exp(S - LSE) tile by
+  tile from the forward's LSE and owns its output rows, so there are
+  no atomics.
 
 Dispatch is by tensor placement: a CPU tensor takes the plain PyTorch
-version (``flash_attention_fwd_reference``), a CUDA tensor launches the
-kernel or raises.  There is no fallback between the two.
-
-The backward kernels come with the training slice (ROADMAP.md, queue 1
-item 1) as a ``torch.autograd.Function``; until then a call on tensors
-that require grad raises.
+version (``*_reference``), a CUDA tensor launches the kernel or
+raises.  There is no fallback between the two.  ``flash_attention`` is
+differentiable through a ``torch.autograd.Function`` whose backward is
+the two backward kernels; delta = rowsum(dO * O) is computed outside
+them in plain torch, as the JAX package computes it outside Pallas.
 """
 
 from __future__ import annotations
@@ -29,10 +33,12 @@ import torch
 #: head dims the kernel is instantiated for
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 
-#: launches of the CUDA kernel in this process; only the launch site
-#: below adds to it, so a caller can zero it, drive a path, and read
-#: whether that path went through the kernel
+#: launches of each CUDA kernel in this process; only the kernel's
+#: launch site below adds to its count, so a caller can zero them,
+#: drive a path, and read whether that path went through the kernels
 FLASH_FWD_LAUNCHES = 0
+FLASH_BWD_DQ_LAUNCHES = 0
+FLASH_BWD_DKV_LAUNCHES = 0
 
 _NEG_INF = -1e30
 
@@ -112,36 +118,62 @@ def flash_attention_fwd_reference(q3, k3, v3, *, scale: float,
     return o, lse
 
 
-def _launch(q3, k3, v3, *, scale: float, causal: bool):
-    global FLASH_FWD_LAUNCHES
-    from ray_tpu_torch.ops import _kernels
-
-    BH, T, D = q3.shape
+def _check_kernel_args(what: str, tensors, BH: int, D: int) -> None:
+    """What every flash kernel takes: head_dim in SUPPORTED_HEAD_DIMS,
+    float32 or bfloat16, at most 65535 batch*heads (one grid row each),
+    contiguous 16-byte aligned tensors."""
     if D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash kernel supports head_dim in "
+        raise ValueError(f"{what} kernel supports head_dim in "
                          f"{SUPPORTED_HEAD_DIMS}, got {D}")
-    if q3.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash kernel takes float32 or bfloat16, got "
-                         f"{q3.dtype}")
+    if tensors[0].dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what} kernel takes float32 or bfloat16, got "
+                         f"{tensors[0].dtype}")
     if BH > 65535:
-        raise ValueError(f"flash kernel takes at most 65535 batch*heads "
+        raise ValueError(f"{what} kernel takes at most 65535 batch*heads "
                          f"(one grid row each), got {BH}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (q3, k3, v3)):
-        raise ValueError("flash kernel takes contiguous, 16-byte aligned "
-                         "(BH, T, D) tensors")
-    o = torch.empty_like(q3)
-    lse = torch.empty((BH, 1, T), dtype=torch.float32, device=q3.device)
-    lib = _kernels.library("flash_fwd")
-    with torch.cuda.device(q3.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_fwd(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-                            o.data_ptr(), lse.data_ptr(), BH, T, D,
-                            float(scale), int(causal),
-                            int(q3.dtype == torch.bfloat16), stream)
-    _kernels.check(lib, err, "flash_fwd")
-    FLASH_FWD_LAUNCHES += 1
-    return o, lse
+               for t in tensors):
+        raise ValueError(f"{what} kernel takes contiguous, 16-byte "
+                         f"aligned tensors")
+
+
+def _stream(device):
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def _launch(lib_name: str, fn_name: str, counter: str, inputs, outputs, *,
+            scale: float, causal: bool) -> None:
+    """Launch ``fn_name`` of ``csrc/<lib_name>.cu`` on ``inputs`` (the
+    first one (BH, T, D)), writing ``outputs``, and add one to the
+    module's launch counter named ``counter``.  Every launcher takes
+    (inputs..., outputs..., BH, T, D, scale, causal, is_bf16, stream)."""
+    from ray_tpu_torch.ops import _kernels
+
+    q3 = inputs[0]
+    BH, T, D = q3.shape
+    _check_kernel_args(fn_name, inputs, BH, D)
+    lib = _kernels.library(lib_name)
+    err = getattr(lib, fn_name)(
+        *(t.data_ptr() for t in (*inputs, *outputs)), BH, T, D,
+        float(scale), int(causal), int(q3.dtype == torch.bfloat16),
+        _stream(q3.device))
+    _kernels.check(lib, err, fn_name)
+    globals()[counter] += 1
+
+
+def _check_qkv(q3, k3, v3) -> None:
+    if not (q3.shape == k3.shape == v3.shape) or q3.dim() != 3:
+        raise ValueError(f"q/k/v must share one (BH, T, D) shape, got "
+                         f"{tuple(q3.shape)}, {tuple(k3.shape)}, "
+                         f"{tuple(v3.shape)}")
+    if not (q3.dtype == k3.dtype == v3.dtype):
+        raise ValueError("q/k/v must share one dtype")
+    if not (q3.device == k3.device == v3.device):
+        raise ValueError("q/k/v must share one device")
+    if q3.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cpu or cuda, got "
+                         f"{q3.device}")
 
 
 def flash_attention_fwd(q3, k3, v3, *, scale: Optional[float] = None,
@@ -153,22 +185,173 @@ def flash_attention_fwd(q3, k3, v3, *, scale: Optional[float] = None,
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (float32 or bfloat16, contiguous, head_dim in SUPPORTED_HEAD_DIMS)
     or raise."""
-    if not (q3.shape == k3.shape == v3.shape) or q3.dim() != 3:
-        raise ValueError(f"q/k/v must share one (BH, T, D) shape, got "
-                         f"{tuple(q3.shape)}, {tuple(k3.shape)}, "
-                         f"{tuple(v3.shape)}")
-    if not (q3.dtype == k3.dtype == v3.dtype):
-        raise ValueError("q/k/v must share one dtype")
-    if not (q3.device == k3.device == v3.device):
-        raise ValueError("q/k/v must share one device")
+    _check_qkv(q3, k3, v3)
     scale = scale if scale is not None else 1.0 / math.sqrt(q3.shape[-1])
     if q3.device.type == "cpu":
         return flash_attention_fwd_reference(q3, k3, v3, scale=scale,
                                              causal=causal)
-    if q3.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cpu or cuda, got "
-                         f"{q3.device}")
-    return _launch(q3, k3, v3, scale=scale, causal=causal)
+    BH, T, _ = q3.shape
+    o = torch.empty_like(q3)
+    lse = torch.empty((BH, 1, T), dtype=torch.float32, device=q3.device)
+    _launch("flash_fwd", "flash_fwd", "FLASH_FWD_LAUNCHES", (q3, k3, v3),
+            (o, lse), scale=scale, causal=causal)
+    return o, lse
+
+
+# ---------------------------------------------------------------------------
+# Backward
+# ---------------------------------------------------------------------------
+
+def _bwd_tiles_reference(q3, k3, v3, do3, lse, delta, *, scale: float,
+                         causal: bool):
+    """P and dS of the whole (BH, T, T) score matrix in f32, as the
+    backward kernels recompute them tile by tile."""
+    T = q3.shape[1]
+    s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * scale
+    if causal:
+        keep = torch.ones((T, T), dtype=torch.bool,
+                          device=q3.device).tril()
+        s = torch.where(keep, s, _NEG_INF)
+    p = torch.exp(s - lse.reshape(-1, T, 1))
+    dp = torch.matmul(do3.float(), v3.float().transpose(1, 2))
+    ds = p * (dp - delta.reshape(-1, T, 1)) * scale
+    return p, ds
+
+
+def flash_bwd_dq_reference(q3, k3, v3, do3, lse, delta, *, scale: float,
+                           causal: bool) -> torch.Tensor:
+    """Plain PyTorch version of the dQ kernel: dQ = dS K with dS
+    rounded to k's dtype (``_bwd_dq_kernel``, flash_attention.py:177)
+    and the f32 sum rounded to q's dtype once."""
+    _, ds = _bwd_tiles_reference(q3, k3, v3, do3, lse, delta, scale=scale,
+                                 causal=causal)
+    dq = torch.matmul(ds.to(k3.dtype).float(), k3.float())
+    return dq.to(q3.dtype)
+
+
+def flash_bwd_dkv_reference(q3, k3, v3, do3, lse, delta, *, scale: float,
+                            causal: bool
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the dK/dV kernel: dV = P^T dO with P
+    rounded to dO's dtype, dK = dS^T Q with dS rounded to q's dtype
+    (``_bwd_dkv_kernel``, flash_attention.py:213-221)."""
+    p, ds = _bwd_tiles_reference(q3, k3, v3, do3, lse, delta, scale=scale,
+                                 causal=causal)
+    dv = torch.matmul(p.to(do3.dtype).float().transpose(1, 2), do3.float())
+    dk = torch.matmul(ds.to(q3.dtype).float().transpose(1, 2), q3.float())
+    return dk.to(k3.dtype), dv.to(v3.dtype)
+
+
+def flash_bwd_delta(o3, do3) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32, (BH, 1, T), the backward kernels'
+    input that the JAX package computes outside Pallas
+    (flash_attention.py:235); plain torch here too."""
+    return (do3.float() * o3.float()).sum(dim=-1)[:, None, :]
+
+
+def flash_attention_bwd_reference(q3, k3, v3, o3, lse, do3, *,
+                                  scale: float, causal: bool
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain PyTorch version of the whole backward on (BH, T, D)
+    tensors → (dq, dk, dv): recomputes S, P = exp(S - LSE), dP and dS
+    on f32 scores with the -1e30 mask (not autograd of the forward)."""
+    delta = flash_bwd_delta(o3, do3)
+    dq = flash_bwd_dq_reference(q3, k3, v3, do3, lse, delta, scale=scale,
+                                causal=causal)
+    dk, dv = flash_bwd_dkv_reference(q3, k3, v3, do3, lse, delta,
+                                     scale=scale, causal=causal)
+    return dq, dk, dv
+
+
+def _check_bwd_args(q3, k3, v3, do3, lse, delta) -> None:
+    _check_qkv(q3, k3, v3)
+    BH, T, _ = q3.shape
+    if do3.shape != q3.shape or do3.dtype != q3.dtype:
+        raise ValueError(f"dO must match q's shape and dtype, got "
+                         f"{tuple(do3.shape)} {do3.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (BH, 1, T) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be (BH, 1, T) float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if not all(t.device == q3.device for t in (do3, lse, delta)):
+        raise ValueError("dO/lse/delta must be on q's device")
+
+
+def flash_bwd_dq(q3, k3, v3, do3, lse, delta, *, scale: float,
+                 causal: bool) -> torch.Tensor:
+    """dQ of the flash backward on (BH, T, D) tensors, lse and delta
+    (BH, 1, T) float32.  CPU tensors take the plain version; CUDA
+    tensors launch the dQ kernel or raise."""
+    _check_bwd_args(q3, k3, v3, do3, lse, delta)
+    if q3.device.type == "cpu":
+        return flash_bwd_dq_reference(q3, k3, v3, do3, lse, delta,
+                                      scale=scale, causal=causal)
+    dq = torch.empty_like(q3)
+    _launch("flash_bwd", "flash_bwd_dq", "FLASH_BWD_DQ_LAUNCHES",
+            (q3, k3, v3, do3, lse, delta), (dq,), scale=scale,
+            causal=causal)
+    return dq
+
+
+def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, *, scale: float,
+                  causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) of the flash backward, as flash_bwd_dq: CPU tensors
+    take the plain version, CUDA tensors launch the dK/dV kernel or
+    raise."""
+    _check_bwd_args(q3, k3, v3, do3, lse, delta)
+    if q3.device.type == "cpu":
+        return flash_bwd_dkv_reference(q3, k3, v3, do3, lse, delta,
+                                       scale=scale, causal=causal)
+    dk = torch.empty_like(k3)
+    dv = torch.empty_like(v3)
+    _launch("flash_bwd", "flash_bwd_dkv", "FLASH_BWD_DKV_LAUNCHES",
+            (q3, k3, v3, do3, lse, delta), (dk, dv), scale=scale,
+            causal=causal)
+    return dk, dv
+
+
+def flash_attention_bwd(q3, k3, v3, o3, lse, do3, *,
+                        scale: Optional[float] = None, causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward on (BH, T, D) tensors with the forward's o and lse
+    (BH, 1, T) → (dq, dk, dv), the outputs of the JAX package's
+    ``_bwd``/``_bwd_res``: delta in plain torch, then the dQ and the
+    dK/dV kernel (their plain versions for CPU tensors)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q3.shape[-1])
+    if o3.shape != q3.shape or do3.shape != q3.shape:
+        raise ValueError(f"o and dO must match q's shape "
+                         f"{tuple(q3.shape)}, got {tuple(o3.shape)} and "
+                         f"{tuple(do3.shape)}")
+    delta = flash_bwd_delta(o3, do3)
+    dq = flash_bwd_dq(q3, k3, v3, do3, lse, delta, scale=scale,
+                      causal=causal)
+    dk, dv = flash_bwd_dkv(q3, k3, v3, do3, lse, delta, scale=scale,
+                           causal=causal)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """o = flash(q3, k3, v3): forward kernel, saving (q3, k3, v3, o,
+    lse) as the JAX ``_flash_fwd`` does; backward through the dQ and
+    dK/dV kernels (``_flash_bwd``/``_flash_res_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, scale: float, causal: bool):
+        o, lse = flash_attention_fwd(q3, k3, v3, scale=scale, causal=causal)
+        ctx.save_for_backward(q3, k3, v3, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q3, k3, v3, o, lse = ctx.saved_tensors
+        # the gradient comes through the (B,T,H,D) <-> (BH,T,D)
+        # transposes; the kernels take contiguous tensors
+        dq, dk, dv = flash_attention_bwd(q3, k3, v3, o, lse,
+                                         do.contiguous(), scale=ctx.scale,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -178,24 +361,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     block_q_bwd: Optional[int] = None,
                     block_k_bwd: Optional[int] = None,
                     resident_kv: Optional[bool] = None) -> torch.Tensor:
-    """Flash attention forward on (B, T, H, D) tensors.
+    """Flash attention on (B, T, H, D) tensors, differentiable.
 
     The block knobs and ``resident_kv`` are accepted and validated as
     in the JAX package, so one config drives both packages.  They do
     not change the Hopper tiling: resident_kv True and False launch
-    the same kernel, whose kv loop already runs inside the CTA and
-    stops at the causal diagonal (the shape of the JAX resident
-    variant), over 64-row tiles whatever the blocks ask.
-
-    Forward only: tensors that require grad raise NotImplementedError
-    until the training slice (ROADMAP.md, queue 1 item 1) brings the
-    backward kernels."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention is forward-only in ray_tpu_torch: the "
-            "backward kernels come with the training slice (ROADMAP.md, "
-            "queue 1 item 1)")
+    the same kernels, whose loops already run inside the CTA and stop
+    (dQ, forward) or start (dK/dV) at the causal diagonal, the shape
+    of the JAX resident variant, over 64-row tiles whatever the blocks
+    ask."""
     for name, value in (("block_q", block_q), ("block_k", block_k),
                         ("block_q_bwd", block_q_bwd),
                         ("block_k_bwd", block_k_bwd)):
@@ -207,10 +381,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention takes (B, T, H, D) tensors, "
                          f"got shape {tuple(q.shape)}")
     B, T, H, D = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
 
     def to3(x):
         return x.transpose(1, 2).reshape(B * H, T, D)
 
-    o3, _ = flash_attention_fwd(to3(q), to3(k), to3(v), scale=scale,
-                                causal=causal)
+    o3 = _FlashAttention.apply(to3(q), to3(k), to3(v), scale, causal)
     return o3.reshape(B, H, T, D).transpose(1, 2)

@@ -1,14 +1,17 @@
-"""The port's flash attention forward against the JAX package's.
+"""The port's flash attention, forward and backward, against the JAX
+package's.
 
 Inputs come from numpy and go to both packages.  On the CPU the port's
 wrapper runs its plain version; the JAX kernel runs in Pallas interpret
-mode, as the JAX package's own tests run it.  The CUDA kernel itself is
-held against the plain version by tests/test_torch_flash_kernel.py
+mode, as the JAX package's own tests run it.  The CUDA kernels
+themselves are held against the plain versions by
+tests/test_torch_flash_kernel.py and tests/test_torch_flash_bwd_kernel.py
 (marked ``cuda``, skipped without a card) and by chip_smoke.py.
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,13 +96,91 @@ def test_flash_forward_bf16_matches_jax():
                                atol=BF16_TOL, rtol=BF16_TOL)
 
 
+# gradient tolerance of the JAX package's own flash tests
+# (tests/test_flash_attention.py): same math, summed in another order
+GRAD_TOL = 1e-4
+
+
+def _grads_jax(q, k, v, do, **kw):
+    _, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(
+        a, b, c, interpret=True, **kw), *(jnp.asarray(x) for x in (q, k, v)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _grads_port(q, k, v, do, **kw):
+    qkv = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    o = tfa.flash_attention(*qkv, **kw)
+    return [g.numpy() for g in torch.autograd.grad(o, qkv,
+                                                   torch.from_numpy(do))]
+
+
 def test_flash_requires_grad_raises():
-    q, k, v = (torch.from_numpy(x) for x in _qkv(4, 1, 32, 1, 32))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(q, k, v)
+    """Inputs that require grad no longer raise: they take the flash
+    backward, whose gradients match jax.vjp of the JAX kernel; with
+    grad disabled the forward runs as before."""
+    q, k, v = _qkv(4, 1, 32, 1, 32)
+    do = _qkv(40, 1, 32, 1, 32)[0]
+    for got, want, name in zip(_grads_port(q, k, v, do),
+                               _grads_jax(q, k, v, do), "qkv"):
+        np.testing.assert_allclose(got, want, atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+    qt = torch.from_numpy(q).requires_grad_(True)
     with torch.no_grad():
-        assert tfa.flash_attention(q, k, v).shape == q.shape
+        out = tfa.flash_attention(qt, torch.from_numpy(k),
+                                  torch.from_numpy(v))
+    assert out.shape == qt.shape and not out.requires_grad
+
+
+@pytest.mark.parametrize("B,T,H,D,kw", [
+    (1, 64, 2, 32, dict(causal=True, block_q=32, block_k=32)),
+    (1, 64, 2, 32, dict(causal=False, block_q=32, block_k=32)),
+    (1, 96, 1, 64, dict(causal=True, block_q=64, block_k=64)),
+    (1, 256, 2, 32, dict(causal=True, resident_kv=True)),
+    (1, 256, 2, 32, dict(causal=True, resident_kv=False)),
+    # bq=256/chunk=512: several loop trips with a qi-dependent bound
+    (1, 1024, 1, 32, dict(causal=True, resident_kv=True)),
+], ids=["causal-T64", "noncausal-T64", "uneven-T96", "resident-T256",
+        "classic-T256", "resident-multichunk-T1024"])
+def test_flash_gradients_match_jax(B, T, H, D, kw):
+    q, k, v = _qkv(7, B, T, H, D)
+    do = _qkv(8, B, T, H, D)[0]
+    for got, want, name in zip(_grads_port(q, k, v, do, **kw),
+                               _grads_jax(q, k, v, do, **kw), "qkv"):
+        np.testing.assert_allclose(got, want, atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal,T", [(True, 128), (False, 128),
+                                      (True, 96)])
+def test_flash_bwd_function_matches_jax_bwd(causal, T):
+    """(BH, T, D) level: the port's flash_attention_bwd (and its plain
+    version) against the JAX package's _bwd on the same residuals."""
+    q, k, v, do = (x.reshape(2, T, 32) for x in _qkv(9, 2, T, 1, 32)
+                   + [_qkv(10, 2, T, 1, 32)[0]])
+    scale = 1.0 / np.sqrt(32)
+    o_j, lse_j = jfa._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          scale=scale, block_q=32, block_k=32,
+                          causal=causal, interpret=True)
+    want = jfa._bwd((jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), o_j,
+                     lse_j), jnp.asarray(do), scale=scale, block_q=32,
+                    block_k=32, causal=causal, interpret=True)
+    args = [torch.from_numpy(np.array(x)) for x in
+            (q, k, v, o_j, lse_j, do)]
+    for fn in (tfa.flash_attention_bwd, tfa.flash_attention_bwd_reference):
+        got = fn(*args, scale=scale, causal=causal)
+        for g, w, name in zip(got, want, "qkv"):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       atol=GRAD_TOL, rtol=GRAD_TOL,
+                                       err_msg=f"{fn.__name__} d{name}")
+
+
+def test_flash_cpu_backward_launches_no_kernel():
+    q, k, v = (torch.from_numpy(x).requires_grad_(True)
+               for x in _qkv(11, 1, 64, 2, 32))
+    before = (tfa.FLASH_BWD_DQ_LAUNCHES, tfa.FLASH_BWD_DKV_LAUNCHES)
+    tfa.flash_attention(q, k, v).sum().backward()
+    assert q.grad is not None and k.grad is not None and v.grad is not None
+    assert (tfa.FLASH_BWD_DQ_LAUNCHES, tfa.FLASH_BWD_DKV_LAUNCHES) == before
 
 
 def test_flash_cpu_path_launches_no_kernel():
