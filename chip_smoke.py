@@ -20,12 +20,21 @@ Phases, each fatal on failure (any failure exits non-zero):
             training shape (B=24, H=12, T=1024, D=64, causal, bf16),
             where they are timed beside their plain versions, their
             bounds and scaled_dot_product_attention.
-5. serve  — build the GPT-2-124M engine (full width, seeded random
+5. kernel-ce — hold the fused lm-head + cross-entropy kernels
+            (forward, dH, dW) against their plain PyTorch versions at
+            the card tests' shapes (bf16 and f32) and at the training
+            shape (N=B*T=24576, V=50304, valid 50257, D=768, bf16, g =
+            1/N as the mean loss gives), where they are timed beside
+            their plain versions, their bounds and the dense
+            composition (the dense CE's logits product, logsumexp and
+            gather; its backward for dH and dW together), a yardstick
+            the fused path never calls.
+6. serve  — build the GPT-2-124M engine (full width, seeded random
             weights, bf16 compute) on the card, answer 8 concurrent
             512-token requests and one ragged batch, check the replies,
             check that the prefill went through the kernel (its launch
             counter, zeroed just before), and time prefill and decode.
-6. train  — time GPT-2-124M AdamW steps at full width and depth (B=24,
+7. train  — time GPT-2-124M AdamW steps at full width and depth (B=24,
             T=1024, remat mlp_only, dense CE) through
             ray_tpu_torch.bench.time_config; check that every step
             launched the forward and both backward kernels once per
@@ -35,9 +44,19 @@ Phases, each fatal on failure (any failure exits non-zero):
             plain attention (use_flash=False) on the same weights and
             batch, time the two steps in turns, and profile one flash
             step (torch.profiler: device time by kernel).
+8. train-ce — the same steps with ce_impl="pallas" (the fused CE
+            kernels) through time_config: 12 launches of each flash
+            kernel and 1 of each fused-CE kernel per step, a finite
+            falling loss; one step each of ce_impl "dense", "pallas",
+            "streaming_xla" and of remat "dots", "dots_nb", "attn_out"
+            on the same weights and batch, checked against each other
+            (loss, gradient norm, wte gradient) and for their flash
+            launches; the dense and pallas steps timed in turns, the
+            peak memory of each step, and a profile of one pallas step.
 
 The line before the last is a JSON object describing each kernel; the
-last line is {"ok": true, "device": {...}}.  There is no CPU path.
+line before it is the card's name and power limit; the last line is
+{"ok": true, "device": {...}}.  There is no CPU path.
 """
 
 from __future__ import annotations
@@ -98,8 +117,42 @@ TRAIN_QKV_GRAD_RTOL = 0.1
 LOGIT_TOL = 0.1
 
 
+# fused CE kernels vs plain versions: nll and lse, |kernel - plain| <=
+# 1e-4 + 1e-4 * |plain| (both sum exact bf16 products and exps in f32,
+# in different orders); dH and dW, |kernel - plain| <= ATOL_FRAC *
+# rms(plain) + RTOL * |plain| elementwise and ||kernel - plain|| /
+# ||plain|| <= REL_NORM: f32 at the JAX package's gradient tolerance,
+# bf16 where both round dlogits to bf16 before the products and an
+# element rounded a step apart moves a sum of V or N terms by far less
+# than a term (the reasons of tests/test_torch_fused_ce_kernel.py,
+# which uses the same numbers); a dropped tile moves the relative norm
+# by more than 1e-2
+CE_OUT_TOL = (1e-4, 1e-4)
+CE_GRAD_TOL = {"f32": (1e-4, 1e-4, 1e-5), "bf16": (1e-2, 2e-2, 2e-3)}
+CE_SHAPES = ((33, 130, 123, 64), (70, 300, 257, 192),
+             (1000, 50304, 50257, 768), (200, 1000, 990, 1024))
+# GPT-2-124M's head at the training shape
+CE_N, CE_V, CE_VALID, CE_D = TRAIN_B * TRAIN_T, 50304, 50257, 768
+# one GPT-2-124M step, other CE or remat vs its reference step on the
+# same weights and batch: the loss and the relative gradient norm (the
+# tolerances of the flash-vs-plain step) and ||wte grad - reference|| /
+# ||reference|| over all rows and over the head-only rows (the rows of
+# tokens that are no input of the batch, whose gradient comes from the
+# lm head alone).  All rows carry the embedding gradient, where the
+# backbone's bf16 backward leaves differences near a bf16 step (6.4e-3
+# on an H100 for every pair of CE paths); the head-only rows carry the
+# CE's dW alone: against dense, which rounds it to bf16, 1e-2 (1.7e-3
+# measured); between paths that keep it f32 (pallas, streaming_xla,
+# the remat policies), 1e-4 (7.9e-7 measured; a dW kernel that drops
+# its last row tile moves it by 2.9e-3)
+CE_LOSS_TOL = 1e-3
+CE_GRAD_NORM_RTOL = 1e-3
+CE_WTE_GRAD_RTOL = 1e-2
+CE_HEAD_GRAD_RTOL = {"dense": 1e-2, "f32": 1e-4}
+
 # kinds of device work in the training-step profile, by kernel name
 PROFILE_KINDS = (("flash kernels", ("flash_",)),
+                 ("fused CE kernels", ("fused_ce_",)),
                  ("matmuls (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("copies and casts", ("Memcpy", "Memset", "copy_kernel")),
                  ("reductions", ("reduce_kernel",)))
@@ -183,17 +236,34 @@ def bwd_report(cmp: dict, names=("dq", "dk", "dv")) -> str:
 
 COUNTERS = ("FLASH_FWD_LAUNCHES", "FLASH_BWD_DQ_LAUNCHES",
             "FLASH_BWD_DKV_LAUNCHES")
+CE_COUNTERS = ("FUSED_CE_FWD_LAUNCHES", "FUSED_CE_BWD_DH_LAUNCHES",
+               "FUSED_CE_BWD_DW_LAUNCHES")
+
+
+def _fc():
+    return importlib.import_module("ray_tpu_torch.ops.fused_ce")
 
 
 def zero_counts(fa) -> None:
     for c in COUNTERS:
         setattr(fa, c, 0)
+    for c in CE_COUNTERS:
+        setattr(_fc(), c, 0)
 
 
 def read_counts(fa) -> dict:
-    return {"flash_fwd": fa.FLASH_FWD_LAUNCHES,
-            "flash_bwd_dq": fa.FLASH_BWD_DQ_LAUNCHES,
-            "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES}
+    """Launches of the flash kernels; of the fused CE kernels too where
+    any ran (the serve and dense paths launch none)."""
+    counts = {"flash_fwd": fa.FLASH_FWD_LAUNCHES,
+              "flash_bwd_dq": fa.FLASH_BWD_DQ_LAUNCHES,
+              "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES}
+    fc = _fc()
+    ce = {"fused_ce_fwd": fc.FUSED_CE_FWD_LAUNCHES,
+          "fused_ce_bwd_dh": fc.FUSED_CE_BWD_DH_LAUNCHES,
+          "fused_ce_bwd_dw": fc.FUSED_CE_BWD_DW_LAUNCHES}
+    if any(ce.values()):
+        counts.update(ce)
+    return counts
 
 
 def phase_card(torch) -> tuple:
@@ -547,6 +617,161 @@ def phase_kernel_bwd(torch, fa, card: str) -> dict:
     return records
 
 
+# ---------------------------------------------------------------------------
+# fused lm-head + cross-entropy kernels
+# ---------------------------------------------------------------------------
+
+def ce_inputs(torch, n, v, valid, d, dtype, seed, g=None):
+    """h ~ N(0, 1) and w ~ N(0, 1/D) (logits ~ N(0, 1)), targets uniform
+    over the valid vocab, g uniform or the given constant."""
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((v, d), generator=gen, device=dev) * d ** -0.5).to(dtype)
+    tgt = torch.randint(0, valid, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    gv = (torch.rand((n,), generator=gen, device=dev) if g is None
+          else torch.full((n,), g, device=dev))
+    return h, w, tgt, gv
+
+
+def ce_compare(torch, got, want, dtype: str, kind: str) -> dict:
+    """max |got - want|, the relative norm of the difference and whether
+    both are within CE_OUT_TOL (kind "out": nll, lse) or CE_GRAD_TOL
+    (kind "grad": dh, dw)."""
+    err = (got.float() - want.float()).abs()
+    rel = (err.norm() / want.float().norm()).item()
+    if kind == "out":
+        atol, rtol = CE_OUT_TOL
+        rel_ok = True
+    else:
+        frac, rtol, rel_norm = CE_GRAD_TOL[dtype]
+        atol = frac * want.float().square().mean().sqrt().item()
+        rel_ok = rel <= rel_norm
+    excess = (err - atol - rtol * want.float().abs()).max().item()
+    return {"max": err.max().item(), "rel": rel,
+            "ok": excess <= 0 and rel_ok and bool(got.isfinite().all())}
+
+
+def check_ce_kernels(torch, fc, n, v, valid, d, dtype: str, seed: int,
+                     g=None) -> dict:
+    """Run the forward, dH and dW kernels once on seeded inputs and hold
+    each against its plain version (dH and dW on the kernel's lse);
+    fail on any disagreement.  Returns the inputs, outputs and errors."""
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    h, w, tgt, gv = ce_inputs(torch, n, v, valid, d, dt, seed, g)
+    with torch.no_grad():
+        nll, lse = fc.fused_ce_fwd(h, w, tgt, valid)
+        dh = fc.fused_ce_bwd_dh(h, w, tgt, lse, gv, valid)
+        dw = fc.fused_ce_bwd_dw(h, w, tgt, lse, gv, valid)
+        torch.cuda.synchronize()
+        want_nll, want_lse = fc.fused_ce_fwd_reference(h, w, tgt, valid)
+        cmp = {"nll": ce_compare(torch, nll, want_nll, dtype, "out"),
+               "lse": ce_compare(torch, lse, want_lse, dtype, "out")}
+        del want_nll, want_lse
+        cmp["dh"] = ce_compare(torch, dh, fc.fused_ce_bwd_dh_reference(
+            h, w, tgt, lse, gv, valid), dtype, "grad")
+        cmp["dw"] = ce_compare(torch, dw, fc.fused_ce_bwd_dw_reference(
+            h, w, tgt, lse, gv, valid), dtype, "grad")
+        tail_zero = bool((dw[valid:] == 0).all())
+    print(f"[kernel-ce] N={n} V={v} valid={valid} D={d} {dtype}: " +
+          ", ".join(f"{k} max|d| {c['max']:.3e} rel {c['rel']:.3e}"
+                    for k, c in cmp.items()) +
+          f"; dW rows past valid_vocab all 0: {tail_zero}", flush=True)
+    if not all(c["ok"] for c in cmp.values()) or not tail_zero:
+        fail(f"fused CE kernels disagree with their plain versions at N={n}"
+             f" V={v} valid={valid} D={d} {dtype}")
+    return {"h": h, "w": w, "tgt": tgt, "g": gv, "lse": lse, "cmp": cmp}
+
+
+def check_ce_train_shape(torch, fc, seed: int = 3) -> dict:
+    """The three fused CE kernels against their plain versions at the
+    training shape (N=24576, V=50304, valid 50257, D=768, bf16, g=1/N);
+    fails on any disagreement."""
+    return check_ce_kernels(torch, fc, CE_N, CE_V, CE_VALID, CE_D, "bf16",
+                            seed, g=1.0 / CE_N)
+
+
+def ce_bounds_ms(n: int, v: int, valid: int, d: int) -> dict:
+    """Least times of the three kernels on this card, bf16 operands:
+    each reads h (N, D), w (valid rows used, D), the targets and
+    (backward) lse and g once and writes its outputs once (nll and lse;
+    dh (N, D) f32; dw (V, D) f32); the forward does 2*N*valid*D
+    operations, dH and dW each 4*N*valid*D (the logits again and their
+    own product)."""
+    hw = (n + valid) * d * 2
+    ops = 2 * n * valid * d
+    return {"fwd": bound_ms(hw + n * 4 + 2 * n * 4, ops, "bf16"),
+            "dh": bound_ms(hw + 3 * n * 4 + n * d * 4, 2 * ops, "bf16"),
+            "dw": bound_ms(hw + 3 * n * 4 + v * d * 4, 2 * ops, "bf16")}
+
+
+def phase_kernel_ce(torch, fc, card: str) -> dict:
+    from ray_tpu_torch.models.gpt2 import _LogitsMatmul, nll_from_logits
+
+    for i, (n, v, valid, d) in enumerate(CE_SHAPES):
+        for dtype in ("bf16", "f32"):
+            check_ce_kernels(torch, fc, n, v, valid, d, dtype, seed=10 + i)
+    t = check_ce_train_shape(torch, fc)
+    h, w, tgt, g, lse = (t[k] for k in ("h", "w", "tgt", "g", "lse"))
+    a = (h, w, tgt)
+    ab = (h, w, tgt, lse, g)
+    valid = CE_VALID
+    with torch.no_grad():
+        ms = {"fwd": time_ms(torch, lambda: fc.fused_ce_fwd(*a, valid),
+                             iters=10),
+              "dh": time_ms(torch, lambda: fc.fused_ce_bwd_dh(*ab, valid),
+                            iters=10),
+              "dw": time_ms(torch, lambda: fc.fused_ce_bwd_dw(*ab, valid),
+                            iters=10)}
+        plain = {"fwd": time_ms(torch, lambda: fc.fused_ce_fwd_reference(
+                     *a, valid), iters=2),
+                 "dh": time_ms(torch, lambda: fc.fused_ce_bwd_dh_reference(
+                     *ab, valid), iters=2),
+                 "dw": time_ms(torch, lambda: fc.fused_ce_bwd_dw_reference(
+                     *ab, valid), iters=2)}
+        # the dense composition, as the dense-CE step runs it: f32
+        # logits by torch.mm(out_dtype=float32), the -1e9 tail mask,
+        # logsumexp and a gather (a yardstick: the fused path never
+        # calls it)
+        dense_fwd = time_ms(torch, lambda: nll_from_logits(
+            _LogitsMatmul.apply(h, w), tgt, valid, CE_V), iters=5)
+    hg, wg = h.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    nll = nll_from_logits(_LogitsMatmul.apply(hg, wg), tgt, valid, CE_V)
+    dense_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        nll, (hg, wg), g, retain_graph=True), iters=5)
+    del nll, hg, wg
+    bounds = ce_bounds_ms(CE_N, CE_V, valid, CE_D)
+    # how many CTAs each kernel runs, in waves over the card's SMs
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = {"fwd": -(-CE_N // 32), "dh": -(-CE_N // 32),
+            "dw": -(-CE_V // 32)}
+    for k in ("fwd", "dh", "dw"):
+        print(f"[kernel-ce]   {k:3s}: kernel {ms[k]:.4f} ms, plain "
+              f"{plain[k]:.4f} ms, bound {bounds[k][0]:.4f} ms "
+              f"({bounds[k][1]}), {ctas[k]} CTAs = "
+              f"{ctas[k] / sms:.2f} waves on {sms} SMs [{card}]",
+              flush=True)
+    print(f"[kernel-ce]   dense composition: forward {dense_fwd:.4f} ms, "
+          f"backward (dH and dW) {dense_bwd:.4f} ms; fused forward + dH + "
+          f"dW {ms['fwd'] + ms['dh'] + ms['dw']:.4f} ms [{card}]",
+          flush=True)
+    dense = {"library": "dense CE composition: torch.mm(out_dtype="
+                        "float32) logits, logsumexp, gather (dH and dW: "
+                        "its backward, together)",
+             "forward_ms": dense_fwd, "backward_ms": dense_bwd}
+    records = {}
+    for k, cmp_keys in (("fwd", ("nll", "lse")), ("dh", ("dh",)),
+                        ("dw", ("dw",))):
+        records[k] = {
+            "max_abs_err": max(t["cmp"][c]["max"] for c in cmp_keys),
+            "ms": ms[k], "plain_ms": plain[k], "bound_ms": bounds[k][0],
+            "bound_by": bounds[k][1],
+            "library_ms": dense_fwd if k == "fwd" else None,
+            "dense_composition": dense, "ctas": ctas[k]}
+    return records
+
+
 def check_flash_vs_plain_step(torch, cfg) -> tuple:
     """One GPT-2 loss and gradient with the flash kernels and with
     plain attention (use_flash=False) on the same seeded weights and
@@ -601,100 +826,281 @@ def check_flash_vs_plain_step(torch, cfg) -> tuple:
     return params, batch, health
 
 
-def phase_train(torch, fa, card: str) -> dict:
-    from ray_tpu_torch.bench import H100_BF16_PEAK_FLOPS, time_config
-    from ray_tpu_torch.models.gpt2 import (gpt2_config, gpt2_loss,
-                                           gpt2_param_count)
-    from ray_tpu_torch.train import adamw, build_train_step
-    from ray_tpu_torch.train.optim import tree_map
-
-    n_steps = 5
-    # the main path: bench.py's GPT-2 step (remat mlp_only, dense CE)
-    zero_counts(fa)
-    tok_s, mfu, _, _, cost = time_config(
-        TRAIN_B, seq=TRAIN_T, n_steps=n_steps, remat_policy="mlp_only")
-    torch.cuda.synchronize()
-    counts = read_counts(fa)
-    cfg = gpt2_config("gpt2", max_seq=TRAIN_T, remat_policy="mlp_only")
-    runs = cost["steps_run"]
-    want = {name: cfg.n_layer * runs for name in counts}
-    losses = cost["losses"]
-    print(f"[train] GPT-2 {cfg.n_layer} layers, d={cfg.d_model}, B="
-          f"{TRAIN_B} T={TRAIN_T}, remat {cfg.remat_policy}, ce "
-          f"{cfg.ce_impl}, compute {cfg.dtype}: {runs} steps launched "
-          f"{counts} (expected {cfg.n_layer} of each per step); losses "
-          f"{[round(x, 4) for x in losses]}", flush=True)
-    if counts != want:
-        fail(f"kernel launches {counts} over {runs} steps, expected "
-             f"{want}")
-    if not all(math.isfinite(x) for x in losses) or \
-            not losses[-1] < losses[0]:
-        fail(f"the loss is not finite and falling: {losses}")
-    print(f"[train] {n_steps} timed steps: {cost['step_ms']:.2f} ms/step, "
-          f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} (6*N*tokens/s against "
-          f"989 TFLOP/s) [{card}]", flush=True)
-
-    params, batch, health = check_flash_vs_plain_step(torch, cfg)
-    cfgs = {"flash": cfg, "plain": dataclasses.replace(cfg,
-                                                       use_flash=False)}
-    tx = adamw(3e-4, weight_decay=0.1)
-
-    # the two steps in turns (flash, plain, plain, flash, ...)
-    state = {}
-    for name, c in cfgs.items():
-        p = tree_map(torch.clone, params)
-        state[name] = [build_train_step(lambda p, b, c=c: gpt2_loss(p, b, c),
-                                        tx), p, tx.init(p)]
-    wall = {"flash": [], "plain": []}
-    for name in ["flash", "plain", "plain", "flash"] * 2:
-        step, p, s = state[name]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state[name][1:] = step(p, s, batch)[:2]
-        torch.cuda.synchronize()
-        wall[name].append(time.perf_counter() - t0)
-    # where one flash step's device time goes (torch.profiler, CUPTI)
-    step, p, s = state["flash"]
+def profile_step(torch, state: dict, name: str, step_ms: float,
+                 card: str) -> dict:
+    """Profile one step of ``state[name]`` ([step, params, opt_state])
+    with torch.profiler (CUPTI) and print its device time by kind and
+    its largest kernels; returns {kind: ms}."""
+    step, p, s = state[name]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        state["flash"][1:] = step(p, s, batch)[:2]
+        state[name][1:] = step(p, s, state["batch"])[:2]
         torch.cuda.synchronize()
     # kernels and copies themselves, not the host ops that launch them
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    flash_ms = sorted(wall["flash"])[len(wall["flash"]) // 2] * 1e3
-    print(f"[train] profile of one flash step: {device_ms:.2f} ms of "
+    print(f"[train] profile of one {name} step: {device_ms:.2f} ms of "
           f"device time in {len(events)} distinct kernels, "
-          f"{device_ms / flash_ms:.3f} of the unprofiled median step "
-          f"({flash_ms:.2f} ms) [{card}]", flush=True)
+          f"{device_ms / step_ms:.3f} of the unprofiled median step "
+          f"({step_ms:.2f} ms) [{card}]", flush=True)
     kinds = {}
     for e in events:
         kind = next((k for k, marks in PROFILE_KINDS if any(
             m in e.key for m in marks)), "other elementwise")
         kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
-    print("[train]   by kind: " + ", ".join(
+    print(f"[train]   {name} step by kind: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in sorted(kinds.items(),
                                               key=lambda kv: -kv[1])),
           flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    return kinds
 
-    n_params = gpt2_param_count(cfg)
-    result = {"counts": counts, "steps_run": runs, "step_ms":
-              cost["step_ms"], "tokens_per_s": tok_s, "mfu": mfu,
-              "losses": losses, "health": health}
+
+def interleaved_steps(torch, params, batch, cfgs: dict, order) -> tuple:
+    """AdamW steps of each config in ``cfgs``, each from its own copy of
+    ``params``, run in ``order`` (names of cfgs); returns (the steps'
+    state for profile_step, {name: [wall seconds]})."""
+    from ray_tpu_torch.models.gpt2 import gpt2_loss
+    from ray_tpu_torch.train import adamw, build_train_step
+    from ray_tpu_torch.train.optim import tree_map
+
+    tx = adamw(3e-4, weight_decay=0.1)
+    state = {"batch": batch}
+    for name, c in cfgs.items():
+        p = tree_map(torch.clone, params)
+        state[name] = [build_train_step(lambda p, b, c=c: gpt2_loss(p, b, c),
+                                        tx), p, tx.init(p)]
+    wall = {name: [] for name in cfgs}
+    for name in order:
+        step, p, s = state[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state[name][1:] = step(p, s, batch)[:2]
+        torch.cuda.synchronize()
+        wall[name].append(time.perf_counter() - t0)
+    return state, wall
+
+
+def run_main_path(torch, fa, card: str, tag: str, per_step: dict,
+                  **overrides) -> dict:
+    """The main path of a training phase: bench.py's GPT-2 step (B=24,
+    T=1024, remat mlp_only, ``overrides``) through time_config, 5 timed
+    steps after one warm-up, launch counters zeroed just before and
+    read just after (``per_step`` launches of each kernel per step
+    expected), the loss finite and falling, the peak memory."""
+    from ray_tpu_torch.bench import time_config
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa)
+    tok_s, mfu, _, _, cost = time_config(
+        TRAIN_B, seq=TRAIN_T, n_steps=5, remat_policy="mlp_only",
+        **overrides)
+    torch.cuda.synchronize()
+    counts = read_counts(fa)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    runs = cost["steps_run"]
+    losses = cost["losses"]
+    want = {k: n * runs for k, n in per_step.items()}
+    print(f"[{tag}] GPT-2-124M, B={TRAIN_B} T={TRAIN_T}, remat mlp_only, "
+          f"{overrides or 'dense CE'}: {runs} steps launched {counts} "
+          f"(expected {per_step} per step); losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    if counts != want:
+        fail(f"kernel launches {counts} over {runs} steps, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"the loss is not finite and falling: {losses}")
+    print(f"[{tag}] 5 timed steps: {cost['step_ms']:.2f} ms/step, "
+          f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} (6*N*tokens/s against "
+          f"989 TFLOP/s); peak memory {peak_gib:.2f} GiB "
+          f"(max_memory_allocated) [{card}]", flush=True)
+    return {"counts": counts, "steps_run": runs,
+            "step_ms": cost["step_ms"], "tokens_per_s": tok_s, "mfu": mfu,
+            "losses": losses, "peak_gib": peak_gib}
+
+
+def report_medians(result: dict, wall: dict, tag: str, card: str) -> None:
+    """Median wall time, tokens/s and MFU of each interleaved step."""
+    from ray_tpu_torch.bench import H100_BF16_PEAK_FLOPS
+    from ray_tpu_torch.models.gpt2 import gpt2_config, gpt2_param_count
+
+    n_params = gpt2_param_count(gpt2_config("gpt2"))
     for name, secs in wall.items():
         med = sorted(secs)[len(secs) // 2]
         tps = TRAIN_B * TRAIN_T / med
         result[f"{name}_step_ms"] = med * 1e3
-        print(f"[train] {name:5s} step, median of {len(secs)} in turns: "
+        print(f"[{tag}] {name:6s} step, median of {len(secs)} in turns: "
               f"{med * 1e3:.2f} ms, {tps:.1f} tokens/s, MFU "
               f"{6 * n_params * tps / H100_BF16_PEAK_FLOPS:.4f} [{card}]",
               flush=True)
+
+
+def phase_train(torch, fa, card: str) -> dict:
+    from ray_tpu_torch.models.gpt2 import gpt2_config
+
+    cfg = gpt2_config("gpt2", max_seq=TRAIN_T, remat_policy="mlp_only")
+    L = cfg.n_layer
+    # the main path: bench.py's GPT-2 step (remat mlp_only, dense CE)
+    result = run_main_path(torch, fa, card, "train", {
+        "flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L})
+    params, batch, health = check_flash_vs_plain_step(torch, cfg)
+    cfgs = {"flash": cfg, "plain": dataclasses.replace(cfg,
+                                                       use_flash=False)}
+    # the two steps in turns (flash, plain, plain, flash, ...)
+    state, wall = interleaved_steps(torch, params, batch, cfgs,
+                                    ["flash", "plain", "plain", "flash"] * 2)
+    # where one flash step's device time goes (torch.profiler, CUPTI)
+    flash_ms = sorted(wall["flash"])[len(wall["flash"]) // 2] * 1e3
+    profile_step(torch, state, "flash", flash_ms, card)
+
+    result["health"] = health
+    report_medians(result, wall, "train", card)
+    return result
+
+
+def one_step(torch, fa, params, batch, cfg) -> dict:
+    """One loss and gradient of ``cfg`` on ``params`` and ``batch``: the
+    loss, the global gradient norm, the nonfinite count, the wte
+    gradient, the kernel launches (counters zeroed just before) and the
+    step's peak memory."""
+    from ray_tpu_torch.models.gpt2 import gpt2_loss
+    from ray_tpu_torch.train.optim import tree_leaves, tree_unflatten
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fa)
+    live = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    loss = gpt2_loss(tree_unflatten(params, live), batch, cfg)
+    grads = torch.autograd.grad(loss, live)
+    torch.cuda.synchronize()
+    out = {"loss": loss.item(), "grad_norm": torch.stack(
+        [g.float().square().sum() for g in grads]).sum().sqrt().item(),
+        "nonfinite": sum(int((~g.isfinite()).sum()) for g in grads),
+        "wte": tree_unflatten(params, list(grads))["wte"].float(),
+        "counts": read_counts(fa),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del loss, grads, live
+    return out
+
+
+#: the steps of phase train-ce: name -> (GPT2Config overrides, the
+#: steps it is checked against); every one at B=24, T=1024 on the same
+#: weights and batch.  streaming_xla is held against pallas too: both
+#: keep the wte gradient in f32.
+CE_STEPS = {
+    "dense": (dict(ce_impl="dense"), ()),
+    "pallas": (dict(ce_impl="pallas"), ("dense",)),
+    "streaming_xla": (dict(ce_impl="streaming_xla"), ("dense", "pallas")),
+    "dots": (dict(ce_impl="pallas", remat_policy="dots"), ("pallas",)),
+    "dots_nb": (dict(ce_impl="pallas", remat_policy="dots_nb"),
+                ("pallas",)),
+    "attn_out": (dict(ce_impl="pallas", remat_policy="attn_out"),
+                 ("pallas",)),
+}
+
+
+def check_ce_and_remat_steps(torch, fa, cfg) -> tuple:
+    """One step of each CE_STEPS entry on the same seeded weights and
+    batch, each against its reference step (loss, gradient norm, wte
+    gradient over all rows and over the head-only rows) and for its
+    launches: 12 of each flash kernel per step
+    under mlp_only, 24 forward and 12 of each backward under the
+    selective policies (the per-layer counts of the CPU test
+    test_flash_calls_per_step_follow_remat), 1 of each fused CE kernel
+    with ce_impl="pallas" and none otherwise.  Returns (params, batch,
+    {name: step})."""
+    from ray_tpu_torch.models.gpt2 import gpt2_init
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = gpt2_init(cfg, gen, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (TRAIN_B, TRAIN_T + 1), generator=gen,
+                                     device="cuda")}
+    head_only = torch.ones(cfg.padded_vocab, dtype=torch.bool,
+                           device="cuda")
+    head_only[batch["tokens"][:, :-1].flatten()] = False
+    L = cfg.n_layer
+    steps, bad = {}, []
+    for name, (kw, refs) in CE_STEPS.items():
+        c = dataclasses.replace(cfg, **kw)
+        st = one_step(torch, fa, params, batch, c)
+        steps[name] = st
+        fwd = 2 * L if c.remat_policy in ("dots", "dots_nb", "attn_out") \
+            else L
+        want = {"flash_fwd": fwd, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+        if c.ce_impl == "pallas":
+            want.update(fused_ce_fwd=1, fused_ce_bwd_dh=1,
+                        fused_ce_bwd_dw=1)
+        line = (f"[train-ce] one step, ce {c.ce_impl}, remat "
+                f"{c.remat_policy}: loss {st['loss']:.5f}, grad norm "
+                f"{st['grad_norm']:.5f}, nonfinite {st['nonfinite']}, "
+                f"peak memory {st['peak_gib']:.2f} GiB; launches "
+                f"{st['counts']}")
+        if st["counts"] != want:
+            bad.append(f"{name}: launches {st['counts']}, expected {want}")
+        if st["nonfinite"]:
+            bad.append(f"{name}: {st['nonfinite']} nonfinite gradients")
+        st["vs"] = {}
+        for ref in refs:
+            r = steps[ref]
+            dl = abs(st["loss"] - r["loss"])
+            dg = abs(st["grad_norm"] - r["grad_norm"]) / r["grad_norm"]
+            diff = st["wte"] - r["wte"]
+            dw = (diff.norm() / r["wte"].norm()).item()
+            dh = (diff[head_only].norm()
+                  / r["wte"][head_only].norm()).item()
+            st["vs"][ref] = {"loss_diff": dl, "grad_norm_rel": dg,
+                             "wte_grad_rel": dw, "head_rows_rel": dh}
+            head_tol = CE_HEAD_GRAD_RTOL["dense" if ref == "dense"
+                                         else "f32"]
+            line += (f"; vs {ref}: loss |diff| {dl:.3e} (tol "
+                     f"{CE_LOSS_TOL}), grad norm rel diff {dg:.3e} (tol "
+                     f"{CE_GRAD_NORM_RTOL}), ||wte grad - {ref}|| / ||"
+                     f"{ref}|| {dw:.3e} (tol {CE_WTE_GRAD_RTOL}), on the "
+                     f"{int(head_only.sum())} head-only rows {dh:.3e} "
+                     f"(tol {head_tol})")
+            if dl > CE_LOSS_TOL or dg > CE_GRAD_NORM_RTOL or \
+                    dw > CE_WTE_GRAD_RTOL or dh > head_tol:
+                bad.append(f"{name} disagrees with {ref}")
+        print(line, flush=True)
+    for st in steps.values():
+        del st["wte"]
+    if bad:
+        fail("; ".join(bad))
+    return params, batch, steps
+
+
+def phase_train_ce(torch, fa, card: str) -> dict:
+    from ray_tpu_torch.models.gpt2 import gpt2_config
+
+    cfg = gpt2_config("gpt2", max_seq=TRAIN_T, remat_policy="mlp_only",
+                      ce_impl="pallas")
+    L = cfg.n_layer
+    # the main path: bench.py's GPT-2 step through the fused CE kernels
+    result = run_main_path(torch, fa, card, "train-ce", {
+        "flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+        "fused_ce_fwd": 1, "fused_ce_bwd_dh": 1, "fused_ce_bwd_dw": 1},
+        ce_impl="pallas")
+
+    params, batch, steps = check_ce_and_remat_steps(
+        torch, fa, dataclasses.replace(cfg, ce_impl="dense"))
+    cfgs = {"dense": dataclasses.replace(cfg, ce_impl="dense"),
+            "pallas": cfg}
+    # the two steps in turns (dense, pallas, pallas, dense, ...)
+    state, wall = interleaved_steps(torch, params, batch, cfgs,
+                                    ["dense", "pallas", "pallas",
+                                     "dense"] * 2)
+    result["steps"] = steps
+    report_medians(result, wall, "train-ce", card)
+    result["profile"] = profile_step(torch, state, "pallas",
+                                     result["pallas_step_ms"], card)
     return result
 
 
@@ -706,6 +1112,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     kernels = importlib.import_module("ray_tpu_torch.ops._kernels")
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    fc = _fc()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -713,16 +1120,19 @@ def main() -> int:
     with torch.inference_mode():
         headline = phase_kernel(torch, fa, card)
     bwd = phase_kernel_bwd(torch, fa, card)
+    ce = phase_kernel_ce(torch, fc, card)
     serve_counts = phase_serve(torch, np, fa, card)
     train = phase_train(torch, fa, card)
+    train_ce = phase_train_ce(torch, fa, card)
 
     def launches(name):
-        by_path = {"serve": serve_counts[name],
-                   "train": train["counts"][name]}
+        by_path = {"serve": serve_counts.get(name, 0),
+                   "train": train["counts"].get(name, 0),
+                   "train_pallas": train_ce["counts"][name]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "launches_per_train_step":
-                    train["counts"][name] / train["steps_run"]}
+                    train_ce["counts"][name] / train_ce["steps_run"]}
 
     src = "ray_tpu/ops/flash_attention.py"
     records = [
@@ -740,8 +1150,16 @@ def main() -> int:
          "replaces": f"{src}:186", "also_replaces": f"{src}:395",
          **launches("flash_bwd_dkv"), **bwd["dkv"]},
     ]
-    print(json.dumps({"kernels": records}))
+    src = "ray_tpu/ops/fused_ce.py"
+    for kernel, key, line in (("fused_ce_fwd", "fwd", 83),
+                              ("fused_ce_bwd_dh", "dh", 164),
+                              ("fused_ce_bwd_dw", "dw", 185)):
+        records.append({"name": kernel, "route": "cuda",
+                        "source": "ray_tpu_torch/ops/csrc/fused_ce.cu",
+                        "replaces": f"{src}:{line}", **launches(kernel),
+                        **ce[key]})
     print(card)
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -9,25 +9,30 @@ between the packages through numpy unchanged (models/convert.py).
 The training forward (``gpt2_hidden``, ``gpt2_forward``, ``gpt2_loss``)
 is eager PyTorch over the stacked layers, differentiable with
 ``torch.autograd``; attention goes through the flash kernels on CUDA
-(ops/flash_attention.py).  Not ported yet, each raising
-NotImplementedError naming its ROADMAP.md item: ``ce_impl``
-"streaming_xla"/"pallas" and remat policies "dots"/"dots_nb"/"attn_out"
-(queue 1 item 1, the next slice), MoE blocks and sequence parallelism
-(queue 1 item 7).
+(ops/flash_attention.py).  The loss takes each ``ce_impl``: "dense"
+(f32 logits), "streaming_xla" (ops/vocab_ce.py) and "pallas" (the
+fused lm-head + CE kernels, ops/fused_ce.py), and each remat policy of
+the JAX package ("full", "mlp_only", "dots", "dots_nb", "attn_out").
+Not ported yet, each raising NotImplementedError naming its ROADMAP.md
+item: MoE blocks and sequence parallelism (queue 1 item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import causal_attention, flash_auto_dispatch
+from ray_tpu_torch.ops.fused_ce import fused_lm_ce
+from ray_tpu_torch.ops.vocab_ce import streaming_ce
 
 #: The three lm-head + cross-entropy implementations (GPT2Config.ce_impl),
 #: named as in the JAX package: "dense" materializes f32 (B,T,V)
@@ -235,8 +240,47 @@ def _layernorm(x, scale, bias, eps: float = 1e-5):
 # Training forward
 # ---------------------------------------------------------------------------
 
-#: remat policies of the JAX package that wait for the next slice
-_REMAT_TO_PORT = ("dots", "dots_nb", "attn_out")
+@torch.library.custom_op("ray_tpu_torch::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The port's ``jax.ad_checkpoint.checkpoint_name``: an identity op
+    whose output a selective remat policy can save by ``name`` (the
+    policy sees ops, not names).  A custom op may not return its input
+    as it is, so it copies: one extra read and write of the tensor,
+    paid only where a policy asks for the name."""
+    return x.clone()
+
+
+checkpoint_name.register_fake(lambda x, name: torch.empty_like(x))
+checkpoint_name.register_autograd(lambda ctx, grad: (grad, None))
+
+_MATMULS_NO_BATCH = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_MATMULS = _MATMULS_NO_BATCH + (torch.ops.aten.bmm.default,
+                                torch.ops.aten.baddbmm.default)
+
+
+def _saves(policy: str):
+    """The selective-checkpoint policy function of a JAX remat policy
+    (``jax.checkpoint_policies``): ``dots`` saves every matmul output
+    (``dots_saveable``), ``dots_nb`` those without a batch dimension
+    (``dots_with_no_batch_dims_saveable``: the plain attention's
+    einsums reach ``bmm``), ``attn_out`` only the output named
+    "attn_out" (``save_only_these_names``).  Everything else is
+    recomputed, the flash kernels included: a kernel launched through
+    ctypes is no op the policy sees, as a ``pallas_call`` is no dot."""
+    def policy_fn(ctx, op, *args, **kwargs):
+        if policy == "attn_out":
+            keep = (op is torch.ops.ray_tpu_torch.checkpoint_name.default
+                    and args[1] == "attn_out")
+        else:
+            keep = op in (_MATMULS if policy == "dots"
+                          else _MATMULS_NO_BATCH)
+        return (CheckpointPolicy.MUST_SAVE if keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy_fn
+
+
+#: remat policies that save some of the block's tensors
+_SELECTIVE = ("dots", "dots_nb", "attn_out")
 
 
 def _attention(x, p, cfg: GPT2Config):
@@ -249,6 +293,8 @@ def _attention(x, p, cfg: GPT2Config):
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, T, H, hd)
     o = causal_attention(q, k, v, use_flash=cfg.use_flash,
                          resident=cfg.flash_resident)
+    if cfg.remat and cfg.remat_policy == "attn_out":
+        o = checkpoint_name(o, "attn_out")
     wo = p["o_w"].to(cfg.dtype).reshape(h * hd, d)
     return o.reshape(B, T, h * hd) @ wo + p["o_b"].to(cfg.dtype)
 
@@ -296,10 +342,16 @@ def _layers(blocks, n_layer: int) -> List[Dict[str, Any]]:
              for name, sub in per_leaf.items()} for i in range(n_layer)]
 
 
-def _checkpoint(fn, *args):
+def _checkpoint(fn, *args, policy: Optional[str] = None):
+    """``fn(*args)`` recomputed in the backward; ``policy`` (one of
+    _SELECTIVE) names the tensors saved instead of recomputed."""
+    kw = {}
+    if policy is not None:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _saves(policy))
     # no randomness in the model, so no RNG state to stash and restore
     return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+                      preserve_rng_state=False, **kw)
 
 
 def gpt2_hidden(params, tokens, cfg: GPT2Config):
@@ -311,9 +363,11 @@ def gpt2_hidden(params, tokens, cfg: GPT2Config):
     activation; ``remat_policy="mlp_only"`` with flash active
     recomputes only the MLP half of each block (the flash backward
     recomputes its score tiles from O(T) residuals, so the attention
-    half is not rerun); ``"full"``, or ``"mlp_only"`` without flash,
-    recomputes the whole block in the backward
-    (``torch.utils.checkpoint``)."""
+    half is not rerun); ``"dots"``, ``"dots_nb"`` and ``"attn_out"``
+    recompute the block but keep what their policy saves (selective
+    checkpointing, see ``_saves``); ``"full"`` (and any other name, as
+    in JAX), or ``"mlp_only"`` without flash, recomputes the whole
+    block in the backward (``torch.utils.checkpoint``)."""
     if cfg.n_experts:
         raise NotImplementedError(
             "MoE blocks (n_experts > 0) are not ported yet: ROADMAP.md "
@@ -322,21 +376,17 @@ def gpt2_hidden(params, tokens, cfg: GPT2Config):
         raise NotImplementedError(
             "sequence parallelism is not ported yet: ROADMAP.md queue 1 "
             "item 7 (parallel/, ops/ring_attention.py)")
-    if cfg.remat and cfg.remat_policy in _REMAT_TO_PORT:
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet: "
-            f"ROADMAP.md queue 1 item 1 (the next training slice); use "
-            f"'full' or 'mlp_only'")
     B, T = tokens.shape
     x = params["wte"].to(cfg.dtype)[tokens.long()]
     x = x + params["wpe"].to(cfg.dtype)[:T]
     mlp_only = (cfg.remat and cfg.remat_policy == "mlp_only"
                 and _flash_active(cfg, T, tokens.device))
+    policy = cfg.remat_policy if cfg.remat_policy in _SELECTIVE else None
     for p in _layers(params["blocks"], cfg.n_layer):
         if mlp_only:
             x = _checkpoint(_mlp_half, _attn_half(x, p, cfg), p, cfg)
         elif cfg.remat:
-            x = _checkpoint(_block, x, p, cfg)
+            x = _checkpoint(_block, x, p, cfg, policy=policy)
         else:
             x = _block(x, p, cfg)
     return _layernorm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
@@ -434,13 +484,26 @@ def _chunked_ce(hidden, wte, targets, mask, cfg: GPT2Config):
 
 def lm_head_nll(hidden, w_vocab_major, targets, cfg) -> torch.Tensor:
     """Per-token nll through the non-dense CE implementations (the JAX
-    ``lm_head_nll``).  Neither is ported yet: "streaming_xla"
-    (ops/vocab_ce.py) and "pallas" (the fused lm-head + CE kernels of
-    ops/fused_ce.py) come with the next training slice."""
-    raise NotImplementedError(
-        f"ce_impl={cfg.ce_impl!r} is not ported yet: ROADMAP.md queue 1 "
-        f"item 1 (the next training slice: the fused lm-head + CE "
-        f"kernels and ops/vocab_ce.py); use ce_impl='dense'")
+    ``lm_head_nll``), for gpt2 and any config carrying ce_impl /
+    vocab_size / vocab_tile / ce_block_n / ce_block_v / dtype /
+    padded_vocab.  hidden (B, T, D); w_vocab_major (V, D), the tied wte
+    (the f32 master as it is: the CE casts it inside, so its gradient
+    stays f32) or a transposed lm_head; targets (B, T) int.  "pallas"
+    takes the fused lm-head + CE kernels (ops/fused_ce.py), otherwise
+    the vocab-streamed loop (ops/vocab_ce.py).  Returns (B, T)
+    float32."""
+    B, T = targets.shape
+    h2 = hidden.reshape(B * T, -1)
+    t1 = targets.reshape(-1).to(torch.int32)
+    if cfg.ce_impl == "pallas":
+        nll = fused_lm_ce(h2, w_vocab_major, t1, cfg.vocab_size,
+                          block_n=cfg.ce_block_n,
+                          block_v=min(cfg.ce_block_v, cfg.padded_vocab),
+                          compute_dtype=cfg.dtype)
+    else:
+        nll = streaming_ce(h2, w_vocab_major, t1, cfg.vocab_size,
+                           min(cfg.vocab_tile, cfg.padded_vocab), cfg.dtype)
+    return nll.reshape(B, T)
 
 
 def gpt2_loss(params, batch, cfg: GPT2Config) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Compute ops of the port: attention dispatch and the flash kernels."""
+"""Compute ops of the port: attention dispatch, the flash kernels and
+the lm-head + cross-entropy implementations (fused kernels, streaming)."""
 
 from ray_tpu_torch.ops.attention import (causal_attention,
                                          flash_auto_dispatch,
@@ -8,9 +9,11 @@ from ray_tpu_torch.ops.flash_attention import (
     SUPPORTED_HEAD_DIMS, flash_attention, flash_attention_bwd,
     flash_attention_bwd_reference, flash_attention_fwd,
     flash_attention_fwd_reference, resolve_resident_mode)
+from ray_tpu_torch.ops.fused_ce import fused_lm_ce
+from ray_tpu_torch.ops.vocab_ce import streaming_ce
 
 __all__ = ["causal_attention", "flash_auto_dispatch", "prefill_attention",
            "reference_attention", "SUPPORTED_HEAD_DIMS", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_fwd", "flash_attention_fwd_reference",
-           "resolve_resident_mode"]
+           "fused_lm_ce", "resolve_resident_mode", "streaming_ce"]

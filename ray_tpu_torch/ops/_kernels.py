@@ -47,6 +47,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           ctypes.c_float, _I, _I, _P),
     },
+    "fused_ce": {
+        # h, w, tgt, nll, lse, N, V, D, valid_vocab, is_bf16, stream
+        "fused_ce_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # h, w, tgt, lse, g, dh (f32), N, V, D, valid_vocab, is_bf16,
+        # stream
+        "fused_ce_bwd_dh": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P),
+        # h, w, tgt, lse, g, dw (f32), N, V, D, valid_vocab, is_bf16,
+        # stream
+        "fused_ce_bwd_dw": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P),
+    },
 }
 
 
@@ -121,10 +133,20 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error (a refused launch never
-    runs, and a later synchronize would not report it)."""
+def launch(lib_name: str, fn_name: str, tensors, scalars, device) -> None:
+    """Call launcher ``fn_name`` of ``csrc/<lib_name>.cu`` with the data
+    pointers of ``tensors``, then ``scalars``, then the current stream
+    of ``device``, and raise if it returned a CUDA error (a refused
+    launch never runs, and a later synchronize would not report it).
+    The caller checks what the kernel takes and counts the launch."""
+    import torch
+
+    lib = library(lib_name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, fn_name)(*(t.data_ptr() for t in tensors),
+                                *scalars, stream)
     if err != 0:
         msg = lib.kernel_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err} "
                            f"({msg})")

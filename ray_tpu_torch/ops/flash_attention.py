@@ -137,28 +137,21 @@ def _check_kernel_args(what: str, tensors, BH: int, D: int) -> None:
                          f"aligned tensors")
 
 
-def _stream(device):
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
-
-
 def _launch(lib_name: str, fn_name: str, counter: str, inputs, outputs, *,
             scale: float, causal: bool) -> None:
     """Launch ``fn_name`` of ``csrc/<lib_name>.cu`` on ``inputs`` (the
     first one (BH, T, D)), writing ``outputs``, and add one to the
-    module's launch counter named ``counter``.  Every launcher takes
-    (inputs..., outputs..., BH, T, D, scale, causal, is_bf16, stream)."""
+    module's launch counter named ``counter``.  Every flash launcher
+    takes (inputs..., outputs..., BH, T, D, scale, causal, is_bf16,
+    stream)."""
     from ray_tpu_torch.ops import _kernels
 
     q3 = inputs[0]
     BH, T, D = q3.shape
     _check_kernel_args(fn_name, inputs, BH, D)
-    lib = _kernels.library(lib_name)
-    err = getattr(lib, fn_name)(
-        *(t.data_ptr() for t in (*inputs, *outputs)), BH, T, D,
-        float(scale), int(causal), int(q3.dtype == torch.bfloat16),
-        _stream(q3.device))
-    _kernels.check(lib, err, fn_name)
+    _kernels.launch(lib_name, fn_name, (*inputs, *outputs),
+                    (BH, T, D, float(scale), int(causal),
+                     int(q3.dtype == torch.bfloat16)), q3.device)
     globals()[counter] += 1
 
 

@@ -3,12 +3,15 @@
 Nano preset in float32.  The JAX package initializes the parameters;
 they cross to the port through numpy (models/convert.py), and both
 packages see the same numpy batch.  JAX runs ``use_flash=False`` (its
-model passes no ``interpret``, so its Pallas kernels cannot run on the
-CPU); the port runs both ``use_flash=True`` (the flash autograd
-Function over the kernels' plain versions) and ``False``.  With flash
-off the JAX ``mlp_only`` policy is full remat and every remat policy
-computes the same function, so one JAX reference serves every port
-remat case.
+model passes no ``interpret`` to the flash kernel, so that Pallas
+kernel cannot run on the CPU); the port runs both ``use_flash=True``
+(the flash autograd Function over the kernels' plain versions) and
+``False``.  With flash off the JAX ``mlp_only`` policy is full remat
+and every remat policy computes the same function, so one JAX
+reference serves every port remat case.  The non-dense CE
+implementations get a JAX reference each: ``ce_impl="pallas"`` runs the
+JAX fused-CE Pallas kernels in interpret mode (the package picks it off
+the TPU), ``"streaming_xla"`` its ``lax.scan``.
 """
 
 import functools
@@ -44,11 +47,16 @@ def _batch(form: str):
             "mask": mask}
 
 
+#: the non-dense CE configurations, as tests/test_fused_ce.py sizes them
+CE = {"pallas": dict(ce_impl="pallas", ce_block_n=16, ce_block_v=128),
+      "streaming_xla": dict(ce_impl="streaming_xla", vocab_tile=64)}
+
+
 @functools.lru_cache(maxsize=None)
-def _jax_reference(form: str, loss_chunks: int):
+def _jax_reference(form: str, loss_chunks: int, ce: str = "dense"):
     """(numpy params, loss, numpy grad leaves) of JAX value_and_grad."""
     cfg = jg.gpt2_config("nano", dtype=jnp.float32, use_flash=False,
-                         loss_chunks=loss_chunks)
+                         loss_chunks=loss_chunks, **CE.get(ce, {}))
     params = jg.gpt2_init(jax.random.PRNGKey(0), cfg)
     batch = {k: jnp.asarray(v) for k, v in _batch(form).items()}
     loss, grads = jax.jit(jax.value_and_grad(
@@ -70,6 +78,9 @@ def _port_value_and_grad(np_params, form, **cfg_kw):
 
 REMAT = {"full": dict(remat=True, remat_policy="full"),
          "mlp_only": dict(remat=True, remat_policy="mlp_only"),
+         "dots": dict(remat=True, remat_policy="dots"),
+         "dots_nb": dict(remat=True, remat_policy="dots_nb"),
+         "attn_out": dict(remat=True, remat_policy="attn_out"),
          "off": dict(remat=False)}
 
 
@@ -80,6 +91,25 @@ def test_loss_and_grads_match_jax(form, use_flash, remat):
     np_params, want_loss, want_grads = _jax_reference(form, 1)
     loss, grads = _port_value_and_grad(np_params, form, use_flash=use_flash,
                                        **REMAT[remat])
+    np.testing.assert_allclose(loss, want_loss, atol=LOSS_TOL,
+                               rtol=LOSS_TOL)
+    assert len(grads) == len(want_grads) == 16
+    for i, (g, w) in enumerate(zip(grads, want_grads)):
+        np.testing.assert_allclose(g, w, atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=f"gradient leaf {i}")
+
+
+@pytest.mark.parametrize("form", ["tokens", "masked"])
+@pytest.mark.parametrize("use_flash", [True, False])
+@pytest.mark.parametrize("ce", sorted(CE))
+def test_ce_impls_match_jax(form, use_flash, ce):
+    """The fused CE (its kernels' plain versions through the autograd
+    Function) and the streaming CE against JAX's, loss and every
+    gradient leaf, the wte leaf included (its gradient comes back
+    through the CE in f32)."""
+    np_params, want_loss, want_grads = _jax_reference(form, 1, ce)
+    loss, grads = _port_value_and_grad(np_params, form, use_flash=use_flash,
+                                       remat_policy="mlp_only", **CE[ce])
     np.testing.assert_allclose(loss, want_loss, atol=LOSS_TOL,
                                rtol=LOSS_TOL)
     assert len(grads) == len(want_grads) == 16
@@ -131,12 +161,16 @@ def test_nll_from_logits_matches_jax():
                                rtol=LOSS_TOL)
 
 
-@pytest.mark.parametrize("remat,fwd,bwd", [("mlp_only", 2, 2),
-                                           ("full", 4, 2), ("off", 2, 2)])
+@pytest.mark.parametrize("remat,fwd,bwd", [
+    ("mlp_only", 2, 2), ("full", 4, 2), ("off", 2, 2), ("dots", 4, 2),
+    ("dots_nb", 4, 2), ("attn_out", 4, 2)])
 def test_flash_calls_per_step_follow_remat(monkeypatch, remat, fwd, bwd):
     """mlp_only with flash runs the attention forward once per layer;
-    full remat reruns it in the backward.  Counted on the CPU at the
-    wrappers the kernels sit behind (2 layers)."""
+    full remat reruns it in the backward, and so do the selective
+    policies: the flash forward is no op their policy can save, as a
+    pallas_call is no dot in JAX (its output under "attn_out" is saved,
+    but the backward still needs q, k, v and lse).  Counted on the CPU
+    at the wrappers the kernels sit behind (2 layers)."""
     calls = {"fwd": 0, "bwd": 0}
     real_fwd, real_bwd = tfa.flash_attention_fwd, tfa.flash_attention_bwd
 
@@ -155,11 +189,6 @@ def test_flash_calls_per_step_follow_remat(monkeypatch, remat, fwd, bwd):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(ce_impl="streaming_xla"), "queue 1 item 1"),
-    (dict(ce_impl="pallas"), "queue 1 item 1"),
-    (dict(remat_policy="dots"), "queue 1 item 1"),
-    (dict(remat_policy="dots_nb"), "queue 1 item 1"),
-    (dict(remat_policy="attn_out"), "queue 1 item 1"),
     (dict(n_experts=2), "queue 1 item 7"),
     (dict(seq_parallel=True), "queue 1 item 7"),
 ])
