@@ -25,10 +25,11 @@ Phases, each fatal on failure (any failure exits non-zero):
             the card tests' shapes (bf16 and f32) and at the training
             shape (N=B*T=24576, V=50304, valid 50257, D=768, bf16, g =
             1/N as the mean loss gives), where they are timed beside
-            their plain versions, their bounds and the dense
-            composition (the dense CE's logits product, logsumexp and
-            gather; its backward for dH and dW together), a yardstick
-            the fused path never calls.
+            their plain versions, their bounds (and the share of it
+            each reaches), their grids and the dense composition (the
+            dense CE's logits product, logsumexp and gather; its
+            backward for dH and dW together, and the ratio of dH + dW
+            to it), a yardstick the fused path never calls.
 6. serve  — build the GPT-2-124M engine (full width, seeded random
             weights, bf16 compute) on the card, answer 8 concurrent
             512-token requests and one ragged batch, check the replies,
@@ -130,7 +131,8 @@ LOGIT_TOL = 0.1
 CE_OUT_TOL = (1e-4, 1e-4)
 CE_GRAD_TOL = {"f32": (1e-4, 1e-4, 1e-5), "bf16": (1e-2, 2e-2, 2e-3)}
 CE_SHAPES = ((33, 130, 123, 64), (70, 300, 257, 192),
-             (1000, 50304, 50257, 768), (200, 1000, 990, 1024))
+             (1000, 50304, 50257, 768), (200, 1000, 990, 1024),
+             (65, 1088, 1000, 64), (130, 513, 500, 128))
 # GPT-2-124M's head at the training shape
 CE_N, CE_V, CE_VALID, CE_D = TRAIN_B * TRAIN_T, 50304, 50257, 768
 # one GPT-2-124M step, other CE or remat vs its reference step on the
@@ -742,20 +744,26 @@ def phase_kernel_ce(torch, fc, card: str) -> dict:
         nll, (hg, wg), g, retain_graph=True), iters=5)
     del nll, hg, wg
     bounds = ce_bounds_ms(CE_N, CE_V, valid, CE_D)
-    # how many CTAs each kernel runs, in waves over the card's SMs
+    # how many CTAs each kernel runs (the module's tiles), in waves over
+    # the card's SMs
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ctas = {"fwd": -(-CE_N // 32), "dh": -(-CE_N // 32),
-            "dw": -(-CE_V // 32)}
+    slices = -(-CE_D // fc.BWD_SLICE_COLS)
+    ctas = {"fwd": -(-CE_N // fc.FWD_BLOCK_ROWS),
+            "dh": -(-CE_N // fc.BWD_BLOCK_ROWS) * slices,
+            "dw": -(-CE_V // fc.BWD_BLOCK_ROWS) * slices}
+    share = {k: bounds[k][0] / ms[k] for k in ms}
     for k in ("fwd", "dh", "dw"):
         print(f"[kernel-ce]   {k:3s}: kernel {ms[k]:.4f} ms, plain "
               f"{plain[k]:.4f} ms, bound {bounds[k][0]:.4f} ms "
-              f"({bounds[k][1]}), {ctas[k]} CTAs = "
-              f"{ctas[k] / sms:.2f} waves on {sms} SMs [{card}]",
-              flush=True)
+              f"({bounds[k][1]}, {100 * share[k]:.1f}% of it reached), "
+              f"{ctas[k]} CTAs = {ctas[k] / sms:.2f} waves on {sms} SMs "
+              f"[{card}]", flush=True)
+    bwd_ratio = (ms["dh"] + ms["dw"]) / dense_bwd
     print(f"[kernel-ce]   dense composition: forward {dense_fwd:.4f} ms, "
           f"backward (dH and dW) {dense_bwd:.4f} ms; fused forward + dH + "
-          f"dW {ms['fwd'] + ms['dh'] + ms['dw']:.4f} ms [{card}]",
-          flush=True)
+          f"dW {ms['fwd'] + ms['dh'] + ms['dw']:.4f} ms; fused dH + dW "
+          f"{ms['dh'] + ms['dw']:.4f} ms = {bwd_ratio:.3f}x the dense "
+          f"backward [{card}]", flush=True)
     dense = {"library": "dense CE composition: torch.mm(out_dtype="
                         "float32) logits, logsumexp, gather (dH and dW: "
                         "its backward, together)",
@@ -768,7 +776,10 @@ def phase_kernel_ce(torch, fc, card: str) -> dict:
             "ms": ms[k], "plain_ms": plain[k], "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1],
             "library_ms": dense_fwd if k == "fwd" else None,
-            "dense_composition": dense, "ctas": ctas[k]}
+            "bound_share": share[k], "dense_composition": dense,
+            "ctas": ctas[k]}
+        if k != "fwd":
+            records[k]["dh_plus_dw_over_dense_backward"] = bwd_ratio
     return records
 
 

@@ -27,89 +27,115 @@
 // (1.92 ms at 989 TFLOP/s) against ~115 MB of inputs (0.035 ms at
 // 3.35 TB/s); dH and dW each recompute the logits and do their own
 // product, 4*N*V*D = 3.80 TFLOP (3.84 ms).  All three are
-// operations-bound; the design's aim is to keep the tensor cores fed
-// and every logits tile on chip.
+// operations-bound on paper.  Each CTA owns rows of one operand (R) and
+// walks all of the other (C), so the walked operand is read from L2 once
+// per CTA, and in the backward every 32-row C tile is read from shared
+// memory by both products (at D = 768: 144 KB by S, whose A operand is
+// re-read for every 32 columns, and 48 KB by the second product): 1,536
+// clocks at 128 bytes a clock, as long as the tile's 6.3 MFLOP take on
+// the tensor cores, so shared memory and tensor cores bound it together.
 //
 // What the design does about it.  The TPU kernels carry their state
 // (m, s, target logit; a (256, 768) f32 dH scratch; a (1024, 768) f32
 // dW scratch) across a sequential grid axis.  Hopper blocks run in no
 // order, so each CTA owns its output rows and walks the other operand
 // in a loop inside the CTA: no atomics, no cross-CTA reduction, and the
-// result is deterministic.  All three kernels share one shape:
+// result is deterministic (each output element is summed by one CTA in
+// one fixed order).  Forward and dH own rows of h and walk vocab tiles
+// of w up to valid_vocab; dW owns rows of w and walks the rows of h.
 //
-//   R, the operand whose rows the CTA owns, resident in shared memory
-//     (forward, dH: 32 rows of h; dW: 32 rows of w);
-//   C, the operand the loop walks, staged 64 rows at a time (forward,
-//     dH: vocab tiles of w, stopping at valid_vocab; dW: row tiles of
-//     h), all CTAs in the same order so that their reads of w (77 MB,
-//     more than the 50 MB L2) meet in L2;
-//   S = R . C^T, a 32 x 64 f32 tile per step.
+// The backward, bfloat16 (fused_ce_bwd_bf16_kernel; one template, R and
+// C swapping roles):
+// * R block of 64 rows, resident in shared memory as D/64 TMA boxes of
+//   64 x 64 with 128-byte swizzle (96 KB at D = 768).  Against 32-row
+//   blocks this halves the L2 traffic of the walked operand: 384 CTAs x
+//   77.2 MB of w for dH, 786 x 37.7 MB of h for dW, 29.6 GB each.
+// * C tiles of 32 rows stream through a ring of two stages (2 x 48 KB)
+//   fed by TMA (zero fill past the edges) with full/empty mbarriers.
+// * Three warpgroups: a producer (setmaxnreg 24; one thread issues the
+//   TMA loads, its warp copies the lse, g and targets of dH's rows, or
+//   of each dW stage's columns, into shared memory) and two consumers
+//   (setmaxnreg 240): 2 x 128 x 240 + 128 x 24 = 64,512 of the SM's
+//   65,536 registers (a version whose producer kept 32, all 65,536,
+//   hung at its first launch).
+// * The consumers ping-pong over C tiles.  Tile t's S = R . C_t^T
+//   (wgmma m64n32k16, both operands K-major from shared memory, all of
+//   D in one fixed order) is computed once, by consumer t % 2, which
+//   forms dlogits in registers (per row lse/g/target for dH, per column
+//   for dW), rounds them to bf16 and stores them, in the accumulator's
+//   register order, to a 4 KB buffer; an mbarrier hands them to the
+//   other consumer.
+// * The second product is split over D: each consumer owns half of the
+//   CTA's output columns, up to 6 boxes of 64 (a 64 x 384 f32
+//   accumulator, 192 registers a thread at D = 768), and runs acc +=
+//   dlogits_t . C_t[:, its boxes] with wgmma m64n64k16, dlogits as the
+//   register A operand and C_t MN-major from shared memory (transpose
+//   bit).  A stage is released when both consumers' products on it are
+//   done.  Per pair of tiles each consumer does one S and two
+//   half-products.  Order: on a two-stage ring a consumer computes
+//   S_{t+1} (if it owns it) before its half of tile t, on a one-stage
+//   ring after it.
+// * Shared memory at D = 768: 96 KB R + 96 KB ring + 8 KB dlogits +
+//   per-column data and barriers = 201.8 KB of 227 KB.  D above 768
+//   (GPT-2 medium's 1024 is a test shape) does not fit two stages: the
+//   ring gets one, and the output's columns are cut into slices of at
+//   most 12 boxes along the grid's y axis, each slice recomputing S.
+// * dW CTAs whose vocab rows all lie past valid_vocab write zeros and
+//   walk nothing; rows of R past N or V are zeros from TMA with their p
+//   forced to 0.  Output offsets are 64-bit.
+// * What keeps ptxas pipelining the wgmmas (else it serialises them and
+//   the kernel runs ~2x slower): the kernel is a template on D / 64, so
+//   loops, shared-memory offsets and each consumer's box count are
+//   constants and no wgmma sits behind a runtime guard; the warpgroup
+//   index is read through a shuffle so that it is known to be uniform;
+//   each product's first wgmma has scale-d 0 instead of accumulators
+//   zeroed by other instructions; accumulators are fenced around each
+//   product.  ptxas then needs 240 registers and spills none.
 //
-// The wide accumulators.  A 32 x 768 f32 dH (or dW) block is 96 KB: it
-// does not fit one warp's registers, and a 64-row block would not fit
-// the SM's.  So the CTA's 8 warps form 2 row tiles (16 rows) x 4 strips
-// of D, and each warp keeps its 16 x D/4 block of the accumulator in
-// registers (96 floats a thread at D = 768, 128 at D = 1024).  The logits
-// tile is contracted over D the same way: each warp forms S over its
-// strip of D, and the four strips' partial tiles are summed through
-// shared memory in a fixed order, so every warp of a row tile holds the
-// same complete f32 S in the mma.sync accumulator layout, with no
-// product done twice.  That layout is the A-operand layout of the next
-// product: dlogits (dH) and dlogits^T (dW, where S^T = W_tile . h_tile^T
-// puts the vocab on the rows) feed acc += dlogits . C_strip straight
-// from registers, with C's B fragments by ldmatrix.trans, as
-// flash_bwd.cu's dK/dV kernel feeds P^T and dS^T.  In dW, lse, g and
-// the targets belong to the columns and are read from shared memory.
+// The forward, bfloat16 (fused_ce_fwd_bf16_kernel): 32 rows of h
+// resident with a padded row stride (D + 8), vocab tiles of 64 rows
+// staged synchronously; 8 warps = 2 row tiles (16 rows) x 4 strips of
+// D, each forming S over its strip with mma.sync m16n8k16 (mma_bf16.cuh),
+// the four strips' partial tiles summed through shared memory in a fixed
+// order; one 8-warp CTA per SM (182 KB), 768 CTAs at the training shape.
 //
-// Shared memory: R and C tiles with a padded row stride (D + 8), the
-// 8 x 16 x 64 f32 partial tiles and the per-column lse/g/targets:
-// 182.5 KB at D = 768 and 231.7 KB at D = 1024 (of 227 KB), so one CTA
-// of 8 warps per SM.  The forward grid at the training shape is 768
-// CTAs (5.8 waves on 132 SMs), dH 768, dW 1,572 (11.9 waves).
+// float32, all three: tensor cores would round to TF32, so plain f32
+// FMA: 256 threads over a 16-row tile of R, each owning 4 columns of S
+// and a 16-row strided block of the accumulator; C is staged in 64 x 64
+// chunks of D (twice per step in the backward); dlogits passes through
+// shared memory.
 //
-// Two bodies of each kernel, chosen by the input dtype:
-// * bfloat16: mma.sync m16n8k16 (bf16 in, f32 accumulate) through
-//   mma_bf16.cuh, as above;
-// * float32: tensor cores would round to TF32, so plain f32 FMA: 256
-//   threads over a 16-row tile of R, each owning 4 columns of S and a
-//   16-row strided block of the accumulator; C is staged in 64 x 64
-//   chunks of D (twice per step in the backward); dlogits passes
-//   through shared memory.
-//
-// D is any multiple of 64 from 64 to 1024, a runtime argument: the
-// register accumulators are sized for D = 1024 and their loops are
-// unrolled with a guard.  A ragged last tile of R or C is staged as
-// zeros and masked (its p forced to 0, never exp of a garbage lse);
-// there is no padding of the inputs.  Offsets that multiply two sizes
-// are 64-bit.  Simple first: no cp.async/TMA pipelining, no wgmma.
+// D is any multiple of 64 from 64 to 1024, a runtime argument (the
+// bf16 backward dispatches it to one of 16 instantiations).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxD = 1024;
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kBlockC = 64;    // rows of C per step
+constexpr int kBlockC = 64;    // rows of C per step (forward, f32)
+constexpr size_t kMaxSmem = 232448;  // 227 KB, a CTA's most on sm_90
 
 enum Mode { kFwd = 0, kDh = 1, kDw = 2 };
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core kernels
+// bfloat16 forward: mma.sync
 // ---------------------------------------------------------------------------
 
 constexpr int kBlockR = 32;  // rows of R per CTA: 2 row tiles of 16
 constexpr int kStrips = 4;   // strips of D: one per warp of a row tile
-constexpr int kMaxStripTiles = kMaxD / kStrips / 8;  // n8 tiles a strip
-constexpr int kPartFloats = 16 * kBlockC;            // a warp's S part
+constexpr int kPartFloats = 16 * kBlockC;  // a warp's S part
 
-size_t bf16_smem_bytes(int d) {
+size_t fwd_bf16_smem_bytes(int d) {
   return static_cast<size_t>(kBlockR + kBlockC) * (d + 8) * sizeof(bf16) +
-         static_cast<size_t>(8 * kPartFloats + 3 * kBlockC) * sizeof(float);
+         static_cast<size_t>(8 * kPartFloats) * sizeof(float);
 }
 
 // rows [row0, row0 + ROWS) of a (n_rows, d) bf16 matrix into a shared
@@ -130,27 +156,18 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
   }
 }
 
-// forward: out0 = nll (N,), out1 = lse (N,); dH: out0 = dh (N, D) f32;
-// dW: out0 = dw (V, D) f32
-template <int MODE>
+// nll (N,) and lse (N,) of 32 rows of h per CTA
 __global__ void __launch_bounds__(kThreads, 1)
-fused_ce_bf16_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
-                     const int* __restrict__ tgt,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ g, float* __restrict__ out0,
-                     float* __restrict__ out1, int n_rows, int n_vocab,
-                     int d, int valid) {
-  // forward and dH own rows of h and walk the vocab along S's columns;
-  // dW owns rows of w (vocab) and walks the rows of h
-  constexpr bool kRowsOfH = MODE != kDw;
+fused_ce_fwd_bf16_kernel(const bf16* __restrict__ h,
+                         const bf16* __restrict__ w,
+                         const int* __restrict__ tgt,
+                         float* __restrict__ nll, float* __restrict__ lse,
+                         int n_rows, int n_vocab, int d, int valid) {
   const int stride = d + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* r_s = reinterpret_cast<bf16*>(smem_raw);        // kBlockR x stride
   bf16* c_s = r_s + kBlockR * stride;                   // kBlockC x stride
   float* part = reinterpret_cast<float*>(c_s + kBlockC * stride);
-  float* col_lse = part + 8 * kPartFloats;              // kBlockC
-  float* col_g = col_lse + kBlockC;                     // kBlockC
-  int* col_tgt = reinterpret_cast<int*>(col_g + kBlockC);  // kBlockC
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -160,55 +177,23 @@ fused_ce_bf16_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
   const int dj = warp >> 1;  // strip of D
   const int strip = d / kStrips;
   const int k_begin = dj * strip;
-  const int n_strip_tiles = strip / 8;
   const int r0 = blockIdx.x * kBlockR;
-  const int r_rows = kRowsOfH ? n_rows : n_vocab;
-  const int c_rows = kRowsOfH ? n_vocab : n_rows;
-  const bf16* r_src = kRowsOfH ? h : w;
-  const bf16* c_src = kRowsOfH ? w : h;
-  const int row_a = r0 + mi * 16 + g8;  // this thread's two rows of R
+  const int row_a = r0 + mi * 16 + g8;  // this thread's two rows of h
   const int row_b = row_a + 8;
 
-  stage_rows<kBlockR>(r_s, r_src, r0, r_rows, d);
+  stage_rows<kBlockR>(r_s, h, r0, n_rows, d);
 
-  // forward and dH: the targets, lse and g of this thread's rows
-  int tgt_a = -1, tgt_b = -1;
-  float lse_a = 0.f, lse_b = 0.f, g_a = 0.f, g_b = 0.f;
-  if (kRowsOfH) {
-    if (row_a < n_rows) {
-      tgt_a = tgt[row_a];
-      if (MODE == kDh) lse_a = lse[row_a], g_a = g[row_a];
-    }
-    if (row_b < n_rows) {
-      tgt_b = tgt[row_b];
-      if (MODE == kDh) lse_b = lse[row_b], g_b = g[row_b];
-    }
-  }
-  // forward: running max, sum (this thread's columns) and target logit
+  const int tgt_a = row_a < n_rows ? tgt[row_a] : -1;
+  const int tgt_b = row_b < n_rows ? tgt[row_b] : -1;
+  // running max, sum (this thread's columns) and target logit
   float m_a = kNegInf, m_b = kNegInf, s_a = 0.f, s_b = 0.f, t_a = 0.f,
         t_b = 0.f;
-  // dH, dW: this warp's 16 rows x its strip of D
-  float acc[kMaxStripTiles][4];
-#pragma unroll
-  for (int nd = 0; nd < kMaxStripTiles; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
 
-  // forward, dH: vocab tiles up to valid_vocab (no column past it can
-  // add to a sum or be a target); dW: every row tile of h, none for a
-  // CTA whose vocab rows are all masked (their dW is 0)
-  const int c_end = kRowsOfH ? valid : (r0 < valid ? n_rows : 0);
-  for (int c0 = 0; c0 < c_end; c0 += kBlockC) {
+  // vocab tiles up to valid_vocab: no column past it can add to a sum
+  // or be a target
+  for (int c0 = 0; c0 < valid; c0 += kBlockC) {
     __syncthreads();  // all reads of the previous C tile and parts done
-    stage_rows<kBlockC>(c_s, c_src, c0, c_rows, d);
-    if (MODE == kDw) {
-      for (int i = threadIdx.x; i < kBlockC; i += kThreads) {
-        const bool in = c0 + i < n_rows;
-        col_lse[i] = in ? lse[c0 + i] : 0.f;
-        col_g[i] = in ? g[c0 + i] : 0.f;
-        col_tgt[i] = in ? tgt[c0 + i] : -1;
-      }
-    }
+    stage_rows<kBlockC>(c_s, w, c0, n_vocab, d);
     __syncthreads();
 
     // this warp's part of S = R C^T: its 16 rows, all 64 columns,
@@ -247,126 +232,352 @@ fused_ce_bf16_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w,
                   part[(mi + 6) * kPartFloats + idx];
       }
 
-    if (MODE == kFwd) {
-      // online logsumexp over this vocab tile: s[j][0..1] row_a, [2..3]
-      // row_b; a row's 64 columns lie in the 4 lanes of a quad
-      float mx_a = kNegInf, mx_b = kNegInf;
+    // online logsumexp over this vocab tile: s[j][0..1] row_a, [2..3]
+    // row_b; a row's 64 columns lie in the 4 lanes of a quad
+    float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + j * 8 + 2 * t4 + (e & 1);
-          const float v = col < valid ? s[j][e] : kNegInf;
-          s[j][e] = v;
-          if (e < 2)
-            mx_a = fmaxf(mx_a, v);
-          else
-            mx_b = fmaxf(mx_b, v);
-        }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + j * 8 + 2 * t4 + (e & 1);
+        const float v = col < valid ? s[j][e] : kNegInf;
+        s[j][e] = v;
+        if (e < 2)
+          mx_a = fmaxf(mx_a, v);
+        else
+          mx_b = fmaxf(mx_b, v);
       }
-      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-      s_a *= expf(m_a - mn_a);
-      s_b *= expf(m_b - mn_b);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + j * 8 + 2 * t4 + (e & 1);
-          const float v = s[j][e];
-          if (e < 2) {
-            s_a += expf(v - mn_a);
-            if (col == tgt_a) t_a += v;
-          } else {
-            s_b += expf(v - mn_b);
-            if (col == tgt_b) t_b += v;
-          }
-        }
-      m_a = mn_a;
-      m_b = mn_b;
-    } else {
-      // dlogits in place of S
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int lc = j * 8 + 2 * t4 + (e & 1);
-          const bool hi = e >= 2;
-          float dl;
-          if (kRowsOfH) {  // rows: h rows; columns: vocab
-            const int row = hi ? row_b : row_a;
-            const int col = c0 + lc;
-            const float logit = col < valid ? s[j][e] : kNegInf;
-            const float p =
-                row < n_rows ? expf(logit - (hi ? lse_b : lse_a)) : 0.f;
-            dl = (col == (hi ? tgt_b : tgt_a) ? p - 1.f : p) *
-                 (hi ? g_b : g_a);
-          } else {  // rows: vocab; columns: h rows
-            const int vr = hi ? row_b : row_a;
-            const float logit = vr < valid ? s[j][e] : kNegInf;
-            const float p =
-                c0 + lc < n_rows ? expf(logit - col_lse[lc]) : 0.f;
-            dl = (vr == col_tgt[lc] ? p - 1.f : p) * col_g[lc];
-          }
-          s[j][e] = dl;
-        }
-      // acc (16 x strip) += dlogits (16 x 64, rounded to bf16) . C (64
-      // rows x strip)
-#pragma unroll
-      for (int kk = 0; kk < kBlockC / 16; ++kk) {
-        const uint32_t xa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        const bf16* cr = c_s + (kk * 16 + (lane & 15)) * stride + k_begin;
-#pragma unroll
-        for (int nd = 0; nd < kMaxStripTiles; ++nd) {
-          if (nd < n_strip_tiles) {
-            uint32_t b0, b1;
-            ldmatrix_x2_trans(b0, b1, cr + nd * 8);
-            mma_bf16(acc[nd], xa, b0, b1);
-          }
-        }
-      }
-    }
-  }
-
-  if (MODE == kFwd) {
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      s_a += __shfl_xor_sync(0xffffffffu, s_a, off);
-      s_b += __shfl_xor_sync(0xffffffffu, s_b, off);
-      t_a += __shfl_xor_sync(0xffffffffu, t_a, off);
-      t_b += __shfl_xor_sync(0xffffffffu, t_b, off);
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
     }
-    if (dj == 0 && t4 == 0) {
-      if (row_a < n_rows) {
-        const float l = m_a + logf(s_a);
-        out0[row_a] = l - t_a;
-        out1[row_a] = l;
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    s_a *= expf(m_a - mn_a);
+    s_b *= expf(m_b - mn_b);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + j * 8 + 2 * t4 + (e & 1);
+        const float v = s[j][e];
+        if (e < 2) {
+          s_a += expf(v - mn_a);
+          if (col == tgt_a) t_a += v;
+        } else {
+          s_b += expf(v - mn_b);
+          if (col == tgt_b) t_b += v;
+        }
       }
-      if (row_b < n_rows) {
-        const float l = m_b + logf(s_b);
-        out0[row_b] = l - t_b;
-        out1[row_b] = l;
+    m_a = mn_a;
+    m_b = mn_b;
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    s_a += __shfl_xor_sync(0xffffffffu, s_a, off);
+    s_b += __shfl_xor_sync(0xffffffffu, s_b, off);
+    t_a += __shfl_xor_sync(0xffffffffu, t_a, off);
+    t_b += __shfl_xor_sync(0xffffffffu, t_b, off);
+  }
+  if (dj == 0 && t4 == 0) {
+    if (row_a < n_rows) {
+      const float l = m_a + logf(s_a);
+      nll[row_a] = l - t_a;
+      lse[row_a] = l;
+    }
+    if (row_b < n_rows) {
+      const float l = m_b + logf(s_b);
+      nll[row_b] = l - t_b;
+      lse[row_b] = l;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 backward: TMA ring, warp-specialised wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 384;  // consumers 0-255, producer 256-383
+constexpr int kBwdRows = 64;      // rows of R per CTA
+constexpr int kBwdTile = 32;      // rows of C per ring stage
+constexpr int kBox = 64;          // columns of a TMA box (128 bytes)
+constexpr int kRBoxBytes = kBwdRows * kBox * 2;
+constexpr int kCBoxBytes = kBwdTile * kBox * 2;
+constexpr int kDlWords = kBwdRows * kBwdTile / 2;  // bf16 pairs of a tile
+constexpr int kMaxOwnBoxes = 6;  // output boxes per consumer: 384 columns
+constexpr int kMaxSliceBoxes = 2 * kMaxOwnBoxes;
+constexpr int kProducerRegs = 24;  // 2 x 128 x 240 + 128 x 24 = 64,512
+constexpr int kConsumerRegs = 240;
+// dH: 64 rows of h; dW: 32 columns in each of two stages
+constexpr int kRowData = 64;
+
+constexpr size_t bwd_bf16_smem_bytes(int boxes, int stages) {
+  return 1024 +  // room to align the base to 1024 bytes for the swizzle
+         static_cast<size_t>(boxes) * (kRBoxBytes + stages * kCBoxBytes) +
+         2 * kDlWords * sizeof(uint32_t) +
+         3 * kRowData * 4 +      // lse, g, target per row or column
+         7 * sizeof(uint64_t);   // barriers
+}
+
+// Compile-time shape of the backward for BOXES = D / 64: the ring's
+// stages, the column slices, and NB, the output boxes of the larger
+// consumer (a constant, so that no wgmma sits behind a runtime guard)
+template <int BOXES>
+struct BwdShape {
+  static constexpr int kStages =
+      bwd_bf16_smem_bytes(BOXES, 2) <= kMaxSmem ? 2 : 1;
+  static constexpr int kSlices = (BOXES + kMaxSliceBoxes - 1) / kMaxSliceBoxes;
+  static constexpr int kPerSlice = (BOXES + kSlices - 1) / kSlices;
+  static constexpr int kNB = (kPerSlice + 1) / 2;
+  static constexpr size_t kSmem = bwd_bf16_smem_bytes(BOXES, kStages);
+};
+
+// dH: out = dh (N, D) f32, R = h, C = w.  dW: out = dw (V, D) f32, R = w,
+// C = h.  map_r boxes are 64 x 64, map_c boxes 64 columns x 32 rows.  A
+// consumer that owns fewer than NB boxes repeats the slice's last box and
+// does not store it.
+template <int MODE, int BOXES>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+fused_ce_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_r,
+                         const __grid_constant__ CUtensorMap map_c,
+                         const int* __restrict__ tgt,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ g,
+                         float* __restrict__ out, int n_rows, int n_vocab,
+                         int valid) {
+  using Shape = BwdShape<BOXES>;
+  constexpr int NB = Shape::kNB;
+  constexpr int kStages = Shape::kStages;
+  constexpr int kD = BOXES * kBox;
+  constexpr bool kRowsOfH = MODE == kDh;
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kBwdRows;
+  const int r_rows = kRowsOfH ? n_rows : n_vocab;
+  // this CTA's slice of the output's columns, in boxes
+  const int slice_first = blockIdx.y * Shape::kPerSlice;
+  const int slice_boxes = min(Shape::kPerSlice, BOXES - slice_first);
+
+  if (!kRowsOfH && r0 >= valid) {
+    // every vocab row of the block is masked: its dW is 0
+    const int rows = min(kBwdRows, r_rows - r0);
+    const int quads = slice_boxes * kBox / 4;
+    for (int i = tid; i < rows * quads; i += kBwdThreads) {
+      const int r = i / quads, c = i - r * quads;
+      reinterpret_cast<float4*>(out + static_cast<size_t>(r0 + r) * kD +
+                                slice_first * kBox)[c] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* r_s = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* c_s = r_s + BOXES * kRBoxBytes;
+  uint32_t* dl_buf = reinterpret_cast<uint32_t*>(
+      c_s + kStages * BOXES * kCBoxBytes);  // [2][8][128]
+  // per row of S (dH: the block's rows of h) or per column (dW: each
+  // stage's rows of h): lse, g, target
+  float* row_lse = reinterpret_cast<float*>(dl_buf + 2 * kDlWords);
+  float* row_g = row_lse + kRowData;
+  int* row_tgt = reinterpret_cast<int*>(row_g + kRowData);
+  uint64_t* r_full = reinterpret_cast<uint64_t*>(row_tgt + kRowData);
+  uint64_t* full = r_full + 1;     // [2]: a stage's C tile has landed
+  uint64_t* empty = full + 2;      // [2]: both consumers are done with it
+  uint64_t* dl_full = empty + 2;   // [2]: a tile's dlogits are stored
+
+  const int n_tiles = ((kRowsOfH ? valid : n_rows) + kBwdTile - 1) / kBwdTile;
+
+  if (tid == 0) {
+    mbar_init(r_full, 1);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);      // one arrival per consumer warp
+      mbar_init(&dl_full[i], 128);  // every thread of the owner
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // ---------------- producer warpgroup ----------------
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid < 256 + 32) {
+      const int lane = tid & 31;
+      if (kRowsOfH) {  // dH: lse, g and target of the block's rows
+        for (int r = lane; r < kBwdRows; r += 32) {
+          const bool in = r0 + r < n_rows;
+          row_lse[r] = in ? lse[r0 + r] : 0.f;
+          row_g[r] = in ? g[r0 + r] : 0.f;
+          row_tgt[r] = in ? tgt[r0 + r] : -1;
+        }
+        __syncwarp();
+      }
+      if (lane == 0) {
+        tma_prefetch_map(&map_r);
+        tma_prefetch_map(&map_c);
+        mbar_arrive_expect_tx(r_full, BOXES * kRBoxBytes);
+#pragma unroll
+        for (int b = 0; b < BOXES; ++b)
+          tma_load_2d(r_s + b * kRBoxBytes, &map_r, b * kBox, r0, r_full);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = kStages == 2 ? (t & 1) : 0;
+        if (t >= kStages) mbar_wait(&empty[st], ((t / kStages) & 1) ^ 1);
+        if (!kRowsOfH) {  // dW: the tile's columns are rows of h
+          const int c = t * kBwdTile + lane;
+          const bool in = c < n_rows;
+          row_lse[st * kBwdTile + lane] = in ? lse[c] : 0.f;
+          row_g[st * kBwdTile + lane] = in ? g[c] : 0.f;
+          row_tgt[st * kBwdTile + lane] = in ? tgt[c] : -1;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[st], BOXES * kCBoxBytes);
+#pragma unroll
+          for (int b = 0; b < BOXES; ++b)
+            tma_load_2d(c_s + (st * BOXES + b) * kCBoxBytes, &map_c,
+                        b * kBox, t * kBwdTile, &full[st]);
+        }
       }
     }
   } else {
+    // ---------------- consumer warpgroups ----------------
+    setmaxnreg_inc<kConsumerRegs>();
+    // the warpgroup, read from lane 0 so that the compiler sees it is
+    // uniform across the warp
+    const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+    const int ltid = tid & 127;
+    const int lane = tid & 31;
+    const int m_a = (ltid >> 5) * 16 + (lane >> 2);  // local rows of R
+    const int q2 = 2 * (lane & 3);
+    // the output boxes this consumer owns: own_first .. own_first + own
+    // - 1; its last accumulator box is moved back by `back` (0 or 1) to
+    // stay inside the slice when it owns fewer than NB
+    const int half0 = (slice_boxes + 1) / 2;
+    const int own_first = slice_first + (wg ? half0 : 0);
+    const int own = wg ? slice_boxes - half0 : half0;
+    const int back = max(0, own_first + NB - slice_first - slice_boxes);
+
+    float acc[NB][32];
+    const uint32_t r_addr = smem_u32(r_s);
+    const uint32_t c_addr = smem_u32(c_s);
+    mbar_wait(r_full, 0);
+
+    // S = R . C_x^T, its dlogits stored for both consumers
+    auto logits = [&](int x) {
+      const int st = kStages == 2 ? (x & 1) : 0;
+      mbar_wait(&full[st], (x / kStages) & 1);
+      float s[16];
+      const uint64_t da = wgmma_desc_sw128(r_addr, 16, 1024);
+      const uint64_t db =
+          wgmma_desc_sw128(c_addr + st * BOXES * kCBoxBytes, 16, 1024);
+      fence_regs(s);
+      wgmma_fence();
 #pragma unroll
-    for (int nd = 0; nd < kMaxStripTiles; ++nd) {
-      if (nd < n_strip_tiles) {
-        const int col = k_begin + nd * 8 + 2 * t4;
-        if (row_a < r_rows)
-          *reinterpret_cast<float2*>(out0 + static_cast<size_t>(row_a) * d +
-                                     col) = make_float2(acc[nd][0],
-                                                        acc[nd][1]);
-        if (row_b < r_rows)
-          *reinterpret_cast<float2*>(out0 + static_cast<size_t>(row_b) * d +
-                                     col) = make_float2(acc[nd][2],
-                                                        acc[nd][3]);
+      for (int kb = 0; kb < BOXES; ++kb)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_m64n32k16_ss(s, da + (kb * kRBoxBytes + ks * 32) / 16,
+                             db + (kb * kCBoxBytes + ks * 32) / 16,
+                             kb > 0 || ks > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      // per row (dH) or per column (dW) data of this tile
+      const float* rl = row_lse + (kRowsOfH ? 0 : st * kBwdTile);
+      const float* rg = row_g + (kRowsOfH ? 0 : st * kBwdTile);
+      const int* rt = row_tgt + (kRowsOfH ? 0 : st * kBwdTile);
+      uint32_t* dl = dl_buf + (x & 1) * kDlWords + ltid;
+#pragma unroll
+      for (int p2 = 0; p2 < 8; ++p2) {
+        float v[2];
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int k = 2 * p2 + e2;                  // s[k]:
+          const int m = m_a + (k & 2) * 4;            // row of S
+          const int n = (k >> 2) * 8 + q2 + (k & 1);  // column of S
+          if (kRowsOfH) {  // rows: h rows; columns: vocab
+            const int col = x * kBwdTile + n;
+            const float logit = col < valid ? s[k] : kNegInf;
+            const float p = r0 + m < n_rows ? expf(logit - rl[m]) : 0.f;
+            v[e2] = (col == rt[m] ? p - 1.f : p) * rg[m];
+          } else {  // rows: vocab; columns: h rows
+            const int vr = r0 + m;
+            const float logit = vr < valid ? s[k] : kNegInf;
+            const float p =
+                x * kBwdTile + n < n_rows ? expf(logit - rl[n]) : 0.f;
+            v[e2] = (vr == rt[n] ? p - 1.f : p) * rg[n];
+          }
+        }
+        dl[p2 * 128] = pack_bf16(v[0], v[1]);
+      }
+      mbar_arrive(&dl_full[x & 1]);
+    };
+
+    // acc += dlogits_i . C_i[:, own boxes], then release the stage
+    auto product = [&](int i) {
+      const int st = kStages == 2 ? (i & 1) : 0;
+      mbar_wait(&full[st], (i / kStages) & 1);
+      if ((i & 1) != wg) mbar_wait(&dl_full[i & 1], (i >> 1) & 1);
+      const uint32_t* dl = dl_buf + (i & 1) * kDlWords + ltid;
+      uint32_t a[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) a[k] = dl[k * 128];
+      const uint64_t db = wgmma_desc_sw128(
+          c_addr + (st * BOXES + own_first) * kCBoxBytes, 1024, 1024);
+      const uint64_t db_last = db - back * (kCBoxBytes / 16);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          wgmma_m64n64k16_rs_tb(
+              acc[b], a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+              (b == NB - 1 ? db_last : db) + (b * kCBoxBytes + kk * 2048) / 16,
+              i > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    };
+
+    // Tile x's S is computed by consumer x % 2.  On a two-stage ring a
+    // consumer computes S of tile i + 1 (if it owns it) before its half
+    // of tile i; on a one-stage ring, where tile i + 1 lands only once
+    // both halves of tile i are done, after it.
+    for (int i = -1; i < n_tiles; ++i) {
+      const bool own_s = i + 1 < n_tiles && ((i + 1) & 1) == wg;
+      if constexpr (kStages == 2) {
+        if (own_s) logits(i + 1);
+        if (i >= 0) product(i);
+      } else {
+        if (i >= 0) product(i);
+        if (own_s) logits(i + 1);
+      }
+    }
+
+    // ---- epilogue: this consumer's boxes of its 64 rows ----
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      if (b < own) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = (own_first + b) * kBox + 8 * j + q2;
+          if (r0 + m_a < r_rows)
+            *reinterpret_cast<float2*>(
+                out + static_cast<size_t>(r0 + m_a) * kD + col) =
+                make_float2(acc[b][4 * j], acc[b][4 * j + 1]);
+          if (r0 + m_a + 8 < r_rows)
+            *reinterpret_cast<float2*>(
+                out + static_cast<size_t>(r0 + m_a + 8) * kD + col) =
+                make_float2(acc[b][4 * j + 2], acc[b][4 * j + 3]);
+        }
       }
     }
   }
@@ -555,10 +766,11 @@ fused_ce_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
 // ---------------------------------------------------------------------------
 
 template <typename Kernel, typename T>
-cudaError_t launch(Kernel kernel, int grid, size_t smem, cudaStream_t stream,
-                   const void* h, const void* w, const void* tgt,
-                   const void* lse, const void* g, void* out0, void* out1,
-                   int n, int v, int d, int valid) {
+cudaError_t launch_f32(Kernel kernel, int grid, size_t smem,
+                       cudaStream_t stream, const void* h, const void* w,
+                       const void* tgt, const void* lse, const void* g,
+                       void* out0, void* out1, int n, int v, int d,
+                       int valid) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -571,6 +783,73 @@ cudaError_t launch(Kernel kernel, int grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+cudaError_t launch_fwd_bf16(const void* h, const void* w, const void* tgt,
+                            void* nll, void* lse, int n, int v, int d,
+                            int valid, cudaStream_t stream) {
+  const size_t smem = fwd_bf16_smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_ce_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  fused_ce_fwd_bf16_kernel<<<(n + kBlockR - 1) / kBlockR, kThreads, smem,
+                             stream>>>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(w),
+      static_cast<const int*>(tgt), static_cast<float*>(nll),
+      static_cast<float*>(lse), n, v, d, valid);
+  return cudaGetLastError();
+}
+
+template <int MODE, int BOXES>
+cudaError_t launch_bwd_bf16_boxes(const CUtensorMap& map_r,
+                                  const CUtensorMap& map_c, const void* tgt,
+                                  const void* lse, const void* g, void* out,
+                                  int n, int v, int valid,
+                                  cudaStream_t stream) {
+  using Shape = BwdShape<BOXES>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_ce_bwd_bf16_kernel<MODE, BOXES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Shape::kSmem));
+  if (err != cudaSuccess) return err;
+  const int r_rows = MODE == kDh ? n : v;
+  const dim3 grid((r_rows + kBwdRows - 1) / kBwdRows, Shape::kSlices);
+  fused_ce_bwd_bf16_kernel<MODE, BOXES>
+      <<<grid, kBwdThreads, Shape::kSmem, stream>>>(
+          map_r, map_c, static_cast<const int*>(tgt),
+          static_cast<const float*>(lse), static_cast<const float*>(g),
+          static_cast<float*>(out), n, v, valid);
+  return cudaGetLastError();
+}
+
+// the tensor maps are built here, at every launch, and passed by value
+template <int MODE>
+cudaError_t launch_bwd_bf16(const void* h, const void* w, const void* tgt,
+                            const void* lse, const void* g, void* out, int n,
+                            int v, int d, int valid, cudaStream_t stream) {
+  constexpr bool kRowsOfH = MODE == kDh;
+  CUtensorMap map_r, map_c;
+  cudaError_t err = make_bf16_map(&map_r, kRowsOfH ? h : w, kRowsOfH ? n : v,
+                                  d, kBwdRows);
+  if (err != cudaSuccess) return err;
+  err = make_bf16_map(&map_c, kRowsOfH ? w : h, kRowsOfH ? v : n, d,
+                      kBwdTile);
+  if (err != cudaSuccess) return err;
+  switch (d / kBox) {
+#define FUSED_CE_BWD_BOXES(B)                                                \
+  case B:                                                                    \
+    return launch_bwd_bf16_boxes<MODE, B>(map_r, map_c, tgt, lse, g, out, n, \
+                                          v, valid, stream);
+    FUSED_CE_BWD_BOXES(1) FUSED_CE_BWD_BOXES(2) FUSED_CE_BWD_BOXES(3)
+    FUSED_CE_BWD_BOXES(4) FUSED_CE_BWD_BOXES(5) FUSED_CE_BWD_BOXES(6)
+    FUSED_CE_BWD_BOXES(7) FUSED_CE_BWD_BOXES(8) FUSED_CE_BWD_BOXES(9)
+    FUSED_CE_BWD_BOXES(10) FUSED_CE_BWD_BOXES(11) FUSED_CE_BWD_BOXES(12)
+    FUSED_CE_BWD_BOXES(13) FUSED_CE_BWD_BOXES(14) FUSED_CE_BWD_BOXES(15)
+    FUSED_CE_BWD_BOXES(16)
+#undef FUSED_CE_BWD_BOXES
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <int MODE>
 cudaError_t run(const void* h, const void* w, const void* tgt,
                 const void* lse, const void* g, void* out0, void* out1,
@@ -578,14 +857,16 @@ cudaError_t run(const void* h, const void* w, const void* tgt,
   if (n <= 0 || v <= 0 || d < 64 || d > kMaxD || d % 64 != 0 ||
       valid <= 0 || valid > v)
     return cudaErrorInvalidValue;
-  const int r_rows = MODE == kDw ? v : n;
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<decltype(&fused_ce_bf16_kernel<MODE>), bf16>(
-        fused_ce_bf16_kernel<MODE>, (r_rows + kBlockR - 1) / kBlockR,
-        bf16_smem_bytes(d), s, h, w, tgt, lse, g, out0, out1, n, v, d,
-        valid);
-  return launch<decltype(&fused_ce_f32_kernel<MODE>), float>(
+  if (is_bf16) {
+    if constexpr (MODE == kFwd)
+      return launch_fwd_bf16(h, w, tgt, out0, out1, n, v, d, valid, s);
+    else
+      return launch_bwd_bf16<MODE>(h, w, tgt, lse, g, out0, n, v, d, valid,
+                                   s);
+  }
+  const int r_rows = MODE == kDw ? v : n;
+  return launch_f32<decltype(&fused_ce_f32_kernel<MODE>), float>(
       fused_ce_f32_kernel<MODE>, (r_rows + kF32Rows - 1) / kF32Rows,
       f32_smem_bytes(d), s, h, w, tgt, lse, g, out0, out1, n, v, d, valid);
 }

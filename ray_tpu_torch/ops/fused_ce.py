@@ -3,8 +3,9 @@ versions, autograd.
 
 Counterpart of ``ray_tpu/ops/fused_ce.py`` (``ce_impl="pallas"``).
 Three CUDA kernels in ``ops/csrc/fused_ce.cu`` (tensor cores for
-bfloat16, f32 FMA for float32) replace the JAX package's three Pallas
-kernels:
+bfloat16: ``mma.sync`` in the forward, warp-specialised ``wgmma`` fed
+by a TMA ring in dH and dW; f32 FMA for float32) replace the JAX
+package's three Pallas kernels:
 
 * forward (``_fwd_kernel``): per row of h, an online logsumexp over
   vocab tiles of the f32 tile h.w^T, columns >= valid_vocab masked to
@@ -29,9 +30,20 @@ import torch
 
 #: the JAX package's tile sizes, sized for a TPU's VMEM; accepted and
 #: validated so one config drives both packages, they do not set the
-#: Hopper kernels' tiles (32 x 64, see the .cu source)
+#: Hopper kernels' tiles (below)
 DEFAULT_BLOCK_N = 256
 DEFAULT_BLOCK_V = 1024
+
+#: the bfloat16 kernels' tiles (csrc/fused_ce.cu).  Forward: a CTA owns
+#: FWD_BLOCK_ROWS rows of h and walks the vocab.  dH and dW: a CTA owns
+#: BWD_BLOCK_ROWS rows of h (dH) or of w (dW), walks the other operand in
+#: BWD_TILE_ROWS-row tiles, and owns at most BWD_SLICE_COLS columns of
+#: the output (D above that is cut into slices, each recomputing the
+#: logits).
+FWD_BLOCK_ROWS = 32
+BWD_BLOCK_ROWS = 64
+BWD_TILE_ROWS = 32
+BWD_SLICE_COLS = 768
 
 #: launches of each CUDA kernel in this process; only the kernel's
 #: launch site below adds to its count

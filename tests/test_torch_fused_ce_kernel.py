@@ -38,9 +38,19 @@ GRAD_TOL = {torch.float32: (1e-4, 1e-4, 1e-5),
 
 SHAPES = [
     (33, 130, 123, 64),          # ragged row and vocab tiles, masked tail
-    (70, 300, 257, 192),         # D/4 = 48: a strip of 6 n8 tiles
+    (70, 300, 257, 192),         # forward: D/4 = 48, a strip of 6 n8
+                                 # tiles; backward: 3 boxes of 64, split
+                                 # 2 + 1 between the consumers
     (1000, 50304, 50257, 768),   # GPT-2 small's head at N = 1000
-    (200, 1000, 990, 1024),      # GPT-2 medium's width, the largest D
+    (200, 1000, 990, 1024),      # GPT-2 medium's width, the largest D:
+                                 # one ring stage, two column slices
+    (65, 1088, 1000, 64),        # backward: a 1-row last R block of h, a
+                                 # 1-row last C tile of h, the last dW
+                                 # block (rows 1024-1087) all past
+                                 # valid_vocab, and D = 64: one box, so
+                                 # one consumer owns every output column
+    (130, 513, 500, 128),        # N = 130: a 2-row last R block and C
+                                 # tile; V = 513: a 1-row last block of w
 ]
 
 
@@ -115,6 +125,22 @@ def test_kernels_match_plain_version(cuda_device, dtype, n, v, valid, d):
     assert dh.dtype == dw.dtype == torch.float32
     # rows past valid_vocab: exactly zero, as in the plain version
     assert bool((dw[valid:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_are_deterministic(cuda_device, dtype):
+    """Each output element is summed by one CTA in one fixed order: two
+    launches on the same inputs give the same bits."""
+    h, w, tgt, g = _inputs(cuda_device, 300, 4096, 4000, 768, dtype)
+    _, lse = tfc.fused_ce_fwd(h, w, tgt, 4000)
+    first = (tfc.fused_ce_bwd_dh(h, w, tgt, lse, g, 4000),
+             tfc.fused_ce_bwd_dw(h, w, tgt, lse, g, 4000))
+    second = (tfc.fused_ce_bwd_dh(h, w, tgt, lse, g, 4000),
+              tfc.fused_ce_bwd_dw(h, w, tgt, lse, g, 4000))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dh", "dw"), first, second):
+        assert torch.equal(a, b), f"{name}: two launches differ"
 
 
 @pytest.mark.cuda
