@@ -6,20 +6,26 @@
 Phases, each fatal on failure (any failure exits non-zero):
 
 1. card   — require CUDA; print the card's name and power limit.
-2. build  — build every CUDA kernel from ray_tpu_torch/ops/csrc with nvcc.
+2. build  — build every CUDA kernel from ray_tpu_torch/ops/csrc with nvcc;
+            print ptxas's registers, spills and wgmma-serialisation
+            notes (C75xx) for each kernel.
 3. kernel — hold the flash forward kernel against its plain PyTorch
             version at the serve shapes (B=8, H=12, D=64; T=512, 1024
             and an uneven 1000; causal and not; resident_kv on and off;
             bf16 and f32), and time it beside the plain version, a
             PyTorch library call computing the same function, and the
             card's bound.
-4. kernel-bwd — hold the flash backward kernels (dQ, dK/dV) against
-            their plain PyTorch versions at B*H=24, T=1024, 1000 and 77,
-            D=32, 64 and 128, causal and not, bf16 and f32, then hold
-            them and the forward against their plain versions at the
-            training shape (B=24, H=12, T=1024, D=64, causal, bf16),
-            where they are timed beside their plain versions, their
-            bounds and scaled_dot_product_attention.
+4. kernel-bwd — hold the flash backward kernels (dQ with the delta
+            it computes, dK/dV) against their plain PyTorch versions at
+            B*H=24, T=1024, 1000 and 77, D=32, 64 and 128, causal and
+            not, bf16 and f32, and the whole backward against the two
+            kernels called alone (bit-equal), then hold them and the
+            forward against their plain versions at the training shape
+            (B=24, H=12, T=1024, D=64, causal, bf16), where they are
+            timed beside their plain versions and their bounds (the
+            share of it each reaches, grids and waves), and the whole
+            backward against scaled_dot_product_attention's backward
+            in turns.
 5. kernel-ce — hold the fused lm-head + cross-entropy kernels
             (forward, dH, dW) against their plain PyTorch versions at
             the card tests' shapes (bf16 and f32) and at the training
@@ -67,6 +73,7 @@ import dataclasses
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -100,6 +107,13 @@ TOL = {("f32", "o"): 2e-5, ("bf16", "o"): 5e-2, ("f32", "lse"): 1e-4,
 # every shape of phase 4; f32 <= 2.5e-7)
 BWD_TOL = {"f32": (1e-4, 1e-4), "bf16": (5e-3, 2e-2)}
 BWD_REL_NORM = {"f32": 1e-5, "bf16": 2e-3}
+# delta = rowsum(dO * O) from the dQ kernel vs flash_bwd_delta: both sum
+# the same D products in f32 in different orders (a bf16 product is exact
+# in f32, an f32 one rounds once), so each lies within (D + 1) * 2**-24
+# * sum|dO * O| of the exact sum and the two within twice that
+DELTA_ULP = 2.0 ** -24
+# rounds of the whole backward and SDPA's backward timed in turns
+BWD_TURNS = 7
 # one GPT-2-124M step, flash kernels vs plain attention on the same
 # weights and batch, bf16 through 12 layers (on an H100: loss |diff|
 # 4.1e-5, grad-norm relative diff 7.6e-6, q/k/v parts <= 1.53e-2; each
@@ -208,15 +222,19 @@ def bwd_bounds_ms(bh: int, T: int, d: int, causal: bool,
                   dtype: str) -> dict:
     """Least times of the backward's parts, each tensor read or written
     once, per visible (query, key) pair: dQ kernel 6*D operations
-    (S, dP, dS.K; reads q, k, v, dO, lse, delta; writes dq), dK/dV
-    kernel 8*D (S, dP, P^T.dO, dS^T.Q; writes dk, dv), the whole
-    backward 10*D (reads q, k, v, o, dO, lse; writes dq, dk, dv)."""
+    (S, dP, dS.K) and 2*D per row for delta (reads q, k, v, o, dO, lse;
+    writes dq, delta), dK/dV kernel 8*D (S, dP, P^T.dO, dS^T.Q; reads
+    q, k, v, dO, lse, delta; writes dk, dv), the whole backward 10*D
+    and delta (reads q, k, v, o, dO, lse; writes dq, dk, dv)."""
     elem = 2 if dtype == "bf16" else 4
     mat, row = bh * T * d * elem, bh * T * 4
     flops = bh * d * visible_pairs(T, causal)
-    return {"dq": bound_ms(5 * mat + 2 * row, 6 * flops, dtype),
+    delta_flops = 2 * bh * T * d
+    return {"dq": bound_ms(6 * mat + 2 * row, 6 * flops + delta_flops,
+                           dtype),
             "dkv": bound_ms(6 * mat + 2 * row, 8 * flops, dtype),
-            "whole": bound_ms(8 * mat + row, 10 * flops, dtype)}
+            "whole": bound_ms(8 * mat + row, 10 * flops + delta_flops,
+                              dtype)}
 
 
 def bwd_compare(got, want, dtype: str) -> dict:
@@ -234,6 +252,19 @@ def bwd_compare(got, want, dtype: str) -> dict:
 def bwd_report(cmp: dict, names=("dq", "dk", "dv")) -> str:
     return ", ".join(f"{n} max|d| {c['max']:.3e} rel {c['rel']:.3e}"
                      for n, c in zip(names, cmp))
+
+
+def delta_compare(fa, delta, o3, do3) -> dict:
+    """max |delta - plain| (flash_bwd_delta), its largest share of the
+    bound 2 (D + 1) 2**-24 sum|dO * O| per row, and whether every row
+    is within it."""
+    want = fa.flash_bwd_delta(o3, do3)
+    bound = 2 * (o3.shape[-1] + 1) * DELTA_ULP * (
+        do3.float() * o3.float()).abs().sum(dim=-1)[:, None, :]
+    err = (delta - want).abs()
+    share = (err / bound.clamp_min(1e-30)).max().item()
+    return {"max": err.max().item(), "share": share,
+            "ok": delta.shape == want.shape and bool((err <= bound).all())}
 
 
 COUNTERS = ("FLASH_FWD_LAUNCHES", "FLASH_BWD_DQ_LAUNCHES",
@@ -282,18 +313,62 @@ def phase_card(torch) -> tuple:
     return name, card
 
 
-def phase_build(kernels) -> None:
+def ptxas_report(log: str) -> dict:
+    """{kernel: [ptxas lines]} from an nvcc -Xptxas -v log: each entry
+    function's registers and spills, and any wgmma-serialisation
+    warning (C75xx) that names it; kernels by name and template
+    arguments, e.g. flash_bwd_dq_bf16_kernel<64>."""
+    def short(mangled):
+        # the length-prefixed component that names a kernel, then its
+        # template arguments (I Li64E ... E)
+        for i in range(len(mangled)):
+            for j in (1, 2, 3):
+                if not mangled[i:i + j].isdigit():
+                    break
+                n = int(mangled[i:i + j])
+                name = mangled[i + j:i + j + n]
+                if name.endswith("_kernel") and name.isidentifier() and \
+                        not name[0].isdigit():
+                    m = re.match(r"I((?:Li\d+E)+)E", mangled[i + j + n:])
+                    args = re.findall(r"Li(\d+)E", m.group(1)) if m else []
+                    return name + (f"<{', '.join(args)}>" if args else "")
+        return mangled[:60]
+
+    report, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            current = short(m.group(1))
+            continue
+        if current and ("registers" in line or "spill" in line):
+            report.setdefault(current, []).append(
+                line.split(":", 1)[-1].strip())
+        elif re.search(r"C75\d\d", line):
+            m = re.search(r"'(_Z\w+)'", line)
+            report.setdefault(short(m.group(1)) if m else "?", []).append(
+                line.strip())
+    return report
+
+
+def phase_build(kernels) -> dict:
     t0 = time.perf_counter()
     paths = kernels.build_all()
     secs = time.perf_counter() - t0
     print(f"[build] {len(paths)} kernel libraries in {secs:.2f} s",
           flush=True)
+    reports = {}
     for name, path in paths.items():
         log = path.with_suffix(".so.log")
-        lines = log.read_text().splitlines() if log.exists() else []
-        for line in lines:
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        reports[name] = ptxas_report(log.read_text() if log.exists()
+                                     else "")
+        for kernel, lines in reports[name].items():
+            print(f"[build] {name}: {kernel}: " + "; ".join(lines))
+        serial = sum(bool(re.search(r"C75\d\d", ln))
+                     for lines in reports[name].values() for ln in lines)
+        print(f"[build] {name}: {serial} wgmma-serialisation notes (C75xx)",
+              flush=True)
+    return reports
 
 
 def phase_kernel(torch, fa, card: str) -> dict:
@@ -502,27 +577,32 @@ def check_train_shape(torch, fa, seed: int = 2) -> dict:
         if err_o > TOL[("bf16", "o")] or err_lse > TOL[("bf16", "lse")]:
             fail("the forward kernel disagrees with its plain version at "
                  "the training shape")
-        delta = fa.flash_bwd_delta(o3, do3)
-        args = (q3, k3, v3, do3, lse, delta)
-        got = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
-        want = (fa.flash_bwd_dq_reference(*args, **kw),
-                *fa.flash_bwd_dkv_reference(*args, **kw))
+        dq, delta = fa.flash_bwd_dq(q3, k3, v3, o3, do3, lse, **kw)
+        got = (dq, *fa.flash_bwd_dkv(q3, k3, v3, do3, lse, delta, **kw))
+        dq_ref, delta_ref = fa.flash_bwd_dq_reference(q3, k3, v3, o3, do3,
+                                                      lse, **kw)
+        want = (dq_ref, *fa.flash_bwd_dkv_reference(q3, k3, v3, do3, lse,
+                                                    delta_ref, **kw))
         torch.cuda.synchronize()
         cmp = [bwd_compare(g, w, "bf16") for g, w in zip(got, want)]
-        del got, want
+        dcmp = delta_compare(fa, delta, o3, do3)
+        del got, want, dq, dq_ref, delta_ref
     print(f"[kernel-bwd] training shape backward: {bwd_report(cmp)} (tol "
           f"{BWD_TOL['bf16'][0]:.0e} + {BWD_TOL['bf16'][1]:.0e}*|plain|, "
-          f"rel {BWD_REL_NORM['bf16']:.0e})", flush=True)
-    if not all(c["ok"] for c in cmp):
+          f"rel {BWD_REL_NORM['bf16']:.0e}); delta from the dQ kernel "
+          f"max|d| {dcmp['max']:.3e} ({dcmp['share']:.3f} of its bound "
+          f"2 (D + 1) 2**-24 sum|dO O|)", flush=True)
+    if not all(c["ok"] for c in cmp) or not dcmp["ok"]:
         fail("backward kernels disagree with their plain version at the "
              "training shape")
     t.update(o3=o3, lse=lse, delta=delta,
              err={"dq": cmp[0]["max"], "dkv": max(cmp[1]["max"],
-                                                 cmp[2]["max"])})
+                                                 cmp[2]["max"]),
+                  "delta": dcmp["max"], "delta_share": dcmp["share"]})
     return t
 
 
-def phase_kernel_bwd(torch, fa, card: str) -> dict:
+def phase_kernel_bwd(torch, fa, card: str, ptxas: dict) -> dict:
     F = torch.nn.functional
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -536,23 +616,29 @@ def phase_kernel_bwd(torch, fa, card: str) -> dict:
             q3, k3, v3, do3 = (torch.randn((24, T, d), generator=gen,
                                            device=dev).to(dtypes[dt])
                                for _ in range(4))
-            scale = d ** -0.5
-            o3, lse = fa.flash_attention_fwd_reference(
-                q3, k3, v3, scale=scale, causal=causal)
-            want = fa.flash_attention_bwd_reference(
-                q3, k3, v3, o3, lse, do3, scale=scale, causal=causal)
-            got = fa.flash_attention_bwd(q3, k3, v3, o3, lse, do3,
-                                         scale=scale, causal=causal)
+            kw = dict(scale=d ** -0.5, causal=causal)
+            o3, lse = fa.flash_attention_fwd_reference(q3, k3, v3, **kw)
+            want = fa.flash_attention_bwd_reference(q3, k3, v3, o3, lse,
+                                                    do3, **kw)
+            dq, delta = fa.flash_bwd_dq(q3, k3, v3, o3, do3, lse, **kw)
+            dk, dv = fa.flash_bwd_dkv(q3, k3, v3, do3, lse, delta, **kw)
+            whole = fa.flash_attention_bwd(q3, k3, v3, o3, lse, do3, **kw)
             torch.cuda.synchronize()
+            got = (dq, dk, dv)
             cmp = [bwd_compare(g, w, dt) for g, w in zip(got, want)]
+            dcmp = delta_compare(fa, delta, o3, do3)
+            same = all(torch.equal(a, b) for a, b in zip(whole, got))
             print(f"[kernel-bwd] BH=24 T={T} D={d} causal={causal} {dt}: "
                   f"{bwd_report(cmp)} (tol {BWD_TOL[dt][0]:.0e} + "
                   f"{BWD_TOL[dt][1]:.0e}*|plain|, rel "
-                  f"{BWD_REL_NORM[dt]:.0e})", flush=True)
-            if not all(c["ok"] for c in cmp):
+                  f"{BWD_REL_NORM[dt]:.0e}); delta max|d| "
+                  f"{dcmp['max']:.3e} ({dcmp['share']:.3f} of its bound); "
+                  f"whole backward bit-equal to the kernels alone: {same}",
+                  flush=True)
+            if not all(c["ok"] for c in cmp) or not dcmp["ok"] or not same:
                 fail(f"backward kernels disagree with their plain version "
                      f"at T={T} D={d} causal={causal} {dt}")
-            del q3, k3, v3, do3, o3, lse, want, got
+            del q3, k3, v3, do3, o3, lse, want, got, whole, dq, dk, dv, delta
 
     t = check_train_shape(torch, fa)
     q4, k4, v4, do4, q3, k3, v3, do3, o3, lse, delta = (
@@ -561,18 +647,18 @@ def phase_kernel_bwd(torch, fa, card: str) -> dict:
     err = t["err"]
     bh, T = TRAIN_B * H, TRAIN_T
     kw = dict(scale=1.0 / math.sqrt(D), causal=True)
-    args = (q3, k3, v3, do3, lse, delta)
+    whole_fn = lambda: fa.flash_attention_bwd(q3, k3, v3, o3, lse, do3, **kw)
     with torch.no_grad():
-        ms = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq(*args, **kw)),
-              "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv(*args, **kw)),
-              "whole": time_ms(torch, lambda: fa.flash_attention_bwd(
-                  q3, k3, v3, o3, lse, do3, **kw)),
+        ms = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq(
+                  q3, k3, v3, o3, do3, lse, **kw)),
+              "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv(
+                  q3, k3, v3, do3, lse, delta, **kw)),
               "fwd": time_ms(torch, lambda: fa.flash_attention_fwd(
                   q3, k3, v3, **kw))}
         plain = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq_reference(
-                     *args, **kw), iters=5),
+                     q3, k3, v3, o3, do3, lse, **kw), iters=5),
                  "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv_reference(
-                     *args, **kw), iters=5),
+                     q3, k3, v3, do3, lse, delta, **kw), iters=5),
                  "whole": time_ms(torch, lambda: fa.
                                   flash_attention_bwd_reference(
                                       q3, k3, v3, o3, lse, do3, **kw),
@@ -580,42 +666,89 @@ def phase_kernel_bwd(torch, fa, card: str) -> dict:
                  "fwd": time_ms(torch, lambda: fa.
                                 flash_attention_fwd_reference(
                                     q3, k3, v3, **kw), iters=5)}
+        # determinism at the training shape: a second call, bit-equal
+        first = whole_fn()
+        second = whole_fn()
+        torch.cuda.synchronize()
+        deterministic = all(torch.equal(a, b) for a, b in zip(first,
+                                                                second))
+        del first, second
         qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
                            for x in (q4, k4, v4, do4))
         sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True))
+    print(f"[kernel-bwd]   two calls of the whole backward bit-equal (dq, "
+          f"dk, dv): {deterministic}", flush=True)
+    if not deterministic:
+        fail("the backward kernels gave different results on the same "
+             "inputs")
     qh, kh, vh = (x.requires_grad_(True) for x in (qh, kh, vh))
     out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-    sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        out, (qh, kh, vh), doh, retain_graph=True))
+    sdpa_fn = lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                          retain_graph=True)
+    # the whole backward and SDPA's backward in turns (port, sdpa, sdpa,
+    # port, ...), each a mean of 20 calls, medians over the rounds
+    turns = {"port": [], "sdpa": []}
+    for i in range(BWD_TURNS):
+        order = ("port", "sdpa") if i % 2 == 0 else ("sdpa", "port")
+        for name in order:
+            turns[name].append(time_ms(torch, whole_fn if name == "port"
+                                       else sdpa_fn))
+    med = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
+    ms["whole"] = med["port"]
     bounds = bwd_bounds_ms(bh, T, D, True, "bf16")
     fwd_bound = attention_bound_ms(T, True, "bf16", bh=bh)
+    # grids: one CTA per (batch*head, block of rows), as many at once on
+    # an SM as their registers allow
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = bh * -(-T // fa.BWD_BF16_CTA_ROWS)
+    waves = ctas / (sms * fa.BWD_BF16_CTAS_PER_SM)
     for name in ("dq", "dkv", "whole"):
+        share = bounds[name][0] / ms[name]
+        grid = (f", {ctas} CTAs = {waves:.2f} waves of "
+                f"{fa.BWD_BF16_CTAS_PER_SM} on each of {sms} SMs"
+                if name != "whole" else "")
         print(f"[kernel-bwd]   {name:5s}: kernel {ms[name]:.4f} ms, plain "
               f"{plain[name]:.4f} ms, bound {bounds[name][0]:.4f} ms "
-              f"({bounds[name][1]}) [{card}]", flush=True)
-    print(f"[kernel-bwd]   backward of scaled_dot_product_attention "
-          f"(dq, dk, dv): {sdpa_bwd:.4f} ms [{card}]", flush=True)
+              f"({bounds[name][1]}, {100 * share:.1f}% of it "
+              f"reached){grid} [{card}]", flush=True)
+    factor = med["port"] / med["sdpa"]
+    print(f"[kernel-bwd]   whole backward (dQ with delta, then dK/dV) vs "
+          f"scaled_dot_product_attention's backward (dq, dk, dv), "
+          f"{BWD_TURNS} rounds in turns: medians {med['port']:.4f} vs "
+          f"{med['sdpa']:.4f} ms = {factor:.3f}x; port "
+          f"{[round(x, 4) for x in turns['port']]}, sdpa "
+          f"{[round(x, 4) for x in turns['sdpa']]} [{card}]", flush=True)
     print(f"[kernel-bwd]   forward: kernel {ms['fwd']:.4f} ms, plain "
           f"{plain['fwd']:.4f} ms, scaled_dot_product_attention "
           f"{sdpa_fwd:.4f} ms, bound {fwd_bound[0]:.4f} ms "
           f"({fwd_bound[1]}) [{card}]", flush=True)
     whole = {"ms": ms["whole"], "plain_ms": plain["whole"],
              "bound_ms": bounds["whole"][0],
-             "bound_by": bounds["whole"][1], "library_ms": sdpa_bwd,
+             "bound_by": bounds["whole"][1], "library_ms": med["sdpa"],
+             "over_library": factor, "turns_ms": turns,
              "library": "backward of F.scaled_dot_product_attention("
-                        "is_causal=True): dq, dk, dv"}
+                        "is_causal=True): dq, dk, dv; medians of "
+                        f"{BWD_TURNS} rounds in turns"}
+    kernels = {"dq": "flash_bwd_dq_bf16_kernel<64>",
+               "dkv": "flash_bwd_dkv_bf16_kernel<64>"}
     records = {name: {"max_abs_err": err[name], "ms": ms[name],
-                  "plain_ms": plain[name], "bound_ms": bounds[name][0],
-                  "bound_by": bounds[name][1],
-                  # no one PyTorch call computes dQ (or dK/dV) alone;
-                  # the library's whole backward is under "whole"
-                  "library_ms": None, "whole_backward": whole}
-           for name in ("dq", "dkv")}
+                      "plain_ms": plain[name], "bound_ms": bounds[name][0],
+                      "bound_by": bounds[name][1],
+                      # no one PyTorch call computes dQ (or dK/dV) alone;
+                      # the library's whole backward is under "whole"
+                      "library_ms": None,
+                      "bound_share": bounds[name][0] / ms[name],
+                      "ctas": ctas, "waves": waves,
+                      "ptxas": ptxas.get(kernels[name], []),
+                      "whole_backward": whole}
+               for name in ("dq", "dkv")}
+    records["dq"]["delta_max_abs_err"] = err["delta"]
+    records["dq"]["delta_bound_share"] = err["delta_share"]
     records["fwd_train_shape"] = {"ms": ms["fwd"], "plain_ms": plain["fwd"],
-                              "bound_ms": fwd_bound[0],
-                              "bound_by": fwd_bound[1],
-                              "library_ms": sdpa_fwd}
+                                  "bound_ms": fwd_bound[0],
+                                  "bound_by": fwd_bound[1],
+                                  "library_ms": sdpa_fwd}
     return records
 
 
@@ -1127,10 +1260,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build(kernels)
+    ptxas = phase_build(kernels)
     with torch.inference_mode():
         headline = phase_kernel(torch, fa, card)
-    bwd = phase_kernel_bwd(torch, fa, card)
+    bwd = phase_kernel_bwd(torch, fa, card, ptxas["flash_bwd"])
     ce = phase_kernel_ce(torch, fc, card)
     serve_counts = phase_serve(torch, np, fa, card)
     train = phase_train(torch, fa, card)

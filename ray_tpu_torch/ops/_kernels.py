@@ -38,9 +38,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                       _I, _I, _P),
     },
     "flash_bwd": {
-        # q, k, v, dO, lse, delta, dq, BH, T, D, scale, causal, is_bf16,
-        # stream
-        "flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+        # q, k, v, o, dO, lse, delta (written), dq, BH, T, D, scale,
+        # causal, is_bf16, stream
+        "flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                          ctypes.c_float, _I, _I, _P),
         # q, k, v, dO, lse, delta, dk, dv, BH, T, D, scale, causal,
         # is_bf16, stream

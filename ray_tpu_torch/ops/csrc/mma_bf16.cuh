@@ -1,7 +1,8 @@
-// bfloat16 tensor-core building blocks shared by the flash kernels
-// (flash_fwd.cu, flash_bwd.cu): mma.sync m16n8k16 with f32
+// bfloat16 tensor-core building blocks of the mma.sync kernels
+// (flash_fwd.cu, fused_ce.cu's forward): mma.sync m16n8k16 with f32
 // accumulation, fragment loads from padded shared-memory tiles, and
-// the staging of (seq_len, D) row blocks into those tiles.
+// the staging of (seq_len, D) row blocks into those tiles; every kernel
+// takes its bf16 type and pack_bf16 from here.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): rows g and g+8, columns 2t..2t+1 and

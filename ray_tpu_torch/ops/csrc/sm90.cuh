@@ -5,8 +5,10 @@
 // Layout conventions, shared by every user of this header:
 // * bf16 tiles are loaded by TMA in boxes of 64 columns (128 bytes a
 //   row) with 128-byte swizzle: within each 1024-byte block of 8 rows
-//   the 16-byte chunk c of row r lands at chunk c ^ (r % 8).  Box bases
-//   are 1024-byte aligned, so the descriptors' base offset is 0.
+//   the 16-byte chunk c of row r lands at chunk c ^ (r % 8).  A matrix
+//   of 32 columns takes boxes of 32 (64 bytes a row) with 64-byte
+//   swizzle (make_bf16_map_3d).  Box bases are 1024-byte aligned, so
+//   the descriptors' base offset is 0.
 // * wgmma's f32 accumulator of an m64nN tile: thread t of the
 //   warpgroup (warp w = t / 32, g = (t % 32) / 4, q = t % 4) holds
 //   d[4j + 2h + e] = D[16w + g + 8h][8j + 2q + e], j < N/8, h, e in {0,1}.
@@ -100,6 +102,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the box of a 3-D `map` at (column x, row y, matrix z): rows past the
+// matrix's own last row arrive as zeros, whatever follows it in memory
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int x, int y, int z,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x),
+      "r"(y), "r"(z)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // warpgroup register rebalancing (all four warps of a warpgroup execute it)
 // ---------------------------------------------------------------------------
@@ -146,13 +161,20 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // step advances the start address by 32 bytes.  MN-major (M or N
 // contiguous, K along the rows): one swizzle atom is 64 M/N values x 8
 // K rows; sbo strides 8-row blocks along K, lbo atoms along M/N.
-__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr,
-                                                     uint32_t lbo,
-                                                     uint32_t sbo) {
+// With 64-byte swizzle (layout 2) the same holds with 64-byte rows: a
+// K-major sbo is 512 and an MN-major atom is 32 M/N values x 8 K rows.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo, uint32_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (static_cast<uint64_t>(1) << 62);  // layout type 1: 128B swizzle
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr,
+                                                     uint32_t lbo,
+                                                     uint32_t sbo) {
+  return wgmma_desc(addr, lbo, sbo, 1);  // layout type 1: 128B swizzle
 }
 
 // d (64 x 32, f32) = A (64 x 16) . B (32 x 16)^T + (accumulate ? d : 0),
@@ -172,6 +194,51 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) = A (64 x 16) . B (64 x 16)^T + (accumulate ? d : 0),
+// both operands K-major from shared memory
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 32, f32) = A (64 x 16, bf16 pairs in registers, the layout
+// above) . B (16 x 32) + (accumulate ? d : 0), B MN-major from shared
+// memory (transpose bit)
+__device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float (&d)[16],
+                                                      uint32_t a0, uint32_t a1,
+                                                      uint32_t a2, uint32_t a3,
+                                                      uint64_t desc_b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
 }
 
 // d (64 x 64, f32) = A (64 x 16, bf16 pairs in registers, the layout
@@ -200,6 +267,53 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
 }
 
+// as wgmma_m64n64k16_rs_tb with B 16 x 128: two MN atoms, lbo apart
+__device__ __forceinline__ void wgmma_m64n128k16_rs_tb(
+    float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x N) += A (registers) . B (16 x N, MN-major), N = 32, 64 or 128
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t desc_b,
+                                            int accumulate) {
+  static_assert(N == 32 || N == 64 || N == 128, "N is 32, 64 or 128");
+  if constexpr (N == 32)
+    wgmma_m64n32k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
+  else if constexpr (N == 64)
+    wgmma_m64n64k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
+  else
+    wgmma_m64n128k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
+}
+
 // ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
@@ -210,11 +324,8 @@ using TensorMapEncodeTiled = CUresult (*)(
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
 
-// a map of the row-major (rows, cols) bf16 matrix at `ptr` (16-byte
-// aligned, cols a multiple of 64) in boxes of 64 columns x box_rows
-// rows, 128-byte swizzle, zeros past the edges
-cudaError_t make_bf16_map(CUtensorMap* map, const void* ptr, int rows,
-                          int cols, int box_rows) {
+// cuTensorMapEncodeTiled, looked up once
+cudaError_t tensor_map_encoder(TensorMapEncodeTiled* out) {
   static TensorMapEncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -226,6 +337,18 @@ cudaError_t make_bf16_map(CUtensorMap* map, const void* ptr, int rows,
       return cudaErrorNotSupported;
     encode = reinterpret_cast<TensorMapEncodeTiled>(fn);
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// a map of the row-major (rows, cols) bf16 matrix at `ptr` (16-byte
+// aligned, cols a multiple of 64) in boxes of 64 columns x box_rows
+// rows, 128-byte swizzle, zeros past the edges
+cudaError_t make_bf16_map(CUtensorMap* map, const void* ptr, int rows,
+                          int cols, int box_rows) {
+  TensorMapEncodeTiled encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
@@ -236,6 +359,35 @@ cudaError_t make_bf16_map(CUtensorMap* map, const void* ptr, int rows,
              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a map of `mats` row-major (rows, cols) bf16 matrices stored one after
+// another at `ptr` (16-byte aligned; cols 32, or a multiple of 64), as
+// one 3-D tensor (cols, rows, mats) in boxes of min(cols, 64) columns x
+// box_rows rows x 1 matrix, 128-byte swizzle (64-byte at 32 columns).
+// A box that runs past a matrix's last row gets zeros there, not the
+// next matrix's first rows.
+cudaError_t make_bf16_map_3d(CUtensorMap* map, const void* ptr, int mats,
+                             int rows, int cols, int box_rows) {
+  if (cols != 32 && cols % 64 != 0) return cudaErrorInvalidValue;
+  TensorMapEncodeTiled encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(mats)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(cols) * 2,
+      static_cast<cuuint64_t>(cols) * 2 * static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols < 64 ? cols : 64),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      cols < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

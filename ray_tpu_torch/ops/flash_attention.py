@@ -12,14 +12,17 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``.  Three CUDA kernels
   ``_bwd_dq_res_kernel`` and ``_bwd_dkv_kernel`` /
   ``_bwd_dkv_res_kernel``; each recomputes P = exp(S - LSE) tile by
   tile from the forward's LSE and owns its output rows, so there are
-  no atomics.
+  no atomics.  For bfloat16 both are warp-specialised: a producer
+  warpgroup feeds tiles by TMA through a ring of mbarriers to a
+  consumer warpgroup that runs ``wgmma``.
 
 Dispatch is by tensor placement: a CPU tensor takes the plain PyTorch
 version (``*_reference``), a CUDA tensor launches the kernel or
 raises.  There is no fallback between the two.  ``flash_attention`` is
 differentiable through a ``torch.autograd.Function`` whose backward is
-the two backward kernels; delta = rowsum(dO * O) is computed outside
-them in plain torch, as the JAX package computes it outside Pallas.
+the two backward kernels and nothing else: delta = rowsum(dO * O),
+which the JAX package computes outside Pallas, is computed by the dQ
+kernel, which writes it for the dK/dV kernel launched after it.
 """
 
 from __future__ import annotations
@@ -41,6 +44,19 @@ FLASH_BWD_DQ_LAUNCHES = 0
 FLASH_BWD_DKV_LAUNCHES = 0
 
 _NEG_INF = -1e30
+
+#: tiles of the backward kernels (csrc/flash_bwd.cu), from which a
+#: caller computes grids: a bf16 CTA owns BWD_BF16_CTA_ROWS rows (dQ:
+#: queries; dK/dV: keys), BWD_CONSUMERS consumer warpgroups of
+#: BWD_TILE_ROWS rows each, streams BWD_TILE_ROWS-row tiles (dQ: K and
+#: V; dK/dV: Q and dO) through a ring of BWD_STAGES stages, and shares
+#: an SM with BWD_BF16_CTAS_PER_SM - 1 others.  CTAs: BH * ceil(T /
+#: BWD_BF16_CTA_ROWS).
+BWD_TILE_ROWS = 64
+BWD_CONSUMERS = 1
+BWD_BF16_CTA_ROWS = BWD_CONSUMERS * BWD_TILE_ROWS
+BWD_BF16_CTAS_PER_SM = 2
+BWD_STAGES = 2
 
 # Resident-variant tiles of the JAX package, kept so one config names
 # the same variant in both packages.  They were sized for a TPU's VMEM
@@ -211,15 +227,18 @@ def _bwd_tiles_reference(q3, k3, v3, do3, lse, delta, *, scale: float,
     return p, ds
 
 
-def flash_bwd_dq_reference(q3, k3, v3, do3, lse, delta, *, scale: float,
-                           causal: bool) -> torch.Tensor:
-    """Plain PyTorch version of the dQ kernel: dQ = dS K with dS
-    rounded to k's dtype (``_bwd_dq_kernel``, flash_attention.py:177)
-    and the f32 sum rounded to q's dtype once."""
+def flash_bwd_dq_reference(q3, k3, v3, o3, do3, lse, *, scale: float,
+                           causal: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the dQ kernel → (dq, delta): delta =
+    ``flash_bwd_delta(o3, do3)``, then dQ = dS K with dS rounded to k's
+    dtype (``_bwd_dq_kernel``, flash_attention.py:177) and the f32 sum
+    rounded to q's dtype once."""
+    delta = flash_bwd_delta(o3, do3)
     _, ds = _bwd_tiles_reference(q3, k3, v3, do3, lse, delta, scale=scale,
                                  causal=causal)
     dq = torch.matmul(ds.to(k3.dtype).float(), k3.float())
-    return dq.to(q3.dtype)
+    return dq.to(q3.dtype), delta
 
 
 def flash_bwd_dkv_reference(q3, k3, v3, do3, lse, delta, *, scale: float,
@@ -236,9 +255,9 @@ def flash_bwd_dkv_reference(q3, k3, v3, do3, lse, delta, *, scale: float,
 
 
 def flash_bwd_delta(o3, do3) -> torch.Tensor:
-    """delta = rowsum(dO * O) in f32, (BH, 1, T), the backward kernels'
-    input that the JAX package computes outside Pallas
-    (flash_attention.py:235); plain torch here too."""
+    """delta = rowsum(dO * O) in f32, (BH, 1, T), which the JAX package
+    computes outside Pallas (flash_attention.py:235): the plain version
+    of the part of the dQ kernel that computes it."""
     return (do3.float() * o3.float()).sum(dim=-1)[:, None, :]
 
 
@@ -249,42 +268,52 @@ def flash_attention_bwd_reference(q3, k3, v3, o3, lse, do3, *,
     """Plain PyTorch version of the whole backward on (BH, T, D)
     tensors → (dq, dk, dv): recomputes S, P = exp(S - LSE), dP and dS
     on f32 scores with the -1e30 mask (not autograd of the forward)."""
-    delta = flash_bwd_delta(o3, do3)
-    dq = flash_bwd_dq_reference(q3, k3, v3, do3, lse, delta, scale=scale,
-                                causal=causal)
+    dq, delta = flash_bwd_dq_reference(q3, k3, v3, o3, do3, lse,
+                                       scale=scale, causal=causal)
     dk, dv = flash_bwd_dkv_reference(q3, k3, v3, do3, lse, delta,
                                      scale=scale, causal=causal)
     return dq, dk, dv
 
 
-def _check_bwd_args(q3, k3, v3, do3, lse, delta) -> None:
+def _check_bwd_args(q3, k3, v3, do3, lse, *, o3=None, delta=None) -> None:
+    """q/k/v as _check_qkv; dO (and o, where given) like q; lse (and
+    delta, where given) (BH, 1, T) float32; all on q's device."""
     _check_qkv(q3, k3, v3)
     BH, T, _ = q3.shape
-    if do3.shape != q3.shape or do3.dtype != q3.dtype:
-        raise ValueError(f"dO must match q's shape and dtype, got "
-                         f"{tuple(do3.shape)} {do3.dtype}")
-    for name, t in (("lse", lse), ("delta", delta)):
+    mats = {"dO": do3} if o3 is None else {"o": o3, "dO": do3}
+    vecs = {"lse": lse} if delta is None else {"lse": lse, "delta": delta}
+    for name, t in mats.items():
+        if t.shape != q3.shape or t.dtype != q3.dtype:
+            raise ValueError(f"{name} must match q's shape and dtype, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for name, t in vecs.items():
         if t.shape != (BH, 1, T) or t.dtype != torch.float32:
             raise ValueError(f"{name} must be (BH, 1, T) float32, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    if not all(t.device == q3.device for t in (do3, lse, delta)):
-        raise ValueError("dO/lse/delta must be on q's device")
+    if not all(t.device == q3.device for t in (*mats.values(),
+                                               *vecs.values())):
+        raise ValueError(f"{'/'.join((*mats, *vecs))} must be on q's "
+                         f"device")
 
 
-def flash_bwd_dq(q3, k3, v3, do3, lse, delta, *, scale: float,
-                 causal: bool) -> torch.Tensor:
-    """dQ of the flash backward on (BH, T, D) tensors, lse and delta
-    (BH, 1, T) float32.  CPU tensors take the plain version; CUDA
-    tensors launch the dQ kernel or raise."""
-    _check_bwd_args(q3, k3, v3, do3, lse, delta)
+def flash_bwd_dq(q3, k3, v3, o3, do3, lse, *, scale: float,
+                 causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dQ, delta) of the flash backward on (BH, T, D) tensors with the
+    forward's o and lse (BH, 1, T) float32; delta = rowsum(dO * O)
+    (BH, 1, T) float32, the dK/dV kernel's input.  CPU tensors take the
+    plain version; CUDA tensors launch the dQ kernel, which computes
+    delta too, or raise."""
+    _check_bwd_args(q3, k3, v3, do3, lse, o3=o3)
     if q3.device.type == "cpu":
-        return flash_bwd_dq_reference(q3, k3, v3, do3, lse, delta,
+        return flash_bwd_dq_reference(q3, k3, v3, o3, do3, lse,
                                       scale=scale, causal=causal)
+    BH, T, _ = q3.shape
     dq = torch.empty_like(q3)
+    delta = torch.empty((BH, 1, T), dtype=torch.float32, device=q3.device)
     _launch("flash_bwd", "flash_bwd_dq", "FLASH_BWD_DQ_LAUNCHES",
-            (q3, k3, v3, do3, lse, delta), (dq,), scale=scale,
+            (q3, k3, v3, o3, do3, lse), (delta, dq), scale=scale,
             causal=causal)
-    return dq
+    return dq, delta
 
 
 def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, *, scale: float,
@@ -292,7 +321,7 @@ def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, *, scale: float,
     """(dK, dV) of the flash backward, as flash_bwd_dq: CPU tensors
     take the plain version, CUDA tensors launch the dK/dV kernel or
     raise."""
-    _check_bwd_args(q3, k3, v3, do3, lse, delta)
+    _check_bwd_args(q3, k3, v3, do3, lse, delta=delta)
     if q3.device.type == "cpu":
         return flash_bwd_dkv_reference(q3, k3, v3, do3, lse, delta,
                                        scale=scale, causal=causal)
@@ -309,16 +338,16 @@ def flash_attention_bwd(q3, k3, v3, o3, lse, do3, *,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward on (BH, T, D) tensors with the forward's o and lse
     (BH, 1, T) → (dq, dk, dv), the outputs of the JAX package's
-    ``_bwd``/``_bwd_res``: delta in plain torch, then the dQ and the
-    dK/dV kernel (their plain versions for CPU tensors)."""
+    ``_bwd``/``_bwd_res``: the dQ kernel (which also gives delta), then
+    the dK/dV kernel on the same stream; their plain versions for CPU
+    tensors."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q3.shape[-1])
     if o3.shape != q3.shape or do3.shape != q3.shape:
         raise ValueError(f"o and dO must match q's shape "
                          f"{tuple(q3.shape)}, got {tuple(o3.shape)} and "
                          f"{tuple(do3.shape)}")
-    delta = flash_bwd_delta(o3, do3)
-    dq = flash_bwd_dq(q3, k3, v3, do3, lse, delta, scale=scale,
-                      causal=causal)
+    dq, delta = flash_bwd_dq(q3, k3, v3, o3, do3, lse, scale=scale,
+                             causal=causal)
     dk, dv = flash_bwd_dkv(q3, k3, v3, do3, lse, delta, scale=scale,
                            causal=causal)
     return dq, dk, dv

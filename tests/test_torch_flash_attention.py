@@ -174,6 +174,44 @@ def test_flash_bwd_function_matches_jax_bwd(causal, T):
                                        err_msg=f"{fn.__name__} d{name}")
 
 
+@pytest.mark.parametrize("causal,T", [(True, 128), (False, 128),
+                                      (True, 96)])
+def test_flash_bwd_dq_cpu_gives_plain_dq_and_delta_matching_jax(causal, T):
+    """flash_bwd_dq on CPU tensors returns (dq, delta): exactly the plain
+    dq and flash_bwd_delta's delta, and both agree with the JAX
+    package's _bwd (its dq, in interpret mode, and the delta it computes
+    before its kernels, flash_attention.py:235) on the same residuals."""
+    q, k, v, do = (x.reshape(2, T, 32) for x in _qkv(12, 2, T, 1, 32)
+                   + [_qkv(13, 2, T, 1, 32)[0]])
+    scale = 1.0 / np.sqrt(32)
+    o_j, lse_j = jfa._fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          scale=scale, block_q=32, block_k=32,
+                          causal=causal, interpret=True)
+    dq_j, _, _ = jfa._bwd((jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           o_j, lse_j), jnp.asarray(do), scale=scale,
+                          block_q=32, block_k=32, causal=causal,
+                          interpret=True)
+    delta_j = jnp.sum(jnp.asarray(do).astype(jnp.float32)
+                      * o_j.astype(jnp.float32), axis=-1)[:, None, :]
+    q3, k3, v3, o3, lse, do3 = (torch.from_numpy(np.array(x)) for x in
+                                (q, k, v, o_j, lse_j, do))
+    before = tfa.FLASH_BWD_DQ_LAUNCHES
+    dq, delta = tfa.flash_bwd_dq(q3, k3, v3, o3, do3, lse, scale=scale,
+                                 causal=causal)
+    assert tfa.FLASH_BWD_DQ_LAUNCHES == before
+    assert delta.shape == (2, 1, T) and delta.dtype == torch.float32
+    dq_ref, delta_ref = tfa.flash_bwd_dq_reference(
+        q3, k3, v3, o3, do3, lse, scale=scale, causal=causal)
+    assert torch.equal(dq, dq_ref)
+    assert torch.equal(delta, delta_ref)
+    assert torch.equal(delta, tfa.flash_bwd_delta(o3, do3))
+    np.testing.assert_allclose(dq.numpy(), np.asarray(dq_j), atol=GRAD_TOL,
+                               rtol=GRAD_TOL, err_msg="dq")
+    # both sum the same 32 f32 products, in other orders
+    np.testing.assert_allclose(delta.numpy(), np.asarray(delta_j),
+                               atol=F32_TOL, rtol=F32_TOL, err_msg="delta")
+
+
 def test_flash_cpu_backward_launches_no_kernel():
     q, k, v = (torch.from_numpy(x).requires_grad_(True)
                for x in _qkv(11, 1, 64, 2, 32))

@@ -31,6 +31,12 @@ tfa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 #   an H100 at every shape here; f32 <= 2.5e-7).
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-3, 2e-2)}
 REL_NORM = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+# delta = rowsum(dO * O) from the dQ kernel vs flash_bwd_delta: both sum
+# the same D products in f32 in different orders (a bf16 product is
+# exact in f32; an f32 one rounds once), so each lies within
+# (D + 1) * 2**-24 * sum|dO * O| of the exact sum, and the two within
+# twice that
+DELTA_ULP = 2.0 ** -24
 
 
 @pytest.fixture
@@ -50,6 +56,19 @@ def _inputs(device, BH, T, D, dtype, causal, seed=0):
     o3, lse = tfa.flash_attention_fwd_reference(q3, k3, v3, scale=D ** -0.5,
                                                 causal=causal)
     return q3, k3, v3, o3, lse, do3
+
+
+def _assert_delta_close(delta, o3, do3):
+    want = tfa.flash_bwd_delta(o3, do3)
+    D = o3.shape[-1]
+    bound = 2 * (D + 1) * DELTA_ULP * (do3.float() * o3.float()).abs().sum(
+        dim=-1)[:, None, :]
+    err = (delta - want).abs()
+    assert delta.shape == want.shape and delta.dtype == torch.float32
+    assert bool((err <= bound).all()), (
+        f"delta: max|kernel - plain| {err.max().item():.3e}, "
+        f"{(err - bound).max().item():.3e} over 2 (D + 1) 2**-24 "
+        f"sum|dO O|")
 
 
 def _assert_close(got, want, dtype, name):
@@ -85,6 +104,74 @@ def test_bwd_kernels_match_plain_version(cuda_device, dtype, causal, T, D):
     for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
         assert bool(torch.isfinite(got).all()), name
         _assert_close(got, ref, dtype, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [1024, 1000, 77])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_dq_kernel_delta_matches_plain_version(cuda_device, dtype, causal, T,
+                                               D):
+    q3, k3, v3, o3, lse, do3 = _inputs(cuda_device, 8, T, D, dtype, causal)
+    dq, delta = tfa.flash_bwd_dq(q3, k3, v3, o3, do3, lse, scale=D ** -0.5,
+                                 causal=causal)
+    torch.cuda.synchronize()
+    _assert_delta_close(delta, o3, do3)
+    # dq from the kernel's own delta is the dq of the whole backward
+    want, _ = tfa.flash_bwd_dq_reference(q3, k3, v3, o3, do3, lse,
+                                         scale=D ** -0.5, causal=causal)
+    _assert_close(dq, want, dtype, "dq")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernels_are_deterministic(cuda_device, dtype):
+    """Every CTA owns its output rows and sums them in one order: two
+    calls on the same inputs give bit-equal dq, dk, dv and delta."""
+    q3, k3, v3, o3, lse, do3 = _inputs(cuda_device, 24, 1024, 64, dtype,
+                                       True, seed=3)
+    runs = []
+    for _ in range(2):
+        dq, delta = tfa.flash_bwd_dq(q3, k3, v3, o3, do3, lse,
+                                     scale=0.125, causal=True)
+        dk, dv = tfa.flash_bwd_dkv(q3, k3, v3, do3, lse, delta,
+                                   scale=0.125, causal=True)
+        runs.append((dq, dk, dv, delta))
+    torch.cuda.synchronize()
+    for a, b, name in zip(*runs, ("dq", "dk", "dv", "delta")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [1000, 77])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_bwd_kernels_keep_heads_apart(cuda_device, causal, T, D):
+    """T not a multiple of the 64-row tiles: a tile that runs past a
+    head's last row must read zeros there, not the next head's first
+    rows.  Heads 1 and 3 are scaled by 100, so a leak into heads 0 and
+    2 moves their gradients far outside the tolerance (or makes them
+    non-finite)."""
+    q3, k3, v3, _, _, do3 = _inputs(cuda_device, 4, T, D, torch.bfloat16,
+                                    causal, seed=4)
+    for x in (q3, k3, v3, do3):
+        x[1::2] *= 100
+    scale = D ** -0.5
+    o3, lse = tfa.flash_attention_fwd_reference(q3, k3, v3, scale=scale,
+                                                causal=causal)
+    dq, delta = tfa.flash_bwd_dq(q3, k3, v3, o3, do3, lse, scale=scale,
+                                 causal=causal)
+    dk, dv = tfa.flash_bwd_dkv(q3, k3, v3, do3, lse, delta, scale=scale,
+                               causal=causal)
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_bwd_reference(q3, k3, v3, o3, lse, do3,
+                                             scale=scale, causal=causal)
+    _assert_delta_close(delta, o3, do3)
+    for got, ref, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert bool(torch.isfinite(got).all()), name
+        for h in (0, 2):
+            _assert_close(got[h], ref[h], torch.bfloat16, f"{name} head {h}")
 
 
 @pytest.mark.cuda

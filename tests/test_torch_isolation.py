@@ -1,6 +1,6 @@
-"""The port stands alone: no file of ray_tpu_torch/, and neither
-chip_smoke.py nor fused_ce_limits.py, imports jax, jaxlib or the JAX
-package ray_tpu."""
+"""The port stands alone: no file of ray_tpu_torch/, and none of
+chip_smoke.py, fused_ce_limits.py and flash_bwd_limits.py, imports jax,
+jaxlib or the JAX package ray_tpu."""
 
 import ast
 from pathlib import Path
@@ -13,7 +13,8 @@ FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
 
 def _port_files():
     files = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "fused_ce_limits.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "fused_ce_limits.py",
+                    ROOT / "flash_bwd_limits.py"]
 
 
 def _imported_roots(path: Path):
