@@ -12,9 +12,9 @@ Phases, each fatal on failure (any failure exits non-zero):
 3. kernel — hold the flash forward kernel against its plain PyTorch
             version at the serve shapes (B=8, H=12, D=64; T=512, 1024
             and an uneven 1000; causal and not; resident_kv on and off;
-            bf16 and f32), and time it beside the plain version, a
-            PyTorch library call computing the same function, and the
-            card's bound.
+            bf16 and f32) and at D=32 and 128 (T=512 and 1000), and time
+            it beside the plain version, a PyTorch library call
+            computing the same function, and the card's bound.
 4. kernel-bwd — hold the flash backward kernels (dQ with the delta
             it computes, dK/dV) against their plain PyTorch versions at
             B*H=24, T=1024, 1000 and 77, D=32, 64 and 128, causal and
@@ -23,19 +23,22 @@ Phases, each fatal on failure (any failure exits non-zero):
             forward against their plain versions at the training shape
             (B=24, H=12, T=1024, D=64, causal, bf16), where they are
             timed beside their plain versions and their bounds (the
-            share of it each reaches, grids and waves), and the whole
+            share of it each reaches, grids and waves), the whole
             backward against scaled_dot_product_attention's backward
-            in turns.
+            in turns, and the forward against its forward; forward and
+            backward each bit-equal across two calls.
 5. kernel-ce — hold the fused lm-head + cross-entropy kernels
             (forward, dH, dW) against their plain PyTorch versions at
-            the card tests' shapes (bf16 and f32) and at the training
+            the card tests' shapes (bf16 and f32; D from 64 to 4096,
+            llama-7b's width) and at the training
             shape (N=B*T=24576, V=50304, valid 50257, D=768, bf16, g =
             1/N as the mean loss gives), where they are timed beside
             their plain versions, their bounds (and the share of it
             each reaches), their grids and the dense composition (the
             dense CE's logits product, logsumexp and gather; its
             backward for dH and dW together, and the ratio of dH + dW
-            to it), a yardstick the fused path never calls.
+            to it), a yardstick the fused path never calls; the
+            forward bit-equal across two calls.
 6. serve  — build the GPT-2-124M engine (full width, seeded random
             weights, bf16 compute) on the card, answer 8 concurrent
             512-token requests and one ragged batch, check the replies,
@@ -59,7 +62,9 @@ Phases, each fatal on failure (any failure exits non-zero):
             on the same weights and batch, checked against each other
             (loss, gradient norm, wte gradient) and for their flash
             launches; the dense and pallas steps timed in turns, the
-            peak memory of each step, and a profile of one pallas step.
+            peak memory of each step, and a profile of one pallas step;
+            then one dense and one pallas step at gpt2-large's width
+            (d_model 1280, 2 layers, B=8), checked against each other.
 
 The line before the last is a JSON object describing each kernel; the
 line before it is the card's name and power limit; the last line is
@@ -146,9 +151,17 @@ CE_OUT_TOL = (1e-4, 1e-4)
 CE_GRAD_TOL = {"f32": (1e-4, 1e-4, 1e-5), "bf16": (1e-2, 2e-2, 2e-3)}
 CE_SHAPES = ((33, 130, 123, 64), (70, 300, 257, 192),
              (1000, 50304, 50257, 768), (200, 1000, 990, 1024),
-             (65, 1088, 1000, 64), (130, 513, 500, 128))
+             (65, 1088, 1000, 64), (130, 513, 500, 128),
+             # gpt2-large, llama-1b and llama-7b widths: the backward's
+             # wide kernel (S from streamed D-boxes, 2, 3 and 6 slices)
+             (300, 4096, 4000, 1280), (200, 2000, 1990, 2048),
+             (130, 1000, 990, 4096))
 # GPT-2-124M's head at the training shape
 CE_N, CE_V, CE_VALID, CE_D = TRAIN_B * TRAIN_T, 50304, 50257, 768
+# gpt2-large's width (d_model 1280, 20 heads of 64: above the 1024 the
+# fused-CE kernels once refused), depth cut to WIDE_LAYERS and the batch
+# to WIDE_B x TRAIN_T; its pallas step is held against its dense step
+WIDE_PRESET, WIDE_D, WIDE_LAYERS, WIDE_B = "gpt2-large", 1280, 2, 8
 # one GPT-2-124M step, other CE or remat vs its reference step on the
 # same weights and batch: the loss and the relative gradient norm (the
 # tolerances of the flash-vs-plain step) and ||wte grad - reference|| /
@@ -194,6 +207,16 @@ def time_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(torch, fns: dict, rounds: int = BWD_TURNS) -> tuple:
+    """Each function's time_ms over `rounds` rounds in turns (a, b, b, a,
+    ...): ({name: median}, {name: [ms of each round]})."""
+    runs = {name: [] for name in fns}
+    for i in range(rounds):
+        for name in (list(fns) if i % 2 == 0 else list(fns)[::-1]):
+            runs[name].append(time_ms(torch, fns[name]))
+    return {k: sorted(v)[len(v) // 2] for k, v in runs.items()}, runs
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple:
     """(least time on this card in ms, "bytes" or "operations"): the
     larger of the bytes over the memory rate and the operations over
@@ -209,13 +232,13 @@ def visible_pairs(T: int, causal: bool) -> int:
 
 
 def attention_bound_ms(T: int, causal: bool, dtype: str,
-                       bh: int = B * H) -> tuple:
+                       bh: int = B * H, d: int = D) -> tuple:
     """Least time for one (BH, T, D) attention forward on this card:
     q, k, v read once, o and lse written once; 4*D operations per
     visible (query, key) pair."""
     elem = 2 if dtype == "bf16" else 4
-    nbytes = 4 * bh * T * D * elem + bh * T * 4
-    return bound_ms(nbytes, 4 * bh * D * visible_pairs(T, causal), dtype)
+    nbytes = 4 * bh * T * d * elem + bh * T * 4
+    return bound_ms(nbytes, 4 * bh * d * visible_pairs(T, causal), dtype)
 
 
 def bwd_bounds_ms(bh: int, T: int, d: int, causal: bool,
@@ -376,16 +399,19 @@ def phase_kernel(torch, fa, card: str) -> dict:
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(0)
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
-    cases = [(T, causal, dt) for T in (512, 1024)
+    cases = [(T, causal, dt, D) for T in (512, 1024)
              for causal in (True, False) for dt in ("bf16", "f32")]
-    cases += [(1000, True, "bf16"), (1000, True, "f32")]
+    cases += [(1000, True, "bf16", D), (1000, True, "f32", D)]
+    # the other head dims the kernel is built for (llama-7b's is 128)
+    cases += [(T, causal, dt, d) for d in (32, 128) for T in (512, 1000)
+              for causal in (True, False) for dt in ("bf16", "f32")]
     headline = None
-    for T, causal, dt in cases:
-        q4, k4, v4 = (torch.randn((B, T, H, D), generator=gen, device=dev)
+    for T, causal, dt, d in cases:
+        q4, k4, v4 = (torch.randn((B, T, H, d), generator=gen, device=dev)
                       .to(dtypes[dt]) for _ in range(3))
-        q3, k3, v3 = (x.transpose(1, 2).reshape(B * H, T, D)
+        q3, k3, v3 = (x.transpose(1, 2).reshape(B * H, T, d)
                       for x in (q4, k4, v4))
-        scale = 1.0 / math.sqrt(D)
+        scale = 1.0 / math.sqrt(d)
         o_ref, lse_ref = fa.flash_attention_fwd_reference(
             q3, k3, v3, scale=scale, causal=causal)
         o, lse = fa.flash_attention_fwd(q3, k3, v3, scale=scale,
@@ -393,7 +419,7 @@ def phase_kernel(torch, fa, card: str) -> dict:
         torch.cuda.synchronize()
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
-        o_ref4 = o_ref.reshape(B, H, T, D).transpose(1, 2).float()
+        o_ref4 = o_ref.reshape(B, H, T, d).transpose(1, 2).float()
         err_res = {}
         for resident in (True, False):
             o4 = fa.flash_attention(q4, k4, v4, causal=causal,
@@ -404,17 +430,17 @@ def phase_kernel(torch, fa, card: str) -> dict:
               and err_lse <= TOL[(dt, "lse")])
         ms = time_ms(torch, lambda: fa.flash_attention_fwd(
             q3, k3, v3, scale=scale, causal=causal))
-        bound, bound_by = attention_bound_ms(T, causal, dt)
-        print(f"[kernel] T={T} causal={causal} {dt}: max|o-plain| "
+        bound, bound_by = attention_bound_ms(T, causal, dt, d=d)
+        print(f"[kernel] T={T} D={d} causal={causal} {dt}: max|o-plain| "
               f"{err_o:.3e} (resident on {err_res[True]:.3e}, off "
               f"{err_res[False]:.3e}; tol {TOL[(dt, 'o')]:.0e}), "
               f"max|lse-plain| {err_lse:.3e} (tol "
               f"{TOL[(dt, 'lse')]:.0e}); kernel {ms:.4f} ms, bound "
               f"{bound:.4f} ms ({bound_by}) [{card}]", flush=True)
         if not ok:
-            fail(f"kernel disagrees with its plain version at T={T} "
+            fail(f"kernel disagrees with its plain version at T={T} D={d} "
                  f"causal={causal} {dt}")
-        if (T, causal, dt) == (512, True, "bf16"):
+        if (T, causal, dt, d) == (512, True, "bf16", D):
             # the shape the serve prefill gives the kernel
             plain_ms = time_ms(torch, lambda: fa.
                                flash_attention_fwd_reference(
@@ -652,9 +678,7 @@ def phase_kernel_bwd(torch, fa, card: str, ptxas: dict) -> dict:
         ms = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq(
                   q3, k3, v3, o3, do3, lse, **kw)),
               "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv(
-                  q3, k3, v3, do3, lse, delta, **kw)),
-              "fwd": time_ms(torch, lambda: fa.flash_attention_fwd(
-                  q3, k3, v3, **kw))}
+                  q3, k3, v3, do3, lse, delta, **kw))}
         plain = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq_reference(
                      q3, k3, v3, o3, do3, lse, **kw), iters=5),
                  "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv_reference(
@@ -672,29 +696,31 @@ def phase_kernel_bwd(torch, fa, card: str, ptxas: dict) -> dict:
         torch.cuda.synchronize()
         deterministic = all(torch.equal(a, b) for a, b in zip(first,
                                                                 second))
+        first = fa.flash_attention_fwd(q3, k3, v3, **kw)
+        second = fa.flash_attention_fwd(q3, k3, v3, **kw)
+        torch.cuda.synchronize()
+        fwd_deterministic = all(torch.equal(a, b) for a, b in zip(first,
+                                                                    second))
         del first, second
         qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
                            for x in (q4, k4, v4, do4))
-        sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True))
-    print(f"[kernel-bwd]   two calls of the whole backward bit-equal (dq, "
-          f"dk, dv): {deterministic}", flush=True)
-    if not deterministic:
-        fail("the backward kernels gave different results on the same "
-             "inputs")
+        # the forward and SDPA's forward in turns, as the backward below
+        fwd_med, fwd_turns = in_turns(torch, {
+            "port": lambda: fa.flash_attention_fwd(q3, k3, v3, **kw),
+            "sdpa": lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True)})
+        ms["fwd"], sdpa_fwd = fwd_med["port"], fwd_med["sdpa"]
+    print(f"[kernel-bwd]   two calls bit-equal: whole backward (dq, dk, dv) "
+          f"{deterministic}, forward (o, lse) {fwd_deterministic}",
+          flush=True)
+    if not deterministic or not fwd_deterministic:
+        fail("the flash kernels gave different results on the same inputs")
     qh, kh, vh = (x.requires_grad_(True) for x in (qh, kh, vh))
     out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
     sdpa_fn = lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
                                           retain_graph=True)
-    # the whole backward and SDPA's backward in turns (port, sdpa, sdpa,
-    # port, ...), each a mean of 20 calls, medians over the rounds
-    turns = {"port": [], "sdpa": []}
-    for i in range(BWD_TURNS):
-        order = ("port", "sdpa") if i % 2 == 0 else ("sdpa", "port")
-        for name in order:
-            turns[name].append(time_ms(torch, whole_fn if name == "port"
-                                       else sdpa_fn))
-    med = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
+    # the whole backward and SDPA's backward in turns
+    med, turns = in_turns(torch, {"port": whole_fn, "sdpa": sdpa_fn})
     ms["whole"] = med["port"]
     bounds = bwd_bounds_ms(bh, T, D, True, "bf16")
     fwd_bound = attention_bound_ms(T, True, "bf16", bh=bh)
@@ -719,10 +745,19 @@ def phase_kernel_bwd(torch, fa, card: str, ptxas: dict) -> dict:
           f"{med['sdpa']:.4f} ms = {factor:.3f}x; port "
           f"{[round(x, 4) for x in turns['port']]}, sdpa "
           f"{[round(x, 4) for x in turns['sdpa']]} [{card}]", flush=True)
+    fwd_ctas = bh * -(-T // fa.FWD_BF16_CTA_ROWS)
+    fwd_waves = fwd_ctas / (sms * fa.FWD_BF16_CTAS_PER_SM)
     print(f"[kernel-bwd]   forward: kernel {ms['fwd']:.4f} ms, plain "
           f"{plain['fwd']:.4f} ms, scaled_dot_product_attention "
-          f"{sdpa_fwd:.4f} ms, bound {fwd_bound[0]:.4f} ms "
-          f"({fwd_bound[1]}) [{card}]", flush=True)
+          f"{sdpa_fwd:.4f} ms ({ms['fwd'] / sdpa_fwd:.3f}x; medians of "
+          f"{BWD_TURNS} rounds in turns, port "
+          f"{[round(x, 4) for x in fwd_turns['port']]}, sdpa "
+          f"{[round(x, 4) for x in fwd_turns['sdpa']]}), bound "
+          f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}, "
+          f"{100 * fwd_bound[0] / ms['fwd']:.1f}% of it reached), "
+          f"{fwd_ctas} CTAs = {fwd_waves:.2f} waves of "
+          f"{fa.FWD_BF16_CTAS_PER_SM} on each of {sms} SMs [{card}]",
+          flush=True)
     whole = {"ms": ms["whole"], "plain_ms": plain["whole"],
              "bound_ms": bounds["whole"][0],
              "bound_by": bounds["whole"][1], "library_ms": med["sdpa"],
@@ -748,7 +783,11 @@ def phase_kernel_bwd(torch, fa, card: str, ptxas: dict) -> dict:
     records["fwd_train_shape"] = {"ms": ms["fwd"], "plain_ms": plain["fwd"],
                                   "bound_ms": fwd_bound[0],
                                   "bound_by": fwd_bound[1],
-                                  "library_ms": sdpa_fwd}
+                                  "library_ms": sdpa_fwd,
+                                  "bound_share": fwd_bound[0] / ms["fwd"],
+                                  "over_library": ms["fwd"] / sdpa_fwd,
+                                  "turns_ms": fwd_turns,
+                                  "ctas": fwd_ctas, "waves": fwd_waves}
     return records
 
 
@@ -841,7 +880,33 @@ def ce_bounds_ms(n: int, v: int, valid: int, d: int) -> dict:
             "dw": bound_ms(hw + 3 * n * 4 + v * d * 4, 2 * ops, "bf16")}
 
 
-def phase_kernel_ce(torch, fc, card: str) -> dict:
+def time_wide_ce(torch, fc, card: str) -> dict:
+    """The three kernels at the head shape of the gpt2-large step that
+    phase train-ce checks (N = WIDE_B * TRAIN_T, V = 50304, D = 1280,
+    bf16; dH and dW through the wide kernel), timed beside their bounds;
+    {kernel: {"ms", "bound_ms", "bound_by", "shape"}}."""
+    n, d = WIDE_B * TRAIN_T, WIDE_D
+    h, w, tgt, g = ce_inputs(torch, n, CE_V, CE_VALID, d, torch.bfloat16,
+                             seed=4, g=1.0 / n)
+    with torch.no_grad():
+        _, lse = fc.fused_ce_fwd(h, w, tgt, CE_VALID)
+        ms = {"fwd": time_ms(torch, lambda: fc.fused_ce_fwd(
+                  h, w, tgt, CE_VALID), iters=5),
+              "dh": time_ms(torch, lambda: fc.fused_ce_bwd_dh(
+                  h, w, tgt, lse, g, CE_VALID), iters=3),
+              "dw": time_ms(torch, lambda: fc.fused_ce_bwd_dw(
+                  h, w, tgt, lse, g, CE_VALID), iters=3)}
+    bounds = ce_bounds_ms(n, CE_V, CE_VALID, d)
+    print(f"[kernel-ce]   gpt2-large's head (N={n} V={CE_V} D={d} bf16): " +
+          ", ".join(f"{k} {ms[k]:.4f} ms (bound {bounds[k][0]:.4f}, "
+                    f"{100 * bounds[k][0] / ms[k]:.1f}%)" for k in ms) +
+          f" [{card}]", flush=True)
+    return {k: {"ms": ms[k], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1], "shape": [n, CE_V, CE_VALID, d]}
+            for k in ms}
+
+
+def phase_kernel_ce(torch, fc, card: str, ptxas: dict) -> dict:
     from ray_tpu_torch.models.gpt2 import _LogitsMatmul, nll_from_logits
 
     for i, (n, v, valid, d) in enumerate(CE_SHAPES):
@@ -871,6 +936,17 @@ def phase_kernel_ce(torch, fc, card: str) -> dict:
         # calls it)
         dense_fwd = time_ms(torch, lambda: nll_from_logits(
             _LogitsMatmul.apply(h, w), tgt, valid, CE_V), iters=5)
+        # determinism: a second forward, bit-equal
+        first, second = fc.fused_ce_fwd(*a, valid), fc.fused_ce_fwd(*a, valid)
+        torch.cuda.synchronize()
+        fwd_deterministic = all(torch.equal(x, y) for x, y in zip(first,
+                                                                    second))
+        del first, second
+    print(f"[kernel-ce]   two calls of the forward bit-equal (nll, lse): "
+          f"{fwd_deterministic}", flush=True)
+    if not fwd_deterministic:
+        fail("the fused CE forward gave different results on the same "
+             "inputs")
     hg, wg = h.detach().requires_grad_(True), w.detach().requires_grad_(True)
     nll = nll_from_logits(_LogitsMatmul.apply(hg, wg), tgt, valid, CE_V)
     dense_bwd = time_ms(torch, lambda: torch.autograd.grad(
@@ -881,7 +957,10 @@ def phase_kernel_ce(torch, fc, card: str) -> dict:
     # the card's SMs
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     slices = -(-CE_D // fc.BWD_SLICE_COLS)
-    ctas = {"fwd": -(-CE_N // fc.FWD_BLOCK_ROWS),
+    # the forward's vocab splits, cut to whole groups of vocab tiles
+    tiles = -(-valid // fc.FWD_TILE_ROWS)
+    per_split = -(-tiles // fc.fused_ce_fwd_splits(CE_N, valid, sms))
+    ctas = {"fwd": -(-CE_N // fc.FWD_BLOCK_ROWS) * -(-tiles // per_split),
             "dh": -(-CE_N // fc.BWD_BLOCK_ROWS) * slices,
             "dw": -(-CE_V // fc.BWD_BLOCK_ROWS) * slices}
     share = {k: bounds[k][0] / ms[k] for k in ms}
@@ -901,16 +980,24 @@ def phase_kernel_ce(torch, fc, card: str) -> dict:
                         "float32) logits, logsumexp, gather (dH and dW: "
                         "its backward, together)",
              "forward_ms": dense_fwd, "backward_ms": dense_bwd}
+    cmp = t["cmp"]
+    del h, w, tgt, g, lse, a, ab, t
+    wide = time_wide_ce(torch, fc, card)
     records = {}
     for k, cmp_keys in (("fwd", ("nll", "lse")), ("dh", ("dh",)),
                         ("dw", ("dw",))):
         records[k] = {
-            "max_abs_err": max(t["cmp"][c]["max"] for c in cmp_keys),
+            "max_abs_err": max(cmp[c]["max"] for c in cmp_keys),
             "ms": ms[k], "plain_ms": plain[k], "bound_ms": bounds[k][0],
             "bound_by": bounds[k][1],
             "library_ms": dense_fwd if k == "fwd" else None,
             "bound_share": share[k], "dense_composition": dense,
-            "ctas": ctas[k]}
+            "ctas": ctas[k], "waves": ctas[k] / sms,
+            "wide_shape": wide[k],
+            "ptxas": ptxas.get({"fwd": "fused_ce_fwd_bf16_kernel",
+                                "dh": "fused_ce_bwd_bf16_kernel<1, 12>",
+                                "dw": "fused_ce_bwd_bf16_kernel<2, 12>"}[k],
+                               [])}
         if k != "fwd":
             records[k]["dh_plus_dw_over_dense_backward"] = bwd_ratio
     return records
@@ -1150,29 +1237,53 @@ CE_STEPS = {
 }
 
 
-def check_ce_and_remat_steps(torch, fa, cfg) -> tuple:
-    """One step of each CE_STEPS entry on the same seeded weights and
-    batch, each against its reference step (loss, gradient norm, wte
-    gradient over all rows and over the head-only rows) and for its
-    launches: 12 of each flash kernel per step
-    under mlp_only, 24 forward and 12 of each backward under the
-    selective policies (the per-layer counts of the CPU test
-    test_flash_calls_per_step_follow_remat), 1 of each fused CE kernel
-    with ce_impl="pallas" and none otherwise.  Returns (params, batch,
-    {name: step})."""
+def compare_steps(st: dict, r: dict, ref: str, head_only) -> tuple:
+    """One step against its reference step ``r`` (named ``ref``): loss,
+    relative gradient norm, ||wte grad - reference|| / ||reference|| over
+    all rows and over the head-only rows.  Returns (the numbers, a line
+    of text, whether all are within CE_LOSS_TOL, CE_GRAD_NORM_RTOL,
+    CE_WTE_GRAD_RTOL and CE_HEAD_GRAD_RTOL)."""
+    dl = abs(st["loss"] - r["loss"])
+    dg = abs(st["grad_norm"] - r["grad_norm"]) / r["grad_norm"]
+    diff = st["wte"] - r["wte"]
+    dw = (diff.norm() / r["wte"].norm()).item()
+    dh = (diff[head_only].norm() / r["wte"][head_only].norm()).item()
+    head_tol = CE_HEAD_GRAD_RTOL["dense" if ref == "dense" else "f32"]
+    text = (f"; vs {ref}: loss |diff| {dl:.3e} (tol {CE_LOSS_TOL}), grad "
+            f"norm rel diff {dg:.3e} (tol {CE_GRAD_NORM_RTOL}), ||wte grad "
+            f"- {ref}|| / ||{ref}|| {dw:.3e} (tol {CE_WTE_GRAD_RTOL}), on "
+            f"the {int(head_only.sum())} head-only rows {dh:.3e} (tol "
+            f"{head_tol})")
+    ok = dl <= CE_LOSS_TOL and dg <= CE_GRAD_NORM_RTOL and \
+        dw <= CE_WTE_GRAD_RTOL and dh <= head_tol
+    return ({"loss_diff": dl, "grad_norm_rel": dg, "wte_grad_rel": dw,
+             "head_rows_rel": dh}, text, ok)
+
+
+def check_ce_and_remat_steps(torch, fa, cfg, spec=None,
+                             batch_rows: int = TRAIN_B) -> tuple:
+    """One step of each ``spec`` entry (default CE_STEPS) on the same
+    seeded weights and a batch of ``batch_rows`` x TRAIN_T tokens, each
+    against its reference step (loss, gradient norm, wte gradient over
+    all rows and over the head-only rows) and for its launches: one of
+    each flash kernel per layer under mlp_only, two forwards and one of
+    each backward under the selective policies (the per-layer counts of
+    the CPU test test_flash_calls_per_step_follow_remat), 1 of each
+    fused CE kernel with ce_impl="pallas" and none otherwise.  Returns
+    (params, batch, {name: step})."""
     from ray_tpu_torch.models.gpt2 import gpt2_init
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = gpt2_init(cfg, gen, device="cuda")
     batch = {"tokens": torch.randint(0, cfg.vocab_size,
-                                     (TRAIN_B, TRAIN_T + 1), generator=gen,
-                                     device="cuda")}
+                                     (batch_rows, TRAIN_T + 1),
+                                     generator=gen, device="cuda")}
     head_only = torch.ones(cfg.padded_vocab, dtype=torch.bool,
                            device="cuda")
     head_only[batch["tokens"][:, :-1].flatten()] = False
     L = cfg.n_layer
     steps, bad = {}, []
-    for name, (kw, refs) in CE_STEPS.items():
+    for name, (kw, refs) in (spec or CE_STEPS).items():
         c = dataclasses.replace(cfg, **kw)
         st = one_step(torch, fa, params, batch, c)
         steps[name] = st
@@ -1182,7 +1293,8 @@ def check_ce_and_remat_steps(torch, fa, cfg) -> tuple:
         if c.ce_impl == "pallas":
             want.update(fused_ce_fwd=1, fused_ce_bwd_dh=1,
                         fused_ce_bwd_dw=1)
-        line = (f"[train-ce] one step, ce {c.ce_impl}, remat "
+        line = (f"[train-ce] one step, d_model {c.d_model}, {L} layers, "
+                f"B={batch_rows}, ce {c.ce_impl}, remat "
                 f"{c.remat_policy}: loss {st['loss']:.5f}, grad norm "
                 f"{st['grad_norm']:.5f}, nonfinite {st['nonfinite']}, "
                 f"peak memory {st['peak_gib']:.2f} GiB; launches "
@@ -1193,25 +1305,10 @@ def check_ce_and_remat_steps(torch, fa, cfg) -> tuple:
             bad.append(f"{name}: {st['nonfinite']} nonfinite gradients")
         st["vs"] = {}
         for ref in refs:
-            r = steps[ref]
-            dl = abs(st["loss"] - r["loss"])
-            dg = abs(st["grad_norm"] - r["grad_norm"]) / r["grad_norm"]
-            diff = st["wte"] - r["wte"]
-            dw = (diff.norm() / r["wte"].norm()).item()
-            dh = (diff[head_only].norm()
-                  / r["wte"][head_only].norm()).item()
-            st["vs"][ref] = {"loss_diff": dl, "grad_norm_rel": dg,
-                             "wte_grad_rel": dw, "head_rows_rel": dh}
-            head_tol = CE_HEAD_GRAD_RTOL["dense" if ref == "dense"
-                                         else "f32"]
-            line += (f"; vs {ref}: loss |diff| {dl:.3e} (tol "
-                     f"{CE_LOSS_TOL}), grad norm rel diff {dg:.3e} (tol "
-                     f"{CE_GRAD_NORM_RTOL}), ||wte grad - {ref}|| / ||"
-                     f"{ref}|| {dw:.3e} (tol {CE_WTE_GRAD_RTOL}), on the "
-                     f"{int(head_only.sum())} head-only rows {dh:.3e} "
-                     f"(tol {head_tol})")
-            if dl > CE_LOSS_TOL or dg > CE_GRAD_NORM_RTOL or \
-                    dw > CE_WTE_GRAD_RTOL or dh > head_tol:
+            vs, text, ok = compare_steps(st, steps[ref], ref, head_only)
+            st["vs"][ref] = vs
+            line += text
+            if not ok:
                 bad.append(f"{name} disagrees with {ref}")
         print(line, flush=True)
     for st in steps.values():
@@ -1219,6 +1316,23 @@ def check_ce_and_remat_steps(torch, fa, cfg) -> tuple:
     if bad:
         fail("; ".join(bad))
     return params, batch, steps
+
+
+#: the steps of the gpt2-large-width check
+WIDE_STEPS = {name: CE_STEPS[name] for name in ("dense", "pallas")}
+
+
+def check_wide_ce_step(torch, fa) -> dict:
+    """One dense and one ce_impl="pallas" step of gpt2-large's width at
+    reduced depth on the same weights and batch, checked against each
+    other as check_ce_and_remat_steps does; fails on a disagreement."""
+    from ray_tpu_torch.models.gpt2 import gpt2_config
+
+    cfg = gpt2_config(WIDE_PRESET, n_layer=WIDE_LAYERS, max_seq=TRAIN_T,
+                      remat_policy="mlp_only", ce_impl="dense")
+    _, _, steps = check_ce_and_remat_steps(torch, fa, cfg, WIDE_STEPS,
+                                           WIDE_B)
+    return steps
 
 
 def phase_train_ce(torch, fa, card: str) -> dict:
@@ -1243,6 +1357,7 @@ def phase_train_ce(torch, fa, card: str) -> dict:
                                      "dense"] * 2)
     result["steps"] = steps
     report_medians(result, wall, "train-ce", card)
+    result["wide_steps"] = check_wide_ce_step(torch, fa)
     result["profile"] = profile_step(torch, state, "pallas",
                                      result["pallas_step_ms"], card)
     return result
@@ -1263,8 +1378,10 @@ def main() -> int:
     ptxas = phase_build(kernels)
     with torch.inference_mode():
         headline = phase_kernel(torch, fa, card)
+    headline["ptxas"] = ptxas["flash_fwd"].get("flash_fwd_bf16_kernel<64>",
+                                               [])
     bwd = phase_kernel_bwd(torch, fa, card, ptxas["flash_bwd"])
-    ce = phase_kernel_ce(torch, fc, card)
+    ce = phase_kernel_ce(torch, fc, card, ptxas["fused_ce"])
     serve_counts = phase_serve(torch, np, fa, card)
     train = phase_train(torch, fa, card)
     train_ce = phase_train_ce(torch, fa, card)

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Where the bf16 fused-CE backward kernels (dH, dW) spend their time.
+"""Where the bf16 fused-CE kernels (forward, dH, dW) spend their time.
 
     python3 fused_ce_limits.py
 
 Builds variants of ray_tpu_torch/ops/csrc/fused_ce.cu for D = 768 only,
 each with one part of the work taken out (so their results are wrong on
-purpose), and times dH and dW of each at GPT-2-124M's training shape
-(N = 24,576, V = 50,304, valid 50,257, D = 768, bf16), the variants in
-turns, twice, on one NVIDIA GPU:
+purpose), and times the forward, dH and dW of each at GPT-2-124M's
+training shape (N = 24,576, V = 50,304, valid 50,257, D = 768, bf16),
+the variants in turns, twice, on one NVIDIA GPU:
 
-  as_built    the kernel as it is
-  s_one_box   S = R . C^T contracted over the first 64 of D's columns
-  no_product  no second product (acc += dlogits . C)
-  no_exp      dlogits without their exp
-  s_two_acc   S summed into two accumulators (half the dependency chain)
+  as_built    the kernels as they are
+  s_one_box   dH, dW: S = R . C^T contracted over the first 64 of D's
+              columns
+  no_product  dH, dW: no second product (acc += dlogits . C)
+  no_exp      dH, dW: dlogits without their exp
+  s_two_acc   dH, dW: S summed into two accumulators (half the
+              dependency chain)
+  fwd_no_exp  forward: the online sum without its exp2
 
 The ring still streams every C tile in each variant: a variant with
 little compute left that takes nearly the time of the kernel as built
@@ -73,15 +76,21 @@ S_TWO_ACC = """      float s2[16];
       fence_regs(s2);
 #pragma unroll
       for (int q = 0; q < 16; ++q) s[q] += s2[q];"""
+# (old, new, times the old text occurs in fused_ce.cu): the backward's
+# edits also reach the wide kernel (D > 1024), which D = 768 never runs
 VARIANTS = {
     "as_built": [],
     "s_one_box": [("for (int kb = 0; kb < BOXES; ++kb)",
-                   "for (int kb = 0; kb < 1; ++kb)")],
+                   "for (int kb = 0; kb < 1; ++kb)", 1)],
     "no_product": [("for (int kk = 0; kk < 2; ++kk)",
-                    "for (int kk = 0; kk < 0; ++kk)")],
-    "no_exp": [("expf(logit - rl[m])", "(logit - rl[m])"),
-               ("expf(logit - rl[n])", "(logit - rl[n])")],
-    "s_two_acc": [(S_ONE_ACC, S_TWO_ACC)],
+                    "for (int kk = 0; kk < 0; ++kk)", 2)],
+    "no_exp": [("expf(logit - rl[m])", "(logit - rl[m])", 2),
+               ("expf(logit - rl[n])", "(logit - rl[n])", 2)],
+    "s_two_acc": [(S_ONE_ACC, S_TWO_ACC, 1)],
+    "fwd_no_exp": [("sum_b += exp2_approx(s[k] - mn_b);",
+                    "sum_b += s[k] - mn_b;", 1),
+                   ("sum_a += exp2_approx(s[k] - mn_a);",
+                    "sum_a += s[k] - mn_a;", 1)],
 }
 
 
@@ -90,8 +99,9 @@ def build(kernels, src: Path, name: str) -> list:
     and point the kernel loader at it; returns ptxas's spill and wgmma
     notes."""
     text = (src / "fused_ce.cu").read_text()
-    for old, new in VARIANTS[name] + [(ALL_BOXES, "    FUSED_CE_BWD_BOXES(12)")]:
-        if text.count(old) != 1:
+    for old, new, count in VARIANTS[name] + [
+            (ALL_BOXES, "    FUSED_CE_BWD_BOXES(12)", 1)]:
+        if text.count(old) != count:
             raise SystemExit(f"fused_ce_limits: variant {name} no longer "
                              f"matches fused_ce.cu: {old[:50]!r}")
         text = text.replace(old, new)
@@ -153,15 +163,17 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    ms = {name: {"dh": [], "dw": []} for name in VARIANTS}
+    fns = {"fwd": lambda *a: fc.fused_ce_fwd(*a[:3], a[5]),
+           "dh": fc.fused_ce_bwd_dh, "dw": fc.fused_ce_bwd_dw}
+    ms = {name: {k: [] for k in fns} for name in VARIANTS}
     for name in list(VARIANTS) * 2:
         use(kernels, dirs[name])
-        for k in ("dh", "dw"):
-            ms[name][k].append(time_ms(getattr(fc, f"fused_ce_bwd_{k}")))
+        for k, fn in fns.items():
+            ms[name][k].append(time_ms(fn))
     for name, t in ms.items():
-        print(f"[limits] {name:10s}: dH " +
-              " ".join(f"{x:.3f}" for x in t["dh"]) + " ms, dW " +
-              " ".join(f"{x:.3f}" for x in t["dw"]) + f" ms [{card}]")
+        print(f"[limits] {name:10s}: " + ", ".join(
+            f"{k} " + " ".join(f"{x:.3f}" for x in t[k]) + " ms"
+            for k in fns) + f" [{card}]")
     return 0
 
 

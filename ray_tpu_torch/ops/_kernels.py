@@ -48,8 +48,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                           ctypes.c_float, _I, _I, _P),
     },
     "fused_ce": {
-        # h, w, tgt, nll, lse, N, V, D, valid_vocab, is_bf16, stream
-        "fused_ce_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # h, w, tgt, nll, lse, part (scratch), N, V, D, valid_vocab,
+        # splits, is_bf16, stream
+        "fused_ce_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P),
         # h, w, tgt, lse, g, dh (f32), N, V, D, valid_vocab, is_bf16,
         # stream
         "fused_ce_bwd_dh": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

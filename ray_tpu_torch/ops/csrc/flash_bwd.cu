@@ -113,7 +113,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -125,7 +124,7 @@ constexpr int kBlockN = 64;  // f32: k rows per dK/dV CTA, kv rows per tile
 // bfloat16: TMA rings, warp-specialised wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 64;       // rows of a streamed tile and of a consumer
+constexpr int kTile = kHeadTile;  // rows of a streamed tile and of a consumer
 // consumer warpgroups per CTA: one, two CTAs an SM (2 x (128 x 232 +
 // 128 x 24) = 65,536 registers); with two, one CTA an SM (2 x 128 x 240
 // + 128 x 24 = 64,512)
@@ -136,35 +135,6 @@ constexpr int kWsThreads = 128 * (kConsumers + 1);  // producer last
 constexpr int kProducerRegs = 24;
 constexpr int kCtasPerSm = kConsumers == 1 ? 2 : 1;
 constexpr int kConsumerRegs = kConsumers == 1 ? 232 : 240;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// a 64-row bf16 tile of D columns in shared memory: D / 64 TMA boxes of
-// 64 columns (128-byte rows, 128-byte swizzle), or one box of 32 columns
-// (64-byte rows, 64-byte swizzle) at D = 32; and its wgmma descriptors
-template <int D>
-struct TileOf {
-  static constexpr int kBoxCols = D < 64 ? D : 64;
-  static constexpr int kBoxes = D / kBoxCols;
-  static constexpr int kRowBytes = 2 * kBoxCols;
-  static constexpr int kBoxBytes = kTile * kRowBytes;
-  static constexpr int kBytes = kBoxes * kBoxBytes;
-  static constexpr uint32_t kLayout = kRowBytes == 128 ? 1 : 2;
-  static constexpr int kKSteps = D / 16;  // k16 steps over D
-  static constexpr int kStepsPerBox = kBoxCols / 16;
-
-  // the tile at `addr` as a K-major operand (rows x D), k16 step ks
-  __device__ static uint64_t kmajor(uint32_t addr, int ks) {
-    return wgmma_desc(addr + (ks / kStepsPerBox) * kBoxBytes +
-                          (ks % kStepsPerBox) * 32,
-                      16, 8 * kRowBytes, kLayout);
-  }
-  // the tile at `addr` as an MN-major B (64 rows of K x D columns of N),
-  // k16 step kk over its rows; the boxes are N's swizzle atoms
-  __device__ static uint64_t mnmajor(uint32_t addr, int kk) {
-    return wgmma_desc(addr + kk * 16 * kRowBytes, kBoxBytes, 8 * kRowBytes,
-                      kLayout);
-  }
-};
 
 // shared memory of both kernels: the consumers' resident tiles (Q and
 // dO, or K and V), a ring of stages of two streamed tiles with the dK/dV
@@ -176,38 +146,6 @@ constexpr size_t ws_smem_bytes() {
              TileOf<D>::kBytes +
          2 * kStages * kTile * sizeof(float) +
          (1 + 2 * kStages) * sizeof(uint64_t);
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// one arrival per consumer warp
-__device__ __forceinline__ void warp_arrive(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
-}
-
-// this CTA's batch*head and the rank of its row block by causal work (0:
-// the most).  The grid is 1-D: heads in groups of `group`, and within a
-// group the blocks of rank 0 of every head first, then rank 1, ...  A
-// group's CTAs run at about the same time, so each streamed tile comes
-// from device memory once and from L2 for the group's other blocks.
-__device__ __forceinline__ void cta_work(int bh_count, int blocks, int group,
-                                         int& bh, int& rank) {
-  const int i = blockIdx.x;
-  const int first = i / (group * blocks) * group;  // first head of the group
-  const int heads = min(group, bh_count - first);
-  const int r = i - first * blocks;
-  rank = r / heads;
-  bh = first + r % heads;
 }
 
 // a consumer's 64 x D f32 accumulator (rows row_a and row_a + 8 of this

@@ -39,10 +39,11 @@
 // (m, s, target logit; a (256, 768) f32 dH scratch; a (1024, 768) f32
 // dW scratch) across a sequential grid axis.  Hopper blocks run in no
 // order, so each CTA owns its output rows and walks the other operand
-// in a loop inside the CTA: no atomics, no cross-CTA reduction, and the
-// result is deterministic (each output element is summed by one CTA in
-// one fixed order).  Forward and dH own rows of h and walk vocab tiles
-// of w up to valid_vocab; dW owns rows of w and walks the rows of h.
+// in a loop inside the CTA: no atomics, and the result is deterministic
+// (each output element is summed by one CTA in one fixed order; the
+// forward's vocab splits are combined by a second small kernel, in split
+// order).  Forward and dH own rows of h and walk vocab tiles of w up to
+// valid_vocab; dW owns rows of w and walks the rows of h.
 //
 // The backward, bfloat16 (fused_ce_bwd_bf16_kernel; one template, R and
 // C swapping roles):
@@ -77,9 +78,15 @@
 //   ring after it.
 // * Shared memory at D = 768: 96 KB R + 96 KB ring + 8 KB dlogits +
 //   per-column data and barriers = 201.8 KB of 227 KB.  D above 768
-//   (GPT-2 medium's 1024 is a test shape) does not fit two stages: the
-//   ring gets one, and the output's columns are cut into slices of at
-//   most 12 boxes along the grid's y axis, each slice recomputing S.
+//   (GPT-2 medium's 1024) does not fit two stages: the ring gets one,
+//   and the output's columns are cut into slices of at most 12 boxes
+//   along the grid's y axis, each slice recomputing S.
+// * D above 1024 (fused_ce_bwd_bf16_wide_kernel): the resident R block
+//   and a C tile of all of D no longer fit beside each other, so S is
+//   formed from R's and C_t's 64-column boxes streamed through a ring of
+//   four stages, and only the slice's boxes of C_t (at most 12) are kept,
+//   in a ring of two tiles, for the second product.  The consumers
+//   ping-pong as above; slices of 12 boxes along y, each recomputing S.
 // * dW CTAs whose vocab rows all lie past valid_vocab write zeros and
 //   walk nothing; rows of R past N or V are zeros from TMA with their p
 //   forced to 0.  Output offsets are 64-bit.
@@ -92,206 +99,289 @@
 //   zeroed by other instructions; accumulators are fenced around each
 //   product.  ptxas then needs 240 registers and spills none.
 //
-// The forward, bfloat16 (fused_ce_fwd_bf16_kernel): 32 rows of h
-// resident with a padded row stride (D + 8), vocab tiles of 64 rows
-// staged synchronously; 8 warps = 2 row tiles (16 rows) x 4 strips of
-// D, each forming S over its strip with mma.sync m16n8k16 (mma_bf16.cuh),
-// the four strips' partial tiles summed through shared memory in a fixed
-// order; one 8-warp CTA per SM (182 KB), 768 CTAs at the training shape.
+// The forward, bfloat16 (fused_ce_fwd_bf16_kernel), on the design of the
+// backward:
+// * 128 rows of h per CTA, two consumer warpgroups of 64 rows and a
+//   producer warpgroup (setmaxnreg 240 / 24).  The vocab is walked in
+//   tiles of 256 rows of w; S = R . C_t^T (64 x 256 f32 per consumer,
+//   128 registers a thread) is contracted over D one 64-column box at a
+//   time: each stage of a four-stage TMA ring holds the CTA's box of h
+//   (16 KB) and the tile's box of w (32 KB), both 128-byte swizzled, and
+//   both consumers run wgmma m64n256k16 on it from shared memory.  A
+//   stage is released once the next box's products are issued and its
+//   own are done (wgmma wait 1), so no block holds all of D: any D that
+//   is a multiple of 64 runs, and h's boxes are re-read from L2 for each
+//   vocab tile.
+// * The online (max, sum) update and the target-logit pick run in
+//   registers, straight from the accumulator layout: a row's 256 columns
+//   lie in the four threads of a quad, which share the running max (in
+//   log2 units: exp is exp2) and each keep a part of the sum; only the
+//   thread whose column is the row's target picks it.  Columns past
+//   valid_vocab (and vocab rows past V, zeros from TMA) are masked to
+//   -1e30 on the last tile; rows past N are computed on zeros and not
+//   written.
+// * The vocab is split over the grid's y axis so that the card has about
+//   two waves of CTAs (at the training shape 192 row blocks x 2 splits =
+//   384 CTAs, 2.91 waves of one per SM); each split writes its rows'
+//   (max, sum, target logit), and a small kernel combines the splits in
+//   split order.  Every sum has one fixed order: the result is bit-equal
+//   across launches.
+// * L2 traffic at the training shape: w is read once per (row block,
+//   split) and h once per vocab tile, 14.8 + 7.4 GB.
 //
 // float32, all three: tensor cores would round to TF32, so plain f32
 // FMA: 256 threads over a 16-row tile of R, each owning 4 columns of S
-// and a 16-row strided block of the accumulator; C is staged in 64 x 64
-// chunks of D (twice per step in the backward); dlogits passes through
-// shared memory.
+// and a 16-row strided block of the accumulator; R and C are staged in
+// 64-column chunks of D, so any D runs; the backward's output columns are
+// cut into slices of 1,024 along the grid's y axis (each slice recomputing
+// S); dlogits passes through shared memory.
 //
-// D is any multiple of 64 from 64 to 1024, a runtime argument (the
-// bf16 backward dispatches it to one of 16 instantiations).
+// D is any multiple of 64, a runtime argument (the bf16 backward up to
+// 1024 dispatches it to one of 16 instantiations, above that to the wide
+// kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxD = 1024;
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kBlockC = 64;    // rows of C per step (forward, f32)
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kThreads = 256;  // f32: 8 warps
+constexpr int kBlockC = 64;    // f32: rows of C per step
 constexpr size_t kMaxSmem = 232448;  // 227 KB, a CTA's most on sm_90
 
 enum Mode { kFwd = 0, kDh = 1, kDw = 2 };
 
 // ---------------------------------------------------------------------------
-// bfloat16 forward: mma.sync
+// bfloat16 forward: TMA ring of D-boxes, warp-specialised wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kBlockR = 32;  // rows of R per CTA: 2 row tiles of 16
-constexpr int kStrips = 4;   // strips of D: one per warp of a row tile
-constexpr int kPartFloats = 16 * kBlockC;  // a warp's S part
+constexpr int kFwdThreads = 384;   // consumers 0-255, producer 256-383
+constexpr int kFwdRows = 128;      // rows of h per CTA: 64 per consumer
+constexpr int kFwdTile = 256;      // vocab rows per tile
+constexpr int kFwdStages = 4;      // ring stages of one D-box of each
+constexpr int kBox = 64;           // columns of a TMA box (128 bytes)
+constexpr int kFwdRBoxBytes = kFwdRows * kBox * 2;  // 16 KB
+constexpr int kFwdCBoxBytes = kFwdTile * kBox * 2;  // 32 KB
+constexpr int kFwdProducerRegs = 24;
+constexpr int kFwdConsumerRegs = 240;
+constexpr size_t kFwdSmem =
+    1024 + static_cast<size_t>(kFwdStages) * (kFwdRBoxBytes + kFwdCBoxBytes) +
+    2 * kFwdStages * sizeof(uint64_t);
 
-size_t fwd_bf16_smem_bytes(int d) {
-  return static_cast<size_t>(kBlockR + kBlockC) * (d + 8) * sizeof(bf16) +
-         static_cast<size_t>(8 * kPartFloats) * sizeof(float);
-}
-
-// rows [row0, row0 + ROWS) of a (n_rows, d) bf16 matrix into a shared
-// tile with row stride d + 8, 16 bytes per thread per step; rows past
-// n_rows are zero
-template <int ROWS>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           int row0, int n_rows, int d) {
-  const int chunks = d / 8;
-  for (int idx = threadIdx.x; idx < ROWS * chunks; idx += kThreads) {
-    const int r = idx / chunks, c = idx - r * chunks;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n_rows)
-      val = *reinterpret_cast<const uint4*>(
-          src + static_cast<size_t>(row) * d + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * (d + 8) + c * 8) = val;
-  }
-}
-
-// nll (N,) and lse (N,) of 32 rows of h per CTA
-__global__ void __launch_bounds__(kThreads, 1)
-fused_ce_fwd_bf16_kernel(const bf16* __restrict__ h,
-                         const bf16* __restrict__ w,
+// nll and lse (N,) of kFwdRows rows of h per CTA, over the vocab tiles
+// [y * per_split, (y + 1) * per_split) of grid row y.  map_h boxes are 64
+// columns x 128 rows, map_w boxes 64 columns x 256 rows.  With one split
+// the CTA writes nll and lse; with more it writes its rows' running max
+// (log2 units), sum and target logit to part[3][splits][N] and
+// fused_ce_fwd_combine_kernel finishes them.
+__global__ void __launch_bounds__(kFwdThreads, 1)
+fused_ce_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_h,
+                         const __grid_constant__ CUtensorMap map_w,
                          const int* __restrict__ tgt,
                          float* __restrict__ nll, float* __restrict__ lse,
-                         int n_rows, int n_vocab, int d, int valid) {
-  const int stride = d + 8;
+                         float* __restrict__ part, int n_rows, int d,
+                         int valid, int per_split) {
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kFwdRows;
+  const int boxes = d / kBox;
+  const int n_tiles_all = (valid + kFwdTile - 1) / kFwdTile;
+  const int t_begin = blockIdx.y * per_split;
+  const int t_end = min(n_tiles_all, t_begin + per_split);
+
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* r_s = reinterpret_cast<bf16*>(smem_raw);        // kBlockR x stride
-  bf16* c_s = r_s + kBlockR * stride;                   // kBlockC x stride
-  float* part = reinterpret_cast<float*>(c_s + kBlockC * stride);
+  unsigned char* r_s = align1024(smem_raw);               // [stage]
+  unsigned char* c_s = r_s + kFwdStages * kFwdRBoxBytes;   // [stage]
+  uint64_t* full = reinterpret_cast<uint64_t*>(c_s + kFwdStages *
+                                                         kFwdCBoxBytes);
+  uint64_t* empty = full + kFwdStages;  // every consumer warp is done
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g8 = lane >> 2;  // row within the warp's 8-row half
-  const int t4 = lane & 3;   // column pair within an 8-column tile
-  const int mi = warp & 1;   // row tile
-  const int dj = warp >> 1;  // strip of D
-  const int strip = d / kStrips;
-  const int k_begin = dj * strip;
-  const int r0 = blockIdx.x * kBlockR;
-  const int row_a = r0 + mi * 16 + g8;  // this thread's two rows of h
-  const int row_b = row_a + 8;
-
-  stage_rows<kBlockR>(r_s, h, r0, n_rows, d);
-
-  const int tgt_a = row_a < n_rows ? tgt[row_a] : -1;
-  const int tgt_b = row_b < n_rows ? tgt[row_b] : -1;
-  // running max, sum (this thread's columns) and target logit
-  float m_a = kNegInf, m_b = kNegInf, s_a = 0.f, s_b = 0.f, t_a = 0.f,
-        t_b = 0.f;
-
-  // vocab tiles up to valid_vocab: no column past it can add to a sum
-  // or be a target
-  for (int c0 = 0; c0 < valid; c0 += kBlockC) {
-    __syncthreads();  // all reads of the previous C tile and parts done
-    stage_rows<kBlockC>(c_s, w, c0, n_vocab, d);
-    __syncthreads();
-
-    // this warp's part of S = R C^T: its 16 rows, all 64 columns,
-    // contracted over its strip of D
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    for (int kk = k_begin; kk < k_begin + strip; kk += 16) {
-      const bf16* ar = r_s + (mi * 16 + g8) * stride + kk + 2 * t4;
-      const uint32_t a[4] = {ld32(ar), ld32(ar + 8 * stride), ld32(ar + 8),
-                             ld32(ar + 8 * stride + 8)};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const bf16* br = c_s + (j * 8 + g8) * stride + kk + 2 * t4;
-        mma_bf16(s[j], a, ld32(br), ld32(br + 8));
-      }
+  if (tid == 0) {
+    for (int i = 0; i < kFwdStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // one arrival per consumer warp
     }
-    // the four strips' parts summed in one order: every warp of the row
-    // tile holds the same complete S
-    float* mine = part + warp * kPartFloats;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mine[(j * 4 + e) * 32 + lane] = s[j][e];
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int idx = (j * 4 + e) * 32 + lane;
-        s[j][e] = ((part[mi * kPartFloats + idx] +
-                    part[(mi + 2) * kPartFloats + idx]) +
-                   part[(mi + 4) * kPartFloats + idx]) +
-                  part[(mi + 6) * kPartFloats + idx];
-      }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // online logsumexp over this vocab tile: s[j][0..1] row_a, [2..3]
-    // row_b; a row's 64 columns lie in the 4 lanes of a quad
-    float mx_a = kNegInf, mx_b = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c0 + j * 8 + 2 * t4 + (e & 1);
-        const float v = col < valid ? s[j][e] : kNegInf;
-        s[j][e] = v;
-        if (e < 2)
-          mx_a = fmaxf(mx_a, v);
-        else
-          mx_b = fmaxf(mx_b, v);
-      }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    s_a *= expf(m_a - mn_a);
-    s_b *= expf(m_b - mn_b);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c0 + j * 8 + 2 * t4 + (e & 1);
-        const float v = s[j][e];
-        if (e < 2) {
-          s_a += expf(v - mn_a);
-          if (col == tgt_a) t_a += v;
-        } else {
-          s_b += expf(v - mn_b);
-          if (col == tgt_b) t_b += v;
+  if (tid >= 256) {
+    // ---------------- producer warpgroup ----------------
+    setmaxnreg_dec<kFwdProducerRegs>();
+    if (tid == 256) {
+      tma_prefetch_map(&map_h);
+      tma_prefetch_map(&map_w);
+      // one stage per (vocab tile, D-box): the CTA's rows of h and the
+      // tile's rows of w over the box's 64 columns
+      int g = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        for (int b = 0; b < boxes; ++b, ++g) {
+          const int st = g % kFwdStages;
+          if (g >= kFwdStages)
+            mbar_wait(&empty[st], ((g / kFwdStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[st], kFwdRBoxBytes + kFwdCBoxBytes);
+          tma_load_2d(r_s + st * kFwdRBoxBytes, &map_h, b * kBox, r0,
+                      &full[st]);
+          tma_load_2d(c_s + st * kFwdCBoxBytes, &map_w, b * kBox,
+                      t * kFwdTile, &full[st]);
         }
       }
-    m_a = mn_a;
-    m_b = mn_b;
-  }
+    }
+  } else {
+    // ---------------- consumer warpgroups ----------------
+    setmaxnreg_inc<kFwdConsumerRegs>();
+    // the warpgroup, read from lane 0 so that the compiler sees it is
+    // uniform across the warp
+    const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+    const int lane = tid & 31;
+    const int q2 = 2 * (lane & 3);
+    const int row_a = r0 + wg * 64 + 16 * ((tid >> 5) & 3) + (lane >> 2);
+    const int row_b = row_a + 8;
+    const int tgt_a = row_a < n_rows ? tgt[row_a] : -1;
+    const int tgt_b = row_b < n_rows ? tgt[row_b] : -1;
+    // running max (log2 units, shared by the quad), this thread's part of
+    // the running sum, and the target logit (in the one thread whose
+    // column it is), of rows row_a and row_b
+    float m_a = kNegInf, m_b = kNegInf, s_a = 0.f, s_b = 0.f, t_a = 0.f,
+          t_b = 0.f;
+    float s[128];
+    const uint32_t r_addr = smem_u32(r_s) + wg * (kFwdRBoxBytes / 2);
+    const uint32_t c_addr = smem_u32(c_s);
+    int g = 0;
 
+    for (int t = t_begin; t < t_end; ++t) {
+      // S = R C_t^T over D, one box a stage; a stage is released once the
+      // products of the next box are issued and its own are done
+      int prev = 0;
+      for (int b = 0; b < boxes; ++b, ++g) {
+        const int st = g % kFwdStages;
+        mbar_wait(&full[st], (g / kFwdStages) & 1);
+        fence_regs(s);
+        wgmma_fence();
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    s_a += __shfl_xor_sync(0xffffffffu, s_a, off);
-    s_b += __shfl_xor_sync(0xffffffffu, s_b, off);
-    t_a += __shfl_xor_sync(0xffffffffu, t_a, off);
-    t_b += __shfl_xor_sync(0xffffffffu, t_b, off);
-  }
-  if (dj == 0 && t4 == 0) {
-    if (row_a < n_rows) {
-      const float l = m_a + logf(s_a);
-      nll[row_a] = l - t_a;
-      lse[row_a] = l;
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_m64n256k16_ss(
+              s, wgmma_desc_sw128(r_addr + st * kFwdRBoxBytes + ks * 32, 16,
+                                  1024),
+              wgmma_desc_sw128(c_addr + st * kFwdCBoxBytes + ks * 32, 16,
+                               1024),
+              b > 0 || ks > 0);
+        wgmma_commit();
+        if (b > 0) {
+          wgmma_wait<1>();
+          warp_arrive(&empty[prev], lane);
+        }
+        prev = st;
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+      warp_arrive(&empty[prev], lane);
+
+      // s[k] is row (k & 2) ? row_b : row_a, vocab column c0 + 8 (k / 4)
+      // + q2 + (k & 1).  The target logit, where this thread holds it
+      const int c0 = t * kFwdTile;
+      if (static_cast<unsigned>(tgt_a - c0 - q2) < unsigned(kFwdTile)) {
+#pragma unroll
+        for (int k = 0; k < 128; ++k)
+          if (!(k & 2) && c0 + 8 * (k >> 2) + q2 + (k & 1) == tgt_a)
+            t_a = s[k];
+      }
+      if (static_cast<unsigned>(tgt_b - c0 - q2) < unsigned(kFwdTile)) {
+#pragma unroll
+        for (int k = 0; k < 128; ++k)
+          if ((k & 2) && c0 + 8 * (k >> 2) + q2 + (k & 1) == tgt_b)
+            t_b = s[k];
+      }
+      // logits in log2 units, columns past valid_vocab masked (only the
+      // last tile has any), and the online (max, sum) update
+      const bool edge = c0 + kFwdTile > valid;
+      float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+      for (int k = 0; k < 128; ++k) {
+        float x = s[k] * kLog2e;
+        if (edge && c0 + 8 * (k >> 2) + q2 + (k & 1) >= valid) x = kNegInf;
+        s[k] = x;
+        if (k & 2)
+          mx_b = fmaxf(mx_b, x);
+        else
+          mx_a = fmaxf(mx_a, x);
+      }
+      // a row's 256 columns lie in the 4 lanes of a quad
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int k = 0; k < 128; ++k) {
+        if (k & 2)
+          sum_b += exp2_approx(s[k] - mn_b);
+        else
+          sum_a += exp2_approx(s[k] - mn_a);
+      }
+      s_a = s_a * exp2_approx(m_a - mn_a) + sum_a;
+      s_b = s_b * exp2_approx(m_b - mn_b) + sum_b;
+      m_a = mn_a;
+      m_b = mn_b;
     }
-    if (row_b < n_rows) {
-      const float l = m_b + logf(s_b);
-      nll[row_b] = l - t_b;
-      lse[row_b] = l;
+
+    // the quad's parts, in a fixed order (one lane holds the target)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      s_a += __shfl_xor_sync(0xffffffffu, s_a, off);
+      s_b += __shfl_xor_sync(0xffffffffu, s_b, off);
+      t_a += __shfl_xor_sync(0xffffffffu, t_a, off);
+      t_b += __shfl_xor_sync(0xffffffffu, t_b, off);
+    }
+    if ((lane & 3) == 0) {
+      const int rows[2] = {row_a, row_b};
+      const float ms[2] = {m_a, m_b}, ss[2] = {s_a, s_b}, ts[2] = {t_a, t_b};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (rows[h] >= n_rows) continue;
+        if (gridDim.y == 1) {
+          const float l = ms[h] * kLn2 + logf(ss[h]);
+          nll[rows[h]] = l - ts[h];
+          lse[rows[h]] = l;
+        } else {
+          const size_t at = static_cast<size_t>(blockIdx.y) * n_rows + rows[h];
+          const size_t plane = static_cast<size_t>(gridDim.y) * n_rows;
+          part[at] = ms[h];
+          part[plane + at] = ss[h];
+          part[2 * plane + at] = ts[h];
+        }
+      }
     }
   }
+}
+
+// nll and lse of each row from the `splits` parts the forward wrote, in
+// split order
+__global__ void fused_ce_fwd_combine_kernel(const float* __restrict__ part,
+                                            float* __restrict__ nll,
+                                            float* __restrict__ lse,
+                                            int n_rows, int splits) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n_rows) return;
+  const size_t plane = static_cast<size_t>(splits) * n_rows;
+  float m = kNegInf;
+  for (int i = 0; i < splits; ++i)
+    m = fmaxf(m, part[static_cast<size_t>(i) * n_rows + row]);
+  float sum = 0.f, target = 0.f;
+  for (int i = 0; i < splits; ++i) {
+    const size_t at = static_cast<size_t>(i) * n_rows + row;
+    sum += part[plane + at] * exp2f(part[at] - m);
+    target += part[2 * plane + at];
+  }
+  const float l = m * kLn2 + logf(sum);
+  nll[row] = l - target;
+  lse[row] = l;
 }
 
 // ---------------------------------------------------------------------------
@@ -301,7 +391,6 @@ fused_ce_fwd_bf16_kernel(const bf16* __restrict__ h,
 constexpr int kBwdThreads = 384;  // consumers 0-255, producer 256-383
 constexpr int kBwdRows = 64;      // rows of R per CTA
 constexpr int kBwdTile = 32;      // rows of C per ring stage
-constexpr int kBox = 64;          // columns of a TMA box (128 bytes)
 constexpr int kRBoxBytes = kBwdRows * kBox * 2;
 constexpr int kCBoxBytes = kBwdTile * kBox * 2;
 constexpr int kDlWords = kBwdRows * kBwdTile / 2;  // bf16 pairs of a tile
@@ -584,27 +673,302 @@ fused_ce_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_r,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 backward above D = 1024: S from streamed D-boxes
+// ---------------------------------------------------------------------------
+
+// A 64-row R block of all of D and a C tile of all of D no longer fit in
+// shared memory beside each other (at D = 1280: 160 KB + 80 KB).  R
+// appears only in S, and the second product needs only the slice's
+// columns of C_t.  So this kernel streams S's operands, R's and C_t's
+// 64-column boxes, through a ring of kWideSStages stages, and loads the
+// slice's boxes of C_t into a ring of two tiles for the second product.
+// The output's columns are cut into slices of kWideSlice boxes along the
+// grid's y axis (each slice recomputes S); the consumers split a slice
+// and ping-pong over the tiles as fused_ce_bwd_bf16_kernel does, each
+// computing S for its own tiles.
+constexpr int kWideSlice = 2 * kMaxOwnBoxes;  // 12 boxes: 768 columns
+constexpr int kWideNB = kMaxOwnBoxes;         // accumulator boxes
+constexpr int kWideSStages = 4;
+constexpr int kWideSBytes = kRBoxBytes + kCBoxBytes;  // one stage of S
+constexpr size_t kWideSmem =
+    1024 + static_cast<size_t>(kWideSStages) * kWideSBytes +
+    2 * kWideSlice * kCBoxBytes + 2 * kDlWords * sizeof(uint32_t) +
+    3 * kRowData * 4 + (2 * kWideSStages + 6) * sizeof(uint64_t);
+
+template <int MODE>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+fused_ce_bwd_bf16_wide_kernel(const __grid_constant__ CUtensorMap map_r,
+                              const __grid_constant__ CUtensorMap map_c,
+                              const int* __restrict__ tgt,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ g,
+                              float* __restrict__ out, int n_rows,
+                              int n_vocab, int d, int valid) {
+  constexpr bool kRowsOfH = MODE == kDh;
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kBwdRows;
+  const int r_rows = kRowsOfH ? n_rows : n_vocab;
+  const int boxes = d / kBox;
+  // this CTA's slice of the output's columns, in boxes
+  const int slice_first = blockIdx.y * kWideSlice;
+  const int slice_boxes = min(kWideSlice, boxes - slice_first);
+
+  if (!kRowsOfH && r0 >= valid) {
+    // every vocab row of the block is masked: its dW is 0
+    const int rows = min(kBwdRows, r_rows - r0);
+    const int quads = slice_boxes * kBox / 4;
+    for (int i = tid; i < rows * quads; i += kBwdThreads) {
+      const int r = i / quads, c = i - r * quads;
+      reinterpret_cast<float4*>(out + static_cast<size_t>(r0 + r) * d +
+                                slice_first * kBox)[c] =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sr_s = align1024(smem_raw);               // [S stage]
+  unsigned char* sc_s = sr_s + kWideSStages * kRBoxBytes;   // [S stage]
+  unsigned char* c_s = sc_s + kWideSStages * kCBoxBytes;    // [2][slice]
+  uint32_t* dl_buf = reinterpret_cast<uint32_t*>(
+      c_s + 2 * kWideSlice * kCBoxBytes);                   // [2][8][128]
+  float* row_lse = reinterpret_cast<float*>(dl_buf + 2 * kDlWords);
+  float* row_g = row_lse + kRowData;
+  int* row_tgt = reinterpret_cast<int*>(row_g + kRowData);
+  uint64_t* s_full = reinterpret_cast<uint64_t*>(row_tgt + kRowData);
+  uint64_t* s_empty = s_full + kWideSStages;  // the S owner is done with it
+  uint64_t* full = s_empty + kWideSStages;    // [2]: a tile's slice landed
+  uint64_t* empty = full + 2;      // [2]: both consumers are done with it
+  uint64_t* dl_full = empty + 2;   // [2]: a tile's dlogits are stored
+
+  const int n_tiles = ((kRowsOfH ? valid : n_rows) + kBwdTile - 1) / kBwdTile;
+
+  if (tid == 0) {
+    for (int i = 0; i < kWideSStages; ++i) {
+      mbar_init(&s_full[i], 1);
+      mbar_init(&s_empty[i], 4);  // one arrival per warp of the S owner
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);      // one arrival per consumer warp
+      mbar_init(&dl_full[i], 128);  // every thread of the owner
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // ---------------- producer warpgroup ----------------
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid < 256 + 32) {
+      const int lane = tid & 31;
+      if (kRowsOfH) {  // dH: lse, g and target of the block's rows
+        for (int r = lane; r < kBwdRows; r += 32) {
+          const bool in = r0 + r < n_rows;
+          row_lse[r] = in ? lse[r0 + r] : 0.f;
+          row_g[r] = in ? g[r0 + r] : 0.f;
+          row_tgt[r] = in ? tgt[r0 + r] : -1;
+        }
+        __syncwarp();
+      }
+      if (lane == 0) {
+        tma_prefetch_map(&map_r);
+        tma_prefetch_map(&map_c);
+      }
+      int gs = 0;  // S stages filled so far
+      for (int t = 0; t < n_tiles; ++t) {
+        // the slice's boxes of C_t (and dW's per-column data) first
+        const int st = t & 1;
+        if (t >= 2) mbar_wait(&empty[st], ((t >> 1) & 1) ^ 1);
+        if (!kRowsOfH) {  // dW: the tile's columns are rows of h
+          const int c = t * kBwdTile + lane;
+          const bool in = c < n_rows;
+          row_lse[st * kBwdTile + lane] = in ? lse[c] : 0.f;
+          row_g[st * kBwdTile + lane] = in ? g[c] : 0.f;
+          row_tgt[st * kBwdTile + lane] = in ? tgt[c] : -1;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[st], slice_boxes * kCBoxBytes);
+          for (int b = 0; b < slice_boxes; ++b)
+            tma_load_2d(c_s + (st * kWideSlice + b) * kCBoxBytes, &map_c,
+                        (slice_first + b) * kBox, t * kBwdTile, &full[st]);
+        }
+        // then S's operands, one box of R and of C_t a stage
+        for (int b = 0; b < boxes; ++b, ++gs) {
+          const int ss = gs % kWideSStages;
+          if (gs >= kWideSStages)
+            mbar_wait(&s_empty[ss], ((gs / kWideSStages) & 1) ^ 1);
+          if (lane == 0) {
+            mbar_arrive_expect_tx(&s_full[ss], kWideSBytes);
+            tma_load_2d(sr_s + ss * kRBoxBytes, &map_r, b * kBox, r0,
+                        &s_full[ss]);
+            tma_load_2d(sc_s + ss * kCBoxBytes, &map_c, b * kBox,
+                        t * kBwdTile, &s_full[ss]);
+          }
+        }
+      }
+    }
+  } else {
+    // ---------------- consumer warpgroups ----------------
+    setmaxnreg_inc<kConsumerRegs>();
+    const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+    const int ltid = tid & 127;
+    const int lane = tid & 31;
+    const int m_a = (ltid >> 5) * 16 + (lane >> 2);  // local rows of R
+    const int q2 = 2 * (lane & 3);
+    // the output boxes this consumer owns: own_first .. own_first + own
+    // - 1 of the slice; accumulator boxes past them repeat the slice's
+    // last box and are not stored
+    const int half0 = (slice_boxes + 1) / 2;
+    const int own_local = wg ? half0 : 0;
+    const int own = wg ? slice_boxes - half0 : half0;
+
+    float acc[kWideNB][32];
+    const uint32_t sr_addr = smem_u32(sr_s);
+    const uint32_t sc_addr = smem_u32(sc_s);
+    const uint32_t c_addr = smem_u32(c_s);
+
+    // S = R . C_x^T over D's streamed boxes, its dlogits stored for both
+    // consumers
+    auto logits = [&](int x) {
+      const int st = x & 1;
+      mbar_wait(&full[st], (x >> 1) & 1);  // dW: the tile's column data
+      float s[16];
+      int gs = x * boxes, prev = 0;
+      for (int b = 0; b < boxes; ++b, ++gs) {
+        const int ss = gs % kWideSStages;
+        mbar_wait(&s_full[ss], (gs / kWideSStages) & 1);
+        fence_regs(s);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_m64n32k16_ss(
+              s, wgmma_desc_sw128(sr_addr + ss * kRBoxBytes + ks * 32, 16,
+                                  1024),
+              wgmma_desc_sw128(sc_addr + ss * kCBoxBytes + ks * 32, 16,
+                               1024),
+              b > 0 || ks > 0);
+        wgmma_commit();
+        if (b > 0) {
+          wgmma_wait<1>();
+          warp_arrive(&s_empty[prev], lane);
+        }
+        prev = ss;
+      }
+      wgmma_wait<0>();
+      fence_regs(s);
+      warp_arrive(&s_empty[prev], lane);
+      const float* rl = row_lse + (kRowsOfH ? 0 : st * kBwdTile);
+      const float* rg = row_g + (kRowsOfH ? 0 : st * kBwdTile);
+      const int* rt = row_tgt + (kRowsOfH ? 0 : st * kBwdTile);
+      uint32_t* dl = dl_buf + (x & 1) * kDlWords + ltid;
+#pragma unroll
+      for (int p2 = 0; p2 < 8; ++p2) {
+        float v[2];
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int k = 2 * p2 + e2;                  // s[k]:
+          const int m = m_a + (k & 2) * 4;            // row of S
+          const int n = (k >> 2) * 8 + q2 + (k & 1);  // column of S
+          if (kRowsOfH) {  // rows: h rows; columns: vocab
+            const int col = x * kBwdTile + n;
+            const float logit = col < valid ? s[k] : kNegInf;
+            const float p = r0 + m < n_rows ? expf(logit - rl[m]) : 0.f;
+            v[e2] = (col == rt[m] ? p - 1.f : p) * rg[m];
+          } else {  // rows: vocab; columns: h rows
+            const int vr = r0 + m;
+            const float logit = vr < valid ? s[k] : kNegInf;
+            const float p =
+                x * kBwdTile + n < n_rows ? expf(logit - rl[n]) : 0.f;
+            v[e2] = (vr == rt[n] ? p - 1.f : p) * rg[n];
+          }
+        }
+        dl[p2 * 128] = pack_bf16(v[0], v[1]);
+      }
+      mbar_arrive(&dl_full[x & 1]);
+    };
+
+    // acc += dlogits_i . C_i[:, own boxes], then release the tile
+    auto product = [&](int i) {
+      const int st = i & 1;
+      mbar_wait(&full[st], (i >> 1) & 1);
+      if ((i & 1) != wg) mbar_wait(&dl_full[i & 1], (i >> 1) & 1);
+      const uint32_t* dl = dl_buf + (i & 1) * kDlWords + ltid;
+      uint32_t a[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) a[k] = dl[k * 128];
+      const uint32_t tile = c_addr + st * kWideSlice * kCBoxBytes;
+#pragma unroll
+      for (int b = 0; b < kWideNB; ++b) fence_regs(acc[b]);
+      wgmma_fence();
+      // box by box (one descriptor live at a time)
+#pragma unroll
+      for (int b = 0; b < kWideNB; ++b) {
+        const uint64_t db = wgmma_desc_sw128(
+            tile + min(own_local + b, slice_boxes - 1) * kCBoxBytes, 1024,
+            1024);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          wgmma_m64n64k16_rs_tb(acc[b], a[4 * kk], a[4 * kk + 1],
+                                a[4 * kk + 2], a[4 * kk + 3],
+                                db + kk * (2048 / 16), i > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < kWideNB; ++b) fence_regs(acc[b]);
+      warp_arrive(&empty[st], lane);
+    };
+
+    // tile x's S by consumer x % 2, before its half of tile x - 1
+    for (int i = -1; i < n_tiles; ++i) {
+      if (i + 1 < n_tiles && ((i + 1) & 1) == wg) logits(i + 1);
+      if (i >= 0) product(i);
+    }
+
+    // ---- epilogue: this consumer's boxes of its 64 rows ----
+#pragma unroll
+    for (int b = 0; b < kWideNB; ++b) {
+      if (b < own) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = (slice_first + own_local + b) * kBox + 8 * j + q2;
+          if (r0 + m_a < r_rows)
+            *reinterpret_cast<float2*>(
+                out + static_cast<size_t>(r0 + m_a) * d + col) =
+                make_float2(acc[b][4 * j], acc[b][4 * j + 1]);
+          if (r0 + m_a + 8 < r_rows)
+            *reinterpret_cast<float2*>(
+                out + static_cast<size_t>(r0 + m_a + 8) * d + col) =
+                make_float2(acc[b][4 * j + 2], acc[b][4 * j + 3]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32: FMA kernels
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Rows = 16;    // rows of R per CTA
 constexpr int kF32Chunk = 64;   // columns of D per staged chunk of C
-constexpr int kMaxChunks = kMaxD / kF32Chunk;
+constexpr int kF32SliceChunks = 16;  // output chunks per CTA: 1024 columns
 constexpr int kCStride = kF32Chunk + 1;  // conflict-free column reads
 constexpr int kDlStride = kBlockC + 1;
+constexpr size_t kF32Smem =
+    static_cast<size_t>(kF32Rows * kCStride + kBlockC * kCStride +
+                        kF32Rows * kDlStride + 3 * kBlockC) *
+    sizeof(float);
 
-size_t f32_smem_bytes(int d) {
-  return static_cast<size_t>(kF32Rows * (d + 1) + kBlockC * kCStride +
-                             kF32Rows * kDlStride + 3 * kBlockC) *
-         sizeof(float);
-}
-
-// columns [col0, col0 + 64) of rows [row0, row0 + 64) of a (n_rows, d)
-// f32 matrix into a 64 x kCStride tile; rows past n_rows are zero
+// columns [col0, col0 + 64) of rows [row0, row0 + ROWS) of a (n_rows, d)
+// f32 matrix into a ROWS x kCStride tile; rows past n_rows are zero
+template <int ROWS>
 __device__ __forceinline__ void stage_chunk(float* dst, const float* src,
                                             int row0, int n_rows, int d,
                                             int col0) {
-  for (int idx = threadIdx.x; idx < kBlockC * kF32Chunk; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * kF32Chunk; idx += kThreads) {
     const int r = idx / kF32Chunk, k = idx % kF32Chunk;
     const int row = row0 + r;
     dst[r * kCStride + k] =
@@ -612,6 +976,9 @@ __device__ __forceinline__ void stage_chunk(float* dst, const float* src,
   }
 }
 
+// grid (row blocks of R, slices of kF32SliceChunks output chunks): S is
+// contracted over all of D chunk by chunk (R's chunk staged beside C's),
+// the backward's accumulator covers the CTA's slice of D
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 fused_ce_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
@@ -621,10 +988,9 @@ fused_ce_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
                     float* __restrict__ out1, int n_rows, int n_vocab, int d,
                     int valid) {
   constexpr bool kRowsOfH = MODE != kDw;
-  const int rstride = d + 1;
   extern __shared__ __align__(16) float smem_f[];
-  float* r_s = smem_f;                        // kF32Rows x rstride
-  float* c_s = r_s + kF32Rows * rstride;      // kBlockC x kCStride
+  float* r_s = smem_f;                        // kF32Rows x kCStride
+  float* c_s = r_s + kF32Rows * kCStride;     // kBlockC x kCStride
   float* dl_s = c_s + kBlockC * kCStride;     // kF32Rows x kDlStride
   float* col_lse = dl_s + kF32Rows * kDlStride;
   float* col_g = col_lse + kBlockC;
@@ -634,6 +1000,7 @@ fused_ce_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
   const int rr = tid >> 4;  // this thread's row of the tile
   const int cc = tid & 15;  // its columns cc + 16 j of S and of each chunk
   const int n_chunks = d / kF32Chunk;
+  const int ch0 = blockIdx.y * kF32SliceChunks;  // the slice's first chunk
   const int r0 = blockIdx.x * kF32Rows;
   const int row = r0 + rr;
   const int r_rows = kRowsOfH ? n_rows : n_vocab;
@@ -641,11 +1008,6 @@ fused_ce_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
   const float* r_src = kRowsOfH ? h : w;
   const float* c_src = kRowsOfH ? w : h;
 
-  for (int idx = tid; idx < kF32Rows * d; idx += kThreads) {
-    const int r = idx / d, k = idx - r * d;
-    r_s[r * rstride + k] =
-        r0 + r < r_rows ? r_src[static_cast<size_t>(r0 + r) * d + k] : 0.f;
-  }
   int tgt_r = -1;
   float lse_r = 0.f, g_r = 0.f;
   if (kRowsOfH && row < n_rows) {
@@ -653,9 +1015,9 @@ fused_ce_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
     if (MODE == kDh) lse_r = lse[row], g_r = g[row];
   }
   float m = kNegInf, sum = 0.f, tsum = 0.f;
-  float acc[kMaxChunks * 4];
+  float acc[kF32SliceChunks * 4];
 #pragma unroll
-  for (int i = 0; i < kMaxChunks * 4; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kF32SliceChunks * 4; ++i) acc[i] = 0.f;
 
   const int c_end = kRowsOfH ? valid : (r0 < valid ? n_rows : 0);
   for (int c0 = 0; c0 < c_end; c0 += kBlockC) {
@@ -670,12 +1032,13 @@ fused_ce_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
     }
     float s[4] = {0.f, 0.f, 0.f, 0.f};
     for (int ch = 0; ch < n_chunks; ++ch) {
-      __syncthreads();  // all reads of the previous chunk are done
-      stage_chunk(c_s, c_src, c0, c_rows, d, ch * kF32Chunk);
+      __syncthreads();  // all reads of the previous chunks are done
+      stage_chunk<kF32Rows>(r_s, r_src, r0, r_rows, d, ch * kF32Chunk);
+      stage_chunk<kBlockC>(c_s, c_src, c0, c_rows, d, ch * kF32Chunk);
       __syncthreads();
 #pragma unroll 8
       for (int k = 0; k < kF32Chunk; ++k) {
-        const float a = r_s[rr * rstride + ch * kF32Chunk + k];
+        const float a = r_s[rr * kCStride + k];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           s[j] = fmaf(a, c_s[(cc + 16 * j) * kCStride + k], s[j]);
@@ -717,12 +1080,13 @@ fused_ce_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
         }
         dl_s[rr * kDlStride + lc] = dl;
       }
-      // acc += dlogits . C, C staged again chunk by chunk of D
+      // acc += dlogits . C over the slice, C staged again chunk by chunk
 #pragma unroll
-      for (int ch = 0; ch < kMaxChunks; ++ch) {
-        if (ch < n_chunks) {
+      for (int ch = 0; ch < kF32SliceChunks; ++ch) {
+        if (ch0 + ch < n_chunks) {
           __syncthreads();  // dlogits written; previous chunk's reads done
-          stage_chunk(c_s, c_src, c0, c_rows, d, ch * kF32Chunk);
+          stage_chunk<kBlockC>(c_s, c_src, c0, c_rows, d,
+                               (ch0 + ch) * kF32Chunk);
           __syncthreads();
 #pragma unroll 4
           for (int v = 0; v < kBlockC; ++v) {
@@ -750,12 +1114,12 @@ fused_ce_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
     }
   } else if (row < r_rows) {
 #pragma unroll
-    for (int ch = 0; ch < kMaxChunks; ++ch) {
-      if (ch < n_chunks) {
+    for (int ch = 0; ch < kF32SliceChunks; ++ch) {
+      if (ch0 + ch < n_chunks) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          out0[static_cast<size_t>(row) * d + ch * kF32Chunk + cc + 16 * j] =
-              acc[ch * 4 + j];
+          out0[static_cast<size_t>(row) * d + (ch0 + ch) * kF32Chunk + cc +
+               16 * j] = acc[ch * 4 + j];
       }
     }
   }
@@ -765,37 +1129,56 @@ fused_ce_f32_kernel(const float* __restrict__ h, const float* __restrict__ w,
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename Kernel, typename T>
-cudaError_t launch_f32(Kernel kernel, int grid, size_t smem,
-                       cudaStream_t stream, const void* h, const void* w,
-                       const void* tgt, const void* lse, const void* g,
-                       void* out0, void* out1, int n, int v, int d,
-                       int valid) {
+template <int MODE>
+cudaError_t launch_f32(const void* h, const void* w, const void* tgt,
+                       const void* lse, const void* g, void* out0,
+                       void* out1, int n, int v, int d, int valid,
+                       cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      fused_ce_f32_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kF32Smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w),
+  const int r_rows = MODE == kDw ? v : n;
+  const int chunks = d / kF32Chunk;
+  const dim3 grid((r_rows + kF32Rows - 1) / kF32Rows,
+                  MODE == kFwd ? 1
+                               : (chunks + kF32SliceChunks - 1) /
+                                     kF32SliceChunks);
+  fused_ce_f32_kernel<MODE><<<grid, kThreads, kF32Smem, stream>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w),
       static_cast<const int*>(tgt), static_cast<const float*>(lse),
       static_cast<const float*>(g), static_cast<float*>(out0),
       static_cast<float*>(out1), n, v, d, valid);
   return cudaGetLastError();
 }
 
+// grid (row blocks of 128, vocab splits): `splits` as the caller asks,
+// cut to the number of vocab tiles; part holds 3 * splits * n floats
 cudaError_t launch_fwd_bf16(const void* h, const void* w, const void* tgt,
-                            void* nll, void* lse, int n, int v, int d,
-                            int valid, cudaStream_t stream) {
-  const size_t smem = fwd_bf16_smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ce_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                            void* nll, void* lse, void* part, int n, int v,
+                            int d, int valid, int splits,
+                            cudaStream_t stream) {
+  CUtensorMap map_h, map_w;
+  cudaError_t err = make_bf16_map(&map_h, h, n, d, kFwdRows);
   if (err != cudaSuccess) return err;
-  fused_ce_fwd_bf16_kernel<<<(n + kBlockR - 1) / kBlockR, kThreads, smem,
-                             stream>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(w),
-      static_cast<const int*>(tgt), static_cast<float*>(nll),
-      static_cast<float*>(lse), n, v, d, valid);
+  if ((err = make_bf16_map(&map_w, w, v, d, kFwdTile)) != cudaSuccess)
+    return err;
+  err = cudaFuncSetAttribute(fused_ce_fwd_bf16_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kFwdSmem));
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (valid + kFwdTile - 1) / kFwdTile;
+  const int per_split = (n_tiles + splits - 1) / splits;
+  const int ys = (n_tiles + per_split - 1) / per_split;
+  const dim3 grid((n + kFwdRows - 1) / kFwdRows, ys);
+  fused_ce_fwd_bf16_kernel<<<grid, kFwdThreads, kFwdSmem, stream>>>(
+      map_h, map_w, static_cast<const int*>(tgt), static_cast<float*>(nll),
+      static_cast<float*>(lse), static_cast<float*>(part), n, d, valid,
+      per_split);
+  if (ys == 1 || (err = cudaGetLastError()) != cudaSuccess) return err;
+  fused_ce_fwd_combine_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<float*>(nll),
+      static_cast<float*>(lse), n, ys);
   return cudaGetLastError();
 }
 
@@ -818,6 +1201,29 @@ cudaError_t launch_bwd_bf16_boxes(const CUtensorMap& map_r,
           map_r, map_c, static_cast<const int*>(tgt),
           static_cast<const float*>(lse), static_cast<const float*>(g),
           static_cast<float*>(out), n, v, valid);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_bwd_bf16_wide(const CUtensorMap& map_r,
+                                 const CUtensorMap& map_c, const void* tgt,
+                                 const void* lse, const void* g, void* out,
+                                 int n, int v, int d, int valid,
+                                 cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_ce_bwd_bf16_wide_kernel<MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kWideSmem));
+  if (err != cudaSuccess) return err;
+  const int r_rows = MODE == kDh ? n : v;
+  const int boxes = d / kBox;
+  const dim3 grid((r_rows + kBwdRows - 1) / kBwdRows,
+                  (boxes + kWideSlice - 1) / kWideSlice);
+  fused_ce_bwd_bf16_wide_kernel<MODE><<<grid, kBwdThreads, kWideSmem,
+                                        stream>>>(
+      map_r, map_c, static_cast<const int*>(tgt),
+      static_cast<const float*>(lse), static_cast<const float*>(g),
+      static_cast<float*>(out), n, v, d, valid);
   return cudaGetLastError();
 }
 
@@ -847,28 +1253,28 @@ cudaError_t launch_bwd_bf16(const void* h, const void* w, const void* tgt,
     FUSED_CE_BWD_BOXES(16)
 #undef FUSED_CE_BWD_BOXES
   }
-  return cudaErrorInvalidValue;
+  return launch_bwd_bf16_wide<MODE>(map_r, map_c, tgt, lse, g, out, n, v, d,
+                                    valid, stream);
 }
 
 template <int MODE>
 cudaError_t run(const void* h, const void* w, const void* tgt,
                 const void* lse, const void* g, void* out0, void* out1,
-                int n, int v, int d, int valid, int is_bf16, void* stream) {
-  if (n <= 0 || v <= 0 || d < 64 || d > kMaxD || d % 64 != 0 ||
-      valid <= 0 || valid > v)
+                void* part, int n, int v, int d, int valid, int splits,
+                int is_bf16, void* stream) {
+  if (n <= 0 || v <= 0 || d < 64 || d % 64 != 0 || valid <= 0 ||
+      valid > v || splits < 1)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if constexpr (MODE == kFwd)
-      return launch_fwd_bf16(h, w, tgt, out0, out1, n, v, d, valid, s);
+      return launch_fwd_bf16(h, w, tgt, out0, out1, part, n, v, d, valid,
+                             splits, s);
     else
       return launch_bwd_bf16<MODE>(h, w, tgt, lse, g, out0, n, v, d, valid,
                                    s);
   }
-  const int r_rows = MODE == kDw ? v : n;
-  return launch_f32<decltype(&fused_ce_f32_kernel<MODE>), float>(
-      fused_ce_f32_kernel<MODE>, (r_rows + kF32Rows - 1) / kF32Rows,
-      f32_smem_bytes(d), s, h, w, tgt, lse, g, out0, out1, n, v, d, valid);
+  return launch_f32<MODE>(h, w, tgt, lse, g, out0, out1, n, v, d, valid, s);
 }
 
 }  // namespace
@@ -876,14 +1282,17 @@ cudaError_t run(const void* h, const void* w, const void* tgt,
 extern "C" {
 
 // h (n, d) and w (v, d): both float32 (is_bf16 = 0) or both bfloat16
-// (is_bf16 = 1), contiguous and 16-byte aligned, d a multiple of 64 in
-// [64, 1024]; tgt (n,) int32; 0 < valid <= v.  Writes nll and lse (n,)
-// float32.  Launches on `stream` and returns the launch's cudaError_t.
+// (is_bf16 = 1), contiguous and 16-byte aligned, d any multiple of 64;
+// tgt (n,) int32; 0 < valid <= v.  Writes nll and lse (n,) float32.
+// bfloat16 splits the vocab over `splits` CTAs a row block (fewer if
+// there are fewer vocab tiles) and uses part, 3 * splits * n float32,
+// as scratch; float32 ignores both.  Launches on `stream` and returns
+// the launch's cudaError_t.
 int fused_ce_fwd(const void* h, const void* w, const void* tgt, void* nll,
-                 void* lse, int n, int v, int d, int valid, int is_bf16,
-                 void* stream) {
-  return run<kFwd>(h, w, tgt, nullptr, nullptr, nll, lse, n, v, d, valid,
-                   is_bf16, stream);
+                 void* lse, void* part, int n, int v, int d, int valid,
+                 int splits, int is_bf16, void* stream) {
+  return run<kFwd>(h, w, tgt, nullptr, nullptr, nll, lse, part, n, v, d,
+                   valid, splits, is_bf16, stream);
 }
 
 // as fused_ce_fwd, with the forward's lse and the cotangent g (n,)
@@ -891,16 +1300,16 @@ int fused_ce_fwd(const void* h, const void* w, const void* tgt, void* nll,
 int fused_ce_bwd_dh(const void* h, const void* w, const void* tgt,
                     const void* lse, const void* g, void* dh, int n, int v,
                     int d, int valid, int is_bf16, void* stream) {
-  return run<kDh>(h, w, tgt, lse, g, dh, nullptr, n, v, d, valid, is_bf16,
-                  stream);
+  return run<kDh>(h, w, tgt, lse, g, dh, nullptr, nullptr, n, v, d, valid, 1,
+                  is_bf16, stream);
 }
 
 // as fused_ce_bwd_dh, writing dw (v, d) float32
 int fused_ce_bwd_dw(const void* h, const void* w, const void* tgt,
                     const void* lse, const void* g, void* dw, int n, int v,
                     int d, int valid, int is_bf16, void* stream) {
-  return run<kDw>(h, w, tgt, lse, g, dw, nullptr, n, v, d, valid, is_bf16,
-                  stream);
+  return run<kDw>(h, w, tgt, lse, g, dw, nullptr, nullptr, n, v, d, valid, 1,
+                  is_bf16, stream);
 }
 
 const char* kernel_error_string(int err) {

@@ -22,13 +22,35 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo (low half)
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// 2^x, about 2 ulp
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------------
@@ -78,6 +100,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// one arrival per warp, after every lane is done
+__device__ __forceinline__ void warp_arrive(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
 }
 
 // ---------------------------------------------------------------------------
@@ -220,6 +248,109 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64 x 128, f32) = A (64 x 16) . B (128 x 16)^T + (accumulate ? d : 0),
+// both operands K-major from shared memory
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 256, f32) = A (64 x 16) . B (256 x 16)^T + (accumulate ? d : 0),
+// both operands K-major from shared memory
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x N) = A (64 x 16) . B (N x 16)^T (+ d), N = 64 or 128, both
+// K-major from shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  static_assert(N == 64 || N == 128, "N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_m64n64k16_ss(d, desc_a, desc_b, accumulate);
+  else
+    wgmma_m64n128k16_ss(d, desc_a, desc_b, accumulate);
+}
+
 // d (64 x 32, f32) = A (64 x 16, bf16 pairs in registers, the layout
 // above) . B (16 x 32) + (accumulate ? d : 0), B MN-major from shared
 // memory (transpose bit)
@@ -312,6 +443,56 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], uint32_t a0,
     wgmma_m64n64k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
   else
     wgmma_m64n128k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
+}
+
+// ---------------------------------------------------------------------------
+// attention: one head's 64-row tiles and the order of the CTAs
+// ---------------------------------------------------------------------------
+
+constexpr int kHeadTile = 64;  // rows of a head tile, streamed or resident
+
+// a ROWS-row bf16 tile of D columns in shared memory: D / 64 TMA boxes
+// of 64 columns (128-byte rows, 128-byte swizzle), or one box of 32
+// columns (64-byte rows, 64-byte swizzle) at D = 32; and its wgmma
+// descriptors
+template <int D, int ROWS = kHeadTile>
+struct TileOf {
+  static constexpr int kBoxCols = D < 64 ? D : 64;
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kRowBytes = 2 * kBoxCols;
+  static constexpr int kBoxBytes = ROWS * kRowBytes;
+  static constexpr int kBytes = kBoxes * kBoxBytes;
+  static constexpr uint32_t kLayout = kRowBytes == 128 ? 1 : 2;
+  static constexpr int kKSteps = D / 16;  // k16 steps over D
+  static constexpr int kStepsPerBox = kBoxCols / 16;
+
+  // the tile at `addr` as a K-major operand (rows x D), k16 step ks
+  __device__ static uint64_t kmajor(uint32_t addr, int ks) {
+    return wgmma_desc(addr + (ks / kStepsPerBox) * kBoxBytes +
+                          (ks % kStepsPerBox) * 32,
+                      16, 8 * kRowBytes, kLayout);
+  }
+  // the tile at `addr` as an MN-major B (ROWS rows of K x D columns of
+  // N), k16 step kk over its rows; the boxes are N's swizzle atoms
+  __device__ static uint64_t mnmajor(uint32_t addr, int kk) {
+    return wgmma_desc(addr + kk * 16 * kRowBytes, kBoxBytes, 8 * kRowBytes,
+                      kLayout);
+  }
+};
+
+// this CTA's batch*head and the rank of its row block by causal work (0:
+// the most).  The grid is 1-D: heads in groups of `group`, and within a
+// group the blocks of rank 0 of every head first, then rank 1, ...  A
+// group's CTAs run at about the same time, so each streamed tile comes
+// from device memory once and from L2 for the group's other blocks.
+__device__ __forceinline__ void cta_work(int bh_count, int blocks, int group,
+                                         int& bh, int& rank) {
+  const int i = blockIdx.x;
+  const int first = i / (group * blocks) * group;  // first head of the group
+  const int heads = min(group, bh_count - first);
+  const int r = i - first * blocks;
+  rank = r / heads;
+  bh = first + r % heads;
 }
 
 // ---------------------------------------------------------------------------

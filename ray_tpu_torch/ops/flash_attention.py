@@ -12,9 +12,11 @@ Counterpart of ``ray_tpu/ops/flash_attention.py``.  Three CUDA kernels
   ``_bwd_dq_res_kernel`` and ``_bwd_dkv_kernel`` /
   ``_bwd_dkv_res_kernel``; each recomputes P = exp(S - LSE) tile by
   tile from the forward's LSE and owns its output rows, so there are
-  no atomics.  For bfloat16 both are warp-specialised: a producer
-  warpgroup feeds tiles by TMA through a ring of mbarriers to a
-  consumer warpgroup that runs ``wgmma``.
+  no atomics.
+
+For bfloat16 all three are warp-specialised: a producer warpgroup
+feeds tiles by TMA through a ring of mbarriers to a consumer warpgroup
+that runs ``wgmma``.
 
 Dispatch is by tensor placement: a CPU tensor takes the plain PyTorch
 version (``*_reference``), a CUDA tensor launches the kernel or
@@ -57,6 +59,14 @@ BWD_CONSUMERS = 1
 BWD_BF16_CTA_ROWS = BWD_CONSUMERS * BWD_TILE_ROWS
 BWD_BF16_CTAS_PER_SM = 2
 BWD_STAGES = 2
+#: the same for the bf16 forward: a CTA owns FWD_BF16_CTA_ROWS queries
+#: (FWD_CONSUMERS consumers of FWD_TILE_ROWS), streams K and V tiles of
+#: FWD_TILE_ROWS rows and shares an SM with FWD_BF16_CTAS_PER_SM - 1
+#: others; CTAs: BH * ceil(T / FWD_BF16_CTA_ROWS)
+FWD_TILE_ROWS = 64
+FWD_CONSUMERS = 1
+FWD_BF16_CTA_ROWS = FWD_CONSUMERS * FWD_TILE_ROWS
+FWD_BF16_CTAS_PER_SM = 2
 
 # Resident-variant tiles of the JAX package, kept so one config names
 # the same variant in both packages.  They were sized for a TPU's VMEM

@@ -3,9 +3,9 @@ versions, autograd.
 
 Counterpart of ``ray_tpu/ops/fused_ce.py`` (``ce_impl="pallas"``).
 Three CUDA kernels in ``ops/csrc/fused_ce.cu`` (tensor cores for
-bfloat16: ``mma.sync`` in the forward, warp-specialised ``wgmma`` fed
-by a TMA ring in dH and dW; f32 FMA for float32) replace the JAX
-package's three Pallas kernels:
+bfloat16: warp-specialised ``wgmma`` fed by a TMA ring; f32 FMA for
+float32) replace the JAX package's three Pallas kernels, for any
+d_model that is a multiple of 64:
 
 * forward (``_fwd_kernel``): per row of h, an online logsumexp over
   vocab tiles of the f32 tile h.w^T, columns >= valid_vocab masked to
@@ -35,12 +35,14 @@ DEFAULT_BLOCK_N = 256
 DEFAULT_BLOCK_V = 1024
 
 #: the bfloat16 kernels' tiles (csrc/fused_ce.cu).  Forward: a CTA owns
-#: FWD_BLOCK_ROWS rows of h and walks the vocab.  dH and dW: a CTA owns
+#: FWD_BLOCK_ROWS rows of h and walks FWD_TILE_ROWS-row vocab tiles of
+#: one of the vocab's splits (fused_ce_fwd_splits).  dH and dW: a CTA owns
 #: BWD_BLOCK_ROWS rows of h (dH) or of w (dW), walks the other operand in
 #: BWD_TILE_ROWS-row tiles, and owns at most BWD_SLICE_COLS columns of
 #: the output (D above that is cut into slices, each recomputing the
 #: logits).
-FWD_BLOCK_ROWS = 32
+FWD_BLOCK_ROWS = 128
+FWD_TILE_ROWS = 256
 BWD_BLOCK_ROWS = 64
 BWD_TILE_ROWS = 32
 BWD_SLICE_COLS = 768
@@ -52,8 +54,6 @@ FUSED_CE_BWD_DH_LAUNCHES = 0
 FUSED_CE_BWD_DW_LAUNCHES = 0
 
 _NEG_INF = -1e30
-#: the kernels take d_model a multiple of 64 in [64, MAX_D]
-MAX_D = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -135,13 +135,23 @@ def _check_args(h, w, tgt, valid_vocab: int, rows=()) -> None:
         raise ValueError(f"fused CE runs on cpu or cuda, got {h.device}")
 
 
+def fused_ce_fwd_splits(n_rows: int, valid_vocab: int, sms: int) -> int:
+    """Vocab splits of the bf16 forward: enough CTAs for about two waves
+    of one per SM over the ceil(N / FWD_BLOCK_ROWS) row blocks, at most
+    one per vocab tile (at the training shape 192 row blocks x 2)."""
+    blocks = -(-n_rows // FWD_BLOCK_ROWS)
+    tiles = -(-valid_vocab // FWD_TILE_ROWS)
+    return max(1, min(tiles, -(-2 * sms // blocks)))
+
+
 def _launch(fn_name: str, counter: str, inputs, outputs,
-            valid_vocab: int) -> None:
+            valid_vocab: int, splits=None) -> None:
     """Launch ``fn_name`` of ``csrc/fused_ce.cu`` on ``inputs`` (h, w,
     tgt, ...), writing ``outputs``, and add one to the module's counter
-    ``counter``.  What the kernels take: float32 or bfloat16 h and w,
-    D a multiple of 64 in [64, MAX_D], int32 targets, contiguous and
-    16-byte aligned tensors."""
+    ``counter``; ``splits`` is the forward's, passed after valid_vocab.
+    What the kernels take: float32 or bfloat16 h and w, D any positive
+    multiple of 64, int32 targets, contiguous and 16-byte aligned
+    tensors."""
     from ray_tpu_torch.ops import _kernels
 
     h, w, tgt = inputs[:3]
@@ -149,9 +159,9 @@ def _launch(fn_name: str, counter: str, inputs, outputs,
     if h.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{fn_name} kernel takes float32 or bfloat16, got "
                          f"{h.dtype}")
-    if D % 64 or not 64 <= D <= MAX_D:
-        raise ValueError(f"{fn_name} kernel takes d_model a multiple of 64 "
-                         f"in [64, {MAX_D}], got {D}")
+    if D % 64 or D < 64:
+        raise ValueError(f"{fn_name} kernel takes d_model a positive "
+                         f"multiple of 64, got {D}")
     if tgt.dtype != torch.int32:
         raise ValueError(f"{fn_name} kernel takes int32 targets, got "
                          f"{tgt.dtype}")
@@ -159,8 +169,9 @@ def _launch(fn_name: str, counter: str, inputs, outputs,
                for t in (*inputs, *outputs)):
         raise ValueError(f"{fn_name} kernel takes contiguous, 16-byte "
                          f"aligned tensors")
-    _kernels.launch("fused_ce", fn_name, (*inputs, *outputs),
-                    (N, V, D, valid_vocab, int(h.dtype == torch.bfloat16)),
+    scalars = (N, V, D, valid_vocab, *(() if splits is None else (splits,)),
+               int(h.dtype == torch.bfloat16))
+    _kernels.launch("fused_ce", fn_name, (*inputs, *outputs), scalars,
                     h.device)
     globals()[counter] += 1
 
@@ -176,8 +187,17 @@ def fused_ce_fwd(h, w, tgt, valid_vocab: int
         return fused_ce_fwd_reference(h, w, tgt, valid_vocab)
     nll = torch.empty(h.shape[0], dtype=torch.float32, device=h.device)
     lse = torch.empty_like(nll)
+    splits = 1
+    if h.dtype == torch.bfloat16:
+        splits = fused_ce_fwd_splits(h.shape[0], valid_vocab, torch.cuda.
+                                     get_device_properties(h.device).
+                                     multi_processor_count)
+    # each split's (max, sum, target logit) per row, combined on the card
+    # (unused with one split)
+    part = torch.empty((3, splits, h.shape[0]), dtype=torch.float32,
+                       device=h.device)
     _launch("fused_ce_fwd", "FUSED_CE_FWD_LAUNCHES", (h, w, tgt),
-            (nll, lse), valid_vocab)
+            (nll, lse, part), valid_vocab, splits)
     return nll, lse
 
 

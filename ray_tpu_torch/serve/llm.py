@@ -6,12 +6,18 @@ Counterpart of the "batch" scheduler of ``ray_tpu/serve/llm.py``'s
 fast path (one batched prefill through the flash kernel on CUDA);
 ragged ones are left-padded and trimmed back on return.
 
-Not ported yet, each raising NotImplementedError that names its
-ROADMAP.md item: the continuous scheduler with paged KV, speculative
-decoding and prefill/decode roles (queue 1 item 3), the llama family
-(item 2), telemetry (item 4), the serve runtime that wraps engines in
-deployments and handles (item 5), and mesh-sharded serving (item 7).
-Here the engine class itself is the deployment:
+``build_llm_deployment`` takes every keyword of the reference's.  Not
+ported yet, each raising NotImplementedError that names its ROADMAP.md
+item: the continuous scheduler with paged KV, speculative decoding and
+prefill/decode roles (queue 1 item 3), the llama family (item 2), the
+serve runtime that wraps engines in deployments and handles, and so
+``num_replicas`` > 1 (item 5), and mesh-sharded serving (item 7).
+Telemetry (item 4) has no keyword here.  The keywords that only the
+continuous scheduler reads (``stop_sequences``, ``eos_id``,
+``max_slots``, ``prefill_bucket``, ``kv_block_size``, ``kv_num_blocks``,
+``admission_policy``) are validated and ignored under "batch", as in
+the reference; the combinations it rejects under "batch" raise the same
+ValueError here.  Here the engine class itself is the deployment:
 ``await engine(prompt)`` answers one request.
 """
 
@@ -33,6 +39,8 @@ from ray_tpu_torch.serve.batching import batch as _batch
 _ROADMAP_ITEM = {
     "continuous": "queue 1 item 3 (continuous scheduler with paged KV)",
     "llama": "queue 1 item 2 (llama family)",
+    "runtime": "queue 1 item 5 (the serve runtime: deployments, "
+               "replicas, router)",
     "mesh": "queue 1 item 7 (parallel/ and mesh-sharded serving)",
 }
 
@@ -47,15 +55,26 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                          *, max_new_tokens: int = 16,
                          temperature: float = 0.0,
                          top_k: int = 0, top_p: float = 1.0,
+                         stop_sequences=None,
+                         eos_id: Optional[int] = None,
                          max_batch_size: int = 8,
                          batch_wait_timeout_s: float = 0.05,
                          checkpoint_path: Optional[str] = None,
-                         seed: int = 0,
+                         seed: int = 0, num_replicas: int = 1,
                          scheduler: str = "batch",
+                         max_slots: int = 4,
+                         prefill_bucket: int = 16,
                          kv_layout: str = "dense",
+                         kv_block_size: int = 16,
+                         kv_num_blocks: Optional[int] = None,
+                         prefill_chunk_tokens: Optional[int] = None,
+                         kv_host_tier_bytes: Optional[int] = None,
+                         admission_policy=None,
+                         slo=None,
+                         mesh=None,
                          spec_decode=None,
                          role: str = "both",
-                         mesh=None,
+                         handoff_staged: bool = False,
                          config_overrides: Optional[Dict[str, Any]]
                          = None,
                          device: DeviceLike = None):
@@ -71,6 +90,13 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
     → a fresh init from ``seed`` (tests/demos).  config_overrides:
     GPT2Config fields (torch dtypes).  device: None = the first CUDA
     device (raises without one); "cpu" must be asked for.
+    The reference's continuous-scheduler and fleet keywords are
+    accepted with its defaults and validation (module docstring):
+    stop_sequences and eos_id (stop matching is the continuous
+    scheduler's), max_slots, prefill_bucket, kv_block_size,
+    kv_num_blocks, prefill_chunk_tokens and kv_host_tier_bytes (paged
+    KV only), admission_policy, slo (continuous only), handoff_staged
+    (split roles only), num_replicas (1 here).
 
     Returns the engine class; ``await Engine()(prompt)`` answers one
     request."""
@@ -94,6 +120,31 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
         raise _not_ported(f"role={role!r}", "continuous")
     if mesh is not None:
         raise _not_ported("mesh", "mesh")
+    # what the reference rejects under scheduler="batch"
+    # (ray_tpu/serve/llm.py:486-563), in its order
+    if prefill_chunk_tokens is not None:
+        raise ValueError("prefill_chunk_tokens requires kv_layout='paged' "
+                         "(chunks fill KV blocks incrementally; dense "
+                         "keeps one-shot prefill)")
+    if kv_host_tier_bytes is not None:
+        raise ValueError("kv_host_tier_bytes requires kv_layout='paged' "
+                         "(the host tier spills and restores the pager's "
+                         "KV blocks; dense rows are never evicted)")
+    if handoff_staged:
+        raise ValueError("handoff_staged only applies to split roles "
+                         "(role='prefill' exports through host staging; "
+                         "a monolithic engine never hands off)")
+    if slo is not None:
+        raise ValueError("slo requires scheduler='continuous' (the "
+                         "burn-rate watchdog runs from the slot-pool "
+                         "engine loop)")
+    if any(np.asarray(seq).size == 0 for seq in (stop_sequences or ())):
+        raise ValueError("empty stop sequence")
+    if not isinstance(num_replicas, int) or num_replicas < 1:
+        raise ValueError(f"num_replicas must be a positive int, got "
+                         f"{num_replicas!r}")
+    if num_replicas > 1:
+        raise _not_ported(f"num_replicas={num_replicas}", "runtime")
     # validates the sampling knobs
     SamplingParams(temperature=temperature, top_k=top_k, top_p=top_p)
     dev = resolve_device(device)

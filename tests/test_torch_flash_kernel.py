@@ -58,6 +58,44 @@ def test_kernel_matches_plain_version(cuda_device, dtype, causal, T, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [1000, 77])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_kernel_keeps_heads_apart(cuda_device, causal, T, D):
+    """T not a multiple of the 64-row tiles: a K/V tile that runs past a
+    head's last row must read zeros there (masked), not the next head's
+    first rows.  Heads 1 and 3 are scaled by 100, so a leak into heads 0
+    and 2 moves their outputs far outside the tolerance."""
+    q3, k3, v3 = _qkv(cuda_device, 4, T, D, torch.bfloat16, seed=4)
+    for x in (q3, k3, v3):
+        x[1::2] *= 100
+    scale = D ** -0.5
+    o, lse = tfa.flash_attention_fwd(q3, k3, v3, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = tfa.flash_attention_fwd_reference(
+        q3, k3, v3, scale=scale, causal=causal)
+    assert bool(torch.isfinite(o.float()).all())
+    for h in (0, 2):
+        assert (o[h].float() - o_ref[h].float()).abs().max().item() <= \
+            O_TOL[torch.bfloat16], f"o head {h}"
+        assert (lse[h] - lse_ref[h]).abs().max().item() <= LSE_TOL, \
+            f"lse head {h}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_deterministic(cuda_device, dtype):
+    """Every CTA owns its query rows and sums them in one order: two calls
+    on the same inputs give bit-equal o and lse."""
+    q3, k3, v3 = _qkv(cuda_device, 24, 1024, 64, dtype, seed=3)
+    runs = [tfa.flash_attention_fwd(q3, k3, v3, scale=0.125, causal=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b, name in zip(*runs, ("o", "lse")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("resident", [True, False])
 def test_resident_variants_launch_the_same_kernel(cuda_device, resident):
     q, k, v = (x.reshape(2, 12, 256, 64).transpose(1, 2)

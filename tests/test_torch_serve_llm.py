@@ -95,11 +95,44 @@ def test_unknown_family_raises():
 @pytest.mark.parametrize("kw", [
     {"family": "llama"}, {"scheduler": "continuous"},
     {"kv_layout": "paged"}, {"spec_decode": object()},
-    {"role": "prefill"}, {"mesh": object()}])
+    {"role": "prefill"}, {"mesh": object()}, {"num_replicas": 2},
+    {"scheduler": "continuous", "slo": object()},
+    {"kv_layout": "paged", "kv_host_tier_bytes": 1 << 20},
+    {"kv_layout": "paged", "prefill_chunk_tokens": 32},
+    {"role": "prefill", "handoff_staged": True}])
 def test_options_not_ported_yet_name_their_roadmap_item(kw):
     kw = {"family": "gpt2", **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         build_llm_deployment(preset="nano", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"stop_sequences": [[5, 6], []]}, "empty stop sequence"),
+    ({"kv_host_tier_bytes": 1 << 20}, "kv_host_tier_bytes requires"),
+    ({"prefill_chunk_tokens": 32}, "prefill_chunk_tokens requires"),
+    ({"handoff_staged": True}, "handoff_staged only applies"),
+    ({"slo": object()}, "slo requires scheduler='continuous'"),
+    ({"num_replicas": 0}, "num_replicas must be a positive int")])
+def test_batch_scheduler_rejects_what_the_reference_rejects(kw, match):
+    """The combinations ray_tpu/serve/llm.py rejects with ValueError under
+    scheduler="batch" raise the same here."""
+    with pytest.raises(ValueError, match=match):
+        build_llm_deployment("gpt2", "nano", device="cpu", **kw)
+
+
+def test_continuous_only_keywords_are_ignored_by_the_batch_scheduler():
+    """stop_sequences, eos_id and the slot/KV/admission knobs are the
+    continuous scheduler's: under "batch" they are accepted, as by the
+    reference, and the greedy reply is the one without them."""
+    kw = dict(max_new_tokens=3, seed=5, device="cpu")
+    plain = build_llm_deployment("gpt2", "nano", **kw)()
+    knobs = build_llm_deployment(
+        "gpt2", "nano", stop_sequences=[[1, 2]], eos_id=0, num_replicas=1,
+        max_slots=2, prefill_bucket=8, kv_block_size=8, kv_num_blocks=64,
+        admission_policy=object(), **kw)()
+    prompt = np.arange(6, dtype=np.int32)
+    np.testing.assert_array_equal(asyncio.run(knobs(prompt)),
+                                  asyncio.run(plain(prompt)))
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
