@@ -43,7 +43,11 @@ Phases, each fatal on failure (any failure exits non-zero):
             weights, bf16 compute) on the card, answer 8 concurrent
             512-token requests and one ragged batch, check the replies,
             check that the prefill went through the kernel (its launch
-            counter, zeroed just before), and time prefill and decode.
+            counter, zeroed just before), hold the prefill logits
+            against plain attention's, the flash kernels against their
+            plain versions at the shape the prefill gives them, and
+            paged greedy generation against dense (token for token),
+            and time prefill and decode.
 7. train  — time GPT-2-124M AdamW steps at full width and depth (B=24,
             T=1024, remat mlp_only, dense CE) through
             ray_tpu_torch.bench.time_config; check that every step
@@ -65,6 +69,31 @@ Phases, each fatal on failure (any failure exits non-zero):
             peak memory of each step, and a profile of one pallas step;
             then one dense and one pallas step at gpt2-large's width
             (d_model 1280, 2 layers, B=8), checked against each other.
+9. serve-llama — phase 6 for llama-1b (16 layers, 32 query heads on 8
+            KV heads of 64, d_model 2048, vocab 32,000): 16 flash
+            launches per equal-length prefill, flash vs plain prefill
+            logits, paged vs dense greedy tokens (B=8, T=512, 16 new);
+            as in phase 6, the flash kernels held against their plain
+            versions at the shape the prefill gives them (B=8, H=32,
+            T=512, D=64).
+10. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
+            whole block, ce_impl="pallas": a warm-up and 5 timed steps
+            (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
+            dQ and 16 dK/dV launches and 1 of each fused-CE kernel per
+            step; a finite falling loss); one dense-CE and one
+            plain-attention step held against the pallas step; dense and
+            pallas steps timed in turns; a profile of one pallas step;
+            the fused-CE kernels at llama-1b's head (N=16384, V=32000,
+            D=2048: dH and dW through the wide kernel) and the flash
+            kernels at its attention (B=8, H=32, T=2048, D=64) held
+            against their plain versions and timed beside their bounds,
+            the dense composition and SDPA.
+11. llama-7b — llama-7b's width (d_model 4096, 32 heads of 128) cut to
+            2 layers: a dense and a pallas step at B=2, T=2048 checked
+            against each other, the flash kernels held against their
+            plain versions at the shape these steps give them (B=2,
+            H=32, T=2048, D=128), and one prefill, flash vs plain
+            attention.
 
 The line before the last is a JSON object describing each kernel; the
 line before it is the card's name and power limit; the last line is
@@ -466,19 +495,97 @@ async def _serve_all(engine, prompts):
     return await asyncio.gather(*(engine(p) for p in prompts))
 
 
-def phase_serve(torch, np, fa, card: str) -> int:
-    from ray_tpu_torch.models import gpt2_decode
+#: llama's flash-vs-plain bf16 prefill logit tolerance: the paths round
+#: P and O to bf16 at different places through 16 layers with a bf16
+#: residual stream, logits up to ~4 from the untied head: each bf16 path
+#: lies ~0.12 from the f32 logits and the two 0.117 apart on an H100
+#: (llama-7b's width at 2 layers: 0.10), so the bound is 0.25.  A bf16
+#: forward that drops key tile 0 of the last query block reads 2.87 here,
+#: and 0.663 when it does so in one (batch, head) pair only
+#: (flash_fault_check.py on an H100); the kernel check at the path's own
+#: shape (check_train_shape) is the sharper one: that plant moves o by
+#: 0.232 against its 5e-2
+LLAMA_LOGIT_TOL = 0.25
+#: the same prefill in f32, the f32 flash kernel vs plain f32 attention:
+#: each attention output within 2e-5 (TOL) of the other, carried through
+#: the layers (on an H100: 3.3e-6 for GPT-2-124M, 2.3e-5 for llama-1b,
+#: 2.5e-5 at llama-7b's width); an f32 forward that drops key tile 0 of
+#: the last query block reads 2.35 at llama-1b (flash_fault_check.py)
+F32_LOGIT_TOL = 1e-3
+
+
+def serve_family(family: str) -> tuple:
+    """(preset, prefill, decode step, generate, flash-vs-plain bf16
+    prefill logit tolerance) of a serving phase's family."""
+    if family == "gpt2":
+        from ray_tpu_torch.models import gpt2_decode as m
+        return "gpt2", m.prefill, m.decode_step, m.generate, LOGIT_TOL
+    from ray_tpu_torch.models import llama_decode as m
+    return ("llama-1b", m.llama_prefill, m.llama_decode_step,
+            m.llama_generate, LLAMA_LOGIT_TOL)
+
+
+def check_prefill_flash(torch, prefill, params, toks, cfg, tol: float,
+                        tag: str) -> dict:
+    """Prefill last-token logits through the flash kernel against plain
+    attention on the same weights, in bf16 (within ``tol``) and in f32
+    (the f32 flash kernel against plain f32 attention, within
+    F32_LOGIT_TOL); and the bf16 flash logits no further from the f32
+    ones than twice the bf16 plain logits are (the flash kernel keeps P
+    in f32 where plain attention rounds it to bf16).  Fails otherwise.
+    Must run under inference_mode.  Returns the numbers."""
+    logits = {}
+    for dtype in ("bf16", "f32"):
+        for flash in (True, False):
+            c = dataclasses.replace(cfg, use_flash=flash, dtype={
+                "bf16": torch.bfloat16, "f32": torch.float32}[dtype])
+            logits[dtype, flash] = prefill(params, toks, c)[0]
+    torch.cuda.synchronize()
+    lf = logits["bf16", True]
+    ref = logits["f32", False]
+    out = {"bf16": (lf - logits["bf16", False]).abs().max().item(),
+           "f32": (logits["f32", True] - ref).abs().max().item(),
+           "flash_from_f32": (lf - ref).abs().max().item(),
+           "plain_from_f32": (logits["bf16", False] - ref).abs().max()
+           .item()}
+    print(f"[{tag}] prefill last-token logits, flash vs plain attention: "
+          f"bf16 max|diff| {out['bf16']:.4e} (tol {tol}; max|logit| "
+          f"{ref.abs().max().item():.3f}), f32 max|diff| {out['f32']:.4e} "
+          f"(tol {F32_LOGIT_TOL}); bf16 from the f32 logits: flash "
+          f"{out['flash_from_f32']:.4e}, plain {out['plain_from_f32']:.4e}"
+          f" (flash within twice plain's)", flush=True)
+    if lf.shape != (toks.shape[0], cfg.padded_vocab) or \
+            not bool(torch.isfinite(lf).all()):
+        fail("prefill logits are not finite (B, padded_vocab)")
+    if out["bf16"] > tol or out["f32"] > F32_LOGIT_TOL or \
+            out["flash_from_f32"] > 2 * out["plain_from_f32"]:
+        fail("flash and plain prefill logits disagree")
+    return out
+
+
+def phase_serve(torch, np, fa, card: str, family: str = "gpt2",
+                tag: str = "serve") -> dict:
+    """The serving main path of ``family``: the engine at full width
+    and depth answering 8 concurrent 512-token requests (flash launches
+    counted, zeroed just before) and a ragged batch; prefill logits,
+    flash against plain attention; the flash kernels against their
+    plain versions at the shape the prefill gives them; paged greedy
+    generation against dense, token for token; prefill and decode
+    timed.  Returns the launch counts and the times."""
     from ray_tpu_torch.serve import build_llm_deployment
 
+    preset, prefill, decode_step, generate, logit_tol = serve_family(family)
     max_new, t_prompt = 16, 512
     t0 = time.perf_counter()
-    engine = build_llm_deployment("gpt2", "gpt2", max_new_tokens=max_new,
+    engine = build_llm_deployment(family, preset, max_new_tokens=max_new,
                                   max_batch_size=8, seed=0)()
     cfg = engine.cfg
     torch.cuda.synchronize()
-    print(f"[serve] GPT-2 {cfg.n_layer} layers, d={cfg.d_model}, "
-          f"{cfg.n_head} heads, vocab {cfg.padded_vocab}, compute "
-          f"{cfg.dtype}, params {cfg.param_dtype}: engine up in "
+    print(f"[{tag}] {family} {preset}: {cfg.n_layer} layers, "
+          f"d={cfg.d_model}, {cfg.n_head} heads "
+          f"({getattr(cfg, 'n_kv_head', cfg.n_head)} KV heads), head_dim "
+          f"{cfg.head_dim}, vocab {cfg.padded_vocab}, compute {cfg.dtype}, "
+          f"params {cfg.param_dtype}: engine up in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     rng = np.random.default_rng(0)
 
@@ -513,7 +620,7 @@ def phase_serve(torch, np, fa, card: str) -> int:
                   "flash_bwd_dkv": 0}:
         fail(f"kernel launches {counts} for the equal-length prefill, "
              f"expected {cfg.n_layer} forward and no backward")
-    print(f"[serve] 8 x {t_prompt}-token requests: {launches} flash "
+    print(f"[{tag}] 8 x {t_prompt}-token requests: {launches} flash "
           f"kernel launches; {8 * max_new} tokens in {wall * 1e3:.1f} ms "
           f"wall = {8 * max_new / wall:.1f} served tokens/s [{card}]",
           flush=True)
@@ -525,26 +632,36 @@ def phase_serve(torch, np, fa, card: str) -> int:
     check(ragged, outs)
     if fa.FLASH_FWD_LAUNCHES != 0:
         fail("the ragged prefill launched the causal-only flash kernel")
-    print(f"[serve] ragged batch of {len(ragged)} answered (0 kernel "
+    print(f"[{tag}] ragged batch of {len(ragged)} answered (0 kernel "
           f"launches: ragged prefill takes the plain masked attention)",
           flush=True)
 
+    # the kernels at this prefill's shape: (B*H, T, D) of the query heads
+    kernel_err = check_train_shape(torch, fa, seed=3, b=len(prompts),
+                                   h=cfg.n_head, T=t_prompt,
+                                   d=cfg.head_dim, tag=f"{tag} shape")["err"]
     toks = torch.from_numpy(np.stack(prompts)).cuda()
     with torch.inference_mode():
         cfg_flash = dataclasses.replace(cfg, use_flash=True)
         cfg_plain = dataclasses.replace(cfg, use_flash=False)
-        lf, _ = gpt2_decode.prefill(engine.params, toks, cfg_flash)
-        lp, _ = gpt2_decode.prefill(engine.params, toks, cfg_plain)
+        flash_check = check_prefill_flash(torch, prefill, engine.params,
+                                          toks, cfg, logit_tol, tag)
+
+        # the block-paged layout: greedy tokens equal to dense, token
+        # for token (the gathered pool view holds the dense cache's
+        # bytes, so every logit is the same)
+        kw = dict(max_new_tokens=max_new, temperature=0.0)
+        dense = generate(engine.params, toks, cfg, **kw)
+        paged = generate(engine.params, toks, cfg, kv_layout="paged",
+                         kv_block_size=16, **kw)
         torch.cuda.synchronize()
-        if lf.shape != (8, cfg.padded_vocab) or \
-                not bool(torch.isfinite(lf).all()):
-            fail("prefill logits are not finite (8, padded_vocab)")
-        diff = (lf - lp).abs().max().item()
-        print(f"[serve] prefill last-token logits, flash vs plain "
-              f"attention: max|diff| {diff:.4e} (tol {LOGIT_TOL}; "
-              f"max|logit| {lp.abs().max().item():.3f})", flush=True)
-        if diff > LOGIT_TOL:
-            fail("flash and plain prefill logits disagree")
+        same = bool(torch.equal(dense, paged))
+        print(f"[{tag}] greedy generation B=8 T={t_prompt} +{max_new}, "
+              f"kv_layout paged (16-token blocks) vs dense: "
+              f"token-for-token equal {same}", flush=True)
+        if not same:
+            fail("paged and dense greedy generation disagree")
+        del dense, paged
 
         # prefill with the kernel and with plain attention, in turns
         # (flash, plain, plain, flash, ...) so both see the same host
@@ -553,41 +670,48 @@ def phase_serve(torch, np, fa, card: str) -> int:
             c = cfg_flash if name == "flash" else cfg_plain
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            _, cache = gpt2_decode.prefill(engine.params, toks, c)
+            _, cache = prefill(engine.params, toks, c)
             torch.cuda.synchronize()
             prefill_s[name].append(time.perf_counter() - t0)
         med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in
                prefill_s.items()}
         step_tok = torch.zeros((8,), dtype=torch.int32, device="cuda")
-        gpt2_decode.decode_step(engine.params, cache, step_tok, cfg)
+        decode_step(engine.params, cache, step_tok, cfg)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(max_new):
-            _, cache = gpt2_decode.decode_step(engine.params, cache,
-                                               step_tok, cfg)
+            _, cache = decode_step(engine.params, cache, step_tok, cfg)
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) / max_new * 1e3
-    print(f"[serve] prefill B=8 T={t_prompt}, median of 6: "
+    print(f"[{tag}] prefill B=8 T={t_prompt}, median of 6: "
           f"{med['flash']:.2f} ms with the flash kernel, "
           f"{med['plain']:.2f} ms with plain attention; decode B=8: "
           f"{decode_ms:.2f} ms/token step [{card}]", flush=True)
-    return counts
+    del engine, cache
+    torch.cuda.empty_cache()
+    return {"counts": counts, "prefill_ms": med["flash"],
+            "prefill_plain_ms": med["plain"], "decode_ms": decode_ms,
+            "served_tokens_per_s": 8 * max_new / wall,
+            "flash_vs_plain_logits": flash_check,
+            "kernels_vs_plain": kernel_err}
 
 
-def check_train_shape(torch, fa, seed: int = 2) -> dict:
+def check_train_shape(torch, fa, seed: int = 2, b: int = TRAIN_B,
+                      h: int = H, T: int = TRAIN_T, d: int = D,
+                      tag: str = "training shape") -> dict:
     """Hold the forward kernel (o, lse) and the backward kernels (dq,
-    dk, dv) against their plain versions at the training shape (B=24,
-    H=12, T=1024, D=64, causal, bf16); fail if any disagrees.  Returns
-    the inputs and outputs, for timing."""
+    dk, dv) against their plain versions at a training shape (default
+    GPT-2-124M's: B=24, H=12, T=1024, D=64; causal, bf16); fail if any
+    disagrees.  Returns the inputs and outputs, for timing."""
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    bh, T = TRAIN_B * H, TRAIN_T
-    kw = dict(scale=1.0 / math.sqrt(D), causal=True)
+    bh = b * h
+    kw = dict(scale=1.0 / math.sqrt(d), causal=True)
     t = dict(zip(("q4", "k4", "v4", "do4"), (
-        torch.randn((TRAIN_B, T, H, D), generator=gen, device=dev)
+        torch.randn((b, T, h, d), generator=gen, device=dev)
         .to(torch.bfloat16) for _ in range(4))))
     for n in ("q", "k", "v", "do"):
-        t[f"{n}3"] = t[f"{n}4"].transpose(1, 2).reshape(bh, T, D)
+        t[f"{n}3"] = t[f"{n}4"].transpose(1, 2).reshape(bh, T, d)
     with torch.no_grad():
         q3, k3, v3, do3 = (t[n] for n in ("q3", "k3", "v3", "do3"))
         o3, lse = fa.flash_attention_fwd(q3, k3, v3, **kw)
@@ -596,13 +720,13 @@ def check_train_shape(torch, fa, seed: int = 2) -> dict:
         err_o = (o3.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
         del o_ref, lse_ref
-        print(f"[kernel-bwd] training shape B={TRAIN_B} T={T} H={H} D={D} "
+        print(f"[kernel-bwd] {tag} B={b} T={T} H={h} D={d} "
               f"causal bf16: forward max|o-plain| {err_o:.3e} (tol "
               f"{TOL[('bf16', 'o')]:.0e}), max|lse-plain| {err_lse:.3e} "
               f"(tol {TOL[('bf16', 'lse')]:.0e})", flush=True)
         if err_o > TOL[("bf16", "o")] or err_lse > TOL[("bf16", "lse")]:
-            fail("the forward kernel disagrees with its plain version at "
-                 "the training shape")
+            fail(f"the forward kernel disagrees with its plain version at "
+                 f"the {tag}")
         dq, delta = fa.flash_bwd_dq(q3, k3, v3, o3, do3, lse, **kw)
         got = (dq, *fa.flash_bwd_dkv(q3, k3, v3, do3, lse, delta, **kw))
         dq_ref, delta_ref = fa.flash_bwd_dq_reference(q3, k3, v3, o3, do3,
@@ -613,17 +737,17 @@ def check_train_shape(torch, fa, seed: int = 2) -> dict:
         cmp = [bwd_compare(g, w, "bf16") for g, w in zip(got, want)]
         dcmp = delta_compare(fa, delta, o3, do3)
         del got, want, dq, dq_ref, delta_ref
-    print(f"[kernel-bwd] training shape backward: {bwd_report(cmp)} (tol "
+    print(f"[kernel-bwd] {tag} backward: {bwd_report(cmp)} (tol "
           f"{BWD_TOL['bf16'][0]:.0e} + {BWD_TOL['bf16'][1]:.0e}*|plain|, "
           f"rel {BWD_REL_NORM['bf16']:.0e}); delta from the dQ kernel "
           f"max|d| {dcmp['max']:.3e} ({dcmp['share']:.3f} of its bound "
           f"2 (D + 1) 2**-24 sum|dO O|)", flush=True)
     if not all(c["ok"] for c in cmp) or not dcmp["ok"]:
-        fail("backward kernels disagree with their plain version at the "
-             "training shape")
+        fail(f"backward kernels disagree with their plain version at the "
+             f"{tag}")
     t.update(o3=o3, lse=lse, delta=delta,
-             err={"dq": cmp[0]["max"], "dkv": max(cmp[1]["max"],
-                                                 cmp[2]["max"]),
+             err={"fwd": err_o, "dq": cmp[0]["max"],
+                  "dkv": max(cmp[1]["max"], cmp[2]["max"]),
                   "delta": dcmp["max"], "delta_share": dcmp["share"]})
     return t
 
@@ -1058,7 +1182,7 @@ def check_flash_vs_plain_step(torch, cfg) -> tuple:
 
 
 def profile_step(torch, state: dict, name: str, step_ms: float,
-                 card: str) -> dict:
+                 card: str, tag: str = "train") -> dict:
     """Profile one step of ``state[name]`` ([step, params, opt_state])
     with torch.profiler (CUPTI) and print its device time by kind and
     its largest kernels; returns {kind: ms}."""
@@ -1073,7 +1197,7 @@ def profile_step(torch, state: dict, name: str, step_ms: float,
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"[train] profile of one {name} step: {device_ms:.2f} ms of "
+    print(f"[{tag}] profile of one {name} step: {device_ms:.2f} ms of "
           f"device time in {len(events)} distinct kernels, "
           f"{device_ms / step_ms:.3f} of the unprofiled median step "
           f"({step_ms:.2f} ms) [{card}]", flush=True)
@@ -1082,21 +1206,39 @@ def profile_step(torch, state: dict, name: str, step_ms: float,
         kind = next((k for k, marks in PROFILE_KINDS if any(
             m in e.key for m in marks)), "other elementwise")
         kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
-    print(f"[train]   {name} step by kind: " + ", ".join(
+    print(f"[{tag}]   {name} step by kind: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in sorted(kinds.items(),
                                               key=lambda kv: -kv[1])),
           flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[train]   {e.self_device_time_total / 1e3:8.3f} ms "
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
     return kinds
+
+
+def loss_of(cfg):
+    """The loss function of cfg's family (gpt2_loss or llama_loss)."""
+    from ray_tpu_torch.models.gpt2 import gpt2_loss
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_loss
+
+    return llama_loss if isinstance(cfg, LlamaConfig) else gpt2_loss
+
+
+def head_grad(grads: dict, cfg):
+    """The lm head's gradient, vocab-major (V, D) float32: GPT-2's tied
+    wte (its input rows carry the embedding's gradient too), llama's
+    untied lm_head transposed (all of it comes from the CE)."""
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    if isinstance(cfg, LlamaConfig):
+        return grads["lm_head"].t().float()
+    return grads["wte"].float()
 
 
 def interleaved_steps(torch, params, batch, cfgs: dict, order) -> tuple:
     """AdamW steps of each config in ``cfgs``, each from its own copy of
     ``params``, run in ``order`` (names of cfgs); returns (the steps'
     state for profile_step, {name: [wall seconds]})."""
-    from ray_tpu_torch.models.gpt2 import gpt2_loss
     from ray_tpu_torch.train import adamw, build_train_step
     from ray_tpu_torch.train.optim import tree_map
 
@@ -1104,8 +1246,8 @@ def interleaved_steps(torch, params, batch, cfgs: dict, order) -> tuple:
     state = {"batch": batch}
     for name, c in cfgs.items():
         p = tree_map(torch.clone, params)
-        state[name] = [build_train_step(lambda p, b, c=c: gpt2_loss(p, b, c),
-                                        tx), p, tx.init(p)]
+        state[name] = [build_train_step(
+            lambda p, b, c=c: loss_of(c)(p, b, c), tx), p, tx.init(p)]
     wall = {name: [] for name in cfgs}
     for name in order:
         step, p, s = state[name]
@@ -1156,15 +1298,18 @@ def run_main_path(torch, fa, card: str, tag: str, per_step: dict,
             "losses": losses, "peak_gib": peak_gib}
 
 
-def report_medians(result: dict, wall: dict, tag: str, card: str) -> None:
-    """Median wall time, tokens/s and MFU of each interleaved step."""
+def report_medians(result: dict, wall: dict, tag: str, card: str,
+                   n_params: int = 0,
+                   tokens: int = TRAIN_B * TRAIN_T) -> None:
+    """Median wall time, tokens/s and MFU of each interleaved step
+    (default: GPT-2-124M's parameters and batch)."""
     from ray_tpu_torch.bench import H100_BF16_PEAK_FLOPS
     from ray_tpu_torch.models.gpt2 import gpt2_config, gpt2_param_count
 
-    n_params = gpt2_param_count(gpt2_config("gpt2"))
+    n_params = n_params or gpt2_param_count(gpt2_config("gpt2"))
     for name, secs in wall.items():
         med = sorted(secs)[len(secs) // 2]
-        tps = TRAIN_B * TRAIN_T / med
+        tps = tokens / med
         result[f"{name}_step_ms"] = med * 1e3
         print(f"[{tag}] {name:6s} step, median of {len(secs)} in turns: "
               f"{med * 1e3:.2f} ms, {tps:.1f} tokens/s, MFU "
@@ -1197,10 +1342,9 @@ def phase_train(torch, fa, card: str) -> dict:
 
 def one_step(torch, fa, params, batch, cfg) -> dict:
     """One loss and gradient of ``cfg`` on ``params`` and ``batch``: the
-    loss, the global gradient norm, the nonfinite count, the wte
-    gradient, the kernel launches (counters zeroed just before) and the
-    step's peak memory."""
-    from ray_tpu_torch.models.gpt2 import gpt2_loss
+    loss, the global gradient norm, the nonfinite count, the head's
+    gradient (head_grad), the kernel launches (counters zeroed just
+    before) and the step's peak memory."""
     from ray_tpu_torch.train.optim import tree_leaves, tree_unflatten
 
     torch.cuda.synchronize()
@@ -1208,13 +1352,13 @@ def one_step(torch, fa, params, batch, cfg) -> dict:
     torch.cuda.reset_peak_memory_stats()
     zero_counts(fa)
     live = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
-    loss = gpt2_loss(tree_unflatten(params, live), batch, cfg)
+    loss = loss_of(cfg)(tree_unflatten(params, live), batch, cfg)
     grads = torch.autograd.grad(loss, live)
     torch.cuda.synchronize()
     out = {"loss": loss.item(), "grad_norm": torch.stack(
         [g.float().square().sum() for g in grads]).sum().sqrt().item(),
         "nonfinite": sum(int((~g.isfinite()).sum()) for g in grads),
-        "wte": tree_unflatten(params, list(grads))["wte"].float(),
+        "head_grad": head_grad(tree_unflatten(params, list(grads)), cfg),
         "counts": read_counts(fa),
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     del loss, grads, live
@@ -1237,25 +1381,35 @@ CE_STEPS = {
 }
 
 
-def compare_steps(st: dict, r: dict, ref: str, head_only) -> tuple:
+def compare_steps(st: dict, r: dict, ref: str, head_only,
+                  head_tol=None) -> tuple:
     """One step against its reference step ``r`` (named ``ref``): loss,
-    relative gradient norm, ||wte grad - reference|| / ||reference|| over
-    all rows and over the head-only rows.  Returns (the numbers, a line
-    of text, whether all are within CE_LOSS_TOL, CE_GRAD_NORM_RTOL,
-    CE_WTE_GRAD_RTOL and CE_HEAD_GRAD_RTOL)."""
+    relative gradient norm, ||head grad - reference|| / ||reference||
+    over all rows and over the head-only rows.  GPT-2 (``head_only`` a
+    row mask of the tied wte): tolerances CE_LOSS_TOL,
+    CE_GRAD_NORM_RTOL, CE_WTE_GRAD_RTOL over all rows and
+    CE_HEAD_GRAD_RTOL over the head-only rows.  llama (``head_only``
+    None: every row of the untied lm_head is the head's): the loss and
+    gradient norm tolerances, and ``head_tol`` over the lm_head.
+    Returns (the numbers, a line of text, whether all are within)."""
     dl = abs(st["loss"] - r["loss"])
     dg = abs(st["grad_norm"] - r["grad_norm"]) / r["grad_norm"]
-    diff = st["wte"] - r["wte"]
-    dw = (diff.norm() / r["wte"].norm()).item()
-    dh = (diff[head_only].norm() / r["wte"][head_only].norm()).item()
-    head_tol = CE_HEAD_GRAD_RTOL["dense" if ref == "dense" else "f32"]
+    diff = st["head_grad"] - r["head_grad"]
+    dw = (diff.norm() / r["head_grad"].norm()).item()
     text = (f"; vs {ref}: loss |diff| {dl:.3e} (tol {CE_LOSS_TOL}), grad "
-            f"norm rel diff {dg:.3e} (tol {CE_GRAD_NORM_RTOL}), ||wte grad "
-            f"- {ref}|| / ||{ref}|| {dw:.3e} (tol {CE_WTE_GRAD_RTOL}), on "
-            f"the {int(head_only.sum())} head-only rows {dh:.3e} (tol "
-            f"{head_tol})")
-    ok = dl <= CE_LOSS_TOL and dg <= CE_GRAD_NORM_RTOL and \
-        dw <= CE_WTE_GRAD_RTOL and dh <= head_tol
+            f"norm rel diff {dg:.3e} (tol {CE_GRAD_NORM_RTOL}), ")
+    ok = dl <= CE_LOSS_TOL and dg <= CE_GRAD_NORM_RTOL
+    if head_only is None:
+        text += (f"||lm_head grad - {ref}|| / ||{ref}|| {dw:.3e} (tol "
+                 f"{head_tol})")
+        return ({"loss_diff": dl, "grad_norm_rel": dg,
+                 "lm_head_grad_rel": dw}, text, ok and dw <= head_tol)
+    dh = (diff[head_only].norm() / r["head_grad"][head_only].norm()).item()
+    head_tol = CE_HEAD_GRAD_RTOL["dense" if ref == "dense" else "f32"]
+    text += (f"||wte grad - {ref}|| / ||{ref}|| {dw:.3e} (tol "
+             f"{CE_WTE_GRAD_RTOL}), on the {int(head_only.sum())} head-only "
+             f"rows {dh:.3e} (tol {head_tol})")
+    ok = ok and dw <= CE_WTE_GRAD_RTOL and dh <= head_tol
     return ({"loss_diff": dl, "grad_norm_rel": dg, "wte_grad_rel": dw,
              "head_rows_rel": dh}, text, ok)
 
@@ -1312,7 +1466,7 @@ def check_ce_and_remat_steps(torch, fa, cfg, spec=None,
                 bad.append(f"{name} disagrees with {ref}")
         print(line, flush=True)
     for st in steps.values():
-        del st["wte"]
+        del st["head_grad"]
     if bad:
         fail("; ".join(bad))
     return params, batch, steps
@@ -1363,6 +1517,352 @@ def phase_train_ce(torch, fa, card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# the llama family
+# ---------------------------------------------------------------------------
+
+#: llama-1b (16 layers, 32 query / 8 KV heads of 64, d_model 2048, d_ff
+#: 5504, vocab 32,000) trained at its max_seq: B=8, T=2048, remat of the
+#: whole block, ce_impl="pallas"
+LLAMA_PRESET, LLAMA_B, LLAMA_T, LLAMA_TIMED_STEPS = "llama-1b", 8, 2048, 5
+#: llama-7b's width (d_model 4096, 32/32 heads of 128, d_ff 11008), depth
+#: cut to 2 layers, B=2
+LLAMA_WIDE_PRESET, LLAMA_WIDE_LAYERS, LLAMA_WIDE_B = "llama-7b", 2, 2
+#: the lm_head gradient of one llama step against another on the same
+#: weights and batch (compare_steps' head_tol), ||diff|| / ||ref||:
+#: "dense" between the fused CE and the dense CE, whose backward rounds
+#: dW to bf16 where the fused kernels keep it f32 (the hidden states are
+#: the same): each element within a bf16 rounding (2**-9 relative), so
+#: the norm well under 1e-2 (1.66e-3 on an H100 at llama-1b and at
+#: llama-7b's width); "plain" between flash and plain attention,
+#: whose hidden states differ by the bf16 rounding of P in every layer:
+#: the bound of the GPT-2 flash-vs-plain step's q, k, v gradient parts
+#: (TRAIN_QKV_GRAD_RTOL; 2.7e-2 on an H100 at llama-1b)
+LLAMA_HEAD_GRAD_RTOL = {"dense": 1e-2, "plain": TRAIN_QKV_GRAD_RTOL}
+#: the steps held against each other: name -> (LlamaConfig overrides,
+#: the steps it is checked against)
+LLAMA_STEPS = {"pallas": (dict(ce_impl="pallas"), ()),
+               "dense": (dict(ce_impl="dense"), ("pallas",)),
+               "plain": (dict(ce_impl="pallas", use_flash=False),
+                         ("pallas",))}
+LLAMA_WIDE_STEPS = {"dense": (dict(ce_impl="dense"), ()),
+                    "pallas": (dict(ce_impl="pallas"), ("dense",))}
+
+
+def llama_step_counts(cfg) -> dict:
+    """Kernel launches of one llama loss and gradient: the flash forward
+    twice a layer (remat recomputes the whole block), dQ and dK/dV once;
+    none with plain attention; each fused-CE kernel once with
+    ce_impl="pallas"."""
+    L = cfg.n_layer if cfg.use_flash is not False else 0
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    if cfg.ce_impl == "pallas":
+        want.update(fused_ce_fwd=1, fused_ce_bwd_dh=1, fused_ce_bwd_dw=1)
+    return want
+
+
+def check_llama_steps(torch, fa, cfg, spec: dict, batch_rows: int,
+                      seed: int, tag: str) -> tuple:
+    """One loss and gradient of each ``spec`` entry on the same seeded
+    llama weights and a batch of ``batch_rows`` x LLAMA_T tokens, each
+    checked for its launches (llama_step_counts) and against its
+    reference steps (compare_steps over the untied lm_head, tolerance
+    LLAMA_HEAD_GRAD_RTOL); fails on any disagreement.  Returns (params,
+    batch, {name: step})."""
+    from ray_tpu_torch.models.llama import llama_init
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = llama_init(cfg, gen, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (batch_rows, LLAMA_T + 1),
+                                     generator=gen, device="cuda")}
+    steps, bad = {}, []
+    for name, (kw, refs) in spec.items():
+        c = dataclasses.replace(cfg, **kw)
+        st = one_step(torch, fa, params, batch, c)
+        steps[name] = st
+        want = llama_step_counts(c)
+        line = (f"[{tag}] one step, d_model {c.d_model}, {c.n_layer} "
+                f"layers, B={batch_rows} T={LLAMA_T}, ce {c.ce_impl}, "
+                f"flash {c.use_flash is not False}: loss {st['loss']:.5f}, "
+                f"grad norm {st['grad_norm']:.5f}, nonfinite "
+                f"{st['nonfinite']}, peak memory {st['peak_gib']:.2f} GiB; "
+                f"launches {st['counts']}")
+        if st["counts"] != want:
+            bad.append(f"{name}: launches {st['counts']}, expected {want}")
+        if st["nonfinite"]:
+            bad.append(f"{name}: {st['nonfinite']} nonfinite gradients")
+        st["vs"] = {}
+        for ref in refs:
+            kind = "plain" if "plain" in (name, ref) else "dense"
+            vs, text, ok = compare_steps(st, steps[ref], ref, None,
+                                         LLAMA_HEAD_GRAD_RTOL[kind])
+            st["vs"][ref] = vs
+            line += text
+            if not ok:
+                bad.append(f"{name} disagrees with {ref}")
+        print(line, flush=True)
+    for st in steps.values():
+        del st["head_grad"]
+    if bad:
+        fail("; ".join(bad))
+    return params, batch, steps
+
+
+def llama_main_path(torch, fa, cfg, card: str) -> dict:
+    """The main path of phase train-llama: AdamW steps
+    (``adamw(3e-4, weight_decay=0.1)``) of ``cfg`` at B=LLAMA_B,
+    T=LLAMA_T on one repeated batch of seeded tokens through
+    build_train_step, a warm-up step and LLAMA_TIMED_STEPS timed ones
+    (host clock around synchronised steps, as time_config), the launch
+    counters zeroed just before and read just after, the loss finite and
+    falling, the peak memory."""
+    from ray_tpu_torch.bench import H100_BF16_PEAK_FLOPS
+    from ray_tpu_torch.models.llama import (llama_init, llama_loss,
+                                            llama_param_count)
+    from ray_tpu_torch.train import adamw, build_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama_init(cfg, gen, device="cuda")
+    tx = adamw(3e-4, weight_decay=0.1)
+    opt_state = tx.init(params)
+    step = build_train_step(lambda p, b: llama_loss(p, b, cfg), tx)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (LLAMA_B, LLAMA_T + 1), generator=gen,
+                                     device="cuda")}
+    zero_counts(fa)
+    params, opt_state, loss = step(params, opt_state, batch)
+    losses = [loss]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LLAMA_TIMED_STEPS):
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts(fa)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    runs = LLAMA_TIMED_STEPS + 1
+    per_step = llama_step_counts(cfg)
+    want = {k: n * runs for k, n in per_step.items()}
+    n_params = llama_param_count(cfg)
+    tok_s = LLAMA_B * LLAMA_T * LLAMA_TIMED_STEPS / dt
+    mfu = 6 * n_params * tok_s / H100_BF16_PEAK_FLOPS
+    print(f"[train-llama] {LLAMA_PRESET}, B={LLAMA_B} T={LLAMA_T}, remat "
+          f"(whole block), ce {cfg.ce_impl}: {runs} steps launched {counts}"
+          f" (expected {per_step} per step); losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    if counts != want:
+        fail(f"kernel launches {counts} over {runs} steps, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"the loss is not finite and falling: {losses}")
+    print(f"[train-llama] {LLAMA_TIMED_STEPS} timed steps: "
+          f"{dt / LLAMA_TIMED_STEPS * 1e3:.2f} ms/step, {tok_s:.1f} "
+          f"tokens/s, MFU {mfu:.4f} (6*N*tokens/s against 989 TFLOP/s, N = "
+          f"{n_params} counting both embedding tables); peak memory "
+          f"{peak_gib:.2f} GiB (max_memory_allocated) [{card}]", flush=True)
+    del params, opt_state, step, batch
+    torch.cuda.empty_cache()
+    return {"counts": counts, "steps_run": runs,
+            "step_ms": dt / LLAMA_TIMED_STEPS * 1e3, "tokens_per_s": tok_s,
+            "mfu": mfu, "n_params": n_params, "losses": losses,
+            "peak_gib": peak_gib}
+
+
+def time_llama_ce(torch, fc, card: str, cfg) -> dict:
+    """The fused-CE kernels at llama-1b's head (N = B*T = 16,384, V =
+    valid = 32,000, D = 2048, bf16, g = 1/N; dH and dW through the wide
+    kernel): held against their plain versions, timed beside them, their
+    bounds and the dense composition."""
+    from ray_tpu_torch.models.gpt2 import _LogitsMatmul, nll_from_logits
+
+    n, v, d = LLAMA_B * LLAMA_T, cfg.padded_vocab, cfg.d_model
+    t = check_ce_kernels(torch, fc, n, v, cfg.vocab_size, d, "bf16",
+                         seed=7, g=1.0 / n)
+    h, w, tgt, g, lse = (t[k] for k in ("h", "w", "tgt", "g", "lse"))
+    a, ab, valid = (h, w, tgt), (h, w, tgt, lse, g), cfg.vocab_size
+    with torch.no_grad():
+        ms = {"fwd": time_ms(torch, lambda: fc.fused_ce_fwd(*a, valid),
+                             iters=5),
+              "dh": time_ms(torch, lambda: fc.fused_ce_bwd_dh(*ab, valid),
+                            iters=3),
+              "dw": time_ms(torch, lambda: fc.fused_ce_bwd_dw(*ab, valid),
+                            iters=3)}
+        plain = {"fwd": time_ms(torch, lambda: fc.fused_ce_fwd_reference(
+                     *a, valid), iters=1),
+                 "dh": time_ms(torch, lambda: fc.fused_ce_bwd_dh_reference(
+                     *ab, valid), iters=1),
+                 "dw": time_ms(torch, lambda: fc.fused_ce_bwd_dw_reference(
+                     *ab, valid), iters=1)}
+        dense_fwd = time_ms(torch, lambda: nll_from_logits(
+            _LogitsMatmul.apply(h, w), tgt, valid, v), iters=3)
+    hg, wg = h.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    nll = nll_from_logits(_LogitsMatmul.apply(hg, wg), tgt, valid, v)
+    dense_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        nll, (hg, wg), g, retain_graph=True), iters=3)
+    del nll, hg, wg
+    bounds = ce_bounds_ms(n, v, valid, d)
+    out = {}
+    for k, cmp_keys in (("fwd", ("nll", "lse")), ("dh", ("dh",)),
+                        ("dw", ("dw",))):
+        out[k] = {"shape": [n, v, valid, d],
+                  "max_abs_err": max(t["cmp"][c]["max"] for c in cmp_keys),
+                  "ms": ms[k], "plain_ms": plain[k],
+                  "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                  "bound_share": bounds[k][0] / ms[k],
+                  "library_ms": dense_fwd if k == "fwd" else None,
+                  "dense_composition": {"forward_ms": dense_fwd,
+                                        "backward_ms": dense_bwd}}
+        print(f"[train-llama]   {k:3s} at llama-1b's head (N={n} V={v} "
+              f"D={d} bf16): kernel {ms[k]:.4f} ms, plain {plain[k]:.4f} "
+              f"ms, bound {bounds[k][0]:.4f} ms ({bounds[k][1]}, "
+              f"{100 * bounds[k][0] / ms[k]:.1f}% of it reached) [{card}]",
+              flush=True)
+    print(f"[train-llama]   dense composition at llama-1b's head: forward "
+          f"{dense_fwd:.4f} ms, backward (dH and dW) {dense_bwd:.4f} ms; "
+          f"fused dH + dW {ms['dh'] + ms['dw']:.4f} ms = "
+          f"{(ms['dh'] + ms['dw']) / dense_bwd:.3f}x the dense backward "
+          f"[{card}]", flush=True)
+    return out
+
+
+def time_llama_flash(torch, fa, card: str, cfg) -> dict:
+    """The flash kernels at llama-1b's attention (B=8, H=32 query heads
+    over the repeated KV heads, T=2048, D=64, causal, bf16): held
+    against their plain versions (check_train_shape), timed beside them
+    and their bounds, the forward and the whole backward against
+    scaled_dot_product_attention's in turns."""
+    F = torch.nn.functional
+    b, h, T, d = LLAMA_B, cfg.n_head, LLAMA_T, cfg.head_dim
+    t = check_train_shape(torch, fa, seed=8, b=b, h=h, T=T, d=d,
+                          tag="llama-1b shape")
+    q4, k4, v4, do4, q3, k3, v3, do3, o3, lse, delta = (
+        t[n] for n in ("q4", "k4", "v4", "do4", "q3", "k3", "v3", "do3",
+                       "o3", "lse", "delta"))
+    kw = dict(scale=1.0 / math.sqrt(d), causal=True)
+    with torch.no_grad():
+        ms = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq(
+                  q3, k3, v3, o3, do3, lse, **kw)),
+              "dkv": time_ms(torch, lambda: fa.flash_bwd_dkv(
+                  q3, k3, v3, do3, lse, delta, **kw))}
+        plain = {"fwd": time_ms(torch, lambda: fa.
+                                flash_attention_fwd_reference(q3, k3, v3,
+                                                              **kw),
+                                iters=1),
+                 "whole": time_ms(torch, lambda: fa.
+                                  flash_attention_bwd_reference(
+                                      q3, k3, v3, o3, lse, do3, **kw),
+                                  iters=1)}
+        qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
+                           for x in (q4, k4, v4, do4))
+        fwd_med, fwd_turns = in_turns(torch, {
+            "port": lambda: fa.flash_attention_fwd(q3, k3, v3, **kw),
+            "sdpa": lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True)})
+    qh, kh, vh = (x.requires_grad_(True) for x in (qh, kh, vh))
+    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    med, turns = in_turns(torch, {
+        "port": lambda: fa.flash_attention_bwd(q3, k3, v3, o3, lse, do3,
+                                               **kw),
+        "sdpa": lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                            retain_graph=True)})
+    ms.update(fwd=fwd_med["port"], whole=med["port"])
+    bh = b * h
+    bounds = dict(bwd_bounds_ms(bh, T, d, True, "bf16"),
+                  fwd=attention_bound_ms(T, True, "bf16", bh=bh, d=d))
+    library = {"fwd": fwd_med["sdpa"], "whole": med["sdpa"]}
+    recs = {}
+    for k in ("fwd", "dq", "dkv", "whole"):
+        recs[k] = {"shape": [b, h, T, d], "ms": ms[k],
+                   "plain_ms": plain.get(k), "bound_ms": bounds[k][0],
+                   "bound_by": bounds[k][1],
+                   "bound_share": bounds[k][0] / ms[k],
+                   "library_ms": library.get(k),
+                   "max_abs_err": t["err"].get(k)}
+        lib = (f", scaled_dot_product_attention {library[k]:.4f} ms "
+               f"({ms[k] / library[k]:.3f}x, medians of {BWD_TURNS} "
+               f"rounds in turns)" if k in library else "")
+        pl = f", plain {plain[k]:.4f} ms" if k in plain else ""
+        print(f"[train-llama]   flash {k:5s} at B={b} H={h} T={T} D={d}: "
+              f"kernel {ms[k]:.4f} ms{pl}, bound {bounds[k][0]:.4f} ms "
+              f"({bounds[k][1]}, {100 * bounds[k][0] / ms[k]:.1f}% of it "
+              f"reached){lib} [{card}]", flush=True)
+    recs["turns_ms"] = {"fwd": fwd_turns, "whole": turns}
+    return recs
+
+
+def phase_train_llama(torch, fa, fc, card: str) -> dict:
+    from ray_tpu_torch.models.llama import llama_config
+
+    cfg = llama_config(LLAMA_PRESET, ce_impl="pallas")
+    # the main path: llama-1b AdamW steps through the flash and fused-CE
+    # kernels
+    result = llama_main_path(torch, fa, cfg, card)
+    params, batch, steps = check_llama_steps(
+        torch, fa, cfg, LLAMA_STEPS, LLAMA_B, seed=1, tag="train-llama")
+    cfgs = {"dense": dataclasses.replace(cfg, ce_impl="dense"),
+            "pallas": cfg}
+    # the dense and pallas steps in turns (dense, pallas, pallas, dense)
+    state, wall = interleaved_steps(torch, params, batch, cfgs,
+                                    ["dense", "pallas", "pallas",
+                                     "dense"] * 2)
+    del params
+    result["steps"] = steps
+    report_medians(result, wall, "train-llama", card,
+                   n_params=result["n_params"], tokens=LLAMA_B * LLAMA_T)
+    # where one pallas step's device time goes (torch.profiler, CUPTI)
+    result["profile"] = profile_step(torch, state, "pallas",
+                                     result["pallas_step_ms"], card,
+                                     "train-llama")
+    del state
+    torch.cuda.empty_cache()
+    result["kernels"] = {"ce": time_llama_ce(torch, fc, card, cfg),
+                         "flash": time_llama_flash(torch, fa, card, cfg)}
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_llama_7b(torch, fa, card: str) -> dict:
+    """llama-7b's width at LLAMA_WIDE_LAYERS layers: one dense and one
+    ce_impl="pallas" step at B=LLAMA_WIDE_B, T=LLAMA_T checked against
+    each other (the flash kernels at D = 128, the wide dH/dW kernel at
+    D = 4096), the flash kernels against their plain versions at the
+    shape these steps give them, then one prefill, flash against plain
+    attention."""
+    from ray_tpu_torch.models.llama import llama_config
+    from ray_tpu_torch.models.llama_decode import llama_prefill
+
+    cfg = llama_config(LLAMA_WIDE_PRESET, n_layer=LLAMA_WIDE_LAYERS)
+    params, batch, steps = check_llama_steps(
+        torch, fa, cfg, LLAMA_WIDE_STEPS, LLAMA_WIDE_B, seed=9,
+        tag="llama-7b")
+    kernel_err = check_train_shape(torch, fa, seed=10, b=LLAMA_WIDE_B,
+                                   h=cfg.n_head, T=LLAMA_T, d=cfg.head_dim,
+                                   tag="llama-7b shape")["err"]
+    toks = batch["tokens"][:, :LLAMA_T].to(torch.int32)
+    with torch.inference_mode():
+        fa.FLASH_FWD_LAUNCHES = 0
+        llama_prefill(params, toks, cfg)
+        launches = fa.FLASH_FWD_LAUNCHES
+        print(f"[llama-7b] prefill B={LLAMA_WIDE_B} T={LLAMA_T} (head_dim "
+              f"{cfg.head_dim}): {launches} flash kernel launches",
+              flush=True)
+        if launches != cfg.n_layer:
+            fail(f"the llama-7b-width prefill launched the flash forward "
+                 f"{launches} times, expected {cfg.n_layer}")
+        prefill_check = check_prefill_flash(torch, llama_prefill, params,
+                                            toks, cfg, LLAMA_LOGIT_TOL,
+                                            "llama-7b")
+    del params, batch
+    torch.cuda.empty_cache()
+    return {"steps": steps, "kernels_vs_plain": kernel_err,
+            "prefill_flash_vs_plain": prefill_check}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1382,18 +1882,33 @@ def main() -> int:
                                                [])
     bwd = phase_kernel_bwd(torch, fa, card, ptxas["flash_bwd"])
     ce = phase_kernel_ce(torch, fc, card, ptxas["fused_ce"])
-    serve_counts = phase_serve(torch, np, fa, card)
+    serve_counts = phase_serve(torch, np, fa, card)["counts"]
     train = phase_train(torch, fa, card)
     train_ce = phase_train_ce(torch, fa, card)
+    serve_llama = phase_serve(torch, np, fa, card, "llama", "serve-llama")
+    train_llama = phase_train_llama(torch, fa, fc, card)
+    phase_llama_7b(torch, fa, card)
 
     def launches(name):
         by_path = {"serve": serve_counts.get(name, 0),
                    "train": train["counts"].get(name, 0),
-                   "train_pallas": train_ce["counts"][name]}
+                   "train_pallas": train_ce["counts"][name],
+                   "serve_llama": serve_llama["counts"].get(name, 0),
+                   "train_llama": train_llama["counts"][name]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "launches_per_train_step":
-                    train_ce["counts"][name] / train_ce["steps_run"]}
+                    train_ce["counts"][name] / train_ce["steps_run"],
+                "launches_per_llama_train_step":
+                    train_llama["counts"][name] / train_llama["steps_run"]}
+
+    # each kernel at llama-1b's shapes (phase train-llama)
+    at_llama = {"flash_fwd": train_llama["kernels"]["flash"]["fwd"],
+                "flash_bwd_dq": train_llama["kernels"]["flash"]["dq"],
+                "flash_bwd_dkv": train_llama["kernels"]["flash"]["dkv"],
+                "fused_ce_fwd": train_llama["kernels"]["ce"]["fwd"],
+                "fused_ce_bwd_dh": train_llama["kernels"]["ce"]["dh"],
+                "fused_ce_bwd_dw": train_llama["kernels"]["ce"]["dw"]}
 
     src = "ray_tpu/ops/flash_attention.py"
     records = [
@@ -1419,6 +1934,10 @@ def main() -> int:
                         "source": "ray_tpu_torch/ops/csrc/fused_ce.cu",
                         "replaces": f"{src}:{line}", **launches(kernel),
                         **ce[key]})
+    for rec in records:
+        rec["llama_1b_shape"] = at_llama[rec["name"]]
+    records[1]["llama_1b_shape"]["whole_backward"] = \
+        train_llama["kernels"]["flash"]["whole"]
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,23 @@
-"""Model zoo of the port: the GPT-2 family (config, init, decode)."""
+"""Model zoo of the port: the GPT-2 and llama families (config, init,
+training forward and loss, decode)."""
 
 from ray_tpu_torch.models.convert import (gpt2_params_from_numpy,
-                                          gpt2_params_to_numpy)
+                                          gpt2_params_to_numpy,
+                                          llama_params_from_numpy,
+                                          llama_params_to_numpy)
 from ray_tpu_torch.models.gpt2 import (GPT2Config, gpt2_config, gpt2_init,
                                        gpt2_param_count)
+from ray_tpu_torch.models.llama import (LlamaConfig, llama_config,
+                                        llama_forward, llama_init,
+                                        llama_loss, llama_param_count)
+from ray_tpu_torch.models.llama_decode import (llama_decode_step,
+                                               llama_generate,
+                                               llama_init_cache,
+                                               llama_prefill)
 
 __all__ = ["GPT2Config", "gpt2_config", "gpt2_init", "gpt2_param_count",
-           "gpt2_params_from_numpy", "gpt2_params_to_numpy"]
+           "gpt2_params_from_numpy", "gpt2_params_to_numpy",
+           "LlamaConfig", "llama_config", "llama_init", "llama_forward",
+           "llama_loss", "llama_param_count", "llama_init_cache",
+           "llama_decode_step", "llama_generate", "llama_prefill",
+           "llama_params_from_numpy", "llama_params_to_numpy"]

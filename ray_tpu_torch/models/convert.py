@@ -1,8 +1,9 @@
 """Parameter trees between numpy and the port's tensors.
 
-The layout is the JAX package's (``gpt2_init``); only the leaves change
-type.  This is how weights cross from JAX to the port in the tests, and
-how ``checkpoint_path`` pickles load in ``serve/llm.py``.
+The layout is the JAX package's (``gpt2_init``, ``llama_init``); only
+the leaves change type.  This is how weights cross from JAX to the
+port in the tests, and how ``checkpoint_path`` pickles load in
+``serve/llm.py``.
 """
 
 from __future__ import annotations
@@ -14,9 +15,10 @@ import torch
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models.gpt2 import GPT2Config
+from ray_tpu_torch.models.llama import LlamaConfig
 
 
-def _expected_shapes(cfg: GPT2Config) -> Dict[str, Any]:
+def _gpt2_shapes(cfg: GPT2Config) -> Dict[str, Any]:
     L, d, f, h, hd = (cfg.n_layer, cfg.d_model, cfg.d_ff, cfg.n_head,
                       cfg.head_dim)
     if cfg.n_experts:
@@ -40,6 +42,22 @@ def _expected_shapes(cfg: GPT2Config) -> Dict[str, Any]:
     }
 
 
+def _llama_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
+    L, d, f = cfg.n_layer, cfg.d_model, cfg.d_ff
+    h, kv, hd = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    return {
+        "wte": (cfg.padded_vocab, d), "lm_head": (d, cfg.padded_vocab),
+        "ln_f": {"scale": (d,)},
+        "blocks": {
+            "ln1": {"scale": (L, d)}, "ln2": {"scale": (L, d)},
+            "attn": {"wq": (L, d, h, hd), "wk": (L, d, kv, hd),
+                     "wv": (L, d, kv, hd), "wo": (L, h, hd, d)},
+            "mlp": {"w_gate": (L, d, f), "w_up": (L, d, f),
+                    "w_down": (L, f, d)},
+        },
+    }
+
+
 def _leaf_to_tensor(leaf, device: torch.device) -> torch.Tensor:
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":
@@ -52,38 +70,54 @@ def _leaf_to_tensor(leaf, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def gpt2_params_from_numpy(tree, cfg: GPT2Config,
-                           device: DeviceLike = None) -> Dict[str, Any]:
-    """A GPT-2 parameter tree of numpy arrays (or anything np.asarray
-    takes) → the same tree of tensors on ``device``, dtypes kept.
-    Raises ValueError when the keys or shapes do not match ``cfg``."""
+def _from_numpy(tree, want, family: str, device: DeviceLike):
+    """Walk ``tree`` against the expected shapes ``want``: the same tree
+    of tensors on ``device``, dtypes kept; ValueError naming the path
+    on a key or shape that does not match."""
     dev = resolve_device(device)
 
     def walk(node, want, path):
         if isinstance(want, dict):
             if not isinstance(node, dict) or set(node) != set(want):
                 got = sorted(node) if isinstance(node, dict) else node
-                raise ValueError(f"GPT-2 params at {path or 'root'}: "
+                raise ValueError(f"{family} params at {path or 'root'}: "
                                  f"expected keys {sorted(want)}, got "
                                  f"{got}")
             return {k: walk(node[k], want[k], f"{path}/{k}")
                     for k in want}
         t = _leaf_to_tensor(node, dev)
         if tuple(t.shape) != want:
-            raise ValueError(f"GPT-2 param {path}: expected shape {want}, "
-                             f"got {tuple(t.shape)}")
+            raise ValueError(f"{family} param {path}: expected shape "
+                             f"{want}, got {tuple(t.shape)}")
         return t
 
-    return walk(tree, _expected_shapes(cfg), "")
+    return walk(tree, want, "")
+
+
+def gpt2_params_from_numpy(tree, cfg: GPT2Config,
+                           device: DeviceLike = None) -> Dict[str, Any]:
+    """A GPT-2 parameter tree of numpy arrays (or anything np.asarray
+    takes) → the same tree of tensors on ``device``, dtypes kept.
+    Raises ValueError when the keys or shapes do not match ``cfg``."""
+    return _from_numpy(tree, _gpt2_shapes(cfg), "GPT-2", device)
+
+
+def llama_params_from_numpy(tree, cfg: LlamaConfig,
+                            device: DeviceLike = None) -> Dict[str, Any]:
+    """The same for a llama parameter tree (``llama_init``'s layout)."""
+    return _from_numpy(tree, _llama_shapes(cfg), "llama", device)
 
 
 def gpt2_params_to_numpy(params) -> Dict[str, Any]:
-    """The inverse: a tree of tensors → a tree of numpy arrays on the
-    host.  bfloat16 leaves come back as float32 (exact), since numpy
-    has no bfloat16."""
+    """The inverse, for either family: a tree of tensors → a tree of
+    numpy arrays on the host.  bfloat16 leaves come back as float32
+    (exact), since numpy has no bfloat16."""
     if isinstance(params, dict):
         return {k: gpt2_params_to_numpy(v) for k, v in params.items()}
     t = params.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+llama_params_to_numpy = gpt2_params_to_numpy

@@ -254,9 +254,12 @@ def test_generate_guards(models):
     with pytest.raises(ValueError, match="exceeds cfg.max_seq"):
         tdec.generate(tparams, toks, tcfg, max_new_tokens=3,
                       temperature=0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="kv_layout"):
         tdec.generate(tparams, toks[:, :4], tcfg, max_new_tokens=3,
-                      temperature=0.0, kv_layout="paged")
+                      temperature=0.0, kv_layout="ragged")
+    with pytest.raises(ValueError, match="multiple of block_size"):
+        tdec.generate(tparams, toks[:, :4], tcfg, max_new_tokens=3,
+                      temperature=0.0, kv_layout="paged", kv_block_size=48)
 
 
 def test_entry_points_need_an_explicit_cpu(monkeypatch):

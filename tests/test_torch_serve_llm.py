@@ -1,9 +1,9 @@
 """The port's LM engine end to end against the JAX package's generate.
 
-JAX-initialized GPT-2 nano parameters are pickled as numpy, the port's
-engine loads them through ``checkpoint_path`` on the CPU, and every
-reply must equal JAX ``generate`` on the same prompts, token for token
-(greedy, f32).
+JAX-initialized GPT-2 nano and llama nano parameters are pickled as
+numpy, the port's engine loads them through ``checkpoint_path`` on the
+CPU, and every reply must equal JAX ``generate`` (``llama_generate``)
+on the same prompts, token for token (greedy, f32).
 """
 
 import asyncio
@@ -17,6 +17,9 @@ import torch
 
 from ray_tpu.models import gpt2 as jgpt2
 from ray_tpu.models import gpt2_decode as jdec
+from ray_tpu.models import llama as jllama
+from ray_tpu.models import llama_decode as jldec
+from ray_tpu.serve import llm as jllm
 from ray_tpu_torch.serve import build_llm_deployment
 
 MAX_NEW = 5
@@ -33,9 +36,19 @@ def checkpoint(tmp_path_factory):
     return str(path), cfg, params
 
 
-def _engine(path, **kw):
+@pytest.fixture(scope="module")
+def llama_checkpoint(tmp_path_factory):
+    cfg = jllama.llama_config("nano", dtype=jnp.float32, use_flash=False)
+    params = jllama.llama_init(jax.random.PRNGKey(4), cfg)
+    path = tmp_path_factory.mktemp("ckpt") / "llama_nano.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(jax.tree.map(np.asarray, params), f)
+    return str(path), cfg, params
+
+
+def _engine(path, family="gpt2", **kw):
     cls = build_llm_deployment(
-        "gpt2", "nano", max_new_tokens=MAX_NEW, temperature=0.0,
+        family, "nano", max_new_tokens=MAX_NEW, temperature=0.0,
         max_batch_size=4, batch_wait_timeout_s=0.05, checkpoint_path=path,
         device="cpu", config_overrides={"dtype": torch.float32}, **kw)
     return cls()
@@ -77,6 +90,56 @@ def test_ragged_batch_matches_jax_generate(checkpoint):
         np.testing.assert_array_equal(got, row[t0 - len(p):])
 
 
+def _left_padded(prompts):
+    t0 = max(len(p) for p in prompts)
+    padded = np.zeros((len(prompts), t0), np.int32)
+    for i, p in enumerate(prompts):
+        padded[i, t0 - len(p):] = p
+    return padded
+
+
+@pytest.mark.parametrize("lens", [[9, 9, 9, 9], [10, 4, 7]],
+                         ids=["equal", "ragged"])
+def test_llama_engine_matches_jax_llama_generate(llama_checkpoint, lens):
+    """family="llama" serves the JAX weights through checkpoint_path:
+    every reply is JAX llama_generate's greedy continuation of its
+    prompt (ragged batches left-padded, as the engine pads them)."""
+    path, cfg, params = llama_checkpoint
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 512, size=n, dtype=np.int32) for n in lens]
+    engine = _engine(path, family="llama")
+    outs = asyncio.run(_serve(engine, prompts))
+    padded = _left_padded(prompts)
+    ragged = len(set(lens)) > 1
+    want = np.asarray(jldec.llama_generate(
+        params, jnp.asarray(padded), cfg, max_new_tokens=MAX_NEW,
+        temperature=0.0,
+        lengths=jnp.asarray(lens, jnp.int32) if ragged else None))
+    t0 = padded.shape[1]
+    for got, row, p in zip(outs, want, prompts):
+        assert got.dtype == np.int32 and got.shape == (len(p) + MAX_NEW,)
+        np.testing.assert_array_equal(got[:len(p)], p)
+        np.testing.assert_array_equal(got, row[t0 - len(p):])
+
+
+def test_llama_fresh_init_engine_serves_from_seed():
+    cls = build_llm_deployment("llama", "nano", max_new_tokens=3, seed=5,
+                               device="cpu",
+                               config_overrides={"n_kv_head": 2})
+    a, b = cls(), cls()
+    assert a.cfg.n_kv_head == 2 and a.cfg.max_seq == 128
+    prompt = np.arange(6, dtype=np.int32)
+    out_a = asyncio.run(a(prompt))
+    np.testing.assert_array_equal(out_a[:6], prompt)
+    np.testing.assert_array_equal(asyncio.run(b(prompt)), out_a)
+
+
+def test_llama_checkpoint_of_the_wrong_family_is_rejected(checkpoint):
+    path = checkpoint[0]                 # a GPT-2 tree
+    with pytest.raises(ValueError, match="llama params"):
+        _engine(path, family="llama")
+
+
 def test_oversized_prompt_raises(checkpoint):
     path, cfg, _ = checkpoint
     engine = _engine(path)
@@ -93,14 +156,22 @@ def test_unknown_family_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    {"family": "llama"}, {"scheduler": "continuous"},
-    {"kv_layout": "paged"}, {"spec_decode": object()},
-    {"role": "prefill"}, {"mesh": object()}, {"num_replicas": 2},
-    {"scheduler": "continuous", "slo": object()},
-    {"kv_layout": "paged", "kv_host_tier_bytes": 1 << 20},
-    {"kv_layout": "paged", "prefill_chunk_tokens": 32},
-    {"role": "prefill", "handoff_staged": True}])
+    {"scheduler": "continuous"},
+    {"scheduler": "continuous", "kv_layout": "paged"},
+    {"scheduler": "continuous", "kv_layout": "paged", "role": "prefill"},
+    {"scheduler": "continuous", "mesh": object()},
+    {"num_replicas": 2},
+    {"scheduler": "continuous", "kv_layout": "paged",
+     "kv_host_tier_bytes": 1 << 20},
+    {"scheduler": "continuous", "kv_layout": "paged",
+     "prefill_chunk_tokens": 32},
+    {"scheduler": "continuous", "kv_layout": "paged", "role": "prefill",
+     "handoff_staged": True},
+    {"family": "llama", "scheduler": "continuous", "kv_layout": "paged"}])
 def test_options_not_ported_yet_name_their_roadmap_item(kw):
+    """What the reference accepts and the port has not yet: the
+    continuous scheduler (item 3; with a mesh, item 7) and replicas
+    (item 5)."""
     kw = {"family": "gpt2", **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         build_llm_deployment(preset="nano", device="cpu", **kw)
@@ -111,13 +182,51 @@ def test_options_not_ported_yet_name_their_roadmap_item(kw):
     ({"kv_host_tier_bytes": 1 << 20}, "kv_host_tier_bytes requires"),
     ({"prefill_chunk_tokens": 32}, "prefill_chunk_tokens requires"),
     ({"handoff_staged": True}, "handoff_staged only applies"),
-    ({"slo": object()}, "slo requires scheduler='continuous'"),
-    ({"num_replicas": 0}, "num_replicas must be a positive int")])
+    ({"slo": object()}, "slo must be a serve.slo.SLOConfig"),
+    ({"num_replicas": 0}, "num_replicas must be a positive int"),
+    ({"kv_layout": "paged"}, "kv_layout='paged' requires"),
+    ({"spec_decode": object()}, "spec_decode must be a SpecConfig"),
+    ({"role": "prefill"}, "role='prefill' requires scheduler"),
+    ({"mesh": object()}, "mesh-sharded serving requires"),
+    ({"kv_layout": "paged", "kv_host_tier_bytes": 1 << 20},
+     "kv_layout='paged' requires"),
+    ({"kv_layout": "paged", "prefill_chunk_tokens": 32},
+     "kv_layout='paged' requires"),
+    ({"role": "prefill", "handoff_staged": True},
+     "role='prefill' requires scheduler"),
+    ({"scheduler": "continuous", "role": "decode"},
+     "role='decode' requires kv_layout='paged'"),
+    ({"scheduler": "continuous", "kv_layout": "paged",
+      "prefill_chunk_tokens": 20}, "positive multiple of kv_block_size"),
+    ({"role": "both!"}, "unknown role")])
 def test_batch_scheduler_rejects_what_the_reference_rejects(kw, match):
     """The combinations ray_tpu/serve/llm.py rejects with ValueError under
     scheduler="batch" raise the same here."""
     with pytest.raises(ValueError, match=match):
         build_llm_deployment("gpt2", "nano", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"kv_layout": "paged"}, {"role": "prefill"}, {"mesh": object()},
+    {"kv_layout": "paged", "role": "decode", "mesh": object()},
+    {"role": "decode", "mesh": object(), "handoff_staged": True},
+    {"kv_layout": "paged", "prefill_chunk_tokens": 32},
+    {"prefill_chunk_tokens": 32, "kv_host_tier_bytes": 1 << 20},
+    {"scheduler": "continuous", "kv_layout": "paged",
+     "kv_host_tier_bytes": 0},
+    {"family": "llama", "kv_layout": "paged", "spec_decode": object()},
+    {"spec_decode": object()}, {"slo": 0.5},
+    {"scheduler": "continuous", "spec_decode": object()},
+    {"scheduler": "continuous", "slo": object()}])
+def test_batch_scheduler_rejections_match_the_reference_messages(kw):
+    """Where the reference raises ValueError, the port raises the same
+    message: the same check first when several apply."""
+    kw = {"family": "gpt2", "preset": "nano", **kw}
+    with pytest.raises(ValueError) as want:
+        jllm.build_llm_deployment(**kw)
+    with pytest.raises(ValueError) as got:
+        build_llm_deployment(device="cpu", **kw)
+    assert str(got.value) == str(want.value)
 
 
 def test_continuous_only_keywords_are_ignored_by_the_batch_scheduler():
