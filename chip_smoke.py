@@ -29,8 +29,8 @@ Phases, each fatal on failure (any failure exits non-zero):
             backward each bit-equal across two calls.
 5. kernel-ce — hold the fused lm-head + cross-entropy kernels
             (forward, dH, dW) against their plain PyTorch versions at
-            the card tests' shapes (bf16 and f32; D from 64 to 4096,
-            llama-7b's width) and at the training
+            the card tests' shapes (bf16 and f32; D from 64 to 8192,
+            the bf16 backward's widest) and at the training
             shape (N=B*T=24576, V=50304, valid 50257, D=768, bf16, g =
             1/N as the mean loss gives), where they are timed beside
             their plain versions, their bounds (and the share of it
@@ -84,7 +84,8 @@ Phases, each fatal on failure (any failure exits non-zero):
             plain-attention step held against the pallas step; dense and
             pallas steps timed in turns; a profile of one pallas step;
             the fused-CE kernels at llama-1b's head (N=16384, V=32000,
-            D=2048: dH and dW through the wide kernel) and the flash
+            D=2048: dH and dW through the cluster kernel, bit-equal
+            across two launches, its clusters and waves) and the flash
             kernels at its attention (B=8, H=32, T=2048, D=64) held
             against their plain versions and timed beside their bounds,
             the dense composition and SDPA.
@@ -182,9 +183,12 @@ CE_SHAPES = ((33, 130, 123, 64), (70, 300, 257, 192),
              (1000, 50304, 50257, 768), (200, 1000, 990, 1024),
              (65, 1088, 1000, 64), (130, 513, 500, 128),
              # gpt2-large, llama-1b and llama-7b widths: the backward's
-             # wide kernel (S from streamed D-boxes, 2, 3 and 6 slices)
+             # cluster kernel (2, 4 and 8 CTAs split D); D = 5120 and
+             # 8192, past 8 x 8 boxes: two grid-y slices of 8 CTAs (at
+             # 5120 three hold no column of D); D = 16384: 16 CTAs
              (300, 4096, 4000, 1280), (200, 2000, 1990, 2048),
-             (130, 1000, 990, 4096))
+             (130, 1000, 990, 4096), (33, 130, 123, 5120),
+             (70, 200, 190, 8192), (70, 200, 190, 16384))
 # GPT-2-124M's head at the training shape
 CE_N, CE_V, CE_VALID, CE_D = TRAIN_B * TRAIN_T, 50304, 50257, 768
 # gpt2-large's width (d_model 1280, 20 heads of 64: above the 1024 the
@@ -1007,13 +1011,14 @@ def ce_bounds_ms(n: int, v: int, valid: int, d: int) -> dict:
 def time_wide_ce(torch, fc, card: str) -> dict:
     """The three kernels at the head shape of the gpt2-large step that
     phase train-ce checks (N = WIDE_B * TRAIN_T, V = 50304, D = 1280,
-    bf16; dH and dW through the wide kernel), timed beside their bounds;
-    {kernel: {"ms", "bound_ms", "bound_by", "shape"}}."""
+    bf16; dH and dW through the cluster kernel), held against their
+    plain versions and timed beside their bounds; {kernel: {"ms",
+    "bound_ms", "bound_by", "shape", "max_abs_err", "rel_err"}}."""
     n, d = WIDE_B * TRAIN_T, WIDE_D
-    h, w, tgt, g = ce_inputs(torch, n, CE_V, CE_VALID, d, torch.bfloat16,
-                             seed=4, g=1.0 / n)
+    t = check_ce_kernels(torch, fc, n, CE_V, CE_VALID, d, "bf16", seed=4,
+                         g=1.0 / n)
+    h, w, tgt, g, lse = (t[k] for k in ("h", "w", "tgt", "g", "lse"))
     with torch.no_grad():
-        _, lse = fc.fused_ce_fwd(h, w, tgt, CE_VALID)
         ms = {"fwd": time_ms(torch, lambda: fc.fused_ce_fwd(
                   h, w, tgt, CE_VALID), iters=5),
               "dh": time_ms(torch, lambda: fc.fused_ce_bwd_dh(
@@ -1025,8 +1030,11 @@ def time_wide_ce(torch, fc, card: str) -> dict:
           ", ".join(f"{k} {ms[k]:.4f} ms (bound {bounds[k][0]:.4f}, "
                     f"{100 * bounds[k][0] / ms[k]:.1f}%)" for k in ms) +
           f" [{card}]", flush=True)
+    cmp = {"fwd": ("nll", "lse"), "dh": ("dh",), "dw": ("dw",)}
     return {k: {"ms": ms[k], "bound_ms": bounds[k][0],
-                "bound_by": bounds[k][1], "shape": [n, CE_V, CE_VALID, d]}
+                "bound_by": bounds[k][1], "shape": [n, CE_V, CE_VALID, d],
+                "max_abs_err": max(t["cmp"][c]["max"] for c in cmp[k]),
+                "rel_err": max(t["cmp"][c]["rel"] for c in cmp[k])}
             for k in ms}
 
 
@@ -1036,6 +1044,15 @@ def phase_kernel_ce(torch, fc, card: str, ptxas: dict) -> dict:
     for i, (n, v, valid, d) in enumerate(CE_SHAPES):
         for dtype in ("bf16", "f32"):
             check_ce_kernels(torch, fc, n, v, valid, d, dtype, seed=10 + i)
+    # the cluster plan of each card-test width above 1024, and how many
+    # of its clusters fit on the card at once
+    for d in sorted({s[3] for s in CE_SHAPES if s[3] > 1024}):
+        plan = fc.fused_ce_bwd_plan(d, fc.BWD_BLOCK_ROWS)
+        print(f"[kernel-ce]   D={d}: clusters of {plan.k} CTAs holding "
+              f"{plan.sc} boxes, {plan.slices} slice(s); "
+              f"{fc.fused_ce_bwd_max_clusters(d, 'dh')} (dH) / "
+              f"{fc.fused_ce_bwd_max_clusters(d, 'dw')} (dW) at once "
+              f"[{card}]", flush=True)
     t = check_ce_train_shape(torch, fc)
     h, w, tgt, g, lse = (t[k] for k in ("h", "w", "tgt", "g", "lse"))
     a = (h, w, tgt)
@@ -1077,16 +1094,15 @@ def phase_kernel_ce(torch, fc, card: str, ptxas: dict) -> dict:
         nll, (hg, wg), g, retain_graph=True), iters=5)
     del nll, hg, wg
     bounds = ce_bounds_ms(CE_N, CE_V, valid, CE_D)
-    # how many CTAs each kernel runs (the module's tiles), in waves over
-    # the card's SMs
+    # how many CTAs each kernel runs (the module's tiles and the
+    # backward's launch plan), in waves over the card's SMs
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    slices = -(-CE_D // fc.BWD_SLICE_COLS)
     # the forward's vocab splits, cut to whole groups of vocab tiles
     tiles = -(-valid // fc.FWD_TILE_ROWS)
     per_split = -(-tiles // fc.fused_ce_fwd_splits(CE_N, valid, sms))
     ctas = {"fwd": -(-CE_N // fc.FWD_BLOCK_ROWS) * -(-tiles // per_split),
-            "dh": -(-CE_N // fc.BWD_BLOCK_ROWS) * slices,
-            "dw": -(-CE_V // fc.BWD_BLOCK_ROWS) * slices}
+            "dh": math.prod(fc.fused_ce_bwd_plan(CE_D, CE_N).grid),
+            "dw": math.prod(fc.fused_ce_bwd_plan(CE_D, CE_V).grid)}
     share = {k: bounds[k][0] / ms[k] for k in ms}
     for k in ("fwd", "dh", "dw"):
         print(f"[kernel-ce]   {k:3s}: kernel {ms[k]:.4f} ms, plain "
@@ -1675,9 +1691,11 @@ def llama_main_path(torch, fa, cfg, card: str) -> dict:
 
 def time_llama_ce(torch, fc, card: str, cfg) -> dict:
     """The fused-CE kernels at llama-1b's head (N = B*T = 16,384, V =
-    valid = 32,000, D = 2048, bf16, g = 1/N; dH and dW through the wide
-    kernel): held against their plain versions, timed beside them, their
-    bounds and the dense composition."""
+    valid = 32,000, D = 2048, bf16, g = 1/N; dH and dW through the
+    cluster kernel): held against their plain versions, timed beside
+    them, their bounds and the dense composition; dH and dW bit-equal
+    across two launches; the backward's launch plan, CTAs, clusters that
+    fit at once (cudaOccupancyMaxActiveClusters) and waves."""
     from ray_tpu_torch.models.gpt2 import _LogitsMatmul, nll_from_logits
 
     n, v, d = LLAMA_B * LLAMA_T, cfg.padded_vocab, cfg.d_model
@@ -1705,6 +1723,34 @@ def time_llama_ce(torch, fc, card: str, cfg) -> dict:
     dense_bwd = time_ms(torch, lambda: torch.autograd.grad(
         nll, (hg, wg), g, retain_graph=True), iters=3)
     del nll, hg, wg
+    # the cluster kernel: each output element is summed in one fixed
+    # order (the partials in rank order), so two launches give the same
+    # bits
+    with torch.no_grad():
+        first, again = ((fc.fused_ce_bwd_dh(*ab, valid),
+                         fc.fused_ce_bwd_dw(*ab, valid)) for _ in range(2))
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(x, y) for x, y in zip(first, again))
+        del first, again
+    print(f"[train-llama]   dH and dW at llama-1b's head, two launches "
+          f"bit-equal: {bit_equal}", flush=True)
+    if not bit_equal:
+        fail("the cluster dH/dW kernels gave different bits on the same "
+             "inputs")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    launch = {}
+    for k, rows in (("dh", n), ("dw", v)):
+        plan = fc.fused_ce_bwd_plan(d, rows)
+        ctas = math.prod(plan.grid)
+        at_once = fc.fused_ce_bwd_max_clusters(d, k) * plan.k
+        launch[k] = {"plan": plan._asdict(), "ctas": ctas,
+                     "ctas_at_once": at_once, "waves": ctas / at_once}
+        print(f"[train-llama]   {k} launch plan: {plan.kernel} kernel, "
+              f"{plan.k} CTAs a cluster of {plan.c} boxes each, "
+              f"{plan.slices} slice(s), grid {plan.grid}: {ctas} CTAs, "
+              f"{at_once} at once on {sms} SMs (max active clusters "
+              f"{at_once // plan.k}) = {ctas / at_once:.2f} waves [{card}]",
+              flush=True)
     bounds = ce_bounds_ms(n, v, valid, d)
     out = {}
     for k, cmp_keys in (("fwd", ("nll", "lse")), ("dh", ("dh",)),
@@ -1716,7 +1762,9 @@ def time_llama_ce(torch, fc, card: str, cfg) -> dict:
                   "bound_share": bounds[k][0] / ms[k],
                   "library_ms": dense_fwd if k == "fwd" else None,
                   "dense_composition": {"forward_ms": dense_fwd,
-                                        "backward_ms": dense_bwd}}
+                                        "backward_ms": dense_bwd},
+                  **({"launch": launch[k], "bit_equal_relaunch": bit_equal}
+                     if k in launch else {})}
         print(f"[train-llama]   {k:3s} at llama-1b's head (N={n} V={v} "
               f"D={d} bf16): kernel {ms[k]:.4f} ms, plain {plain[k]:.4f} "
               f"ms, bound {bounds[k][0]:.4f} ms ({bounds[k][1]}, "
@@ -1826,13 +1874,13 @@ def phase_train_llama(torch, fa, fc, card: str) -> dict:
     return result
 
 
-def phase_llama_7b(torch, fa, card: str) -> dict:
+def phase_llama_7b(torch, fa, fc, card: str) -> dict:
     """llama-7b's width at LLAMA_WIDE_LAYERS layers: one dense and one
     ce_impl="pallas" step at B=LLAMA_WIDE_B, T=LLAMA_T checked against
-    each other (the flash kernels at D = 128, the wide dH/dW kernel at
-    D = 4096), the flash kernels against their plain versions at the
-    shape these steps give them, then one prefill, flash against plain
-    attention."""
+    each other (the flash kernels at D = 128, the cluster dH/dW kernel at
+    D = 4096), the flash kernels and the fused-CE kernels against their
+    plain versions at the shapes these steps give them, then one
+    prefill, flash against plain attention."""
     from ray_tpu_torch.models.llama import llama_config
     from ray_tpu_torch.models.llama_decode import llama_prefill
 
@@ -1843,6 +1891,15 @@ def phase_llama_7b(torch, fa, card: str) -> dict:
     kernel_err = check_train_shape(torch, fa, seed=10, b=LLAMA_WIDE_B,
                                    h=cfg.n_head, T=LLAMA_T, d=cfg.head_dim,
                                    tag="llama-7b shape")["err"]
+    # the fused-CE kernels at the pallas step's head (N = B*T, D = 4096:
+    # dH and dW through clusters of 8 CTAs)
+    n = LLAMA_WIDE_B * LLAMA_T
+    t = check_ce_kernels(torch, fc, n, cfg.padded_vocab, cfg.vocab_size,
+                         cfg.d_model, "bf16", seed=11, g=1.0 / n)
+    ce_err = {k: {"shape": [n, cfg.padded_vocab, cfg.vocab_size,
+                            cfg.d_model], **t["cmp"][k]}
+              for k in ("nll", "lse", "dh", "dw")}
+    del t
     toks = batch["tokens"][:, :LLAMA_T].to(torch.int32)
     with torch.inference_mode():
         fa.FLASH_FWD_LAUNCHES = 0
@@ -1860,6 +1917,7 @@ def phase_llama_7b(torch, fa, card: str) -> dict:
     del params, batch
     torch.cuda.empty_cache()
     return {"steps": steps, "kernels_vs_plain": kernel_err,
+            "ce_kernels_vs_plain": ce_err,
             "prefill_flash_vs_plain": prefill_check}
 
 
@@ -1887,7 +1945,7 @@ def main() -> int:
     train_ce = phase_train_ce(torch, fa, card)
     serve_llama = phase_serve(torch, np, fa, card, "llama", "serve-llama")
     train_llama = phase_train_llama(torch, fa, fc, card)
-    phase_llama_7b(torch, fa, card)
+    llama_7b = phase_llama_7b(torch, fa, fc, card)
 
     def launches(name):
         by_path = {"serve": serve_counts.get(name, 0),
@@ -1936,6 +1994,16 @@ def main() -> int:
                         **ce[key]})
     for rec in records:
         rec["llama_1b_shape"] = at_llama[rec["name"]]
+    for rec, keys in ((records[3], ("nll", "lse")), (records[4], ("dh",)),
+                      (records[5], ("dw",))):
+        rec["llama_7b_shape"] = {k: llama_7b["ce_kernels_vs_plain"][k]
+                                 for k in keys}
+    # ptxas's record of the cluster kernel that llama-1b's head runs
+    plan = fc.fused_ce_bwd_plan(2048, LLAMA_B * LLAMA_T)
+    for rec, mode in ((records[4], 1), (records[5], 2)):
+        rec["llama_1b_shape"]["ptxas"] = ptxas["fused_ce"].get(
+            f"fused_ce_bwd_bf16_cluster_kernel<{mode}, {plan.k}, {plan.c}, "
+            f"{plan.sc}>", [])
     records[1]["llama_1b_shape"]["whole_backward"] = \
         train_llama["kernels"]["flash"]["whole"]
     print(card)

@@ -16,11 +16,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -53,14 +54,27 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "fused_ce_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _P),
         # h, w, tgt, lse, g, dh (f32), N, V, D, valid_vocab, is_bf16,
-        # stream
+        # the launch plan's k, c and slices, stream
         "fused_ce_bwd_dh": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _P),
+                            _I, _I, _I, _P),
         # h, w, tgt, lse, g, dw (f32), N, V, D, valid_vocab, is_bf16,
-        # stream
+        # k, c, slices, stream
         "fused_ce_bwd_dw": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _P),
+                            _I, _I, _I, _P),
+        # mode (1 dH, 2 dW), D, k, c, slices, int* (written): clusters of
+        # the plan's kernel that fit on the card at once
+        "fused_ce_bwd_max_clusters": (_I, _I, _I, _I, _I, _P),
     },
+}
+
+
+#: headers a library's source includes that are written at build time,
+#: by library: {file name: a function giving the text}; their text
+#: joins the library's hash.  fused_ce.cu's instantiations come from the
+#: tables of ops/fused_ce.py's launch plan
+GENERATED: Dict[str, Dict[str, Callable[[], str]]] = {
+    "fused_ce": {"fused_ce_plans.h": lambda: importlib.import_module(
+        "ray_tpu_torch.ops.fused_ce").kernel_plans_header()},
 }
 
 
@@ -76,11 +90,18 @@ def _nvcc() -> str:
                        "nvcc on the machine that has the card")
 
 
+def _generated(name: str) -> Dict[str, str]:
+    return {f: text() for f, text in GENERATED.get(name, {}).items()}
+
+
 def _library_path(name: str) -> Path:
     h = hashlib.sha256()
     for src in sorted(_CSRC.glob("*.cuh")) + [_CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
+    for f, text in sorted(_generated(name).items()):
+        h.update(f.encode())
+        h.update(text.encode())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
@@ -101,8 +122,14 @@ def build_all() -> Dict[str, Path]:
         # compile to a private name, then rename into place, so two
         # processes building at once never load a half-written file
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        # the generated headers, in a directory of this library's own
+        gen = out.with_suffix(".include")
+        gen.mkdir(exist_ok=True)
+        for f, text in _generated(name).items():
+            (gen / f).write_text(text)
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, "-I", str(gen), "-o", str(tmp),
+             str(_CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
     failed = []

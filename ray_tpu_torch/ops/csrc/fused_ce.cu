@@ -81,12 +81,35 @@
 //   (GPT-2 medium's 1024) does not fit two stages: the ring gets one,
 //   and the output's columns are cut into slices of at most 12 boxes
 //   along the grid's y axis, each slice recomputing S.
-// * D above 1024 (fused_ce_bwd_bf16_wide_kernel): the resident R block
-//   and a C tile of all of D no longer fit beside each other, so S is
-//   formed from R's and C_t's 64-column boxes streamed through a ring of
-//   four stages, and only the slice's boxes of C_t (at most 12) are kept,
-//   in a ring of two tiles, for the second product.  The consumers
-//   ping-pong as above; slices of 12 boxes along y, each recomputing S.
+// * D above 1024 (fused_ce_bwd_bf16_cluster_kernel<MODE, K, C, SC>): a
+//   64-row R block of all of D and a C tile no longer fit beside each
+//   other, and S's contraction needs all of D.  So a thread-block
+//   cluster of K CTAs shares one R block, each CTA holding a chunk of
+//   SC boxes of D: R[:, chunk] resident (64 KB at llama-1b's D = 2048,
+//   K = 4, SC = 8) and C_t[:, chunk] streamed through a TMA ring (32-row
+//   tiles, 32 KB a stage, four stages).  Per C tile each CTA forms the
+//   partial S_j = R_j . C_{t,j}^T (wgmma m64n32k16); the K partials are
+//   summed through distributed shared memory in rank order (CTA q sums
+//   piece q of every partial, forms its dlogits, rounds them to bf16
+//   and stores them into all K CTAs' dlogits buffers), so S is formed
+//   once, every CTA holds the same dlogits and the result is bit-equal
+//   across launches; each CTA then runs the second product on its own
+//   chunk of C_t as above.  Both hops are st.async stores completing on
+//   the receiver's mbarrier; a buffer is refilled only after a 4-byte
+//   st.async from every CTA says it is read (a remote mbarrier arrive,
+//   a release at cluster scope, instead: fused_ce_limits.py --wide's
+//   remote_arrive, PERF.md).  The
+//   consumers ping-pong over tiles and each step runs tile x's partial,
+//   tile x - 1's sums and tile x - 2's product, so the hops overlap
+//   other tiles' work.  Bound at llama-1b's head (N = 16,384, V =
+//   32,000, D = 2048): 4*N*V*D = 4.29 TFLOP, 4.34 ms at 989 TFLOP/s,
+//   operations; the walked operand leaves L2 once per cluster and tile,
+//   256 clusters x 131 MB = 33.5 GB for dH (500 x 67 MB for dW).  The
+//   plan (K CTAs, C output boxes, grid-y slices) is worked out in
+//   ops/fused_ce.py fused_ce_bwd_plan: 2 CTAs of 10 boxes (D <= 1280), 4
+//   or 8 of 8 (D <= 4096), above that 8 CTAs of 16 boxes owning 8 in
+//   each of two slices, each slice forming S again (D <= 8192), and 16
+//   such CTAs (D <= 16384).
 // * dW CTAs whose vocab rows all lie past valid_vocab write zeros and
 //   walk nothing; rows of R past N or V are zeros from TMA with their p
 //   forced to 0.  Output offsets are 64-bit.
@@ -137,14 +160,20 @@
 // S); dlogits passes through shared memory.
 //
 // D is any multiple of 64, a runtime argument (the bf16 backward up to
-// 1024 dispatches it to one of 16 instantiations, above that to the wide
-// kernel).
+// 1024 dispatches it to one of 16 instantiations, above that to the
+// cluster kernel of the caller's launch plan, up to 16384).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "sm90.cuh"
+// kResidentPlans, (D / 64, output boxes a CTA, grid-y slices) of each
+// instantiation of the resident backward, and kClusterShapes, (K, C, SC)
+// of each of the cluster backward: written at build time by
+// ops/_kernels.py from the tables that ops/fused_ce.py fused_ce_bwd_plan
+// reads, so the launch plans and the instantiations are one list
+#include "fused_ce_plans.h"
 
 namespace {
 
@@ -395,7 +424,6 @@ constexpr int kRBoxBytes = kBwdRows * kBox * 2;
 constexpr int kCBoxBytes = kBwdTile * kBox * 2;
 constexpr int kDlWords = kBwdRows * kBwdTile / 2;  // bf16 pairs of a tile
 constexpr int kMaxOwnBoxes = 6;  // output boxes per consumer: 384 columns
-constexpr int kMaxSliceBoxes = 2 * kMaxOwnBoxes;
 constexpr int kProducerRegs = 24;  // 2 x 128 x 240 + 128 x 24 = 64,512
 constexpr int kConsumerRegs = 240;
 // dH: 64 rows of h; dW: 32 columns in each of two stages
@@ -409,15 +437,31 @@ constexpr size_t bwd_bf16_smem_bytes(int boxes, int stages) {
          7 * sizeof(uint64_t);   // barriers
 }
 
+constexpr int kNumResident =
+    sizeof(kResidentPlans) / sizeof(kResidentPlans[0]);
+constexpr int kNumCluster = sizeof(kClusterShapes) / sizeof(kClusterShapes[0]);
+
+// the row of kResidentPlans for D / 64 = boxes, -1 if none
+constexpr int resident_plan(int boxes) {
+  for (int i = 0; i < kNumResident; ++i)
+    if (kResidentPlans[i][0] == boxes) return i;
+  return -1;
+}
+
 // Compile-time shape of the backward for BOXES = D / 64: the ring's
-// stages, the column slices, and NB, the output boxes of the larger
-// consumer (a constant, so that no wgmma sits behind a runtime guard)
+// stages, the column slices (its row of kResidentPlans), and NB, the
+// output boxes of the larger consumer (a constant, so that no wgmma sits
+// behind a runtime guard)
 template <int BOXES>
 struct BwdShape {
+  static constexpr int kPlan = resident_plan(BOXES);
+  static_assert(kPlan >= 0, "a D / 64 of kResidentPlans");
   static constexpr int kStages =
       bwd_bf16_smem_bytes(BOXES, 2) <= kMaxSmem ? 2 : 1;
-  static constexpr int kSlices = (BOXES + kMaxSliceBoxes - 1) / kMaxSliceBoxes;
-  static constexpr int kPerSlice = (BOXES + kSlices - 1) / kSlices;
+  static constexpr int kPerSlice = kResidentPlans[kPlan][1];
+  static constexpr int kSlices = kResidentPlans[kPlan][2];
+  static_assert(kPerSlice <= 2 * kMaxOwnBoxes && kPerSlice * kSlices >= BOXES,
+                "slices of at most 12 boxes that cover D");
   static constexpr int kNB = (kPerSlice + 1) / 2;
   static constexpr size_t kSmem = bwd_bf16_smem_bytes(BOXES, kStages);
 };
@@ -673,89 +717,179 @@ fused_ce_bwd_bf16_kernel(const __grid_constant__ CUtensorMap map_r,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 backward above D = 1024: S from streamed D-boxes
+// bfloat16 backward above D = 1024: a thread-block cluster splits D
 // ---------------------------------------------------------------------------
 
 // A 64-row R block of all of D and a C tile of all of D no longer fit in
-// shared memory beside each other (at D = 1280: 160 KB + 80 KB).  R
-// appears only in S, and the second product needs only the slice's
-// columns of C_t.  So this kernel streams S's operands, R's and C_t's
-// 64-column boxes, through a ring of kWideSStages stages, and loads the
-// slice's boxes of C_t into a ring of two tiles for the second product.
-// The output's columns are cut into slices of kWideSlice boxes along the
-// grid's y axis (each slice recomputes S); the consumers split a slice
-// and ping-pong over the tiles as fused_ce_bwd_bf16_kernel does, each
-// computing S for its own tiles.
-constexpr int kWideSlice = 2 * kMaxOwnBoxes;  // 12 boxes: 768 columns
-constexpr int kWideNB = kMaxOwnBoxes;         // accumulator boxes
-constexpr int kWideSStages = 4;
-constexpr int kWideSBytes = kRBoxBytes + kCBoxBytes;  // one stage of S
-constexpr size_t kWideSmem =
-    1024 + static_cast<size_t>(kWideSStages) * kWideSBytes +
-    2 * kWideSlice * kCBoxBytes + 2 * kDlWords * sizeof(uint32_t) +
-    3 * kRowData * 4 + (2 * kWideSStages + 6) * sizeof(uint64_t);
+// shared memory beside each other (at D = 2048: 256 KB + 128 KB).  So K
+// CTAs share one R block, each keeping a chunk of SC boxes of D resident
+// (R[:, chunk]) and streaming only C_t[:, chunk].  Each forms the partial
+// S_j = R_j . C_{t,j}^T of every C tile; the K CTAs sum their partials
+// through distributed shared memory (a reduce-scatter: CTA q sums piece
+// q of every partial, in rank order; with K <= 8 that piece is the 16 / K
+// values from P q on of each of a consumer's 128 threads, with K = 16 it
+// is two values, 2 (q % 8) and on, of the 64 threads q / 8 of the
+// warpgroup), form their dlogits, round them to bf16 and store them into
+// all K CTAs' dlogits buffers (an all-gather), so all hold the same
+// dlogits, and each runs its own acc += dlogits . C_t[:, its output
+// boxes].  Both hops are st.async stores completing on the receiver's
+// mbarrier.  D above 8 CTAs x 8 boxes gives each CTA SC = 16 boxes of S's
+// contraction, of which it owns C = 8 as output in each of two slices
+// along the grid's y axis (each slice forms S again); above 8 x 16 boxes
+// the cluster has 16 CTAs (a non-portable size, which the H100 allows).
+constexpr int kXFloats = kBwdRows * kBwdTile;  // f32 values of one S tile
+constexpr int kMaxClusterStages = 4;
 
-template <int MODE>
+// shared memory of the cluster kernel for lag L2 (below): R's chunk,
+// `stages` C chunks, L1 + 1 exchange buffers, L2 + 1 dlogits buffers,
+// per-row data, the barriers and a signal word
+constexpr size_t cluster_smem_bytes(int sc, int stages, int l2) {
+  const int nx = (l2 > 0 ? 1 : 0) + 1, nd = l2 + 1;
+  return 1024 +  // room to align the base to 1024 bytes for the swizzle
+         static_cast<size_t>(sc) * (kRBoxBytes + stages * kCBoxBytes) +
+         static_cast<size_t>(nx) * kXFloats * 4 +
+         static_cast<size_t>(nd) * kDlWords * 4 +
+         3 * static_cast<size_t>(stages * kBwdTile > kBwdRows
+                                     ? stages * kBwdTile
+                                     : kBwdRows) * 4 +
+         (2 + 2 * stages + 2 * nx + 2 * nd) * sizeof(uint64_t);
+}
+
+// the most ring stages that fit beside lag l2, 0 if too few: a stage is
+// held from tile x's partial to its product, l2 steps later, and from
+// l2 = 2 on one more loads ahead
+constexpr int cluster_stages(int sc, int l2) {
+  int s = kMaxClusterStages;
+  while (s > 0 && cluster_smem_bytes(sc, s, l2) > kMaxSmem) --s;
+  return s >= l2 + (l2 >= 2 ? 2 : 1) ? s : 0;
+}
+
+// Compile-time shape of the cluster backward for K CTAs a cluster, C
+// output boxes and SC contraction boxes a CTA: the pipeline's lags and
+// the ring's stages.  In step x a consumer sends S_x's partial (if tile
+// x is its own), sums the pieces of tile x - L1 (if its own) and runs
+// its half of tile x - L2's product, so the two hops between the CTAs
+// overlap other tiles' work; the exchange needs L1 + 1 buffers, the
+// dlogits L2 + 1 (a buffer is refilled only once every CTA is done with
+// it).  The deepest lags that shared memory allows: 2 at SC = 8, 1 at
+// SC = 10, 0 at SC = 16.
+template <int K, int C, int SC>
+struct ClusterShape {
+  static_assert(K == 2 || K == 4 || K == 8 || K == 16,
+                "a cluster of 2, 4, 8 or 16 CTAs");
+  static_assert(C % 2 == 0 && C <= 2 * kMaxOwnBoxes && SC % C == 0,
+                "an even C of at most 12 boxes");
+  // a consumer's threads fall into kGroups groups of kGroupThreads; each
+  // thread sends kPeers pieces of kPiece S values (CTA q gets piece q %
+  // kPeers of the threads of group q / kPeers) and sums at most one
+  static constexpr int kGroups = K > 8 ? K / 8 : 1;
+  static constexpr int kGroupThreads = 128 / kGroups;
+  static constexpr int kPeers = K / kGroups;
+  static constexpr int kPiece = 16 / kPeers;
+  static constexpr int kNB = C / 2;      // output boxes of each consumer
+  static constexpr int kLag2 = cluster_stages(SC, 2)   ? 2
+                               : cluster_stages(SC, 1) ? 1
+                                                       : 0;
+  static constexpr int kLag1 = kLag2 > 0 ? 1 : 0;
+  static constexpr int kXSlots = kLag1 + 1;
+  static constexpr int kDlSlots = kLag2 + 1;
+  static constexpr int kStages = cluster_stages(SC, kLag2);
+  static constexpr size_t kSmem = cluster_smem_bytes(SC, kStages, kLag2);
+  static_assert(kStages >= 1 && kSmem <= kMaxSmem,
+                "shared memory of one CTA");
+};
+
+// dH: out = dh (N, D) f32, R = h, C = w.  dW: out = dw (V, D) f32, R = w,
+// C = h.  Grid (R blocks x K, slices), clusters of K along x: rank j
+// holds chunk j of D.
+template <int MODE, int K, int C, int SC>
 __global__ void __launch_bounds__(kBwdThreads, 1)
-fused_ce_bwd_bf16_wide_kernel(const __grid_constant__ CUtensorMap map_r,
-                              const __grid_constant__ CUtensorMap map_c,
-                              const int* __restrict__ tgt,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ g,
-                              float* __restrict__ out, int n_rows,
-                              int n_vocab, int d, int valid) {
+fused_ce_bwd_bf16_cluster_kernel(const __grid_constant__ CUtensorMap map_r,
+                                 const __grid_constant__ CUtensorMap map_c,
+                                 const int* __restrict__ tgt,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ g,
+                                 float* __restrict__ out, int n_rows,
+                                 int n_vocab, int d, int valid) {
+  using Shape = ClusterShape<K, C, SC>;
+  constexpr int P = Shape::kPiece;
+  constexpr int NG = Shape::kGroupThreads;
+  constexpr int NQ = Shape::kPeers;
+  constexpr int NB = Shape::kNB;
+  constexpr int S = Shape::kStages;
+  constexpr int L1 = Shape::kLag1;
+  constexpr int L2 = Shape::kLag2;
+  constexpr int NX = Shape::kXSlots;
+  constexpr int ND = Shape::kDlSlots;
+  constexpr int kRowData = S * kBwdTile > kBwdRows ? S * kBwdTile : kBwdRows;
   constexpr bool kRowsOfH = MODE == kDh;
   const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * kBwdRows;
+  const int j = static_cast<int>(cluster_rank());  // the chunk of D
+  const int r0 = static_cast<int>(blockIdx.x / K) * kBwdRows;
   const int r_rows = kRowsOfH ? n_rows : n_vocab;
-  const int boxes = d / kBox;
-  // this CTA's slice of the output's columns, in boxes
-  const int slice_first = blockIdx.y * kWideSlice;
-  const int slice_boxes = min(kWideSlice, boxes - slice_first);
+  const int chunk0 = j * SC;                    // the chunk's first box
+  const int slice0 = static_cast<int>(blockIdx.y) * C;  // output, in chunk
 
   if (!kRowsOfH && r0 >= valid) {
-    // every vocab row of the block is masked: its dW is 0
+    // every vocab row of the block is masked: its dW is 0 (the whole
+    // cluster shares r0, so all its CTAs return here together)
     const int rows = min(kBwdRows, r_rows - r0);
-    const int quads = slice_boxes * kBox / 4;
+    const int boxes = max(0, min(C, d / kBox - chunk0 - slice0));
+    const int quads = boxes * kBox / 4;
     for (int i = tid; i < rows * quads; i += kBwdThreads) {
       const int r = i / quads, c = i - r * quads;
       reinterpret_cast<float4*>(out + static_cast<size_t>(r0 + r) * d +
-                                slice_first * kBox)[c] =
+                                (chunk0 + slice0) * kBox)[c] =
           make_float4(0.f, 0.f, 0.f, 0.f);
     }
     return;
   }
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* sr_s = align1024(smem_raw);               // [S stage]
-  unsigned char* sc_s = sr_s + kWideSStages * kRBoxBytes;   // [S stage]
-  unsigned char* c_s = sc_s + kWideSStages * kCBoxBytes;    // [2][slice]
-  uint32_t* dl_buf = reinterpret_cast<uint32_t*>(
-      c_s + 2 * kWideSlice * kCBoxBytes);                   // [2][8][128]
-  float* row_lse = reinterpret_cast<float*>(dl_buf + 2 * kDlWords);
+  unsigned char* r_s = align1024(smem_raw);        // [SC boxes]
+  unsigned char* c_s = r_s + SC * kRBoxBytes;      // [S][SC boxes]
+  // [NX][source chunk][NG][P]: every CTA's piece of S's partial for here
+  float* x_s = reinterpret_cast<float*>(c_s + S * SC * kCBoxBytes);
+  // [ND][8][128]: dlogits as bf16 pairs in the register-A order; piece q
+  // (words P q / 2 ..) comes from chunk q's CTA
+  uint32_t* dl_s = reinterpret_cast<uint32_t*>(x_s + NX * kXFloats);
+  // per row of S (dH: the block's rows of h) or per column (dW: each
+  // stage's rows of h): lse, g, target
+  float* row_lse = reinterpret_cast<float*>(dl_s + ND * kDlWords);
   float* row_g = row_lse + kRowData;
   int* row_tgt = reinterpret_cast<int*>(row_g + kRowData);
-  uint64_t* s_full = reinterpret_cast<uint64_t*>(row_tgt + kRowData);
-  uint64_t* s_empty = s_full + kWideSStages;  // the S owner is done with it
-  uint64_t* full = s_empty + kWideSStages;    // [2]: a tile's slice landed
-  uint64_t* empty = full + 2;      // [2]: both consumers are done with it
-  uint64_t* dl_full = empty + 2;   // [2]: a tile's dlogits are stored
+  uint64_t* r_full = reinterpret_cast<uint64_t*>(row_tgt + kRowData);
+  uint64_t* full = r_full + 1;      // [S]: a stage's C chunk has landed
+  uint64_t* empty = full + S;       // [S]: both consumers are done with it
+  uint64_t* xfull = empty + S;      // [NX]: every CTA's piece has landed
+  uint64_t* xempty = xfull + NX;    // [NX]: every CTA has summed its pieces
+  uint64_t* dl_full = xempty + NX;  // [ND]: every CTA's dlogits landed
+  uint64_t* dl_free = dl_full + ND; // [ND]: both consumers read them
+  // what the signals of xempty store: a word no one reads (a 4-byte
+  // st.async completing on the barrier: far cheaper than a remote
+  // mbarrier arrive, a release at cluster scope)
+  uint32_t* sig = reinterpret_cast<uint32_t*>(dl_free + ND);
 
   const int n_tiles = ((kRowsOfH ? valid : n_rows) + kBwdTile - 1) / kBwdTile;
 
   if (tid == 0) {
-    for (int i = 0; i < kWideSStages; ++i) {
-      mbar_init(&s_full[i], 1);
-      mbar_init(&s_empty[i], 4);  // one arrival per warp of the S owner
-    }
-    for (int i = 0; i < 2; ++i) {
+    mbar_init(r_full, 1);
+    for (int i = 0; i < S; ++i) {
       mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 8);      // one arrival per consumer warp
-      mbar_init(&dl_full[i], 128);  // every thread of the owner
+      mbar_init(&empty[i], 8);  // one arrival per consumer warp
+    }
+    for (int i = 0; i < NX; ++i) {
+      mbar_init(&xfull[i], 1);       // the owner's expect_tx
+      mbar_init(&xempty[i], 1);  // the owner's expect_tx, 4 bytes a CTA
+    }
+    for (int i = 0; i < ND; ++i) {
+      mbar_init(&dl_full[i], 1);  // the owner's expect_tx
+      mbar_init(&dl_free[i], 8);  // one arrival per consumer warp
     }
     mbar_fence_init();
   }
-  __syncthreads();
+  // no CTA stores or loads into a peer before the peer's barriers exist
+  cluster_sync();
 
   if (tid >= 256) {
     // ---------------- producer warpgroup ----------------
@@ -771,15 +905,19 @@ fused_ce_bwd_bf16_wide_kernel(const __grid_constant__ CUtensorMap map_r,
         }
         __syncwarp();
       }
+      // boxes past D (a ragged last chunk) arrive as zeros
       if (lane == 0) {
         tma_prefetch_map(&map_r);
         tma_prefetch_map(&map_c);
+        mbar_arrive_expect_tx(r_full, SC * kRBoxBytes);
+#pragma unroll 1
+        for (int b = 0; b < SC; ++b)
+          tma_load_2d(r_s + b * kRBoxBytes, &map_r, (chunk0 + b) * kBox, r0,
+                      r_full);
       }
-      int gs = 0;  // S stages filled so far
       for (int t = 0; t < n_tiles; ++t) {
-        // the slice's boxes of C_t (and dW's per-column data) first
-        const int st = t & 1;
-        if (t >= 2) mbar_wait(&empty[st], ((t >> 1) & 1) ^ 1);
+        const int st = t % S;
+        if (t >= S) mbar_wait(&empty[st], ((t / S) & 1) ^ 1);
         if (!kRowsOfH) {  // dW: the tile's columns are rows of h
           const int c = t * kBwdTile + lane;
           const bool in = c < n_rows;
@@ -789,163 +927,215 @@ fused_ce_bwd_bf16_wide_kernel(const __grid_constant__ CUtensorMap map_r,
         }
         __syncwarp();
         if (lane == 0) {
-          mbar_arrive_expect_tx(&full[st], slice_boxes * kCBoxBytes);
-          for (int b = 0; b < slice_boxes; ++b)
-            tma_load_2d(c_s + (st * kWideSlice + b) * kCBoxBytes, &map_c,
-                        (slice_first + b) * kBox, t * kBwdTile, &full[st]);
-        }
-        // then S's operands, one box of R and of C_t a stage
-        for (int b = 0; b < boxes; ++b, ++gs) {
-          const int ss = gs % kWideSStages;
-          if (gs >= kWideSStages)
-            mbar_wait(&s_empty[ss], ((gs / kWideSStages) & 1) ^ 1);
-          if (lane == 0) {
-            mbar_arrive_expect_tx(&s_full[ss], kWideSBytes);
-            tma_load_2d(sr_s + ss * kRBoxBytes, &map_r, b * kBox, r0,
-                        &s_full[ss]);
-            tma_load_2d(sc_s + ss * kCBoxBytes, &map_c, b * kBox,
-                        t * kBwdTile, &s_full[ss]);
-          }
+          mbar_arrive_expect_tx(&full[st], SC * kCBoxBytes);
+#pragma unroll 1
+          for (int b = 0; b < SC; ++b)
+            tma_load_2d(c_s + (st * SC + b) * kCBoxBytes, &map_c,
+                        (chunk0 + b) * kBox, t * kBwdTile, &full[st]);
         }
       }
     }
   } else {
     // ---------------- consumer warpgroups ----------------
     setmaxnreg_inc<kConsumerRegs>();
+    // the warpgroup, read from lane 0 so that the compiler sees it is
+    // uniform across the warp
     const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
     const int ltid = tid & 127;
     const int lane = tid & 31;
     const int m_a = (ltid >> 5) * 16 + (lane >> 2);  // local rows of R
     const int q2 = 2 * (lane & 3);
-    // the output boxes this consumer owns: own_first .. own_first + own
-    // - 1 of the slice; accumulator boxes past them repeat the slice's
-    // last box and are not stored
-    const int half0 = (slice_boxes + 1) / 2;
-    const int own_local = wg ? half0 : 0;
-    const int own = wg ? slice_boxes - half0 : half0;
+    // this thread's group: its pieces go to CTAs NQ grp .. NQ grp + NQ - 1;
+    // piece j is its own if j / NQ == grp (warp-uniform: NG >= 64).  With
+    // K = 16 the threads of the other group sum what is not theirs and
+    // store none of it
+    const int grp = ltid / NG;
+    const bool sums = NG == 128 || grp == j / NQ;
+    // this consumer's output boxes, in the chunk: own_first .. + NB - 1
+    const int own_first = slice0 + (wg ? NB : 0);
 
-    float acc[kWideNB][32];
-    const uint32_t sr_addr = smem_u32(sr_s);
-    const uint32_t sc_addr = smem_u32(sc_s);
+    float acc[NB][32];
+    const uint32_t r_addr = smem_u32(r_s);
     const uint32_t c_addr = smem_u32(c_s);
+    mbar_wait(r_full, 0);
 
-    // S = R . C_x^T over D's streamed boxes, its dlogits stored for both
-    // consumers
-    auto logits = [&](int x) {
-      const int st = x & 1;
-      mbar_wait(&full[st], (x >> 1) & 1);  // dW: the tile's column data
+    // the partial S_x = R_j . C_{x,j}^T over this CTA's chunk, its piece
+    // q stored into chunk q's CTA
+    auto partial = [&](int x) {
+      const int st = x % S;
+      mbar_wait(&full[st], (x / S) & 1);
       float s[16];
-      int gs = x * boxes, prev = 0;
-      for (int b = 0; b < boxes; ++b, ++gs) {
-        const int ss = gs % kWideSStages;
-        mbar_wait(&s_full[ss], (gs / kWideSStages) & 1);
-        fence_regs(s);
-        wgmma_fence();
+      const uint64_t da = wgmma_desc_sw128(r_addr, 16, 1024);
+      const uint64_t db =
+          wgmma_desc_sw128(c_addr + st * SC * kCBoxBytes, 16, 1024);
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < SC; ++kb)
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)
-          wgmma_m64n32k16_ss(
-              s, wgmma_desc_sw128(sr_addr + ss * kRBoxBytes + ks * 32, 16,
-                                  1024),
-              wgmma_desc_sw128(sc_addr + ss * kCBoxBytes + ks * 32, 16,
-                               1024),
-              b > 0 || ks > 0);
-        wgmma_commit();
-        if (b > 0) {
-          wgmma_wait<1>();
-          warp_arrive(&s_empty[prev], lane);
-        }
-        prev = ss;
-      }
+          wgmma_m64n32k16_ss(s, da + (kb * kRBoxBytes + ks * 32) / 16,
+                             db + (kb * kCBoxBytes + ks * 32) / 16,
+                             kb > 0 || ks > 0);
+      wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
-      warp_arrive(&s_empty[prev], lane);
+      const int xs = x % NX, ds = x % ND;
+      // every CTA has summed the pieces of tile x - NX; both consumers
+      // here have read the dlogits of tile x - ND (which the peers'
+      // stores of tile x's dlogits, after these, overwrite)
+      if (x >= NX) mbar_wait_cluster(&xempty[xs], ((x / NX) & 1) ^ 1);
+      if (x >= ND) mbar_wait(&dl_free[ds], ((x / ND) & 1) ^ 1);
+      if (ltid == 0) {
+        mbar_arrive_expect_tx(&xfull[xs], kXFloats * 4);
+        mbar_arrive_expect_tx(&dl_full[ds], kDlWords * 4);
+        mbar_arrive_expect_tx(&xempty[xs], K * 4);  // for tile x's pieces
+      }
+      const float* mine = x_s + xs * kXFloats + (j * NG + ltid % NG) * P;
+#pragma unroll
+      for (int p = 0; p < NQ; ++p) {
+        const int q = grp * NQ + p;
+        const uint32_t to = cluster_addr(mine, q);
+        const uint32_t to_bar = cluster_addr(&xfull[xs], q);
+        if constexpr (P == 2) {
+          st_async_v2(to, s[2 * p], s[2 * p + 1], to_bar);
+        } else {
+#pragma unroll
+          for (int i = 0; i < P; i += 4)
+            st_async_v4(to + 4 * i, s[P * p + i], s[P * p + i + 1],
+                        s[P * p + i + 2], s[P * p + i + 3], to_bar);
+        }
+      }
+    };
+
+    // tile x's pieces summed in rank order, their dlogits (rows and
+    // columns from the accumulator layout) stored into every CTA
+    auto reduce = [&](int x) {
+      const int xs = x % NX, ds = x % ND, st = x % S;
+      mbar_wait_cluster(&xfull[xs], (x / NX) & 1);
+      const float* src = x_s + xs * kXFloats + (ltid % NG) * P;
+      float v[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i) v[i] = src[i];
+#pragma unroll
+      for (int q = 1; q < K; ++q)
+#pragma unroll
+        for (int i = 0; i < P; ++i) v[i] += src[q * NG * P + i];
       const float* rl = row_lse + (kRowsOfH ? 0 : st * kBwdTile);
       const float* rg = row_g + (kRowsOfH ? 0 : st * kBwdTile);
       const int* rt = row_tgt + (kRowsOfH ? 0 : st * kBwdTile);
-      uint32_t* dl = dl_buf + (x & 1) * kDlWords + ltid;
 #pragma unroll
-      for (int p2 = 0; p2 < 8; ++p2) {
-        float v[2];
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int k = 2 * p2 + e2;                  // s[k]:
-          const int m = m_a + (k & 2) * 4;            // row of S
-          const int n = (k >> 2) * 8 + q2 + (k & 1);  // column of S
-          if (kRowsOfH) {  // rows: h rows; columns: vocab
-            const int col = x * kBwdTile + n;
-            const float logit = col < valid ? s[k] : kNegInf;
-            const float p = r0 + m < n_rows ? expf(logit - rl[m]) : 0.f;
-            v[e2] = (col == rt[m] ? p - 1.f : p) * rg[m];
-          } else {  // rows: vocab; columns: h rows
-            const int vr = r0 + m;
-            const float logit = vr < valid ? s[k] : kNegInf;
-            const float p =
-                x * kBwdTile + n < n_rows ? expf(logit - rl[n]) : 0.f;
-            v[e2] = (vr == rt[n] ? p - 1.f : p) * rg[n];
-          }
+      for (int i = 0; i < P; ++i) {
+        const int k = (j % NQ) * P + i;             // s[k] of the tile:
+        const int m = m_a + (k & 2) * 4;            // row of S
+        const int n = (k >> 2) * 8 + q2 + (k & 1);  // column of S
+        if (kRowsOfH) {  // rows: h rows; columns: vocab
+          const int col = x * kBwdTile + n;
+          const float logit = col < valid ? v[i] : kNegInf;
+          const float p = r0 + m < n_rows ? expf(logit - rl[m]) : 0.f;
+          v[i] = (col == rt[m] ? p - 1.f : p) * rg[m];
+        } else {  // rows: vocab; columns: h rows
+          const int vr = r0 + m;
+          const float logit = vr < valid ? v[i] : kNegInf;
+          const float p =
+              x * kBwdTile + n < n_rows ? expf(logit - rl[n]) : 0.f;
+          v[i] = (vr == rt[n] ? p - 1.f : p) * rg[n];
         }
-        dl[p2 * 128] = pack_bf16(v[0], v[1]);
       }
-      mbar_arrive(&dl_full[x & 1]);
+      uint32_t words[P / 2];
+#pragma unroll
+      for (int i = 0; i < P / 2; ++i)
+        words[i] = pack_bf16(v[2 * i], v[2 * i + 1]);
+      // the pieces are read: the senders may refill this buffer
+      named_bar_sync<128>(1 + wg);
+      if (ltid == 0) {
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+          st_async_u32(cluster_addr(sig, q), 0, cluster_addr(&xempty[xs], q));
+      }
+      if (!sums) return;  // (K = 16: the other half of the threads)
+      const uint32_t* dl =
+          dl_s + ds * kDlWords + ((j % NQ) * P / 2) * 128 + ltid;
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        const uint32_t to_bar = cluster_addr(&dl_full[ds], q);
+#pragma unroll
+        for (int i = 0; i < P / 2; ++i)
+          st_async_u32(cluster_addr(dl + i * 128, q), words[i], to_bar);
+      }
     };
 
-    // acc += dlogits_i . C_i[:, own boxes], then release the tile
-    auto product = [&](int i) {
-      const int st = i & 1;
-      mbar_wait(&full[st], (i >> 1) & 1);
-      if ((i & 1) != wg) mbar_wait(&dl_full[i & 1], (i >> 1) & 1);
-      const uint32_t* dl = dl_buf + (i & 1) * kDlWords + ltid;
+    // acc += dlogits_x . C_x[:, own boxes], then release the stage and
+    // the dlogits buffer
+    auto product = [&](int x) {
+      const int st = x % S, ds = x % ND;
+      mbar_wait(&full[st], (x / S) & 1);
+      mbar_wait_cluster(&dl_full[ds], (x / ND) & 1);
+      const uint32_t* dl = dl_s + ds * kDlWords + ltid;
       uint32_t a[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k) a[k] = dl[k * 128];
-      const uint32_t tile = c_addr + st * kWideSlice * kCBoxBytes;
+      const uint64_t db = wgmma_desc_sw128(
+          c_addr + (st * SC + own_first) * kCBoxBytes, 1024, 1024);
 #pragma unroll
-      for (int b = 0; b < kWideNB; ++b) fence_regs(acc[b]);
+      for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
       wgmma_fence();
-      // box by box (one descriptor live at a time)
 #pragma unroll
-      for (int b = 0; b < kWideNB; ++b) {
-        const uint64_t db = wgmma_desc_sw128(
-            tile + min(own_local + b, slice_boxes - 1) * kCBoxBytes, 1024,
-            1024);
+      for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk)
+        for (int b = 0; b < NB; ++b)
           wgmma_m64n64k16_rs_tb(acc[b], a[4 * kk], a[4 * kk + 1],
                                 a[4 * kk + 2], a[4 * kk + 3],
-                                db + kk * (2048 / 16), i > 0 || kk > 0);
-      }
+                                db + (b * kCBoxBytes + kk * 2048) / 16,
+                                x > 0 || kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
-      for (int b = 0; b < kWideNB; ++b) fence_regs(acc[b]);
-      warp_arrive(&empty[st], lane);
+      for (int b = 0; b < NB; ++b) fence_regs(acc[b]);
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&empty[st]);
+        mbar_arrive(&dl_free[ds]);
+      }
     };
 
-    // tile x's S by consumer x % 2, before its half of tile x - 1
-    for (int i = -1; i < n_tiles; ++i) {
-      if (i + 1 < n_tiles && ((i + 1) & 1) == wg) logits(i + 1);
-      if (i >= 0) product(i);
+    // step x: S_x's partial, tile x - L1's pieces summed (each by the
+    // consumer x % 2 that owns the tile), tile x - L2's product (both)
+    for (int x = 0; x < n_tiles + L2; ++x) {
+      if (x < n_tiles && (x & 1) == wg) partial(x);
+      const int xr = x - L1;
+      if (xr >= 0 && xr < n_tiles && (xr & 1) == wg) reduce(xr);
+      const int xp = x - L2;
+      if (xp >= 0) product(xp);
     }
+    // every CTA's signal that it summed this consumer's last tiles has
+    // landed (none may arrive after this CTA leaves)
+    if (ltid == 0)
+      for (int x = max(0, n_tiles - NX); x < n_tiles; ++x)
+        if ((x & 1) == wg) mbar_wait_cluster(&xempty[x % NX], (x / NX) & 1);
 
     // ---- epilogue: this consumer's boxes of its 64 rows ----
 #pragma unroll
-    for (int b = 0; b < kWideNB; ++b) {
-      if (b < own) {
+    for (int b = 0; b < NB; ++b) {
+      const int box = chunk0 + own_first + b;
+      if (box * kBox < d) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = (slice_first + own_local + b) * kBox + 8 * j + q2;
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = box * kBox + 8 * jj + q2;
           if (r0 + m_a < r_rows)
             *reinterpret_cast<float2*>(
                 out + static_cast<size_t>(r0 + m_a) * d + col) =
-                make_float2(acc[b][4 * j], acc[b][4 * j + 1]);
+                make_float2(acc[b][4 * jj], acc[b][4 * jj + 1]);
           if (r0 + m_a + 8 < r_rows)
             *reinterpret_cast<float2*>(
                 out + static_cast<size_t>(r0 + m_a + 8) * d + col) =
-                make_float2(acc[b][4 * j + 2], acc[b][4 * j + 3]);
+                make_float2(acc[b][4 * jj + 2], acc[b][4 * jj + 3]);
         }
       }
     }
   }
+  // no CTA leaves while a peer may still store into it or arrive on it
+  cluster_sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -1182,13 +1372,23 @@ cudaError_t launch_fwd_bf16(const void* h, const void* w, const void* tgt,
   return cudaGetLastError();
 }
 
+// the plan of a bf16 backward launch (ops/fused_ce.py fused_ce_bwd_plan):
+// k CTAs a cluster split D (1: the resident kernel), c output boxes a
+// CTA, the output cut into `slices` along the grid's y axis
+struct BwdPlan {
+  int k, c, slices;
+};
+
 template <int MODE, int BOXES>
 cudaError_t launch_bwd_bf16_boxes(const CUtensorMap& map_r,
                                   const CUtensorMap& map_c, const void* tgt,
                                   const void* lse, const void* g, void* out,
-                                  int n, int v, int valid,
+                                  int n, int v, int valid, BwdPlan plan,
                                   cudaStream_t stream) {
   using Shape = BwdShape<BOXES>;
+  if (plan.k != 1 || plan.c != Shape::kPerSlice ||
+      plan.slices != Shape::kSlices)
+    return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       fused_ce_bwd_bf16_kernel<MODE, BOXES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1204,34 +1404,118 @@ cudaError_t launch_bwd_bf16_boxes(const CUtensorMap& map_r,
   return cudaGetLastError();
 }
 
-template <int MODE>
-cudaError_t launch_bwd_bf16_wide(const CUtensorMap& map_r,
-                                 const CUtensorMap& map_c, const void* tgt,
-                                 const void* lse, const void* g, void* out,
-                                 int n, int v, int d, int valid,
-                                 cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      fused_ce_bwd_bf16_wide_kernel<MODE>,
+// launch_bwd_bf16_boxes of the row of kResidentPlans (from row I on) whose
+// D / 64 is d / 64; cudaErrorInvalidValue if none
+template <int MODE, int I = 0>
+cudaError_t launch_bwd_bf16_resident(const CUtensorMap& map_r,
+                                     const CUtensorMap& map_c,
+                                     const void* tgt, const void* lse,
+                                     const void* g, void* out, int n, int v,
+                                     int d, int valid, BwdPlan plan,
+                                     cudaStream_t stream) {
+  if constexpr (I == kNumResident) {
+    return cudaErrorInvalidValue;
+  } else {
+    constexpr int B = kResidentPlans[I][0];
+    if (d / kBox == B)
+      return launch_bwd_bf16_boxes<MODE, B>(map_r, map_c, tgt, lse, g, out,
+                                            n, v, valid, plan, stream);
+    return launch_bwd_bf16_resident<MODE, I + 1>(map_r, map_c, tgt, lse, g,
+                                                 out, n, v, d, valid, plan,
+                                                 stream);
+  }
+}
+
+// the launch configuration of the cluster kernel: grid (R blocks x K,
+// slices), clusters of K CTAs along x; `attr` must outlive the launch
+template <int MODE, int K, int C, int SC>
+cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                           int r_rows, int slices, cudaStream_t stream) {
+  using Shape = ClusterShape<K, C, SC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_ce_bwd_bf16_cluster_kernel<MODE, K, C, SC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kWideSmem));
+      static_cast<int>(Shape::kSmem));
+  if (err == cudaSuccess && K > 8)  // above the portable cluster size
+    err = cudaFuncSetAttribute(
+        fused_ce_bwd_bf16_cluster_kernel<MODE, K, C, SC>,
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  const int r_rows = MODE == kDh ? n : v;
-  const int boxes = d / kBox;
-  const dim3 grid((r_rows + kBwdRows - 1) / kBwdRows,
-                  (boxes + kWideSlice - 1) / kWideSlice);
-  fused_ce_bwd_bf16_wide_kernel<MODE><<<grid, kBwdThreads, kWideSmem,
-                                        stream>>>(
-      map_r, map_c, static_cast<const int*>(tgt),
-      static_cast<const float*>(lse), static_cast<const float*>(g),
-      static_cast<float*>(out), n, v, d, valid);
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((r_rows + kBwdRows - 1) / kBwdRows * K, slices);
+  cfg->blockDim = dim3(kBwdThreads);
+  cfg->dynamicSmemBytes = Shape::kSmem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = K;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int MODE, int K, int C, int SC>
+cudaError_t launch_bwd_bf16_cluster(const CUtensorMap& map_r,
+                                    const CUtensorMap& map_c,
+                                    const void* tgt, const void* lse,
+                                    const void* g, void* out, int n, int v,
+                                    int d, int valid, int slices,
+                                    cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<MODE, K, C, SC>(
+      &cfg, &attr, MODE == kDh ? n : v, slices, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg,
+                           fused_ce_bwd_bf16_cluster_kernel<MODE, K, C, SC>,
+                           map_r, map_c, static_cast<const int*>(tgt),
+                           static_cast<const float*>(lse),
+                           static_cast<const float*>(g),
+                           static_cast<float*>(out), n, v, d, valid);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
+
+// Calls fn.template operator()<K, C, SC>() for the cluster kernel that
+// runs `plan` at D = `d` (a row of kClusterShapes, from row I on);
+// cudaErrorInvalidValue for a plan that no instantiation runs or whose K
+// chunks of SC boxes do not cover D
+template <int I = 0, typename Fn>
+cudaError_t with_cluster_shape(int d, BwdPlan plan, const Fn& fn) {
+  if constexpr (I == kNumCluster) {
+    return cudaErrorInvalidValue;
+  } else {
+    constexpr int K = kClusterShapes[I][0], C = kClusterShapes[I][1],
+                  SC = kClusterShapes[I][2];
+    if (plan.k == K && plan.c == C && plan.slices * C == SC &&
+        d / kBox <= K * SC)
+      return fn.template operator()<K, C, SC>();
+    return with_cluster_shape<I + 1>(d, plan, fn);
+  }
+}
+
+// launch_bwd_bf16_cluster of one shape, for with_cluster_shape
+template <int MODE>
+struct LaunchCluster {
+  const CUtensorMap &map_r, &map_c;
+  const void *tgt, *lse, *g;
+  void* out;
+  int n, v, d, valid, slices;
+  cudaStream_t stream;
+  template <int K, int C, int SC>
+  cudaError_t operator()() const {
+    return launch_bwd_bf16_cluster<MODE, K, C, SC>(
+        map_r, map_c, tgt, lse, g, out, n, v, d, valid, slices, stream);
+  }
+};
 
 // the tensor maps are built here, at every launch, and passed by value
 template <int MODE>
 cudaError_t launch_bwd_bf16(const void* h, const void* w, const void* tgt,
                             const void* lse, const void* g, void* out, int n,
-                            int v, int d, int valid, cudaStream_t stream) {
+                            int v, int d, int valid, BwdPlan plan,
+                            cudaStream_t stream) {
   constexpr bool kRowsOfH = MODE == kDh;
   CUtensorMap map_r, map_c;
   cudaError_t err = make_bf16_map(&map_r, kRowsOfH ? h : w, kRowsOfH ? n : v,
@@ -1240,28 +1524,36 @@ cudaError_t launch_bwd_bf16(const void* h, const void* w, const void* tgt,
   err = make_bf16_map(&map_c, kRowsOfH ? w : h, kRowsOfH ? v : n, d,
                       kBwdTile);
   if (err != cudaSuccess) return err;
-  switch (d / kBox) {
-#define FUSED_CE_BWD_BOXES(B)                                                \
-  case B:                                                                    \
-    return launch_bwd_bf16_boxes<MODE, B>(map_r, map_c, tgt, lse, g, out, n, \
-                                          v, valid, stream);
-    FUSED_CE_BWD_BOXES(1) FUSED_CE_BWD_BOXES(2) FUSED_CE_BWD_BOXES(3)
-    FUSED_CE_BWD_BOXES(4) FUSED_CE_BWD_BOXES(5) FUSED_CE_BWD_BOXES(6)
-    FUSED_CE_BWD_BOXES(7) FUSED_CE_BWD_BOXES(8) FUSED_CE_BWD_BOXES(9)
-    FUSED_CE_BWD_BOXES(10) FUSED_CE_BWD_BOXES(11) FUSED_CE_BWD_BOXES(12)
-    FUSED_CE_BWD_BOXES(13) FUSED_CE_BWD_BOXES(14) FUSED_CE_BWD_BOXES(15)
-    FUSED_CE_BWD_BOXES(16)
-#undef FUSED_CE_BWD_BOXES
-  }
-  return launch_bwd_bf16_wide<MODE>(map_r, map_c, tgt, lse, g, out, n, v, d,
-                                    valid, stream);
+  if (plan.k == 1)
+    return launch_bwd_bf16_resident<MODE>(map_r, map_c, tgt, lse, g, out, n,
+                                          v, d, valid, plan, stream);
+  return with_cluster_shape(
+      d, plan, LaunchCluster<MODE>{map_r, map_c, tgt, lse, g, out, n, v, d,
+                                   valid, plan.slices, stream});
 }
+
+// cudaOccupancyMaxActiveClusters of the cluster kernel of one shape
+template <int MODE>
+struct MaxClusters {
+  int slices;
+  int* out;
+  template <int K, int C, int SC>
+  cudaError_t operator()() const {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    const cudaError_t err = cluster_config<MODE, K, C, SC>(
+        &cfg, &attr, kBwdRows, slices, nullptr);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveClusters(
+        out, fused_ce_bwd_bf16_cluster_kernel<MODE, K, C, SC>, &cfg);
+  }
+};
 
 template <int MODE>
 cudaError_t run(const void* h, const void* w, const void* tgt,
                 const void* lse, const void* g, void* out0, void* out1,
                 void* part, int n, int v, int d, int valid, int splits,
-                int is_bf16, void* stream) {
+                int is_bf16, BwdPlan plan, void* stream) {
   if (n <= 0 || v <= 0 || d < 64 || d % 64 != 0 || valid <= 0 ||
       valid > v || splits < 1)
     return cudaErrorInvalidValue;
@@ -1272,7 +1564,7 @@ cudaError_t run(const void* h, const void* w, const void* tgt,
                              splits, s);
     else
       return launch_bwd_bf16<MODE>(h, w, tgt, lse, g, out0, n, v, d, valid,
-                                   s);
+                                   plan, s);
   }
   return launch_f32<MODE>(h, w, tgt, lse, g, out0, out1, n, v, d, valid, s);
 }
@@ -1292,24 +1584,39 @@ int fused_ce_fwd(const void* h, const void* w, const void* tgt, void* nll,
                  void* lse, void* part, int n, int v, int d, int valid,
                  int splits, int is_bf16, void* stream) {
   return run<kFwd>(h, w, tgt, nullptr, nullptr, nll, lse, part, n, v, d,
-                   valid, splits, is_bf16, stream);
+                   valid, splits, is_bf16, BwdPlan{1, 0, 0}, stream);
 }
 
 // as fused_ce_fwd, with the forward's lse and the cotangent g (n,)
-// float32; writes dh (n, d) float32
+// float32; writes dh (n, d) float32.  bfloat16 runs the launch plan (k,
+// c, slices) of ops/fused_ce.py fused_ce_bwd_plan and refuses one that
+// no kernel runs (cudaErrorInvalidValue); float32 ignores it.
 int fused_ce_bwd_dh(const void* h, const void* w, const void* tgt,
                     const void* lse, const void* g, void* dh, int n, int v,
-                    int d, int valid, int is_bf16, void* stream) {
+                    int d, int valid, int is_bf16, int k, int c, int slices,
+                    void* stream) {
   return run<kDh>(h, w, tgt, lse, g, dh, nullptr, nullptr, n, v, d, valid, 1,
-                  is_bf16, stream);
+                  is_bf16, BwdPlan{k, c, slices}, stream);
 }
 
 // as fused_ce_bwd_dh, writing dw (v, d) float32
 int fused_ce_bwd_dw(const void* h, const void* w, const void* tgt,
                     const void* lse, const void* g, void* dw, int n, int v,
-                    int d, int valid, int is_bf16, void* stream) {
+                    int d, int valid, int is_bf16, int k, int c, int slices,
+                    void* stream) {
   return run<kDw>(h, w, tgt, lse, g, dw, nullptr, nullptr, n, v, d, valid, 1,
-                  is_bf16, stream);
+                  is_bf16, BwdPlan{k, c, slices}, stream);
+}
+
+// how many clusters of the bf16 dH (mode 1) or dW (mode 2) cluster
+// kernel of plan (k, c, slices) at D = d can run on the card at once,
+// into *out (cudaOccupancyMaxActiveClusters)
+int fused_ce_bwd_max_clusters(int mode, int d, int k, int c, int slices,
+                              int* out) {
+  const BwdPlan plan{k, c, slices};
+  return mode == kDh
+             ? with_cluster_shape(d, plan, MaxClusters<kDh>{slices, out})
+             : with_cluster_shape(d, plan, MaxClusters<kDw>{slices, out});
 }
 
 const char* kernel_error_string(int err) {

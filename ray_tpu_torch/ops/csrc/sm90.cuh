@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks: mbarriers, TMA tile loads, wgmma
 // with shared-memory descriptors, register rebalancing between
-// warpgroups, and the host-side tensor maps that feed TMA.
+// warpgroups, thread-block clusters (distributed shared memory, remote
+// barriers), and the host-side tensor maps that feed TMA.
 //
 // Layout conventions, shared by every user of this header:
 // * bf16 tiles are loaded by TMA in boxes of 64 columns (128 bytes a
@@ -106,6 +107,89 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 __device__ __forceinline__ void warp_arrive(uint64_t* bar, int lane) {
   __syncwarp();
   if (lane == 0) mbar_arrive(bar);
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters: ranks, distributed shared memory, remote barriers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of `p` (this CTA's shared memory) in the
+// CTA of rank `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// every thread of every CTA of the cluster: arrive (release), then wait
+// (acquire) for all of them
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" :::
+                   "memory");
+}
+
+// asynchronous stores to shared memory of the cluster (`addr`, from
+// cluster_addr: this CTA or a peer), each completing its bytes on the
+// barrier at cluster address `bar` in the same CTA
+__device__ __forceinline__ void st_async_u32(uint32_t addr, uint32_t v,
+                                             uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "r"(v), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async_v2(uint32_t addr, float a, float b,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(addr),
+      "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b,
+                                            float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
+// the THREADS threads (a multiple of 32) of named barrier `id` (1-15;
+// 0 is __syncthreads) meet here
+template <int THREADS>
+__device__ __forceinline__ void named_bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(THREADS) : "memory");
+}
+
+// mbar_wait for a barrier that other CTAs of the cluster complete
+// (acquire at cluster scope)
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // ---------------------------------------------------------------------------

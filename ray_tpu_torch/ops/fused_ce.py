@@ -15,6 +15,9 @@ d_model that is a multiple of 64:
 * dW (``_bwd_dw_kernel``): the same dlogits, rounded to h's dtype,
   summed as dlogits^T.h.
 
+Above d_model 1024 the bf16 dH and dW run a thread-block-cluster kernel
+that splits D between CTAs (fused_ce_bwd_plan says how).
+
 The (N, V) logits never reach device memory in either pass.  Dispatch
 is by tensor placement, as for the flash kernels: a CPU tensor takes
 the plain PyTorch version (``*_reference``), which computes over whole
@@ -24,7 +27,7 @@ roundings; a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -36,16 +39,33 @@ DEFAULT_BLOCK_V = 1024
 
 #: the bfloat16 kernels' tiles (csrc/fused_ce.cu).  Forward: a CTA owns
 #: FWD_BLOCK_ROWS rows of h and walks FWD_TILE_ROWS-row vocab tiles of
-#: one of the vocab's splits (fused_ce_fwd_splits).  dH and dW: a CTA owns
-#: BWD_BLOCK_ROWS rows of h (dH) or of w (dW), walks the other operand in
-#: BWD_TILE_ROWS-row tiles, and owns at most BWD_SLICE_COLS columns of
-#: the output (D above that is cut into slices, each recomputing the
-#: logits).
+#: one of the vocab's splits (fused_ce_fwd_splits).  dH and dW: a block
+#: of BWD_BLOCK_ROWS rows of h (dH) or of w (dW) walks the other operand
+#: in BWD_TILE_ROWS-row tiles; a CTA owns at most BWD_SLICE_COLS columns
+#: of the output.  Up to D = 1024 one CTA holds all of the block's D
+#: (at 1024 the output is cut into two slices along the grid's y axis,
+#: each forming the logits again); above it a cluster of up to
+#: BWD_MAX_CLUSTER CTAs splits D, so the logits are formed once up to D
+#: = 4096 and once a slice above (fused_ce_bwd_plan).
 FWD_BLOCK_ROWS = 128
 FWD_TILE_ROWS = 256
 BWD_BLOCK_ROWS = 64
 BWD_TILE_ROWS = 32
 BWD_SLICE_COLS = 768
+BWD_MAX_CLUSTER = 16
+#: D / 64 of the resident kernel's instantiations (D up to 1024)
+_RESIDENT_BOXES = tuple(range(1, 17))
+#: the cluster kernel's instantiations, in the order the plan tries
+#: them: (k, c, sc) = CTAs a cluster, output boxes of 64 columns a CTA
+#: and grid-y slice, boxes of D a CTA holds.  Each D takes the first
+#: shape that covers it: gpt2-large's 1280, llama-1b's 2048, llama-7b's
+#: 4096, llama-70b's 8192 (each CTA holds 16 boxes and owns 8 in each of
+#: two slices), and up to 16384 in a cluster of 16, the H100's
+#: non-portable size.  At most 10 output boxes a CTA (5 a consumer): at
+#: 12 some instantiations spill a register.  csrc/fused_ce.cu is built
+#: with these tables (kernel_plans_header)
+_CLUSTER_SHAPES = ((2, 10, 10), (4, 8, 8), (8, 8, 8), (8, 8, 16),
+                   (16, 8, 16))
 
 #: launches of each CUDA kernel in this process; only the kernel's
 #: launch site below adds to its count
@@ -144,11 +164,96 @@ def fused_ce_fwd_splits(n_rows: int, valid_vocab: int, sms: int) -> int:
     return max(1, min(tiles, -(-2 * sms // blocks)))
 
 
+class BwdPlan(NamedTuple):
+    """How the bf16 dH/dW kernels cover D: ``kernel`` "resident" (D up
+    to 1024: one CTA holds all of D, k = 1) or "cluster" (k CTAs a
+    cluster split D, rank q holding boxes q sc .. q sc + sc - 1 of 64
+    columns); in grid-y slice y a CTA owns output boxes y c .. y c + c
+    - 1 of those it holds; the grid is (R blocks x k, slices)."""
+    kernel: str
+    k: int
+    c: int
+    slices: int
+    sc: int
+    grid: Tuple[int, int]
+
+
+def fused_ce_bwd_plan(d: int, rows: int) -> BwdPlan:
+    """The launch plan of the bf16 dH (``rows`` = N) or dW (``rows`` =
+    V) kernel at d_model ``d``, as csrc/fused_ce.cu runs it.
+
+    D <= 1024: the resident kernel, D/64 boxes cut into slices of at
+    most 12 (BWD_SLICE_COLS), as many boxes in each as can be.  Above:
+    the cluster kernel, the first of _CLUSTER_SHAPES whose k chunks of
+    sc boxes cover D.  D above 16 x 16 boxes (16384) has no plan."""
+    if d < 64 or d % 64:
+        raise ValueError(f"d_model must be a positive multiple of 64, got "
+                         f"{d}")
+    boxes = d // 64
+    blocks = -(-rows // BWD_BLOCK_ROWS)
+    if boxes in _RESIDENT_BOXES:
+        c, slices = _resident_cut(boxes)
+        return BwdPlan("resident", 1, c, slices, boxes, (blocks, slices))
+    for k, c, sc in _CLUSTER_SHAPES:
+        if boxes <= k * sc:
+            return BwdPlan("cluster", k, c, sc // c, sc,
+                           (blocks * k, sc // c))
+    raise ValueError(f"the bf16 fused-CE backward takes d_model up to "
+                     f"{64 * max(k * sc for k, _, sc in _CLUSTER_SHAPES)}, "
+                     f"got {d}")
+
+
+def _resident_cut(boxes: int) -> Tuple[int, int]:
+    """(output boxes a CTA, grid-y slices) of the resident kernel at
+    D / 64 = boxes: slices of at most BWD_SLICE_COLS, as even as can
+    be."""
+    slices = -(-boxes // (BWD_SLICE_COLS // 64))
+    return -(-boxes // slices), slices
+
+
+def kernel_plans_header(resident=_RESIDENT_BOXES,
+                        clusters=_CLUSTER_SHAPES) -> str:
+    """The text of ``fused_ce_plans.h``, which ``csrc/fused_ce.cu``
+    includes: the instantiations of the bf16 backward, ``resident`` the
+    D / 64 of the resident kernel's and ``clusters`` the (k, c, sc) of
+    the cluster kernel's (by default all that fused_ce_bwd_plan uses;
+    fewer build faster)."""
+    def table(name, rows) -> str:
+        cells = ", ".join("{" + ", ".join(map(str, r)) + "}" for r in rows)
+        return f"constexpr int {name}[][3] = {{{cells}}};\n"
+
+    return ("// written by ray_tpu_torch/ops/_kernels.py from "
+            "ray_tpu_torch/ops/fused_ce.py\n" +
+            table("kResidentPlans", [(b, *_resident_cut(b))
+                                     for b in resident]) +
+            table("kClusterShapes", clusters))
+
+
+def fused_ce_bwd_max_clusters(d: int, mode: str) -> int:
+    """How many clusters of the bf16 ``mode`` ("dh" or "dw") cluster
+    kernel at d_model ``d`` (above 1024) the card runs at once
+    (cudaOccupancyMaxActiveClusters).  Needs the card."""
+    import ctypes
+
+    from ray_tpu_torch.ops import _kernels
+
+    plan = fused_ce_bwd_plan(d, BWD_BLOCK_ROWS)
+    out = ctypes.c_int(0)
+    err = _kernels.library("fused_ce").fused_ce_bwd_max_clusters(
+        {"dh": 1, "dw": 2}[mode], d, plan.k, plan.c, plan.slices,
+        ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"fused_ce_bwd_max_clusters failed: CUDA error "
+                           f"{err}")
+    return out.value
+
+
 def _launch(fn_name: str, counter: str, inputs, outputs,
-            valid_vocab: int, splits=None) -> None:
+            valid_vocab: int, splits=None, plan=()) -> None:
     """Launch ``fn_name`` of ``csrc/fused_ce.cu`` on ``inputs`` (h, w,
     tgt, ...), writing ``outputs``, and add one to the module's counter
-    ``counter``; ``splits`` is the forward's, passed after valid_vocab.
+    ``counter``; ``splits`` is the forward's, passed after valid_vocab,
+    ``plan`` the backward's (k, c, slices), passed last.
     What the kernels take: float32 or bfloat16 h and w, D any positive
     multiple of 64, int32 targets, contiguous and 16-byte aligned
     tensors."""
@@ -170,7 +275,7 @@ def _launch(fn_name: str, counter: str, inputs, outputs,
         raise ValueError(f"{fn_name} kernel takes contiguous, 16-byte "
                          f"aligned tensors")
     scalars = (N, V, D, valid_vocab, *(() if splits is None else (splits,)),
-               int(h.dtype == torch.bfloat16))
+               int(h.dtype == torch.bfloat16), *plan)
     _kernels.launch("fused_ce", fn_name, (*inputs, *outputs), scalars,
                     h.device)
     globals()[counter] += 1
@@ -201,6 +306,15 @@ def fused_ce_fwd(h, w, tgt, valid_vocab: int
     return nll, lse
 
 
+def _plan_ints(h, rows: int) -> Tuple[int, int, int]:
+    """(k, c, slices) of the bf16 backward's plan; the f32 kernels take
+    no plan (zeros)."""
+    if h.dtype != torch.bfloat16:
+        return 0, 0, 0
+    plan = fused_ce_bwd_plan(h.shape[1], rows)
+    return plan.k, plan.c, plan.slices
+
+
 def fused_ce_bwd_dh(h, w, tgt, lse, g, valid_vocab: int) -> torch.Tensor:
     """dH (N, D) float32 from the forward's lse and the cotangent g,
     (N,) float32 each.  CPU tensors take the plain version; CUDA
@@ -210,7 +324,8 @@ def fused_ce_bwd_dh(h, w, tgt, lse, g, valid_vocab: int) -> torch.Tensor:
         return fused_ce_bwd_dh_reference(h, w, tgt, lse, g, valid_vocab)
     dh = torch.empty(h.shape, dtype=torch.float32, device=h.device)
     _launch("fused_ce_bwd_dh", "FUSED_CE_BWD_DH_LAUNCHES",
-            (h, w, tgt, lse, g), (dh,), valid_vocab)
+            (h, w, tgt, lse, g), (dh,), valid_vocab,
+            plan=_plan_ints(h, h.shape[0]))
     return dh
 
 
@@ -222,7 +337,8 @@ def fused_ce_bwd_dw(h, w, tgt, lse, g, valid_vocab: int) -> torch.Tensor:
         return fused_ce_bwd_dw_reference(h, w, tgt, lse, g, valid_vocab)
     dw = torch.empty(w.shape, dtype=torch.float32, device=h.device)
     _launch("fused_ce_bwd_dw", "FUSED_CE_BWD_DW_LAUNCHES",
-            (h, w, tgt, lse, g), (dw,), valid_vocab)
+            (h, w, tgt, lse, g), (dw,), valid_vocab,
+            plan=_plan_ints(h, w.shape[0]))
     return dw
 
 

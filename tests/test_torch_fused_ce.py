@@ -180,3 +180,64 @@ def test_cpu_tensors_take_the_plain_version():
                 compute_dtype=torch.float32).sum().backward()
     assert (tfc.FUSED_CE_FWD_LAUNCHES, tfc.FUSED_CE_BWD_DH_LAUNCHES,
             tfc.FUSED_CE_BWD_DW_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("d", [64, 768, 1024, 1088, 1280, 2048, 4096, 5120,
+                               8192, 8256, 16384])
+def test_backward_launch_plan_covers_d(d):
+    """fused_ce_bwd_plan, the one plan of the bf16 dH/dW launches: every
+    box of 64 columns is owned by exactly one (cluster rank, grid-y
+    slice), clusters have at most 8 CTAs (16 only above D = 8192) and
+    each CTA at most 12 output boxes; up to D = 1024 the resident
+    kernel's slicing is as it was (slices of at most 12 boxes, as even
+    as can be, no cluster)."""
+    boxes = d // 64
+    for rows in (1, 64, 65, 16384):
+        plan = tfc.fused_ce_bwd_plan(d, rows)
+        # the output boxes of rank q in slice y, as the kernels take them
+        owned = [b for q in range(plan.k) for y in range(plan.slices)
+                 for b in range(q * plan.sc + y * plan.c,
+                                min(q * plan.sc + (y + 1) * plan.c, boxes))]
+        assert sorted(owned) == list(range(boxes))
+        assert 1 <= plan.k <= (8 if d <= 8192 else tfc.BWD_MAX_CLUSTER)
+        assert 1 <= plan.c <= 12
+        assert plan.grid == (-(-rows // tfc.BWD_BLOCK_ROWS) * plan.k,
+                             plan.slices)
+        if d <= 1024:
+            slices = -(-boxes // 12)
+            assert plan == tfc.BwdPlan("resident", 1, -(-boxes // slices),
+                                       slices, boxes, plan.grid)
+        else:
+            assert plan.kernel == "cluster" and plan.k > 1
+            # the cluster's chunks cover D, and at most half of its CTAs
+            # hold no column of it
+            assert (plan.k // 2) * plan.sc < boxes <= plan.k * plan.sc
+            assert (plan.k, plan.c, plan.sc) in tfc._CLUSTER_SHAPES
+
+
+def test_backward_launch_plan_refuses_what_no_kernel_runs():
+    with pytest.raises(ValueError, match="multiple of 64"):
+        tfc.fused_ce_bwd_plan(96, 128)
+    with pytest.raises(ValueError, match="up to 16384"):
+        tfc.fused_ce_bwd_plan(16448, 128)
+
+
+def test_kernel_tables_are_the_launch_plans():
+    """csrc/fused_ce.cu instantiates the bf16 backward from the header
+    that kernel_plans_header writes: one resident row (D / 64, c,
+    slices) for each D up to 1024, equal to its launch plan, and the
+    cluster rows of every plan above it."""
+    import re
+
+    text = tfc.kernel_plans_header()
+    tables = {name: [tuple(map(int, r.split(", "))) for r in
+                     re.findall(r"\{(\d+, \d+, \d+)\}", body)]
+              for name, body in re.findall(r"int (\w+)\[\]\[3\] = (.*);",
+                                           text)}
+    assert [r[0] for r in tables["kResidentPlans"]] == list(range(1, 17))
+    for boxes, c, slices in tables["kResidentPlans"]:
+        plan = tfc.fused_ce_bwd_plan(64 * boxes, 128)
+        assert (plan.kernel, plan.c, plan.slices) == ("resident", c, slices)
+    used = {(p.k, p.c, p.sc) for p in (tfc.fused_ce_bwd_plan(64 * b, 128)
+                                       for b in range(17, 257))}
+    assert used == set(tables["kClusterShapes"])

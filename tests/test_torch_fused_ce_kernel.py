@@ -52,11 +52,17 @@ SHAPES = [
     (130, 513, 500, 128),        # N = 130: a 2-row last R block and C
                                  # tile; V = 513: a 1-row last block of w
     (8, 128, 100, 1088),         # 17 boxes: the first D past the
-                                 # backward's resident R block (wide
-                                 # kernel, two slices of 12 + 5 boxes)
-    (300, 4096, 4000, 1280),     # gpt2-large's width
-    (200, 2000, 1990, 2048),     # llama-1b's width: slices 12, 12, 8
-    (130, 1000, 990, 4096),      # llama-7b's width: 64 boxes, 6 slices
+                                 # backward's resident R block (cluster
+                                 # kernel, 2 CTAs of 10 boxes, the last
+                                 # ragged: 7 boxes past D read as zeros)
+    (300, 4096, 4000, 1280),     # gpt2-large's width: 2 CTAs of 10
+    (200, 2000, 1990, 2048),     # llama-1b's width: 4 CTAs of 8
+    (130, 1000, 990, 4096),      # llama-7b's width: 8 CTAs of 8
+    (33, 130, 123, 5120),        # past 8 CTAs x 8 boxes: 8 CTAs of 16,
+                                 # each owning 8 in each of two slices;
+                                 # the last three hold no column of D
+    (70, 200, 190, 8192),        # llama-70b's width: 8 CTAs of 16, full
+    (70, 200, 190, 16384),       # past 8 CTAs x 16 boxes: 16 CTAs of 16
 ]
 
 
@@ -134,11 +140,13 @@ def test_kernels_match_plain_version(cuda_device, dtype, n, v, valid, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [768, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_kernels_are_deterministic(cuda_device, dtype):
-    """Each output element is summed by one CTA in one fixed order: two
-    launches on the same inputs give the same bits."""
-    h, w, tgt, g = _inputs(cuda_device, 300, 4096, 4000, 768, dtype)
+def test_backward_kernels_are_deterministic(cuda_device, dtype, d):
+    """Each output element is summed by one CTA in one fixed order (at
+    D = 2048 in bf16 the cluster's partial logits are summed in rank
+    order): two launches on the same inputs give the same bits."""
+    h, w, tgt, g = _inputs(cuda_device, 300, 4096, 4000, d, dtype)
     _, lse = tfc.fused_ce_fwd(h, w, tgt, 4000)
     first = (tfc.fused_ce_bwd_dh(h, w, tgt, lse, g, 4000),
              tfc.fused_ce_bwd_dw(h, w, tgt, lse, g, 4000))
@@ -166,10 +174,12 @@ def test_forward_kernel_is_deterministic(cuda_device, dtype, n, v, valid, d):
 
 
 @pytest.mark.cuda
-def test_autograd_runs_each_kernel_once(cuda_device):
+@pytest.mark.parametrize("d", [768, 2048])
+def test_autograd_runs_each_kernel_once(cuda_device, d):
     """bf16 hidden and the f32 master table, as the training step gives
-    them: one launch of each kernel, dhidden in bf16, dwte in f32."""
-    h, w, tgt, _ = _inputs(cuda_device, 256, 1000, 990, 768, torch.float32)
+    them: one launch of each kernel (at D = 2048 dH and dW through the
+    cluster kernel), dhidden in bf16, dwte in f32."""
+    h, w, tgt, _ = _inputs(cuda_device, 256, 1000, 990, d, torch.float32)
     hidden = h.to(torch.bfloat16).requires_grad_(True)
     wte = w.requires_grad_(True)
     before = _counts()
