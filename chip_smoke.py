@@ -76,7 +76,24 @@ Phases, each fatal on failure (any failure exits non-zero):
             as in phase 6, the flash kernels held against their plain
             versions at the shape the prefill gives them (B=8, H=32,
             T=512, D=64).
-10. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
+10. serve-continuous — llama-1b through the continuous scheduler
+            (build_llm_deployment(scheduler="continuous")): 16 requests,
+            8 sharing a 256-token prefix and 8 cold, 24 new tokens each,
+            greedy, in two waves (12, then 4 once the first reply is
+            back), through four f32 engines of 4 slots (dense; paged in
+            a 65-block pool, which requeues and evicts; the same with
+            chunked prefill of 128 tokens; the same with a host KV
+            tier), each request held against the solo dense f32
+            llama_generate of its prompt (token for token, or parted at
+            a near-tie of the oracle's own logits, printed), the pager
+            empty after each paged run, prefix hits and requeues in the
+            second, tier restores in the fourth; then bf16 timing, 32
+            such requests at once through a paged engine of 8 slots and
+            through the batch scheduler, in turns: served tokens/s,
+            request latency p50/p95, prefix hit rate, evictions.  The
+            engines launch no kernel (their prefills and decode are
+            plain PyTorch), which the kernels line records.
+11. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
             whole block, ce_impl="pallas": a warm-up and 5 timed steps
             (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
             dQ and 16 dK/dV launches and 1 of each fused-CE kernel per
@@ -89,7 +106,7 @@ Phases, each fatal on failure (any failure exits non-zero):
             kernels at its attention (B=8, H=32, T=2048, D=64) held
             against their plain versions and timed beside their bounds,
             the dense composition and SDPA.
-11. llama-7b — llama-7b's width (d_model 4096, 32 heads of 128) cut to
+12. llama-7b — llama-7b's width (d_model 4096, 32 heads of 128) cut to
             2 layers: a dense and a pallas step at B=2, T=2048 checked
             against each other, the flash kernels held against their
             plain versions at the shape these steps give them (B=2,
@@ -1921,6 +1938,322 @@ def phase_llama_7b(torch, fa, fc, card: str) -> dict:
             "prefill_flash_vs_plain": prefill_check}
 
 
+# phase serve-continuous: llama-1b through the continuous scheduler.
+# The request set P: CONT_N requests, half of them a CONT_PREFIX-token
+# shared prefix (16 blocks of 16) plus a tail of 16-128 tokens, half cold
+# with 64-384 tokens, lengths from a seeded RandomState
+# (continuous_prompts); CONT_WAVE1 of them first, the rest once the
+# first reply is back.
+CONT_N, CONT_WAVE1, CONT_PREFIX = 16, 12, 256
+CONT_MAX_NEW, CONT_BUCKET, CONT_BLOCK = 24, 64, 16
+#: the f32 gate's engines: 4 slots; paged pools of CONT_F32_BLOCKS blocks
+#: hold at most two of the longest requests (26 blocks each), so
+#: admission requeues and the LRU evicts.  A pool must hold one full
+#: sequence (BlockPager), so the gate cuts the cache to CONT_MAX_SEQ
+#: positions (llama-1b's 2048 would need 129 blocks); every prompt and
+#: its continuation fits far below it
+CONT_SLOTS, CONT_F32_BLOCKS, CONT_MAX_SEQ, CONT_CHUNK = 4, 65, 1024, 128
+#: a greedy token may part from the oracle's only at a near-tie: where
+#: the oracle's own f32 logits of the two tokens lie within this
+#: fraction of the row's max |logit| (the engines' bucket-padded and
+#: paged prefills sum in other orders than the solo prefill)
+CONT_NEAR_TIE = 1e-4
+#: the bf16 timing: requests drawn as P, all submitted at once, through
+#: CONT_TIMED_SLOTS slots (default pool, max_seq 2048) and through the
+#: batch scheduler (max_batch_size the same), in turns
+CONT_TIMED_N, CONT_TIMED_SLOTS, CONT_TURNS = 32, 8, 2
+
+
+def continuous_prompts(np, vocab: int, n: int, seed: int) -> list:
+    """P, in order: a quarter of the shared-prefix prompts, the cold
+    half, then the other shared quarter — the prefix comes back after
+    a burst of cold traffic has pushed it down the LRU.  The lengths
+    are drawn first, so they (and with them the pager's counts) do not
+    depend on the vocabulary."""
+    rs = np.random.RandomState(seed)
+    tails = rs.randint(16, 129, n // 2)
+    colds = rs.randint(64, 385, n // 2)
+    prefix = rs.randint(0, vocab, CONT_PREFIX)
+    shared = [np.concatenate([prefix, rs.randint(0, vocab, t)]).astype(
+        np.int32) for t in tails]
+    cold = [rs.randint(0, vocab, c).astype(np.int32) for c in colds]
+    return shared[:n // 4] + cold + shared[n // 4:]
+
+
+async def _serve_waves(engine, prompts, wave1: int) -> tuple:
+    """prompts[:wave1] at once, the rest once the first reply is back:
+    (replies, seconds from each request's submission to its reply).
+    A request that raises fails the run."""
+    sent, done = {}, {}
+
+    async def one(i):
+        sent[i] = time.perf_counter()
+        out = await engine(prompts[i])
+        done[i] = time.perf_counter()
+        return out
+
+    try:
+        first = [asyncio.ensure_future(one(i)) for i in range(wave1)]
+        rest = []
+        if wave1 < len(prompts):
+            await asyncio.wait(first, return_when=asyncio.FIRST_COMPLETED)
+            rest = [asyncio.ensure_future(one(i))
+                    for i in range(wave1, len(prompts))]
+        outs = await asyncio.gather(*first, *rest)
+    finally:
+        if hasattr(engine, "shutdown_engine"):
+            engine.shutdown_engine()
+    return outs, [done[i] - sent[i] for i in range(len(prompts))]
+
+
+def check_replies(np, prompts, outs, max_new: int, vocab: int,
+                  tag: str) -> None:
+    for p, o in zip(prompts, outs):
+        if o.shape != (len(p) + max_new,) or \
+                not np.array_equal(o[:len(p)], p):
+            fail(f"[{tag}] reply of shape {o.shape} does not extend its "
+                 f"{len(p)}-token prompt by {max_new} tokens")
+        if o.min() < 0 or o.max() >= vocab:
+            fail(f"[{tag}] reply holds a token outside the vocabulary")
+
+
+def oracle_logits(torch, params, cfg, prompt, tokens):
+    """The solo dense f32 generation's own logits row at each of its
+    steps (its prefill, then decode steps fed its own tokens): the loop
+    of decode_common.generate_with, replayed."""
+    from ray_tpu_torch.models import llama_decode as m
+
+    toks = torch.from_numpy(prompt)[None].to(params["wte"].device)
+    logits, cache = m.llama_prefill(params, toks, cfg)
+    rows = [logits[0]]
+    for t in tokens[:-1]:
+        tok = torch.tensor([int(t)], dtype=torch.int32, device=toks.device)
+        logits, cache = m.llama_decode_step(params, cache, tok, cfg)
+        rows.append(logits[0])
+    return torch.stack(rows)
+
+
+def gate_against_oracle(torch, np, params, cfg, prompts, outs, oracle,
+                        tag: str) -> list:
+    """Each reply token for token equal to the oracle's, or parted at
+    a near-tie of the oracle's own logits (printed).  Returns the
+    near-ties."""
+    ties = []
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        want = oracle[i][len(p):]
+        got = o[len(p):]
+        diff = np.nonzero(got != want)[0]
+        if not diff.size:
+            continue
+        j = int(diff[0])
+        row = oracle_logits(torch, params, cfg, p, want)[j]
+        a, b = int(want[j]), int(got[j])
+        gap = abs(row[a] - row[b]).item()
+        scale = row.abs().max().item()
+        print(f"[serve-continuous] {tag} request {i}: token {j} is {b}, "
+              f"the oracle's {a}; oracle logits {row[a].item():.6f} vs "
+              f"{row[b].item():.6f}, gap {gap:.3e} (near-tie bound "
+              f"{CONT_NEAR_TIE * scale:.3e} = {CONT_NEAR_TIE} x max|logit| "
+              f"{scale:.3f})", flush=True)
+        if gap > CONT_NEAR_TIE * scale:
+            fail(f"[serve-continuous] {tag} request {i} parts from the "
+                 f"solo dense oracle at token {j} beyond a near-tie")
+        ties.append({"engine": tag, "request": i, "token": j,
+                     "gap": gap, "bound": CONT_NEAR_TIE * scale})
+    return ties
+
+
+def _pcts(xs) -> dict:
+    s = sorted(xs)
+    return {"p50_ms": s[len(s) // 2] * 1e3,
+            "p95_ms": s[min(len(s) - 1, round(0.95 * (len(s) - 1)))] * 1e3}
+
+
+def phase_serve_continuous(torch, np, fa, card: str, preset="llama-1b",
+                           device="cuda", widths=None) -> dict:
+    """The continuous scheduler on llama-1b: the f32 correctness gate
+    (P through a dense engine and three paged ones: a pool that
+    requeues and evicts, the same with chunked prefill, the same with a
+    host KV tier), each request held against the solo dense f32
+    llama_generate of its prompt; then bf16 timing against the batch
+    scheduler.  ``widths`` (config overrides) and ``device`` let the
+    phase run cut down elsewhere; the smoke run leaves them.  Returns
+    the kernel launches of the engine runs (none expected: the path
+    runs plain PyTorch) and the numbers."""
+    from ray_tpu_torch.models.llama_decode import llama_generate
+    from ray_tpu_torch.serve import build_llm_deployment
+
+    dev = torch.device(device)
+    widths = dict(widths or {})
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    launches = {}
+
+    def drive(engine, prompts, wave1):
+        zero_counts(fa)
+        out = asyncio.run(_serve_waves(engine, prompts, wave1))
+        sync()
+        for k, v in read_counts(fa).items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    common = dict(scheduler="continuous", max_new_tokens=CONT_MAX_NEW,
+                  prefill_bucket=CONT_BUCKET, seed=0, device=dev)
+    f32 = dict(widths, dtype=torch.float32, max_seq=CONT_MAX_SEQ)
+    paged = dict(kv_layout="paged", kv_block_size=CONT_BLOCK,
+                 kv_num_blocks=CONT_F32_BLOCKS)
+    engines = {"a dense": dict(kv_layout="dense"),
+               "b paged": paged,
+               "c paged+chunk": dict(paged,
+                                     prefill_chunk_tokens=CONT_CHUNK),
+               "d paged+tier": dict(paged, kv_host_tier_bytes=None)}
+    ties, kv = [], {}
+    oracle = params = cfg = prompts = None
+    for tag, kw in engines.items():
+        if tag.startswith("d"):
+            # room for every block the pool could ever evict here: all
+            # of P's prompt blocks, at the pool's bytes per block
+            per_block = kv["b paged"]["kv_cache"]["pool_bytes"] \
+                // CONT_F32_BLOCKS
+            kw["kv_host_tier_bytes"] = per_block * sum(
+                len(p) // CONT_BLOCK for p in prompts)
+        engine = build_llm_deployment(
+            "llama", preset, max_slots=CONT_SLOTS, config_overrides=f32,
+            **common, **kw)()
+        if oracle is None:
+            cfg, params = engine.cfg, engine.params
+            prompts = continuous_prompts(np, cfg.vocab_size, CONT_N, seed=5)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                oracle = [llama_generate(
+                    params, torch.from_numpy(p)[None].to(dev), cfg,
+                    max_new_tokens=CONT_MAX_NEW, temperature=0.0)[0]
+                    .cpu().numpy() for p in prompts]
+            print(f"[serve-continuous] llama {preset} f32 (max_seq "
+                  f"{cfg.max_seq}): {CONT_N} prompts of "
+                  f"{min(map(len, prompts))}-{max(map(len, prompts))} "
+                  f"tokens ({CONT_N // 2} sharing a {CONT_PREFIX}-token "
+                  f"prefix), +{CONT_MAX_NEW}; solo dense oracle in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        outs, _ = drive(engine, prompts, CONT_WAVE1)
+        wall = time.perf_counter() - t0
+        check_replies(np, prompts, outs, CONT_MAX_NEW, cfg.vocab_size, tag)
+        ties += gate_against_oracle(torch, np, params, cfg, prompts, outs,
+                                    oracle, tag)
+        kv[tag] = stats = engine.kv_stats()
+        line = (f"[serve-continuous] f32 engine ({tag}): {CONT_N} "
+                f"requests in {wall:.2f} s, all equal to the oracle or "
+                f"parted at a near-tie")
+        if stats["kv_cache"] is not None:
+            c, t = stats["kv_cache"], stats["kv_tier"]
+            line += (f"; blocks in use after {c['blocks_in_use']}, prefix "
+                     f"block hits {c['prefix_block_hits']} (rate "
+                     f"{c['prefix_hit_rate']}), evictions {c['evictions']}"
+                     f", requeues {stats['requeues']}, cow copies "
+                     f"{c['cow_copies']}, partial fills "
+                     f"{c['partial_fills']}; tier saves {t['saves']}, "
+                     f"hits {t['hits']}, tokens restored "
+                     f"{t['tokens_restored']}")
+            if c["blocks_in_use"]:
+                fail(f"[serve-continuous] {tag}: {c['blocks_in_use']} "
+                     "blocks still in use after every request finished")
+        print(line + f" [{card}]", flush=True)
+        del engine
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    b, d = kv["b paged"], kv["d paged+tier"]
+    if b["kv_cache"]["prefix_block_hits"] < CONT_PREFIX // CONT_BLOCK or \
+            b["requeues"] < 1:
+        fail("[serve-continuous] run (b) shows "
+             f"{b['kv_cache']['prefix_block_hits']} prefix block hits "
+             f"and {b['requeues']} requeues; expected >= "
+             f"{CONT_PREFIX // CONT_BLOCK} and >= 1")
+    if d["kv_tier"]["hits"] < 1:
+        fail("[serve-continuous] run (d) restored nothing from the host "
+             "tier")
+    del params
+    timing = time_continuous(torch, np, preset, dev, widths, card, drive,
+                             sync)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[serve-continuous] kernel launches of the engine runs: "
+          f"{launches} (the path runs plain PyTorch) [{card}]", flush=True)
+    if any(launches.values()):
+        fail("[serve-continuous] the continuous engine launched a kernel; "
+             "its prefills (ragged, paged) and decode are plain PyTorch")
+    return {"counts": launches, "near_ties": ties,
+            "kv": {k: {"kv_cache": v["kv_cache"], "requeues": v["requeues"],
+                       "kv_tier": v["kv_tier"]} for k, v in kv.items()},
+            **timing}
+
+
+def time_continuous(torch, np, preset, dev, widths, card, drive,
+                    sync) -> dict:
+    """bf16: CONT_TIMED_N requests drawn as P, all at once, through a
+    fresh paged continuous engine (default pool) and through the batch
+    scheduler, in turns (continuous, batch, batch, continuous, ...):
+    served tokens/s, request latency p50/p95; prefix hit rate and
+    evictions of each continuous run."""
+    from ray_tpu_torch.serve import build_llm_deployment
+
+    batch = build_llm_deployment(
+        "llama", preset, max_new_tokens=CONT_MAX_NEW,
+        max_batch_size=CONT_TIMED_SLOTS, seed=0, device=dev,
+        config_overrides=widths)()
+    cfg = batch.cfg
+    prompts = continuous_prompts(np, cfg.vocab_size, CONT_TIMED_N, seed=6)
+    n_tok = CONT_TIMED_N * CONT_MAX_NEW
+
+    def continuous():
+        return build_llm_deployment(
+            "llama", preset, scheduler="continuous", kv_layout="paged",
+            kv_block_size=CONT_BLOCK, max_slots=CONT_TIMED_SLOTS,
+            max_new_tokens=CONT_MAX_NEW, prefill_bucket=CONT_BUCKET, seed=0,
+            device=dev, config_overrides=widths)()
+
+    # warm-up of both (cuBLAS handles, allocator pools), not timed
+    for engine in (continuous(), batch):
+        outs, _ = asyncio.run(_serve_waves(engine, prompts[:8], 8))
+        check_replies(np, prompts[:8], outs, CONT_MAX_NEW, cfg.vocab_size,
+                      "warm-up")
+        del engine
+    runs = {"continuous": [], "batch": []}
+    order = ["continuous", "batch", "batch", "continuous"]
+    for name in order * (CONT_TURNS // 2):
+        engine = continuous() if name == "continuous" else batch
+        sync()
+        t0 = time.perf_counter()
+        if name == "continuous":
+            outs, lat = drive(engine, prompts, CONT_TIMED_N)
+        else:
+            outs, lat = asyncio.run(_serve_waves(engine, prompts,
+                                                 CONT_TIMED_N))
+            sync()
+        wall = time.perf_counter() - t0
+        check_replies(np, prompts, outs, CONT_MAX_NEW, cfg.vocab_size, name)
+        run = {"tokens_per_s": n_tok / wall, "wall_s": wall, **_pcts(lat)}
+        if name == "continuous":
+            c = engine.kv_stats()["kv_cache"]
+            run.update(prefix_hit_rate=c["prefix_hit_rate"],
+                       evictions=c["evictions"],
+                       prefix_block_hits=c["prefix_block_hits"])
+            del engine
+        runs[name].append(run)
+        print(f"[serve-continuous] bf16 {name}: {CONT_TIMED_N} requests "
+              f"(+{CONT_MAX_NEW} each), {run['tokens_per_s']:.1f} served "
+              f"tokens/s, request latency p50 {run['p50_ms']:.1f} ms, p95 "
+              f"{run['p95_ms']:.1f} ms"
+              + (f", prefix hit rate {run['prefix_hit_rate']}, evictions "
+                 f"{run['evictions']}" if name == "continuous" else "")
+              + f" [{card}]", flush=True)
+    del batch
+    return {"timed": runs}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1944,6 +2277,8 @@ def main() -> int:
     train = phase_train(torch, fa, card)
     train_ce = phase_train_ce(torch, fa, card)
     serve_llama = phase_serve(torch, np, fa, card, "llama", "serve-llama")
+    with torch.inference_mode():
+        serve_cont = phase_serve_continuous(torch, np, fa, card)
     train_llama = phase_train_llama(torch, fa, fc, card)
     llama_7b = phase_llama_7b(torch, fa, fc, card)
 
@@ -1952,6 +2287,7 @@ def main() -> int:
                    "train": train["counts"].get(name, 0),
                    "train_pallas": train_ce["counts"][name],
                    "serve_llama": serve_llama["counts"].get(name, 0),
+                   "serve_continuous": serve_cont["counts"].get(name, 0),
                    "train_llama": train_llama["counts"][name]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path,

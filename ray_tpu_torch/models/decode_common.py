@@ -32,7 +32,7 @@ attention numerics are bit-identical between layouts and the dense
 layout stays the parity oracle.  Where the JAX package updates the pool
 functionally (``.at[].set``), the port writes it in place, as the dense
 path does.  The host-side pager and the continuous engine that drive
-the pool are ROADMAP.md queue 1 item 3.
+the pool are ``serve/kv_pager.py`` and ``serve/llm.py``.
 
 JAX threads ``jax.random`` keys; the port draws from a
 ``torch.Generator``.  The two give different numbers from one seed, so

@@ -416,7 +416,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
 
     def to3(x):
-        return x.transpose(1, 2).reshape(B * H, T, D)
+        # at B = 1 the reshape is a strided view, not a copy
+        return x.transpose(1, 2).reshape(B * H, T, D).contiguous()
 
     o3 = _FlashAttention.apply(to3(q), to3(k), to3(v), scale, causal)
     return o3.reshape(B, H, T, D).transpose(1, 2)

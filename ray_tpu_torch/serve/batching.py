@@ -1,10 +1,15 @@
-"""@batch: transparent request batching inside a replica.
+"""@batch: transparent request batching inside a replica, and the
+continuous scheduler's queue and chunk cursor.
 
-A copy of ``batch`` and ``_BatchQueue`` from ``ray_tpu/serve/batching.py``
-(pure asyncio; the port keeps its own copy rather than importing the
-JAX package), which also keeps each running batch task referenced
-until it finishes.  Concurrent calls are collected into one list call, so
-the model runs one batched generation for many callers.
+Copies of ``batch`` and ``_BatchQueue`` (which here also keeps each
+running batch task referenced until it finishes), ``ChunkCursor``,
+``RequestQueue`` and ``OverloadedError`` from
+``ray_tpu/serve/batching.py`` (pure asyncio; the port keeps its own
+copy rather than importing the JAX package).  Concurrent calls are
+collected into one list call, so the model runs one batched generation
+for many callers.  ``HandoffCursor`` (prefill/decode roles) and
+``AdmissionPolicy`` wait for their slices (ROADMAP.md queue 1 items 3
+and 4).
 
 Usage (async methods only — batching needs an event loop to park
 pending callers on):
@@ -21,7 +26,41 @@ from __future__ import annotations
 
 import asyncio
 import functools
+from dataclasses import dataclass
 from typing import Callable, List, Optional, Set
+
+
+@dataclass
+class ChunkCursor:
+    """Progress cursor for chunked streaming prefill (serve/llm.py):
+    a queued long prompt is admitted once but filled over several
+    block-aligned ``paged_prefill`` calls interleaved with decode
+    waves, and the engine's slot record carries this cursor between
+    waves.  ``filled`` counts prompt tokens already resident in KV
+    blocks (including any reused prefix), so the next chunk's call
+    gets ``prefix_len == filled``."""
+
+    total: int          # prompt length in tokens
+    chunk_tokens: int   # scheduler budget per prefill turn
+    filled: int = 0     # tokens already written to KV blocks
+    chunks_done: int = 0
+
+    @property
+    def remaining(self) -> int:
+        return self.total - self.filled
+
+    @property
+    def done(self) -> bool:
+        return self.filled >= self.total
+
+    def next_chunk(self) -> int:
+        """Token count for the next prefill call (last one may be
+        short)."""
+        return min(self.chunk_tokens, self.remaining)
+
+    def advance(self, n: int) -> None:
+        self.filled += n
+        self.chunks_done += 1
 
 
 class _BatchQueue:
@@ -129,3 +168,42 @@ def batch(_func: Optional[Callable] = None, *, max_batch_size: int = 8,
         return wrapper
 
     return wrap(_func) if _func is not None else wrap
+
+
+class RequestQueue:
+    """FIFO admission queue for slot-based continuous batching
+    (serve/llm.py): callers enqueue one request and await its future;
+    the scheduler pops up to n pending requests whenever cache slots
+    free up.  The complement of @batch — that collects FIXED batches
+    and runs them to completion, this hands out work as capacity
+    appears mid-flight."""
+
+    def __init__(self):
+        self._pending: List = []  # (arg, future)
+
+    def put(self, arg) -> "asyncio.Future":
+        fut = asyncio.get_running_loop().create_future()
+        self._pending.append((arg, fut))
+        return fut
+
+    def pop(self, n: int) -> List:
+        """Up to n oldest (arg, future) pairs, removed from the queue."""
+        taken, self._pending = self._pending[:n], self._pending[n:]
+        return taken
+
+    def push_front(self, arg, fut) -> None:
+        """Return a popped (arg, future) pair to the HEAD of the queue
+        — used when admission pops a request but cannot place it yet
+        (e.g. the KV block pool is exhausted until a retirement), so
+        FIFO order survives the retry."""
+        self._pending.insert(0, (arg, fut))
+
+    def __len__(self) -> int:
+        return len(self._pending)
+
+
+class OverloadedError(Exception):
+    """Raised to a caller whose request was load-shed at admission.
+    Callers should back off and retry; proxies map this to HTTP 503.
+    Nothing in the port raises it until the admission policy
+    (ROADMAP.md queue 1 item 4) is ported."""

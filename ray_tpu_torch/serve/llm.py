@@ -1,31 +1,55 @@
-"""LM serving engine: GPT-2 or llama generation behind request batching.
+"""LM serving engine: GPT-2 or llama generation behind a scheduler.
 
-Counterpart of the "batch" scheduler of ``ray_tpu/serve/llm.py``'s
-``build_llm_deployment``: concurrent requests are collected by
-``@batch`` into one generation.  Equal-length micro-batches take the
-fast path (one batched prefill through the flash kernel on CUDA);
-ragged ones are left-padded and trimmed back on return.
+Counterpart of ``ray_tpu/serve/llm.py``'s ``build_llm_deployment``.
+Two schedulers:
+
+  * "batch" — ``@batch`` micro-batching: concurrent requests are
+    collected into one generation and run to completion together.
+    Equal-length micro-batches take the fast path (one batched prefill
+    through the flash kernel on CUDA); ragged ones are left-padded and
+    trimmed back on return.
+  * "continuous" — slot-based continuous batching: a fixed pool of
+    ``max_slots`` KV-cache rows.  Each admitted request gets one
+    prefill into a free slot; all decoding slots then share one decode
+    step per token.  Finished sequences free their slot at once and
+    queued requests are admitted mid-flight.  With
+    ``kv_layout="paged"`` the rows are block tables into one shared
+    block pool managed by ``serve/kv_pager.py``: resident prompt
+    prefixes are reused instead of re-prefilled, a shared write
+    boundary is forked copy-on-write, the LRU evicts cold prefixes,
+    long prompts can be prefilled in chunks between decode waves
+    (``prefill_chunk_tokens``) and evicted blocks can spill to a host
+    RAM tier (``kv_host_tier_bytes``, ``serve/kv_tier.py``).
+
+The reference's jitted engine programs are plain functions here
+(``_engine_fns``) that update the pool in place.  The engine loop runs
+the device work synchronously inside asyncio, as the reference does,
+and fences the host once per decode wave.
 
 ``build_llm_deployment`` takes every keyword of the reference's and
-validates them in its order: the combinations it rejects under "batch"
-(paged KV, split roles, a mesh, speculative decoding, chunked prefill,
-the host KV tier, an SLO) raise the same ValueError here.  Not ported
-yet, each raising NotImplementedError that names its ROADMAP.md item:
-``scheduler="continuous"`` (queue 1 item 3: the slot-pool engine, its
-pager, speculative decoding and prefill/decode roles; with a mesh, item
-7), and the serve runtime that wraps engines in deployments and
-handles, and so ``num_replicas`` > 1 (item 5).  Telemetry (item 4) has
-no keyword here.  The keywords that only the continuous scheduler reads
-(``stop_sequences``, ``eos_id``, ``max_slots``, ``prefill_bucket``,
-``kv_block_size``, ``kv_num_blocks``, ``admission_policy``) are
-validated and ignored under "batch", as in the reference.  Here the
-engine class itself is the deployment: ``await engine(prompt)`` answers
-one request.
+validates them in its order: the combinations the reference rejects
+raise the same ValueError here.  Not ported yet, each raising
+NotImplementedError that names its ROADMAP.md item: prefill/decode
+roles (``role`` other than "both", and so ``handoff_staged``) and
+speculative decoding (queue 1 item 3's rest; any ``spec_decode`` is of
+a type the reference rejects, since the port has no ``SpecConfig``),
+``admission_policy`` and the engine telemetry (item 4), the serve
+runtime that wraps engines in deployments and handles, and so
+``num_replicas`` > 1 (item 5), and a ``mesh`` (item 7).  Under "batch"
+the keywords only the continuous scheduler reads (``stop_sequences``,
+``eos_id``, ``max_slots``, ``prefill_bucket``, ``kv_block_size``,
+``kv_num_blocks``, ``admission_policy``) are validated and ignored, as
+in the reference.  Here the engine class itself is the deployment:
+``await engine(prompt)`` answers one request.
 """
 
 from __future__ import annotations
 
+import asyncio
+import itertools
 import pickle
+import time
+import types
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -35,13 +59,24 @@ from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models import gpt2_decode, llama_decode
 from ray_tpu_torch.models.convert import (gpt2_params_from_numpy,
                                           llama_params_from_numpy)
-from ray_tpu_torch.models.decode_common import SamplingParams
+from ray_tpu_torch.models.decode_common import (SamplingParams,
+                                                copy_block,
+                                                make_vocab_tail_mask,
+                                                sample_token)
 from ray_tpu_torch.models.gpt2 import gpt2_config, gpt2_init
 from ray_tpu_torch.models.llama import llama_config, llama_init
+from ray_tpu_torch.serve.batching import ChunkCursor, RequestQueue
 from ray_tpu_torch.serve.batching import batch as _batch
+from ray_tpu_torch.serve.kv_pager import BlockPager
+from ray_tpu_torch.serve.kv_tier import (HostKVTier, empty_kv_tier,
+                                         staging_buffers)
+from ray_tpu_torch.serve.kvscope import empty_kv_scope
 
 _ROADMAP_ITEM = {
-    "continuous": "queue 1 item 3 (continuous scheduler with paged KV)",
+    "roles": "queue 1 item 3 (the rest of the continuous scheduler: "
+             "speculative decoding and prefill/decode roles)",
+    "telemetry": "queue 1 item 4 (engine telemetry, engine_stats and "
+                 "the admission policy)",
     "runtime": "queue 1 item 5 (the serve runtime: deployments, "
                "replicas, router)",
     "mesh": "queue 1 item 7 (parallel/ and mesh-sharded serving)",
@@ -54,15 +89,110 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{_ROADMAP_ITEM[item]}")
 
 
-def _family_fns(family: str):
-    """(config_fn, init_fn, generate_fn, params_from_numpy_fn) of a
-    decoder family: the part of the reference's ``_family_fns`` that
-    the batch scheduler uses."""
+def _family_fns(family: str) -> types.SimpleNamespace:
+    """The functions of a decoder family that the engine uses (the
+    reference's ``_family_fns``)."""
     if family == "gpt2":
-        return (gpt2_config, gpt2_init, gpt2_decode.generate,
-                gpt2_params_from_numpy)
-    return (llama_config, llama_init, llama_decode.llama_generate,
-            llama_params_from_numpy)
+        m = gpt2_decode
+        return types.SimpleNamespace(
+            config=gpt2_config, init=gpt2_init, generate=m.generate,
+            from_numpy=gpt2_params_from_numpy, prefill=m.prefill,
+            step=m.decode_step, init_cache=m.init_cache,
+            init_paged_cache=m.init_paged_cache,
+            paged_prefill=m.paged_prefill)
+    m = llama_decode
+    return types.SimpleNamespace(
+        config=llama_config, init=llama_init, generate=m.llama_generate,
+        from_numpy=llama_params_from_numpy, prefill=m.llama_prefill,
+        step=m.llama_decode_step, init_cache=m.llama_init_cache,
+        init_paged_cache=m.llama_init_paged_cache,
+        paged_prefill=m.llama_paged_prefill)
+
+
+def _engine_fns(fam, cfg) -> types.SimpleNamespace:
+    """The continuous engine's device functions, the reference's
+    ``_jitted_engine_fns`` (``ray_tpu/serve/llm.py:131-346``) without
+    jit: each is a plain function on tensors that updates the pool in
+    place and returns the same cache dict.
+
+      prefill_raw / paged_prefill_raw / pool_logits — logits (1 or B,
+          padded_vocab) of a dense B=1 prefill, a paged tail prefill,
+          a pool decode step
+      admit / clear_row / copy_block / install_blocks / save_block —
+          pool bookkeeping and the host tier's copies
+
+    The reference also jits sample-included twins (prefill,
+    paged_prefill, pool_step) so that its default hot path is one
+    dispatch; eager PyTorch gains nothing from that fusion, so the
+    engine samples every logits row through its per-SamplingParams
+    sampler (``_sampler_for``)."""
+
+    def prefill_raw(p, toks, lens):
+        return fam.prefill(p, toks, cfg, lengths=lens)
+
+    def paged_prefill_raw(p, cache, toks, row_bt, prefix_len, n_tail,
+                          slot):
+        logits, cache = fam.paged_prefill(
+            p, cache, toks, cfg, row_bt=row_bt, prefix_len=prefix_len,
+            n_tail=n_tail, slot=slot)
+        return logits[None], cache
+
+    def pool_logits(p, cache, toks):
+        return fam.step(p, cache, toks, cfg)
+
+    def admit(pool, row, slot):
+        # copy the B=1 prefill row into pool row `slot` (L, B, S, ...):
+        # a copy, never an alias of the prefill's own cache
+        for name in ("k", "v"):
+            pool[name][:, slot].copy_(row[name][:, 0])
+        for name in ("pos", "start"):
+            pool[name][slot] = row[name][0]
+        return pool
+
+    def clear_row(cache, slot):
+        # retire a row: its table points at the null block, so the
+        # (masked, unread) writes of an idle row can never land in a
+        # block the pager has handed to someone else
+        cache["block_tables"][slot] = 0
+        cache["pos"][slot] = 0
+        return cache
+
+    def install_blocks(cache, blk_ids, k_stack, v_stack):
+        # the host tier's restore: blk_ids (N,), stacks (N, L, bs, H,
+        # hd) → pool blocks (L, N, bs, H, hd)
+        cache["k"][:, blk_ids] = k_stack.transpose(0, 1)
+        cache["v"][:, blk_ids] = v_stack.transpose(0, 1)
+        return cache
+
+    def save_block(cache, blk):
+        # the host tier's spill: host COPIES of one block's K and V
+        # rows (L, bs, H, hd), so a later write into the block can
+        # never change a spilled row
+        return (cache["k"][:, blk].to("cpu", copy=True),
+                cache["v"][:, blk].to("cpu", copy=True))
+
+    return types.SimpleNamespace(
+        prefill_raw=prefill_raw, paged_prefill_raw=paged_prefill_raw,
+        pool_logits=pool_logits, admit=admit,
+        clear_row=clear_row, copy_block=copy_block,
+        install_blocks=install_blocks, save_block=save_block)
+
+
+def _tier_saver(save_block, cache, tier):
+    """The pager's block-saver callback: host copies of one pool
+    block's K/V rows at eviction time, the copy timed into the tier's
+    d2h bucket (the tier itself reads no clock).  A closure over the
+    pool, not a method of the engine: the engine's pager holds it, and
+    a bound method would put the engine in a reference cycle that keeps
+    its device memory until the collector runs."""
+
+    def save(blk):
+        t0 = time.perf_counter()
+        rows = save_block(cache, blk)
+        tier.note_d2h(time.perf_counter() - t0)
+        return rows
+
+    return save
 
 
 def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
@@ -98,20 +228,29 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
 
     family: "gpt2" or "llama"; preset: a preset of that family.
     max_new_tokens, temperature, top_k, top_p: generation and sampling
-    knobs (greedy at temperature 0).  max_batch_size /
-    batch_wait_timeout_s: the ``@batch`` micro-batch bounds.
+    knobs (greedy at temperature 0).  scheduler: "batch" (``@batch``
+    micro-batches of at most max_batch_size, collected for
+    batch_wait_timeout_s) or "continuous" (module docstring).
     checkpoint_path: a pickled parameter tree of numpy arrays in the
     JAX package's layout of the family; absent → a fresh init from
     ``seed`` (tests/demos).  config_overrides: GPT2Config or
     LlamaConfig fields (torch dtypes).  device: None = the first CUDA
     device (raises without one); "cpu" must be asked for.
-    The reference's continuous-scheduler and fleet keywords are
-    accepted with its defaults and validation (module docstring):
-    stop_sequences and eos_id (stop matching is the continuous
-    scheduler's), max_slots, prefill_bucket, kv_block_size,
-    kv_num_blocks, prefill_chunk_tokens and kv_host_tier_bytes (paged
-    KV only), admission_policy, slo (continuous only), handoff_staged
-    (split roles only), num_replicas (1 here).
+
+    Continuous scheduler: max_slots KV rows; prompts padded up to
+    prefill_bucket multiples (as the reference, which compiles once per
+    bucket); stop_sequences / eos_id end a request when its generated
+    tokens end with one (its slot and blocks free at once).
+    kv_layout "dense" (per-slot rows, the parity oracle) or "paged"
+    (kv_block_size-token blocks; kv_num_blocks, default enough for
+    every slot plus one sequence of prefix-cache headroom);
+    prefill_chunk_tokens (paged: prompt tails longer than this are
+    prefilled in chunks of it, a multiple of kv_block_size, one chunk
+    between decode waves, round-robin over the slots prefilling);
+    kv_host_tier_bytes (paged: evicted prefix blocks spill to a host
+    store of this many bytes and are restored by copy instead of
+    re-prefill).  A continuous engine's ``__call__`` also takes
+    ``sampling=SamplingParams(...)`` per request and ``tenant=``.
 
     Returns the engine class; ``await Engine()(prompt)`` answers one
     request."""
@@ -186,9 +325,13 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
     if slo is not None:
         raise ValueError("slo must be a serve.slo.SLOConfig, got "
                          f"{type(slo).__name__}")
-    # validates the sampling knobs
-    SamplingParams(temperature=temperature, top_k=top_k, top_p=top_p)
-    if any(np.asarray(seq).size == 0 for seq in (stop_sequences or ())):
+    # validates the knobs; the engine's default per-request params
+    default_sp = SamplingParams(temperature=temperature, top_k=top_k,
+                                top_p=top_p)
+    stop_seqs = tuple(
+        tuple(int(t) for t in np.asarray(s, np.int64).reshape(-1))
+        for s in (stop_sequences or ()))
+    if any(len(s) == 0 for s in stop_seqs):
         raise ValueError("empty stop sequence")
     if not isinstance(num_replicas, int) or num_replicas < 1:
         raise ValueError(f"num_replicas must be a positive int, got "
@@ -196,32 +339,49 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
     if num_replicas > 1:
         raise _not_ported(f"num_replicas={num_replicas}", "runtime")
     if scheduler == "continuous":
-        raise _not_ported("scheduler='continuous'",
-                          "continuous" if mesh is None else "mesh")
+        if mesh is not None:
+            raise _not_ported("mesh-sharded serving", "mesh")
+        if role != "both":
+            raise _not_ported(f"role={role!r}", "roles")
+        if admission_policy is not None:
+            raise _not_ported("admission_policy", "telemetry")
     dev = resolve_device(device)
-    config_fn, init_fn, generate_fn, from_numpy_fn = _family_fns(family)
+    fam = _family_fns(family)
 
     class LLM:
         def __init__(self):
             self.device = dev
-            self.cfg = config_fn(preset, **dict(config_overrides or {}))
+            self.cfg = fam.config(preset, **dict(config_overrides or {}))
             if checkpoint_path:
                 # a parameter tree this project wrote (see docstring)
                 with open(checkpoint_path, "rb") as f:
                     tree = pickle.load(f)
-                self.params = from_numpy_fn(tree, self.cfg, dev)
+                self.params = fam.from_numpy(tree, self.cfg, dev)
             else:
-                self.params = init_fn(
+                self.params = fam.init(
                     self.cfg, torch.Generator(device=dev).manual_seed(seed),
                     dev)
             # per-engine sampling stream: without it every sampled
             # request would draw the same "random" continuation
             self._generator = torch.Generator(device=dev).manual_seed(
                 seed + 1)
+            if scheduler == "continuous":
+                self._init_continuous()
+
+        def _oversized(self, n: int) -> ValueError:
+            """The reference's rejection of an empty prompt or one
+            leaving no room for max_new_tokens."""
+            return ValueError(f"prompt length {n} invalid for "
+                              f"max_seq={self.cfg.max_seq} with "
+                              f"max_new_tokens={max_new_tokens}")
+
+        # ------------------------------------------------------------
+        # "batch" scheduler: @batch over (possibly ragged) lists
+        # ------------------------------------------------------------
 
         def _generate(self, toks, lengths=None):
             with torch.inference_mode():
-                return generate_fn(
+                return fam.generate(
                     self.params, toks, self.cfg,
                     max_new_tokens=max_new_tokens,
                     temperature=temperature, top_k=top_k, top_p=top_p,
@@ -248,16 +408,467 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             # trim the left pads: each caller sees prompt+continuation
             return [row[t0 - n:] for row, n in zip(out, lens)]
 
-        async def __call__(self, prompt):
+        async def _call_batch_checked(self, prompt):
             n_prompt = int(np.asarray(prompt).reshape(-1).shape[0])
             if n_prompt == 0 or \
                     n_prompt + max_new_tokens > self.cfg.max_seq:
                 # validate before batching: an oversized prompt would
                 # otherwise fail the whole micro-batch inside generate
-                raise ValueError(
-                    f"prompt length {n_prompt} invalid for "
-                    f"max_seq={self.cfg.max_seq} with "
-                    f"max_new_tokens={max_new_tokens}")
+                raise self._oversized(n_prompt)
             return await self._call_batch(prompt)
 
+        # ------------------------------------------------------------
+        # "continuous" scheduler: slot pool with mid-flight admission
+        # ------------------------------------------------------------
+
+        def _init_continuous(self):
+            cfg = self.cfg
+            max_seq = cfg.max_seq
+            self._fns = _engine_fns(fam, cfg)
+            self._pager = None
+            if kv_layout == "paged":
+                max_blk = max_seq // kv_block_size
+                # default pool: every slot can hold a full sequence,
+                # plus one sequence of headroom so the prefix cache and
+                # COW forks survive a fully-occupied pool
+                n_blocks = (kv_num_blocks if kv_num_blocks is not None
+                            else 1 + (max_slots + 1) * max_blk)
+                # llama GQA caches n_kv_head; gpt2 caches n_head
+                kv_heads = getattr(cfg, "n_kv_head", None) or cfg.n_head
+                bytes_per_block = (2 * cfg.n_layer * kv_block_size
+                                   * kv_heads * cfg.head_dim
+                                   * cfg.dtype.itemsize)
+                host_tier = (HostKVTier(kv_host_tier_bytes)
+                             if kv_host_tier_bytes is not None else None)
+                self._pager = BlockPager(
+                    n_blocks, kv_block_size, max_seq,
+                    bytes_per_block=bytes_per_block, host_tier=host_tier)
+                self._cache = fam.init_paged_cache(
+                    cfg, max_slots, num_blocks=n_blocks,
+                    block_size=kv_block_size, device=dev)
+                if host_tier is not None:
+                    self._pager.set_block_saver(_tier_saver(
+                        self._fns.save_block, self._cache, host_tier))
+                    # persistent host staging for the restore path
+                    self._tier_stage = staging_buffers(
+                        max_blk, (max_blk,) + self._cache["k"][:, 0].shape,
+                        cfg.dtype, pin=dev.type == "cuda")
+            else:
+                self._cache = fam.init_cache(cfg, max_slots, device=dev)
+            self._cur = np.zeros((max_slots,), np.int32)
+            self._slots = [None] * max_slots
+            self._queue = RequestQueue()
+            self._wake = None           # asyncio.Event, made on-loop
+            self._engine_task = None
+            self._samplers = {}     # SamplingParams -> sampler
+            # round-robin cursor over slots mid-prefill (chunked)
+            self._chunk_rr = 0
+            self._rec_ids = itertools.count()
+            self._requeues = 0
+
+        def _fence(self) -> None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+        def _sampler_for(self, sp):
+            """Full-batch sampler of one SamplingParams (None: the
+            engine default), cached on the WHOLE SamplingParams (the
+            lesson of the reference's _JIT_CACHE: a key on one knob
+            would hand a top_k change the old sampler)."""
+            sp = sp or default_sp
+            fn = self._samplers.get(sp)
+            if fn is None:
+                tail = make_vocab_tail_mask(self.cfg, dev)
+
+                def fn(logits, gen):
+                    return sample_token(logits, gen, sp.temperature, tail,
+                                        sp.top_k, sp.top_p)
+
+                self._samplers[sp] = fn
+            return fn
+
+        def _hit_stop(self, out) -> bool:
+            """Host-side stop matching over the GENERATED tokens (the
+            prompt can never trigger a stop)."""
+            if eos_id is not None and out[-1] == eos_id:
+                return True
+            for s in stop_seqs:
+                if len(out) >= len(s) and tuple(out[-len(s):]) == s:
+                    return True
+            return False
+
+        def _set_request(self, rec) -> None:
+            self._pager.set_request(rec["id"], tenant=rec.get("tenant"))
+
+        def _resolve(self, fut, arr, out) -> None:
+            if not fut.done():
+                fut.set_result(np.concatenate(
+                    [arr, np.asarray(out, np.int32)]))
+
+        def _admit_pending(self) -> None:
+            """Prefill queued requests into free slots (one prefill
+            each; K/V rows land in the pool).  Paged layout: blocks are
+            matched/allocated through the pager first — a request the
+            pool cannot hold yet goes back to the queue HEAD and
+            admission pauses until a retirement frees blocks."""
+            while len(self._queue):
+                free = [i for i, s in enumerate(self._slots) if s is None]
+                if not free:
+                    return
+                ((arr, rec, sp), fut), = self._queue.pop(1)
+                n = int(arr.shape[0])
+                if n == 0 or n + max_new_tokens > self.cfg.max_seq:
+                    if not fut.done():
+                        fut.set_exception(self._oversized(n))
+                    continue
+                slot = free[0]
+                if self._pager is not None:
+                    if not self._admit_one_paged(arr, rec, sp, fut, slot):
+                        return          # pool exhausted — retry later
+                    continue
+                # pad up to the bucket, never past the decode headroom
+                t_pad = -(-n // prefill_bucket) * prefill_bucket
+                t_pad = max(n, min(t_pad,
+                                   self.cfg.max_seq - max_new_tokens))
+                padded = np.zeros((1, t_pad), np.int32)
+                padded[0, t_pad - n:] = arr
+                logits, row = self._fns.prefill_raw(
+                    self.params, torch.from_numpy(padded).to(dev),
+                    torch.tensor([n], dtype=torch.int32, device=dev))
+                tok = self._sampler_for(sp)(logits, self._generator)
+                first = int(tok[0].item())      # the prefill's fence
+                if max_new_tokens <= 1 or self._hit_stop([first]):
+                    self._resolve(fut, arr, [first])
+                    continue
+                self._fns.admit(self._cache, row, slot)
+                self._cur[slot] = first
+                self._slots[slot] = {"prompt": arr, "out": [first],
+                                     "fut": fut, "rec": rec, "sp": sp}
+
+        def _requeue(self, arr, rec, sp, fut) -> bool:
+            self._pager.set_request(None)
+            self._requeues += 1
+            self._queue.push_front((arr, rec, sp), fut)
+            return False
+
+        def _admit_one_paged(self, arr, rec, sp, fut, slot) -> bool:
+            """Admit one request through the block pager: match the
+            longest resident prompt prefix, allocate the remaining
+            blocks up front (decode never allocates), restore what the
+            host tier holds, COW-fork the write-boundary block if it is
+            shared, then prefill only the unmatched tail (or start a
+            chunked admission).  Returns False when the pool cannot
+            hold the request yet (request requeued at the head)."""
+            pager = self._pager
+            n = int(arr.shape[0])
+            tokens = arr.tolist()
+            self._set_request(rec)
+            need = pager.blocks_needed(n, max_new_tokens)
+            prefix_len, matched = pager.match_prefix(tokens)
+            alloc = pager.allocate(need - len(matched))
+            if alloc is None:
+                pager.release(matched)
+                return self._requeue(arr, rec, sp, fut)
+            blocks = matched + alloc
+            # second chance: full blocks the device prefix match missed
+            # may survive in the host tier.  Restore each hit into a
+            # freshly allocated block, then bump prefix_len so the tail
+            # prefill skips those tokens (content-addressed keys make
+            # the restored rows the rows a re-prefill would write).
+            # Probed only after allocation succeeds — a requeued
+            # admission must not double-count tier probes.
+            pairs = pager.tier_lookup(tokens, len(matched))
+            if pairs:
+                t0 = time.perf_counter()
+                ids, ek, ev = self._tier_stage
+                m = len(pairs)
+                ids[:m] = torch.as_tensor(alloc[:m])
+                for i, (_, e) in enumerate(pairs):
+                    ek[i].copy_(e["k"])
+                    ev[i].copy_(e["v"])
+                self._fns.install_blocks(
+                    self._cache, ids[:m].to(dev, non_blocking=True),
+                    ek[:m].to(dev, non_blocking=True),
+                    ev[:m].to(dev, non_blocking=True))
+                # fence: the staging buffers are refilled next restore,
+                # and the h2d bucket times the transfer, not the launch
+                self._fence()
+                pager.tier.note_h2d(time.perf_counter() - t0)
+                prefix_len += pager.note_tier_restore(pairs, alloc)
+            wb = prefix_len // kv_block_size
+            if wb < len(matched):
+                # the tail's first write lands inside a matched block
+                try:
+                    new_blk, src = pager.ensure_private(blocks[wb])
+                except MemoryError:
+                    pager.release(blocks)
+                    return self._requeue(arr, rec, sp, fut)
+                if src is not None:
+                    blocks[wb] = new_blk
+                    self._fns.copy_block(self._cache, src, new_blk)
+            pager.set_request(None)
+            n_tail = n - prefix_len
+            row_bt = np.zeros((self.cfg.max_seq // kv_block_size,),
+                              np.int32)
+            row_bt[:len(blocks)] = blocks
+            row_bt = torch.from_numpy(row_bt).to(dev)
+            if prefill_chunk_tokens is not None \
+                    and n_tail > prefill_chunk_tokens:
+                # chunked admission: blocks are reserved (and forked)
+                # as above, but the prefill runs chunk by chunk from
+                # the engine loop (_prefill_chunk_step), so decode
+                # waves interleave with a long prompt
+                self._slots[slot] = {
+                    "state": "prefill", "prompt": arr, "out": [],
+                    "fut": fut, "rec": rec, "sp": sp, "blocks": blocks,
+                    "row_bt": row_bt,
+                    "cursor": ChunkCursor(
+                        total=n, chunk_tokens=prefill_chunk_tokens,
+                        filled=prefix_len)}
+                return True
+            first = self._prefill_tail(slot, arr, sp, row_bt, prefix_len,
+                                       n_tail, sample=True)
+            self._register(rec, tokens, blocks)
+            if max_new_tokens <= 1 or self._hit_stop([first]):
+                self._resolve(fut, arr, [first])
+                self._retire_paged_row(slot, blocks)
+                return True
+            self._cur[slot] = first
+            self._slots[slot] = {"prompt": arr, "out": [first],
+                                 "fut": fut, "rec": rec, "sp": sp,
+                                 "blocks": blocks}
+            return True
+
+        def _prefill_tail(self, slot, arr, sp, row_bt, filled, c,
+                          sample: bool) -> Optional[int]:
+            """paged_prefill of prompt tokens [filled, filled + c) into
+            row ``slot``, right-aligned in a prefill_bucket multiple.
+            Returns the sampled first token (the host fence), or None
+            when ``sample`` is False (an intermediate chunk, whose
+            logits are discarded: the generator is drawn from once per
+            admission, at its final chunk)."""
+            t_pad = -(-c // prefill_bucket) * prefill_bucket
+            t_pad = max(c, min(t_pad, self.cfg.max_seq))
+            toks = np.zeros((1, t_pad), np.int32)
+            toks[0, t_pad - c:] = arr[filled:filled + c]
+            logits, _ = self._fns.paged_prefill_raw(
+                self.params, self._cache, torch.from_numpy(toks).to(dev),
+                row_bt, filled, c, slot)
+            if not sample:
+                return None
+            tok = self._sampler_for(sp)(logits, self._generator)
+            return int(tok[0].item())
+
+        def _register(self, rec, tokens, blocks) -> None:
+            # the prompt's full blocks now hold exactly its K/V: index
+            # them so later prompts can skip this work (kvscope books
+            # re-prefill waste here, under the request's tenant)
+            self._set_request(rec)
+            self._pager.register_prefix(tokens, blocks)
+            self._pager.set_request(None)
+
+        def _retire_paged_row(self, slot, blocks) -> None:
+            """Free a finished row's blocks.  The row's table is
+            pointed at the null block FIRST: an idle row's decode step
+            still writes (masked garbage), which must never land in a
+            block the pager may re-hand out."""
+            self._fns.clear_row(self._cache, slot)
+            self._pager.release(blocks)
+
+        def _prefill_chunk_step(self, candidates) -> None:
+            """Run AT MOST ONE chunk of pending prefill — the engine
+            loop alternates `decode wave → one chunk → decode wave`,
+            round-robin over the slots mid-prefill (``candidates``), so
+            one huge prompt cannot take consecutive chunk windows.
+
+            Each chunk is paged_prefill with prefix_len = tokens
+            already filled (prior chunks are resident prefix blocks),
+            so the chunked result equals one-shot prefill by
+            construction.  Between chunks the row is PARKED (null block
+            table): decode waves write masked garbage into every row at
+            its pos, which must land in the null block, never in this
+            row's half-filled blocks; the next chunk re-installs
+            row_bt/pos/start."""
+            # next candidate strictly after the cursor, cyclically
+            i = min(candidates,
+                    key=lambda s: ((s - self._chunk_rr) % max_slots)
+                    or max_slots)
+            self._chunk_rr = i
+            st = self._slots[i]
+            arr = st["prompt"]
+            cur = st["cursor"]
+            filled = cur.filled
+            c = cur.next_chunk()
+            last = filled + c >= int(arr.shape[0])
+            first = self._prefill_tail(i, arr, st["sp"], st["row_bt"],
+                                       filled, c, sample=last)
+            cur.advance(c)
+            self._set_request(st["rec"])
+            self._pager.note_fill(c, partial=not last)
+            self._pager.set_request(None)
+            if not last:
+                self._fns.clear_row(self._cache, i)
+                return
+            self._register(st["rec"], arr.tolist(), st["blocks"])
+            if max_new_tokens <= 1 or self._hit_stop([first]):
+                self._resolve(st["fut"], arr, [first])
+                self._slots[i] = None
+                self._retire_paged_row(i, st["blocks"])
+                return
+            self._cur[i] = first
+            st["state"] = "decode"
+            st["out"] = [first]
+
+        def _finish_slot(self, i, st) -> None:
+            """Retire a finished slot NOW — the freed slot (and its
+            paged blocks) is admissible in the same engine wave."""
+            self._resolve(st["fut"], st["prompt"], st["out"])
+            self._slots[i] = None           # slot freed NOW
+            if self._pager is not None:
+                self._retire_paged_row(i, st["blocks"])
+
+        def _park_idle_rows(self, decoding) -> None:
+            """Every pool step advances every row's pos, idle ones
+            included.  JAX drops the out-of-range writes and clamps the
+            gathers of an idle row that has run past max_seq; torch
+            indexing raises.  So each row that is not decoding is
+            parked before the step: pos and start 0 and (paged) its
+            table at the null block, so its masked writes stay in its
+            own dense row or the null block.  Admission (admit,
+            paged_prefill) sets all three afresh."""
+            idle = [i for i in range(max_slots) if i not in decoding]
+            if not idle:
+                return
+            idx = torch.tensor(idle, device=dev)
+            self._cache["pos"][idx] = 0
+            self._cache["start"][idx] = 0
+            if self._pager is not None:
+                self._cache["block_tables"][idx] = 0
+
+        def _step(self, decoding):
+            """One decode step over the pool: the logits once, then one
+            sampler call per DISTINCT SamplingParams among the decoding
+            slots (one, unless a request overrides the default), rows
+            gathered host-side — the wave's host fence."""
+            logits, _ = self._fns.pool_logits(
+                self.params, self._cache, torch.from_numpy(self._cur).to(dev))
+            toks = np.zeros((max_slots,), np.int32)
+            groups: Dict[Any, list] = {}
+            for i in decoding:
+                groups.setdefault(self._slots[i]["sp"], []).append(i)
+            for sp, rows in groups.items():
+                full = self._sampler_for(sp)(logits, self._generator)
+                toks[rows] = full.cpu().numpy()[rows]
+            return toks
+
+        def _wave(self) -> bool:
+            """One turn of the scheduler: admit → one pooled decode
+            step over the decoding slots → retire finished slots → at
+            most ONE chunk of pending chunked prefill.  Returns False
+            when no slot is active."""
+            self._admit_pending()
+            prefilling = [i for i, s in enumerate(self._slots)
+                          if s is not None and s.get("state") == "prefill"]
+            decoding = [i for i, st in enumerate(self._slots)
+                        if st is not None and st.get("state") != "prefill"]
+            if not prefilling and not decoding:
+                return False
+            if decoding:
+                self._park_idle_rows(decoding)
+                toks = self._step(decoding)
+                for i in decoding:
+                    st = self._slots[i]
+                    st["out"].append(int(toks[i]))
+                    self._cur[i] = toks[i]
+                    if len(st["out"]) >= max_new_tokens \
+                            or self._hit_stop(st["out"]):
+                        self._finish_slot(i, st)
+            if self._pager is not None:
+                # kvscope occupancy ring: one pool snapshot per wave
+                self._pager.sample_occupancy()
+            if prefilling:
+                self._prefill_chunk_step(prefilling)
+            return True
+
+        def _fail_all(self, e: Exception) -> None:
+            for i, st in enumerate(self._slots):
+                if st is not None:
+                    if not st["fut"].done():
+                        st["fut"].set_exception(e)
+                    if self._pager is not None:
+                        self._pager.release(st["blocks"])
+                self._slots[i] = None
+            for _, fut in self._queue.pop(len(self._queue)):
+                if not fut.done():
+                    fut.set_exception(e)
+
+        async def _engine(self):
+            """The scheduler loop: waves while any slot is active,
+            yielding between them so callers can enqueue mid-flight;
+            parked on the wake event while idle.  A wave that raises
+            fails every request in flight and queued, loudly."""
+            while True:
+                try:
+                    with torch.no_grad():
+                        active = self._wave()
+                    if not active:
+                        self._wake.clear()
+                        if not len(self._queue):
+                            await self._wake.wait()
+                        continue
+                except Exception as e:  # noqa: BLE001 - to every caller
+                    self._fail_all(e)
+                await asyncio.sleep(0)
+
+        async def _call_continuous(self, prompt, sampling=None, *,
+                                   tenant=None):
+            """One request: enqueue it and await prompt +
+            continuation.  ``sampling`` overrides the engine's
+            SamplingParams for this request; ``tenant`` tags it in the
+            pager's kvscope attribution."""
+            sp = None
+            if sampling is not None:
+                if not isinstance(sampling, SamplingParams):
+                    raise ValueError(
+                        "sampling must be a SamplingParams, got "
+                        f"{type(sampling).__name__}")
+                if sampling != default_sp:
+                    sp = sampling
+            if self._engine_task is None or self._engine_task.done():
+                # a fresh loop (or the first call) gets a fresh event
+                self._wake = asyncio.Event()
+                self._engine_task = asyncio.get_running_loop(
+                ).create_task(self._engine())
+            arr = np.asarray(prompt, np.int32).reshape(-1)
+            rec = {"id": next(self._rec_ids), "tenant": tenant}
+            fut = self._queue.put((arr, rec, sp))
+            self._wake.set()
+            return await fut
+
+        def shutdown_engine(self) -> None:
+            """Stop the background engine task (a caller running the
+            engine on its own event loop calls this so the loop can
+            close cleanly; a batch scheduler's engine has none)."""
+            task = getattr(self, "_engine_task", None)
+            self._engine_task = None
+            if task is not None and not task.done():
+                task.cancel()
+
+        def kv_stats(self) -> Dict[str, Any]:
+            """The continuous engine's KV blocks: ``kv_cache`` (the
+            pager's stats; None for dense), ``kv_tier`` and
+            ``kv_scope`` — those blocks of the reference's
+            ``engine_stats()``, whose rest is ROADMAP.md queue 1 item
+            4 — and ``requeues``, admissions pushed back because the
+            pool could not hold them yet."""
+            pager = self._pager
+            tier = pager.tier if pager is not None else None
+            return {"kv_cache": pager.stats() if pager else None,
+                    "kv_tier": tier.stats() if tier else empty_kv_tier(),
+                    "kv_scope": (pager.kv_scope_stats() if pager
+                                 else empty_kv_scope()),
+                    "requeues": self._requeues}
+
+    LLM.__call__ = (LLM._call_continuous if scheduler == "continuous"
+                    else LLM._call_batch_checked)
     return LLM

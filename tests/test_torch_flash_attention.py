@@ -258,3 +258,31 @@ def test_resident_mode_matches_jax(monkeypatch, env, mode):
         monkeypatch.setenv("RAYTPU_FLASH_RESIDENT", env)
     assert tfa.resolve_resident_mode(mode) == \
         jfa.resolve_resident_mode(mode)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_flash_hands_the_kernels_contiguous_tensors(monkeypatch, B):
+    """The kernels take contiguous (BH, T, D) tensors.  At B = 1 the
+    (B, T, H, D) → (BH, T, D) reshape is a strided view, which the
+    kernel refused on the card (a solo prefill); flash_attention must
+    hand over contiguous copies at every B, in the forward and the
+    backward."""
+    seen = []
+    real_fwd, real_bwd = tfa.flash_attention_fwd, tfa.flash_attention_bwd
+
+    def fwd(q3, k3, v3, **kw):
+        seen.extend(t.is_contiguous() for t in (q3, k3, v3))
+        return real_fwd(q3, k3, v3, **kw)
+
+    def bwd(*args, **kw):
+        seen.extend(t.is_contiguous() for t in args)
+        return real_bwd(*args, **kw)
+
+    monkeypatch.setattr(tfa, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(tfa, "flash_attention_bwd", bwd)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((B, 40, 4, 32), generator=gen,
+                           requires_grad=True) for _ in range(3))
+    o = tfa.flash_attention(q, k, v, causal=True)
+    o.sum().backward()
+    assert len(seen) == 3 + 6 and all(seen)

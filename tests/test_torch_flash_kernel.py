@@ -110,6 +110,34 @@ def test_resident_variants_launch_the_same_kernel(cuda_device, resident):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_single_sequence_runs_the_kernels(cuda_device, dtype):
+    """B = 1 (a solo prefill): the (B, T, H, D) → (BH, T, D) reshape is
+    a strided view there, which the kernels once refused.  Forward and
+    backward launch, and give bit for bit what the same sequence gets
+    as row 0 of a B = 2 batch (each (batch, head) pair is its own
+    work: the kernels' arithmetic does not depend on B)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    one = [torch.randn((1, 300, 8, 64), generator=gen,
+                       device=cuda_device).to(dtype) for _ in range(3)]
+    two = [torch.cat([x, torch.randn_like(x)]) for x in one]
+    for x in one + two:
+        x.requires_grad_()
+    before = (tfa.FLASH_FWD_LAUNCHES, tfa.FLASH_BWD_DQ_LAUNCHES)
+    o1 = tfa.flash_attention(*one, causal=True)
+    o1.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (tfa.FLASH_FWD_LAUNCHES, tfa.FLASH_BWD_DQ_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    o2 = tfa.flash_attention(*two, causal=True)
+    o2[:1].float().sum().backward()
+    torch.cuda.synchronize()
+    assert torch.equal(o1[0], o2[0])
+    for x1, x2 in zip(one, two):
+        assert torch.equal(x1.grad[0], x2.grad[0])
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     q3, k3, v3 = _qkv(cuda_device, 2, 64, 80, torch.float32)
     with pytest.raises(ValueError, match="head_dim"):

@@ -36,11 +36,15 @@ def test_port_files_exist():
     files = _port_files()
     assert all(f.exists() for f in files)
     assert len(files) > 10
-    # the llama family and the paged layout's modules are scanned too
+    # the llama family, the paged layout's and the continuous
+    # scheduler's modules are scanned too
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"ray_tpu_torch/models/llama.py",
             "ray_tpu_torch/models/llama_decode.py",
-            "ray_tpu_torch/models/decode_common.py"} <= names
+            "ray_tpu_torch/models/decode_common.py",
+            "ray_tpu_torch/serve/kv_pager.py",
+            "ray_tpu_torch/serve/kv_tier.py",
+            "ray_tpu_torch/serve/kvscope.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

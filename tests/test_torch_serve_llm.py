@@ -156,25 +156,48 @@ def test_unknown_family_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    {"scheduler": "continuous"},
-    {"scheduler": "continuous", "kv_layout": "paged"},
     {"scheduler": "continuous", "kv_layout": "paged", "role": "prefill"},
     {"scheduler": "continuous", "mesh": object()},
     {"num_replicas": 2},
+    {"scheduler": "continuous", "kv_layout": "paged", "role": "prefill",
+     "handoff_staged": True},
+    {"scheduler": "continuous", "kv_layout": "paged", "role": "decode"},
+    {"scheduler": "continuous", "admission_policy": object()}])
+def test_options_not_ported_yet_name_their_roadmap_item(kw):
+    """What the reference accepts and the port has not yet: the
+    prefill/decode roles (item 3's rest), the admission policy (item
+    4), replicas (item 5) and a mesh (item 7)."""
+    kw = {"family": "gpt2", **kw}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        build_llm_deployment(preset="nano", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"scheduler": "continuous"},
+    {"scheduler": "continuous", "kv_layout": "paged"},
     {"scheduler": "continuous", "kv_layout": "paged",
      "kv_host_tier_bytes": 1 << 20},
     {"scheduler": "continuous", "kv_layout": "paged",
      "prefill_chunk_tokens": 32},
-    {"scheduler": "continuous", "kv_layout": "paged", "role": "prefill",
-     "handoff_staged": True},
     {"family": "llama", "scheduler": "continuous", "kv_layout": "paged"}])
-def test_options_not_ported_yet_name_their_roadmap_item(kw):
-    """What the reference accepts and the port has not yet: the
-    continuous scheduler (item 3; with a mesh, item 7) and replicas
-    (item 5)."""
+def test_continuous_options_serve(kw):
+    """The continuous scheduler's options that once raised
+    NotImplementedError serve: a fresh-init engine answers a request
+    with its prompt and max_new_tokens more tokens."""
     kw = {"family": "gpt2", **kw}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        build_llm_deployment(preset="nano", device="cpu", **kw)
+    engine = build_llm_deployment(preset="nano", device="cpu",
+                                  max_new_tokens=3, **kw)()
+    prompt = np.arange(40, dtype=np.int32)
+
+    async def main():
+        try:
+            return await engine(prompt)
+        finally:
+            engine.shutdown_engine()
+
+    out = asyncio.run(main())
+    assert out.dtype == np.int32 and out.shape == (43,)
+    np.testing.assert_array_equal(out[:40], prompt)
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -217,6 +240,8 @@ def test_batch_scheduler_rejects_what_the_reference_rejects(kw, match):
     {"family": "llama", "kv_layout": "paged", "spec_decode": object()},
     {"spec_decode": object()}, {"slo": 0.5},
     {"scheduler": "continuous", "spec_decode": object()},
+    {"scheduler": "continuous", "kv_layout": "paged",
+     "spec_decode": object()},
     {"scheduler": "continuous", "slo": object()}])
 def test_batch_scheduler_rejections_match_the_reference_messages(kw):
     """Where the reference raises ValueError, the port raises the same
