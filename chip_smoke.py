@@ -38,7 +38,9 @@ Phases, each fatal on failure (any failure exits non-zero):
             dense CE's logits product, logsumexp and gather; its
             backward for dH and dW together, and the ratio of dH + dW
             to it), a yardstick the fused path never calls; the
-            forward bit-equal across two calls.
+            forward bit-equal across two calls; then at gpt2-large's
+            head (N=8192, V=50304, D=1280) timed beside their bounds and
+            the dense composition.
 6. serve  — build the GPT-2-124M engine (full width, seeded random
             weights, bf16 compute) on the card, answer 8 concurrent
             512-token requests and one ragged batch, check the replies,
@@ -93,7 +95,25 @@ Phases, each fatal on failure (any failure exits non-zero):
             request latency p50/p95, prefix hit rate, evictions.  The
             engines launch no kernel (their prefills and decode are
             plain PyTorch), which the kernels line records.
-11. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
+11. serve-spec-disagg — speculative decoding and the prefill/decode
+            roles on phase 10's request set, oracle and near-tie rule:
+            f32 engines (e) paged with n-gram spec (k=4), (f) dense with
+            the aligned draft (llama-1b drafting for itself), (g) a
+            role="prefill" paged engine handing each request's blocks
+            to a role="decode" one on the device, (h) the same pair
+            staged through host memory with chunked prefill, (i) the
+            pair of (g) with n-gram spec on the decode side; every reply
+            held to the oracle; the acceptance rate of each spec engine
+            (counted by wrapping its spec_verify; the aligned draft's
+            must reach 0.9), the blocks handed off (= sum of ceil(n/16)),
+            the decode engine's prefix hits for prompts sent straight
+            to it after the handoffs (>= its imported prefix blocks),
+            empty pagers; then bf16, 32 requests at once through 8
+            slots: plain, n-gram spec and a llama-s draft in turns
+            (served tokens/s, latency p50/p95, acceptance rate), and a
+            fast and a staged prefill/decode pair (export and install ms
+            a request, bytes, GB/s).  No kernel launches.
+12. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
             whole block, ce_impl="pallas": a warm-up and 5 timed steps
             (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
             dQ and 16 dK/dV launches and 1 of each fused-CE kernel per
@@ -106,7 +126,7 @@ Phases, each fatal on failure (any failure exits non-zero):
             kernels at its attention (B=8, H=32, T=2048, D=64) held
             against their plain versions and timed beside their bounds,
             the dense composition and SDPA.
-12. llama-7b — llama-7b's width (d_model 4096, 32 heads of 128) cut to
+13. llama-7b — llama-7b's width (d_model 4096, 32 heads of 128) cut to
             2 layers: a dense and a pallas step at B=2, T=2048 checked
             against each other, the flash kernels held against their
             plain versions at the shape these steps give them (B=2,
@@ -1029,8 +1049,12 @@ def time_wide_ce(torch, fc, card: str) -> dict:
     """The three kernels at the head shape of the gpt2-large step that
     phase train-ce checks (N = WIDE_B * TRAIN_T, V = 50304, D = 1280,
     bf16; dH and dW through the cluster kernel), held against their
-    plain versions and timed beside their bounds; {kernel: {"ms",
-    "bound_ms", "bound_by", "shape", "max_abs_err", "rel_err"}}."""
+    plain versions and timed beside their bounds and the dense
+    composition (its forward for the forward, its backward for dH and
+    dW together); {kernel: {"ms", "bound_ms", "bound_by", "shape",
+    "max_abs_err", "rel_err", "library_ms", "dense_composition"}}."""
+    from ray_tpu_torch.models.gpt2 import _LogitsMatmul, nll_from_logits
+
     n, d = WIDE_B * TRAIN_T, WIDE_D
     t = check_ce_kernels(torch, fc, n, CE_V, CE_VALID, d, "bf16", seed=4,
                          g=1.0 / n)
@@ -1042,16 +1066,28 @@ def time_wide_ce(torch, fc, card: str) -> dict:
                   h, w, tgt, lse, g, CE_VALID), iters=3),
               "dw": time_ms(torch, lambda: fc.fused_ce_bwd_dw(
                   h, w, tgt, lse, g, CE_VALID), iters=3)}
+        dense_fwd = time_ms(torch, lambda: nll_from_logits(
+            _LogitsMatmul.apply(h, w), tgt, CE_VALID, CE_V), iters=3)
+    hg, wg = h.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    nll = nll_from_logits(_LogitsMatmul.apply(hg, wg), tgt, CE_VALID, CE_V)
+    dense_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        nll, (hg, wg), g, retain_graph=True), iters=3)
+    del nll, hg, wg
     bounds = ce_bounds_ms(n, CE_V, CE_VALID, d)
     print(f"[kernel-ce]   gpt2-large's head (N={n} V={CE_V} D={d} bf16): " +
           ", ".join(f"{k} {ms[k]:.4f} ms (bound {bounds[k][0]:.4f}, "
                     f"{100 * bounds[k][0] / ms[k]:.1f}%)" for k in ms) +
-          f" [{card}]", flush=True)
+          f"; dense composition forward {dense_fwd:.4f} ms, backward (dH "
+          f"and dW) {dense_bwd:.4f} ms; fused dH + dW "
+          f"{(ms['dh'] + ms['dw']) / dense_bwd:.3f}x it [{card}]", flush=True)
     cmp = {"fwd": ("nll", "lse"), "dh": ("dh",), "dw": ("dw",)}
     return {k: {"ms": ms[k], "bound_ms": bounds[k][0],
                 "bound_by": bounds[k][1], "shape": [n, CE_V, CE_VALID, d],
                 "max_abs_err": max(t["cmp"][c]["max"] for c in cmp[k]),
-                "rel_err": max(t["cmp"][c]["rel"] for c in cmp[k])}
+                "rel_err": max(t["cmp"][c]["rel"] for c in cmp[k]),
+                "library_ms": dense_fwd if k == "fwd" else None,
+                "dense_composition": {"forward_ms": dense_fwd,
+                                      "backward_ms": dense_bwd}}
             for k in ms}
 
 
@@ -2034,7 +2070,7 @@ def oracle_logits(torch, params, cfg, prompt, tokens):
 
 
 def gate_against_oracle(torch, np, params, cfg, prompts, outs, oracle,
-                        tag: str) -> list:
+                        tag: str, phase: str = "serve-continuous") -> list:
     """Each reply token for token equal to the oracle's, or parted at
     a near-tie of the oracle's own logits (printed).  Returns the
     near-ties."""
@@ -2050,13 +2086,13 @@ def gate_against_oracle(torch, np, params, cfg, prompts, outs, oracle,
         a, b = int(want[j]), int(got[j])
         gap = abs(row[a] - row[b]).item()
         scale = row.abs().max().item()
-        print(f"[serve-continuous] {tag} request {i}: token {j} is {b}, "
+        print(f"[{phase}] {tag} request {i}: token {j} is {b}, "
               f"the oracle's {a}; oracle logits {row[a].item():.6f} vs "
               f"{row[b].item():.6f}, gap {gap:.3e} (near-tie bound "
               f"{CONT_NEAR_TIE * scale:.3e} = {CONT_NEAR_TIE} x max|logit| "
               f"{scale:.3f})", flush=True)
         if gap > CONT_NEAR_TIE * scale:
-            fail(f"[serve-continuous] {tag} request {i} parts from the "
+            fail(f"[{phase}] {tag} request {i} parts from the "
                  f"solo dense oracle at token {j} beyond a near-tie")
         ties.append({"engine": tag, "request": i, "token": j,
                      "gap": gap, "bound": CONT_NEAR_TIE * scale})
@@ -2188,7 +2224,7 @@ def phase_serve_continuous(torch, np, fa, card: str, preset="llama-1b",
     return {"counts": launches, "near_ties": ties,
             "kv": {k: {"kv_cache": v["kv_cache"], "requeues": v["requeues"],
                        "kv_tier": v["kv_tier"]} for k, v in kv.items()},
-            **timing}
+            "gate": {"prompts": prompts, "oracle": oracle}, **timing}
 
 
 def time_continuous(torch, np, preset, dev, widths, card, drive,
@@ -2254,6 +2290,337 @@ def time_continuous(torch, np, preset, dev, widths, card, drive,
     return {"timed": runs}
 
 
+# phase serve-spec-disagg: speculative decoding and the prefill/decode
+# roles of the continuous engine, llama-1b, on phase serve-continuous's
+# request set P, oracle and near-tie rule.
+SPEC_K = 4
+#: the least acceptance rate of the aligned draft (the target itself):
+#: below it the verify forward and the decode step disagree
+SPEC_ALIGNED_MIN_RATE = 0.9
+#: the bf16 timing's model draft: llama-s (12 layers, d 768, llama-1b's
+#: vocabulary of 32,000 and max_seq 2048)
+SPEC_TIMED_DRAFT = "llama:llama-s"
+#: prompts sent straight to the decode engine after the handoffs of
+#: engine (g): the shared prefix and a fresh tail each
+SPEC_DIRECT = 2
+
+
+class _Pair:
+    """A role="prefill" engine feeding a role="decode" one: a call
+    prefills, hands the HandoffCursor over and awaits the decode
+    engine's reply (the router's two-stage dispatch, done by hand).
+    The install is fenced and timed from outside by wrapping the decode
+    engine's kv_handoff_install (a closure over a list, not over the
+    pair: a cycle through the engine would keep its memory after the
+    phase)."""
+
+    def __init__(self, torch, pre, dec, sync):
+        from ray_tpu_torch.serve.batching import HandoffCursor
+
+        self.pre, self.dec, self.pkgs = pre, dec, []
+        self.install_s = install_s = []
+        self._cursor = HandoffCursor
+        install = dec._fns.kv_handoff_install
+
+        def timed(*args):
+            sync()
+            t0 = time.perf_counter()
+            out = install(*args)
+            sync()
+            install_s.append(time.perf_counter() - t0)
+            return out
+
+        dec._fns.kv_handoff_install = timed
+
+    async def __call__(self, prompt):
+        pkg = await self.pre(prompt)
+        if not isinstance(pkg, self._cursor):
+            fail("[serve-spec-disagg] a prefill engine answered a request "
+                 "of 24 new tokens without a handoff")
+        self.pkgs.append(pkg)
+        return await self.dec.admit_prefilled(pkg)
+
+    def shutdown_engine(self):
+        self.pre.shutdown_engine()
+        self.dec.shutdown_engine()
+
+    def handoffs(self) -> dict:
+        """Export and install ms per request (means), bytes per request
+        and the rate of each leg."""
+        n = len(self.pkgs)
+        nbytes = sum(p.nbytes for p in self.pkgs)
+        export_s = sum(p.t_export1 - p.t_export0 for p in self.pkgs)
+        install_s = sum(self.install_s)
+        return {"handoffs": n, "path": self.pkgs[0].path if n else None,
+                "blocks": sum(p.n_blocks for p in self.pkgs),
+                "bytes_per_request": nbytes / max(n, 1),
+                "export_ms": 1e3 * export_s / max(n, 1),
+                "install_ms": 1e3 * install_s / max(n, 1),
+                "export_gb_s": nbytes / export_s / 1e9 if export_s else None,
+                "install_gb_s": (nbytes / install_s / 1e9 if install_s
+                                 else None)}
+
+
+class _Acceptance:
+    """Counts a spec engine's proposals and acceptances from outside, by
+    wrapping its spec_verify: k drafts per row that was decoding, and
+    the n_acc of those rows.  The wrapper holds the engine's slot list
+    and a counter list, not the engine (no reference cycle)."""
+
+    def __init__(self, engine):
+        self.counts = counts = [0, 0, 0]    # rounds, proposed, accepted
+        verify, slots = engine._fns.spec_verify, engine._slots
+
+        def counted(params, cache, block, *args):
+            rows = [i for i, st in enumerate(slots)
+                    if st is not None and st.get("state") != "prefill"]
+            out, n_acc, cache = verify(params, cache, block, *args)
+            counts[0] += 1
+            counts[1] += (block.shape[1] - 1) * len(rows)
+            counts[2] += int(n_acc[rows].sum())
+            return out, n_acc, cache
+
+        engine._fns.spec_verify = counted
+
+    rounds = property(lambda self: self.counts[0])
+    proposed = property(lambda self: self.counts[1])
+    accepted = property(lambda self: self.counts[2])
+
+    @property
+    def rate(self) -> float:
+        return self.accepted / self.proposed if self.proposed else 0.0
+
+
+def phase_serve_spec_disagg(torch, np, fa, card: str, gate: dict,
+                            preset="llama-1b", device="cuda", widths=None,
+                            timed_draft=SPEC_TIMED_DRAFT) -> dict:
+    """Speculative decoding and the prefill/decode handoff on llama-1b.
+    The f32 gate: P (``gate``: phase serve-continuous's prompts and solo
+    oracle) through (e) a paged engine with n-gram spec, (f) a dense one
+    with the aligned model draft (the target itself), (g) a prefill
+    engine feeding a decode engine on the device, (h) the same pair
+    staged through host memory with chunked prefill, (i) the fast pair
+    with n-gram spec on the decode side; each reply held to the oracle
+    as in serve-continuous, the aligned draft's acceptance >= 0.9, the
+    blocks handed off, the decode engine's prefix hits on the imported
+    prefix, empty pagers.  Then bf16 timing of 32 requests at once:
+    plain, n-gram spec and llama-s-draft spec in turns, and the fast
+    and staged handoff.  ``preset``, ``device``, ``widths`` and
+    ``timed_draft`` let it run cut down elsewhere."""
+    from ray_tpu_torch.serve import SpecConfig, build_llm_deployment
+
+    dev = torch.device(device)
+    widths = dict(widths or {})
+    prompts, oracle = gate["prompts"], gate["oracle"]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    launches = {}
+
+    def drive(engine, ps, wave1):
+        zero_counts(fa)
+        out = asyncio.run(_serve_waves(engine, ps, wave1))
+        sync()
+        for k, v in read_counts(fa).items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    common = dict(scheduler="continuous", max_new_tokens=CONT_MAX_NEW,
+                  prefill_bucket=CONT_BUCKET, seed=0, device=dev,
+                  max_slots=CONT_SLOTS,
+                  config_overrides=dict(widths, dtype=torch.float32,
+                                        max_seq=CONT_MAX_SEQ))
+    paged = dict(kv_layout="paged", kv_block_size=CONT_BLOCK,
+                 kv_num_blocks=CONT_F32_BLOCKS)
+    ngram = SpecConfig(draft="ngram", k=SPEC_K)
+
+    def build(**kw):
+        return build_llm_deployment("llama", preset, **common, **kw)()
+
+    def pair(staged=False, pre_kw=None, dec_kw=None):
+        return _Pair(torch,
+                     build(role="prefill", handoff_staged=staged, **paged,
+                           **(pre_kw or {})),
+                     build(role="decode", handoff_staged=staged, **paged,
+                           **(dec_kw or {})), sync)
+
+    engines = {
+        "e paged+ngram": lambda: build(spec_decode=ngram, **paged),
+        "f dense+aligned draft": lambda: build(
+            kv_layout="dense",
+            spec_decode=SpecConfig(draft=f"llama:{preset}", k=SPEC_K)),
+        "g prefill->decode fast": lambda: pair(),
+        "h prefill(chunked)->decode staged": lambda: pair(
+            staged=True, pre_kw=dict(prefill_chunk_tokens=CONT_CHUNK)),
+        "i prefill->decode+ngram": lambda: pair(
+            dec_kw=dict(spec_decode=ngram)),
+    }
+    want_blocks = sum(-(-len(p) // CONT_BLOCK) for p in prompts)
+    ties, rates, handoffs, direct_hits = [], {}, {}, None
+    params = cfg = None
+    for tag, make in engines.items():
+        engine = make()
+        target = engine.dec if isinstance(engine, _Pair) else engine
+        if params is None:
+            # the engines' weights are the serve-continuous ones (seed 0)
+            cfg, params = target.cfg, target.params
+        acc = _Acceptance(target) if target._fns.spec_verify else None
+        t0 = time.perf_counter()
+        outs, _ = drive(engine, prompts, CONT_WAVE1)
+        wall = time.perf_counter() - t0
+        check_replies(np, prompts, outs, CONT_MAX_NEW, cfg.vocab_size, tag)
+        ties += gate_against_oracle(torch, np, params, cfg, prompts, outs,
+                                    oracle, tag, "serve-spec-disagg")
+        line = (f"[serve-spec-disagg] f32 engine ({tag}): {CONT_N} requests "
+                f"in {wall:.2f} s, all equal to the oracle or parted at a "
+                f"near-tie")
+        if acc is not None:
+            rates[tag] = {"proposed": acc.proposed, "accepted": acc.accepted,
+                          "rounds": acc.rounds, "rate": acc.rate}
+            line += (f"; spec rounds {acc.rounds}, accepted {acc.accepted} "
+                     f"of {acc.proposed} drafts (rate {acc.rate:.4f})")
+        pagers = []
+        if isinstance(engine, _Pair):
+            h = handoffs[tag] = engine.handoffs()
+            line += (f"; {h['handoffs']} handoffs ({h['path']}), "
+                     f"{h['blocks']} blocks (sum of ceil(n/16): "
+                     f"{want_blocks}), decode requeues "
+                     f"{engine.dec.kv_stats()['requeues']}")
+            if h["blocks"] != want_blocks or h["handoffs"] != CONT_N:
+                fail(f"[serve-spec-disagg] {tag} handed off {h['handoffs']} "
+                     f"requests and {h['blocks']} blocks; expected {CONT_N} "
+                     f"and {want_blocks}")
+            if tag.startswith("g"):
+                direct_hits = _direct_prefix_hits(np, engine.dec, prompts,
+                                                  oracle, drive, tag, cfg)
+                line += (f"; {SPEC_DIRECT} prompts sent straight to the "
+                         f"decode engine hit {direct_hits} imported prefix "
+                         f"blocks")
+            pagers = [engine.pre, engine.dec]
+        elif target._pager is not None:
+            pagers = [target]
+        for e in pagers:
+            used = e.kv_stats()["kv_cache"]["blocks_in_use"]
+            if used:
+                fail(f"[serve-spec-disagg] {tag}: {used} blocks still in "
+                     "use after every request finished")
+        print(line + f" [{card}]", flush=True)
+        del engine, target, acc
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    aligned = rates["f dense+aligned draft"]["rate"]
+    if aligned < SPEC_ALIGNED_MIN_RATE:
+        fail(f"[serve-spec-disagg] the aligned draft's acceptance rate "
+             f"{aligned:.4f} < {SPEC_ALIGNED_MIN_RATE}: the verify forward "
+             "and the decode step disagree")
+    timing = time_spec(torch, np, preset, dev, widths, card, drive, sync,
+                       timed_draft)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[serve-spec-disagg] kernel launches of the engine runs: "
+          f"{launches} (the path runs plain PyTorch) [{card}]", flush=True)
+    if any(launches.values()):
+        fail("[serve-spec-disagg] a spec or handoff engine launched a "
+             "kernel; their verify, draft and handoff are plain PyTorch")
+    return {"counts": launches, "near_ties": ties, "acceptance": rates,
+            "handoffs": handoffs, "direct_prefix_hits": direct_hits,
+            **timing}
+
+
+def _direct_prefix_hits(np, dec, prompts, oracle, drive, tag, cfg) -> int:
+    """After the handoffs, SPEC_DIRECT prompts of P's shared prefix and
+    fresh tails go straight to the decode engine, one by one (as the
+    reference's router sends a resident prefix, tests/test_serve_disagg.py
+    :145): their admissions must hit every full block of the prefix,
+    which that engine only holds by note_handoff_import.  Their replies
+    are checked for shape (the oracle covers P only)."""
+    prefix = prompts[0][:CONT_PREFIX]
+    rs = np.random.RandomState(8)
+    direct = [np.concatenate([prefix, rs.randint(0, cfg.vocab_size, 16)])
+              .astype(np.int32) for _ in range(SPEC_DIRECT)]
+    before = dec.kv_stats()["kv_cache"]["prefix_block_hits"]
+    for p in direct:
+        outs, _ = drive(dec, [p], 1)
+        check_replies(np, [p], outs, CONT_MAX_NEW, cfg.vocab_size, tag)
+    hits = dec.kv_stats()["kv_cache"]["prefix_block_hits"] - before
+    want = SPEC_DIRECT * (CONT_PREFIX // CONT_BLOCK)
+    if hits < want:
+        fail(f"[serve-spec-disagg] {tag}: prompts sharing the imported "
+             f"{CONT_PREFIX}-token prefix hit {hits} blocks on the decode "
+             f"engine; expected >= {want}")
+    return hits
+
+
+def time_spec(torch, np, preset, dev, widths, card, drive, sync,
+              timed_draft) -> dict:
+    """bf16: CONT_TIMED_N requests drawn as P, all at once, through a
+    paged engine of CONT_TIMED_SLOTS slots (default pool) without spec,
+    with n-gram spec and with ``timed_draft`` as the draft model, in
+    turns (and back): served tokens/s, request latency p50/p95 and the
+    acceptance rate; then through a fast and a staged prefill/decode
+    pair: export and install ms per request, bytes, GB/s."""
+    from ray_tpu_torch.models.llama import llama_config
+    from ray_tpu_torch.serve import SpecConfig, build_llm_deployment
+
+    kw = dict(scheduler="continuous", kv_layout="paged",
+              kv_block_size=CONT_BLOCK, max_slots=CONT_TIMED_SLOTS,
+              max_new_tokens=CONT_MAX_NEW, prefill_bucket=CONT_BUCKET, seed=0,
+              device=dev, config_overrides=widths)
+    specs = {"plain": None, "ngram": SpecConfig(draft="ngram", k=SPEC_K),
+             "draft " + timed_draft.split(":")[1]: SpecConfig(
+                 draft=timed_draft, k=SPEC_K)}
+
+    def engine(name):
+        return build_llm_deployment("llama", preset, spec_decode=specs[name],
+                                    **kw)()
+
+    vocab = llama_config(preset, **widths).vocab_size
+    prompts = continuous_prompts(np, vocab, CONT_TIMED_N, seed=6)
+    n_tok = CONT_TIMED_N * CONT_MAX_NEW
+    for name in specs:            # warm-up, not timed
+        outs, _ = asyncio.run(_serve_waves(engine(name), prompts[:8], 8))
+        check_replies(np, prompts[:8], outs, CONT_MAX_NEW, vocab, "warm-up")
+    runs = {name: [] for name in specs}
+    for name in list(specs) + list(specs)[::-1]:
+        e = engine(name)
+        acc = _Acceptance(e) if e._fns.spec_verify else None
+        sync()
+        t0 = time.perf_counter()
+        outs, lat = drive(e, prompts, CONT_TIMED_N)
+        wall = time.perf_counter() - t0
+        check_replies(np, prompts, outs, CONT_MAX_NEW, vocab, name)
+        run = {"tokens_per_s": n_tok / wall, "wall_s": wall, **_pcts(lat),
+               "accept_rate": acc.rate if acc else None}
+        runs[name].append(run)
+        print(f"[serve-spec-disagg] bf16 {name}: {CONT_TIMED_N} requests "
+              f"(+{CONT_MAX_NEW} each), {run['tokens_per_s']:.1f} served "
+              f"tokens/s, request latency p50 {run['p50_ms']:.1f} ms, p95 "
+              f"{run['p95_ms']:.1f} ms"
+              + (f", acceptance rate {acc.rate:.4f} ({acc.accepted} of "
+                 f"{acc.proposed} drafts, {acc.rounds} rounds)" if acc else "")
+              + f" [{card}]", flush=True)
+        del e, acc
+    handoff = {}
+    for staged in (False, True):
+        p = _Pair(torch, *(build_llm_deployment(
+            "llama", preset, role=r, handoff_staged=staged, **kw)()
+            for r in ("prefill", "decode")), sync)
+        outs, _ = drive(p, prompts, CONT_TIMED_N)
+        check_replies(np, prompts, outs, CONT_MAX_NEW, vocab, "handoff")
+        h = handoff["staged" if staged else "fast"] = p.handoffs()
+        print(f"[serve-spec-disagg] bf16 handoff ({h['path']}): "
+              f"{h['handoffs']} requests, {h['bytes_per_request'] / 2**20:.3f}"
+              f" MiB a request ({h['blocks']} blocks of 16 tokens), export "
+              f"{h['export_ms']:.4f} ms ({h['export_gb_s']:.2f} GB/s), "
+              f"install {h['install_ms']:.4f} ms ({h['install_gb_s']:.2f} "
+              f"GB/s) per request [{card}]", flush=True)
+        del p
+    return {"timed": runs, "timed_handoff": handoff}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2279,6 +2646,8 @@ def main() -> int:
     serve_llama = phase_serve(torch, np, fa, card, "llama", "serve-llama")
     with torch.inference_mode():
         serve_cont = phase_serve_continuous(torch, np, fa, card)
+        serve_spec = phase_serve_spec_disagg(torch, np, fa, card,
+                                             serve_cont.pop("gate"))
     train_llama = phase_train_llama(torch, fa, fc, card)
     llama_7b = phase_llama_7b(torch, fa, fc, card)
 
@@ -2288,6 +2657,7 @@ def main() -> int:
                    "train_pallas": train_ce["counts"][name],
                    "serve_llama": serve_llama["counts"].get(name, 0),
                    "serve_continuous": serve_cont["counts"].get(name, 0),
+                   "serve_spec_disagg": serve_spec["counts"].get(name, 0),
                    "train_llama": train_llama["counts"][name]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path,

@@ -34,6 +34,14 @@ functionally (``.at[].set``), the port writes it in place, as the dense
 path does.  The host-side pager and the continuous engine that drive
 the pool are ``serve/kv_pager.py`` and ``serve/llm.py``.
 
+Speculative decoding: a family's verify step ingests a (B, k+1) block
+[cur, d_1..d_k] in one forward (``verify_plan``/``verify_update_kv``
+route its writes), ``spec_accept`` keeps the accepted draft prefix plus
+one target token, and ``make_spec_verify`` composes the two and moves
+pos by the kept count, which is the rollback.  The drafts come from a
+draft model (``make_draft_propose``) or from the request's own history
+(``ngram_propose``).
+
 JAX threads ``jax.random`` keys; the port draws from a
 ``torch.Generator``.  The two give different numbers from one seed, so
 sampled outputs are compared by distribution, greedy ones token for
@@ -291,6 +299,253 @@ def update_kv(cache, i: int, rows, pos_l, k_new, v_new):
     lk[rows, pos_l] = k_new
     lv[rows, pos_l] = v_new
     return lk, lv
+
+
+def verify_plan(cache, T: int, max_seq: int) -> Dict[str, torch.Tensor]:
+    """Where a verify step's (B, T) block lands: row b's t-th token at
+    slot pos[b] + t, its position id (slot - start, clipped into the
+    table) and the (B, T, S) mask (query t sees start[b] <= s <= pos[b]
+    + t).  Slots past max_seq (a request's last rounds) are written
+    nowhere that matters: paged, to the null block 0 (the reference
+    clamps the table column, then routes to 0); dense, ``verify_update_kv``
+    drops them as the reference's ``mode="drop"`` scatter does.  Torch
+    would raise on the out-of-range index instead, so both are masked
+    here, without a host sync."""
+    pos, start = cache["pos"].long(), cache["start"].long()
+    dev = pos.device
+    slot_ids = pos[:, None] + torch.arange(T, device=dev)[None, :]
+    in_range = slot_ids < max_seq
+    s = torch.arange(max_seq, device=dev)
+    plan = {"slot_ids": slot_ids, "in_range": in_range,
+            "pos_ids": (slot_ids - start[:, None]).clamp(0, max_seq - 1),
+            "mask": (s[None, None, :] >= start[:, None, None])
+            & (s[None, None, :] <= slot_ids[:, :, None]),
+            "rows": torch.arange(pos.shape[0], device=dev)}
+    if is_paged(cache):
+        bt = cache["block_tables"].long()
+        bs = cache["k"].shape[2]
+        col = (slot_ids // bs).clamp(max=bt.shape[1] - 1)
+        zero = torch.zeros_like(slot_ids)
+        plan.update(bt=bt, blk=torch.where(in_range, bt.gather(1, col), zero),
+                    off=torch.where(in_range, slot_ids % bs, zero))
+    else:
+        # the one slot a clamped write can hit: the last
+        last = max_seq - 1 - pos
+        plan.update(idx=slot_ids.clamp(max=max_seq - 1), last=last,
+                    has_last=(last >= 0) & (last < T))
+    return plan
+
+
+def _drop_past_end(layer, plan, new):
+    """The values the dense verify write stores at plan["idx"]: ``new``
+    where in range; at the clamped out-of-range columns, whatever slot
+    max_seq - 1 ends up holding (the in-range column writing it, else
+    its current content), so every write to that slot carries the same
+    value and the out-of-range ones change nothing."""
+    rows, S = plan["rows"], layer.shape[1]
+    col = plan["last"].clamp(0, new.shape[1] - 1)
+    fill = torch.where(plan["has_last"][:, None, None], new[rows, col],
+                       layer[rows, S - 1])
+    keep = plan["in_range"][:, :, None, None]
+    return torch.where(keep, new, fill[:, None])
+
+
+def verify_update_kv(cache, i: int, plan, k_new, v_new):
+    """Write a verify block's K/V (B, T, H, hd) into layer i in place
+    (``verify_plan``'s routing) and return the (B, S, H, hd) K and V it
+    attends over (paged: the rows' blocks gathered in table order)."""
+    lk, lv = cache["k"][i], cache["v"][i]
+    if is_paged(cache):
+        lk[plan["blk"], plan["off"]] = k_new
+        lv[plan["blk"], plan["off"]] = v_new
+        bt = plan["bt"]
+        b, nb = bt.shape
+        return (lk[bt].reshape(b, nb * lk.shape[1], *lk.shape[2:]),
+                lv[bt].reshape(b, nb * lv.shape[1], *lv.shape[2:]))
+    rows = plan["rows"][:, None]
+    lk[rows, plan["idx"]] = _drop_past_end(lk, plan, k_new)
+    lv[rows, plan["idx"]] = _drop_past_end(lv, plan, v_new)
+    return lk, lv
+
+
+def spec_accept(logits, block, generator: Optional[torch.Generator],
+                temperature: float, tail_mask: Optional[torch.Tensor],
+                top_k: int = 0, top_p: float = 1.0, draft_probs=None):
+    """Speculative accept/reject over one verify round.
+
+    block (B, T=k+1) int is [cur, d_1..d_k]; logits (B, T, padded_vocab)
+    is the target's verify forward over those positions, so logits[:,
+    t] is its distribution for the token after block[:, t].  Returns
+    (out_tokens (B, T) int32, n_acc (B,) int32): row b emits
+    out_tokens[b, :n_acc[b] + 1], the accepted draft prefix and one
+    target token, so a round nets at least one token.
+
+    temperature 0: d_{t+1} is accepted while it equals the target's
+    argmax, cumulatively (the generator is unused); greedy spec decode
+    then emits exactly what sequential argmax decoding does.
+    temperature > 0: rejection sampling.  d_t is accepted with
+    probability min(1, p/q), q the draft's filtered distribution
+    ``draft_probs`` (B, k, V) or a one-hot on the proposal when the
+    draft has none (n-gram); the target token is drawn from the
+    normalised residual max(p - q, 0), which is p at the all-accepted
+    bonus position.  u and that draw come from ``generator``."""
+    B, T = block.shape
+    k = T - 1
+    block = block.long()
+    drafts = block[:, 1:]                                  # (B, k)
+    rows = torch.arange(B, device=block.device)
+    if temperature == 0.0:
+        if tail_mask is not None:
+            logits = torch.where(tail_mask, logits, _NEG_INF)
+        g = torch.argmax(logits, dim=-1)                   # (B, T)
+        match = (drafts == g[:, :-1]).long()
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1)
+        corr = g[rows, n_acc]
+    else:
+        filt = filter_logits(logits, temperature, tail_mask, top_k, top_p)
+        p = torch.softmax(filt.float(), dim=-1)            # (B, T, V)
+        V = p.shape[-1]
+        q = (torch.nn.functional.one_hot(drafts, V).to(p.dtype)
+             if draft_probs is None else draft_probs.to(p.dtype))
+        u = torch.rand((B, k), generator=generator, device=p.device)
+        p_d = p[:, :k].gather(-1, drafts[..., None])[..., 0]
+        q_d = q.gather(-1, drafts[..., None])[..., 0]
+        ratio = p_d / q_d.clamp_min(1e-20)
+        accept = (u < ratio.clamp(max=1.0)).long()
+        n_acc = torch.cumprod(accept, dim=1).sum(dim=1)
+        q_pad = torch.cat([q, q.new_zeros((B, 1, V))], dim=1)
+        p_at, q_at = p[rows, n_acc], q_pad[rows, n_acc]    # (B, V)
+        residual = (p_at - q_at).clamp_min(0.0)
+        mass = residual.sum(dim=-1, keepdim=True)
+        residual = torch.where(mass > 0, residual / mass.clamp_min(1e-30),
+                               p_at)
+        corr = torch.multinomial(residual, 1, generator=generator)[:, 0]
+    cols = torch.arange(T, device=block.device)
+    drafts_pad = torch.cat([drafts, drafts.new_zeros((B, 1))], dim=1)
+    out = torch.where(cols[None, :] < n_acc[:, None], drafts_pad,
+                      corr[:, None])
+    return out.to(torch.int32), n_acc.to(torch.int32)
+
+
+def make_spec_verify(verify_step_fn, cfg, temperature: float = 0.0,
+                     top_k: int = 0, top_p: float = 1.0):
+    """A family's verify step composed with spec_accept: one target
+    forward checks a whole draft block and moves pos by the tokens kept.
+
+    Returns spec_verify(params, cache, block, generator=None,
+    draft_probs=None) → (out_tokens, n_acc, cache), the cache updated in
+    place.  pos lands at old pos + n_acc + 1, the slot after the last
+    emitted token's K/V (the target token has none yet, as a freshly
+    sampled token in the plain decode step).  K/V written for rejected
+    drafts sit at slots >= the new pos: never attendable, overwritten
+    by later rounds, so the rollback is the pos arithmetic alone.  A
+    paged row's blocks are reserved for the whole request at admission
+    (with k slots of headroom), so those writes land in blocks the row
+    owns, or in the null block past max_seq."""
+    tails = {}
+
+    def spec_verify(params, cache, block, generator=None,
+                    draft_probs=None):
+        dev = block.device
+        if dev not in tails:
+            tails[dev] = make_vocab_tail_mask(cfg, dev)
+        logits, cache = verify_step_fn(params, cache, block, cfg)
+        out, n_acc = spec_accept(logits, block, generator, temperature,
+                                 tails[dev], top_k, top_p, draft_probs)
+        cache["pos"] = cache["pos"] + n_acc + 1
+        return out, n_acc, cache
+
+    return spec_verify
+
+
+def spec_rewind(cache, n_rejected):
+    """Roll a cache back over rejected draft positions: per-row pos
+    arithmetic, in place (n_rejected (B,) int).  The stale K/V needs no
+    scrubbing: attendability derives from pos."""
+    cache["pos"] = cache["pos"] - torch.as_tensor(
+        n_rejected, dtype=torch.int32, device=cache["pos"].device)
+    return cache
+
+
+def make_draft_propose(decode_step_fn, cfg, k: int,
+                       temperature: float = 0.0, top_k: int = 0,
+                       top_p: float = 1.0, with_probs: bool = False):
+    """The draft side of model-draft spec decode: rewind the draft
+    cache over last round's rejections, then k + 1 chained decode
+    steps fed [cur, d_1..d_k], the last one only ingesting d_k's K/V,
+    so the draft cache holds K/V for every fed token and its pos nets
+    +n_acc+1 a round, as the target's.
+
+    Returns draft_propose(params, cache, cur (B,), n_rejected (B,),
+    generator=None) → (drafts (B, k) int32, cache), or (drafts, probs
+    (B, k, V), cache) when ``with_probs``: the filtered distribution
+    each d_t was drawn from, which sampled spec_accept needs.
+
+    A row's last rounds can step past the draft's max_seq; the
+    reference drops those writes.  Here such a step runs at slot
+    max_seq - 1 (pos clamped for the call, then restored): that slot
+    never holds a kept token's K/V (a request of n + max_new <= max_seq
+    tokens writes K/V up to slot max_seq - 2), and only the drafts,
+    never the output, depend on what it holds."""
+    if with_probs and temperature == 0.0:
+        raise ValueError("with_probs requires temperature > 0 (greedy "
+                         "spec_accept never consults draft_probs)")
+    tails = {}
+
+    def step(params, cache, tok):
+        pos = cache["pos"]
+        cache["pos"] = pos.clamp(max=cfg.max_seq - 1)
+        logits, cache = decode_step_fn(params, cache, tok, cfg)
+        cache["pos"] = pos + 1
+        return logits
+
+    def draft_propose(params, cache, cur, n_rejected, generator=None):
+        dev = cur.device
+        if dev not in tails:
+            tails[dev] = make_vocab_tail_mask(cfg, dev)
+        spec_rewind(cache, n_rejected)
+        tok, drafts, probs = cur, [], []
+        for _ in range(k):
+            logits = step(params, cache, tok)
+            if temperature == 0.0:
+                tok = sample_token(logits, None, 0.0, tails[dev])
+            else:
+                p = torch.softmax(filter_logits(
+                    logits, temperature, tails[dev], top_k,
+                    top_p).float(), dim=-1)
+                tok = torch.multinomial(p, 1, generator=generator)[:, 0].to(
+                    torch.int32)
+                probs.append(p)
+            drafts.append(tok)
+        step(params, cache, tok)          # ingest d_k's K/V
+        drafts = torch.stack(drafts, dim=1)
+        if with_probs:
+            return drafts, torch.stack(probs, dim=1), cache
+        return drafts, cache
+
+    return draft_propose
+
+
+def ngram_propose(tokens, k: int, order: int = 2):
+    """Host-side zero-weight draft: the k tokens that followed the most
+    recent earlier occurrence of the trailing ``order``-gram in this
+    request's history (prompt + emitted), padded by repeating the last
+    of them; the last token k times when there is no such occurrence.
+    Proposal quality moves only the acceptance rate: every proposal is
+    verified by the target."""
+    toks = list(tokens)
+    n = len(toks)
+    fallback = [toks[-1]] * k if toks else [0] * k
+    if n <= order:
+        return fallback
+    gram = toks[n - order:]
+    for i in range(n - order - 1, -1, -1):
+        if toks[i:i + order] == gram:
+            cont = toks[i + order:i + order + k]
+            if cont:
+                return (cont + [cont[-1]] * (k - len(cont)))[:k]
+            break
+    return fallback
 
 
 def scan_prefill(init_cache_fn, decode_step_fn, params, prompt, cfg):

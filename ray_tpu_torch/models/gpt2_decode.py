@@ -9,8 +9,8 @@ pool, reading a resident prefix instead of recomputing it.  The layer
 stack is a Python loop over the stacked per-layer parameters, eager,
 with K/V written into the preallocated cache in place (one cache
 allocation per generation, instead of the new cache per step that a
-functional update would make).  ``verify_step`` (speculative decoding)
-is ROADMAP.md queue 1 item 3.
+functional update would make).  ``verify_step`` ingests a (B, k+1)
+block of speculative-decoding tokens in one forward.
 """
 
 from __future__ import annotations
@@ -27,12 +27,13 @@ from ray_tpu_torch.models.decode_common import (generate_with, init_pool,
                                                 scan_prefill,
                                                 set_pool_row, slot_mask,
                                                 tail_attention, tail_plan,
-                                                update_kv)
+                                                update_kv, verify_plan,
+                                                verify_update_kv)
 from ray_tpu_torch.models.gpt2 import GPT2Config, _layernorm
 from ray_tpu_torch.ops.attention import prefill_attention
 
 __all__ = ["init_cache", "init_paged_cache", "prefill", "paged_prefill",
-           "decode_step", "generate"]
+           "decode_step", "verify_step", "generate"]
 
 _NEG_INF = -1e30
 
@@ -215,6 +216,46 @@ def decode_step(params, cache, tokens, cfg: GPT2Config
                  + p["attn"]["o_b"].to(cfg.dtype))
         x = _mlp(x, p, cfg)
     cache["pos"] = pos + 1
+    return _logits(params, x, cfg), cache
+
+
+def verify_step(params, cache, block, cfg: GPT2Config
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Speculative-decoding verify forward: T = k+1 tokens per row in
+    one forward.  block (B, T) int is [cur, d_1..d_k], the last sampled
+    token (no K/V yet) and the draft's k proposals; row b's t-th token
+    lands at slot pos[b] + t, and logits[:, t] is the distribution for
+    the token after block[:, t], what T sequential decode_step calls
+    give.  Both cache layouts; per-row pos/start as decode_step, causal
+    within the block.  Writes past max_seq (a request's last rounds)
+    go to the null block (paged) or are dropped (dense)
+    (decode_common.verify_plan).  pos is NOT advanced: the caller
+    (decode_common.make_spec_verify) moves it by the kept count.
+    Returns (logits (B, T, padded_vocab) float32, the same cache
+    dict)."""
+    B, T = block.shape
+    d, h, hd = cfg.d_model, cfg.n_head, cfg.head_dim
+    plan = verify_plan(cache, T, cfg.max_seq)
+    x = params["wte"].to(cfg.dtype)[block.long()]        # (B, T, d)
+    x = x + params["wpe"].to(cfg.dtype)[plan["pos_ids"]]
+    blocks = params["blocks"]
+    for i in range(cfg.n_layer):
+        p = _layer(blocks, i)
+        xa = _layernorm(x, p["ln1"]["scale"], p["ln1"]["bias"])
+        w = p["attn"]["qkv_w"].to(cfg.dtype).reshape(d, 3 * h * hd)
+        qkv = (xa @ w).reshape(B, T, 3, h, hd) \
+            + p["attn"]["qkv_b"].to(cfg.dtype)
+        q, k_new, v_new = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        ck, cv = verify_update_kv(cache, i, plan, k_new, v_new)
+        scores = torch.einsum("bthd,bshd->bhts", q, ck).float()
+        scores = scores / math.sqrt(hd)
+        scores = torch.where(plan["mask"][:, None], scores, _NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+        o = torch.einsum("bhts,bshd->bthd", probs, cv)   # (B, T, h, hd)
+        wo = p["attn"]["o_w"].to(cfg.dtype).reshape(h * hd, d)
+        x = x + (o.reshape(B, T, h * hd) @ wo
+                 + p["attn"]["o_b"].to(cfg.dtype))
+        x = _mlp(x, p, cfg)
     return _logits(params, x, cfg), cache
 
 

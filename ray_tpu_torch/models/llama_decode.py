@@ -8,8 +8,8 @@ cache in place.  Adapted to the llama block: RMSNorm, RoPE at each
 row's logical position, grouped-query attention (the cache holds the
 KV heads only, post-RoPE and before the head repeat, so its bytes
 scale with n_kv_head), SwiGLU, the untied lm_head.
-``llama_verify_step`` (speculative decoding) is ROADMAP.md queue 1
-item 3.
+``llama_verify_step`` ingests a (B, k+1) block of speculative-decoding
+tokens in one forward.
 """
 
 from __future__ import annotations
@@ -24,7 +24,9 @@ from ray_tpu_torch.models.decode_common import (generate_with, init_pool,
                                                 prompt_positions,
                                                 scan_prefill, set_pool_row,
                                                 slot_mask, tail_attention,
-                                                tail_plan, update_kv)
+                                                tail_plan, update_kv,
+                                                verify_plan,
+                                                verify_update_kv)
 from ray_tpu_torch.models.gpt2_decode import _layer
 from ray_tpu_torch.models.llama import (LlamaConfig, _mlp, _rmsnorm,
                                         repeat_kv, rope_frequencies,
@@ -32,7 +34,8 @@ from ray_tpu_torch.models.llama import (LlamaConfig, _mlp, _rmsnorm,
 from ray_tpu_torch.ops.attention import prefill_attention
 
 __all__ = ["llama_init_cache", "llama_init_paged_cache", "llama_prefill",
-           "llama_paged_prefill", "llama_decode_step", "llama_generate"]
+           "llama_paged_prefill", "llama_decode_step", "llama_verify_step",
+           "llama_generate"]
 
 _NEG_INF = -1e30
 
@@ -221,6 +224,41 @@ def llama_decode_step(params, cache, tokens, cfg: LlamaConfig
         o = torch.einsum("bkgs,bskd->bkgd", probs, cv)   # (B, kv, g, hd)
         x = _out_and_mlp(x, o.reshape(B, kv * g, hd), p, cfg)
     cache["pos"] = pos + 1
+    return _lm_logits(params, x, cfg), cache
+
+
+def llama_verify_step(params, cache, block, cfg: LlamaConfig
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Speculative-decoding verify forward, llama flavour (the contract
+    of gpt2_decode.verify_step): block (B, T=k+1) int = [cur, d_1..d_k],
+    one forward giving logits (B, T, padded_vocab) equal to T sequential
+    llama_decode_step calls.  RoPE rotates each (row, column) at its own
+    logical position (_rope_bt); GQA attends through the KV-head cache
+    with the (kv, group) query reshape.  Writes past max_seq go to the
+    null block (paged) or are dropped (dense); pos is NOT advanced."""
+    B, T = block.shape
+    kv, hd = cfg.n_kv_head, cfg.head_dim
+    g = cfg.n_head // kv
+    plan = verify_plan(cache, T, cfg.max_seq)
+    x = params["wte"].to(cfg.dtype)[block.long()]        # (B, T, d)
+    cos, sin = rope_frequencies(cfg.max_seq, hd, cfg.rope_theta,
+                                block.device)
+    cos_p, sin_p = cos[plan["pos_ids"]], sin[plan["pos_ids"]]
+    blocks = params["blocks"]
+    for i in range(cfg.n_layer):
+        p = _layer(blocks, i)
+        q, k_new, v_new = _qkv(_rmsnorm(x, p["ln1"]["scale"], cfg.rms_eps),
+                               p["attn"], cfg, (B, T))
+        q = _rope_bt(q, cos_p, sin_p)
+        k_new = _rope_bt(k_new, cos_p, sin_p)
+        ck, cv = verify_update_kv(cache, i, plan, k_new, v_new)
+        qg = q.reshape(B, T, kv, g, hd)
+        scores = torch.einsum("btkgd,bskd->bkgts", qg, ck).float()
+        scores = scores / math.sqrt(hd)
+        scores = torch.where(plan["mask"][:, None, None], scores, _NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
+        o = torch.einsum("bkgts,bskd->btkgd", probs, cv)
+        x = _out_and_mlp(x, o.reshape(B, T, kv * g, hd), p, cfg)
     return _lm_logits(params, x, cfg), cache
 
 

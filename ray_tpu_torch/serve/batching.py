@@ -3,13 +3,12 @@ continuous scheduler's queue and chunk cursor.
 
 Copies of ``batch`` and ``_BatchQueue`` (which here also keeps each
 running batch task referenced until it finishes), ``ChunkCursor``,
-``RequestQueue`` and ``OverloadedError`` from
+``HandoffCursor``, ``RequestQueue`` and ``OverloadedError`` from
 ``ray_tpu/serve/batching.py`` (pure asyncio; the port keeps its own
 copy rather than importing the JAX package).  Concurrent calls are
 collected into one list call, so the model runs one batched generation
-for many callers.  ``HandoffCursor`` (prefill/decode roles) and
-``AdmissionPolicy`` wait for their slices (ROADMAP.md queue 1 items 3
-and 4).
+for many callers.  ``AdmissionPolicy`` waits for its slice (ROADMAP.md
+queue 1 item 4).
 
 Usage (async methods only — batching needs an event loop to park
 pending callers on):
@@ -27,7 +26,7 @@ from __future__ import annotations
 import asyncio
 import functools
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Set
+from typing import Any, Callable, List, Optional, Set
 
 
 @dataclass
@@ -61,6 +60,41 @@ class ChunkCursor:
     def advance(self, n: int) -> None:
         self.filled += n
         self.chunks_done += 1
+
+
+@dataclass
+class HandoffCursor:
+    """One prefill→decode KV handoff (serve/llm.py roles): a
+    role="prefill" engine resolves a request's future with this cursor
+    instead of tokens, and a role="decode" engine's ``admit_prefilled``
+    installs the exported block rows and resumes decoding at
+    ``first_token``.
+
+    ``k_rows``/``v_rows`` are the filled block rows copied out of the
+    prefill engine's pool (``kv_handoff_export``): device tensors on the
+    fast path, CPU tensors (pinned for a CUDA pool) after the host hop
+    on the staged path (``path`` records which).  Only the ``n_blocks``
+    filled rows travel; ``nbytes`` is their footprint.  ``meta`` carries
+    what the engine's request record has: ``id``, ``tenant`` and
+    ``prompt_len``."""
+
+    prompt: Any                # np.int32 prompt token array
+    first_token: int           # sampled at the prefill engine's last chunk
+    n_tokens: int              # prompt tokens resident in the exported rows
+    n_blocks: int              # filled block rows exported
+    k_rows: Any = None         # stacked K rows, (n_blocks, L, bs, H, hd)
+    v_rows: Any = None         # stacked V rows, same shape
+    nbytes: int = 0            # payload footprint (both stacks)
+    path: str = "fast"         # "fast" device copy | "staged" via host
+    t_export0: float = 0.0     # export start (prefill side)
+    t_export1: float = 0.0     # export fence end (prefill side)
+    installed: bool = False    # the decode side flips this after the splice
+    meta: Any = None           # the request record's id, tenant, prompt_len
+    sampling: Any = None       # per-request SamplingParams override
+
+    @property
+    def done(self) -> bool:
+        return self.installed
 
 
 class _BatchQueue:

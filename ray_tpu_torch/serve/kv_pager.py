@@ -26,9 +26,7 @@ that DECIDES which block holds what lives here, on the host:
 
 Nothing here touches device memory — the pager returns block ids and
 the engine passes them to its device functions.  The pool is
-allocated once and never reallocated.  The reference's
-``note_handoff_import`` (prefill/decode roles) waits for that slice
-(ROADMAP.md queue 1 item 3).
+allocated once and never reallocated.
 """
 
 from __future__ import annotations
@@ -427,6 +425,32 @@ class BlockPager:
                         "kv_reprefill", block=blk, tokens=booked,
                         **dict(self._ctx_tag(), **self._key_tag(key)))
         return waste
+
+    def note_handoff_import(self, tokens: Sequence[int],
+                            block_ids: Sequence[int]) -> None:
+        """Index the FULL prompt blocks a prefill/decode handoff just
+        installed: this decode engine received the rows by copy from a
+        prefill engine, so unlike ``register_prefix`` nothing was
+        recomputed and no probe happened — NO re-prefill waste is
+        booked and the prefix hit/miss counters stay untouched.  First
+        writer wins, exactly like ``register_prefix``: keys already
+        indexed keep their canonical block."""
+        tokens = tuple(int(t) for t in tokens)
+        tenant = self._req_ctx[2]
+        indexed = 0
+        for i in range(len(tokens) // self.block_size):
+            key = tokens[:(i + 1) * self.block_size]
+            blk = block_ids[i]
+            if key in self._index or blk in self._block_key:
+                continue
+            self._index[key] = blk
+            self._block_key[blk] = key
+            self.scope.note_handoff_import(key, tenant)
+            indexed += 1
+        if self._recorder is not None and indexed:
+            self._recorder.record(
+                "kv_handoff_import", blocks=indexed,
+                **self._ctx_tag())
 
     def ensure_private(self, block_id: int
                        ) -> Tuple[int, Optional[int]]:

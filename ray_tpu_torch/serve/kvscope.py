@@ -208,6 +208,19 @@ class KVScope:
         if key in self._evicted:
             del self._evicted[key]
 
+    def note_handoff_import(self, key: Tuple[int, ...],
+                            tenant: Optional[str]) -> None:
+        """One prefix key became resident via a prefill/decode handoff
+        install (block rows copied in from a prefill engine's pool).
+        Consumes the evicted-ledger entry WITHOUT booking waste — the
+        content arrived by copy, not re-prefill — and without tier
+        counters (no host tier was involved)."""
+        if not self.enabled:
+            return
+        self._key_tenant[key] = tenant
+        if key in self._evicted:
+            del self._evicted[key]
+
     def note_evict(self, key: Optional[Tuple[int, ...]]
                    ) -> Optional[str]:
         """One registered block was LRU-evicted.  Moves the key into

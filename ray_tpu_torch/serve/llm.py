@@ -20,6 +20,14 @@ Two schedulers:
     long prompts can be prefilled in chunks between decode waves
     (``prefill_chunk_tokens``) and evicted blocks can spill to a host
     RAM tier (``kv_host_tier_bytes``, ``serve/kv_tier.py``).
+    ``spec_decode=SpecConfig(...)`` decodes speculatively: a draft
+    (n-grams of the request's history, or a small draft model in a
+    dense pool of its own) proposes k tokens a slot, and one target
+    verify forward a round keeps the accepted ones and one target
+    token.  ``role="prefill"`` engines answer with a ``HandoffCursor``
+    (the prompt's filled block rows, on the device or staged through
+    host memory with ``handoff_staged``) that a ``role="decode"``
+    engine's ``admit_prefilled`` splices into its pool and decodes.
 
 The reference's jitted engine programs are plain functions here
 (``_engine_fns``) that update the pool in place.  The engine loop runs
@@ -29,23 +37,23 @@ and fences the host once per decode wave.
 ``build_llm_deployment`` takes every keyword of the reference's and
 validates them in its order: the combinations the reference rejects
 raise the same ValueError here.  Not ported yet, each raising
-NotImplementedError that names its ROADMAP.md item: prefill/decode
-roles (``role`` other than "both", and so ``handoff_staged``) and
-speculative decoding (queue 1 item 3's rest; any ``spec_decode`` is of
-a type the reference rejects, since the port has no ``SpecConfig``),
-``admission_policy`` and the engine telemetry (item 4), the serve
-runtime that wraps engines in deployments and handles, and so
-``num_replicas`` > 1 (item 5), and a ``mesh`` (item 7).  Under "batch"
-the keywords only the continuous scheduler reads (``stop_sequences``,
-``eos_id``, ``max_slots``, ``prefill_bucket``, ``kv_block_size``,
-``kv_num_blocks``, ``admission_policy``) are validated and ignored, as
-in the reference.  Here the engine class itself is the deployment:
-``await engine(prompt)`` answers one request.
+NotImplementedError that names its ROADMAP.md item:
+``admission_policy`` and the engine telemetry (queue 1 item 4), the
+serve runtime that wraps engines in deployments and handles (and so
+``num_replicas`` > 1, and the router that forwards a prefill engine's
+HandoffCursor to a decode engine: item 5), and a ``mesh`` (item 7).
+Under "batch" the keywords only the continuous scheduler reads
+(``stop_sequences``, ``eos_id``, ``max_slots``, ``prefill_bucket``,
+``kv_block_size``, ``kv_num_blocks``, ``admission_policy``) are
+validated and ignored, as in the reference.  Here the engine class
+itself is the deployment: ``await engine(prompt)`` answers one
+request.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import itertools
 import pickle
 import time
@@ -61,20 +69,56 @@ from ray_tpu_torch.models.convert import (gpt2_params_from_numpy,
                                           llama_params_from_numpy)
 from ray_tpu_torch.models.decode_common import (SamplingParams,
                                                 copy_block,
+                                                make_draft_propose,
+                                                make_spec_verify,
                                                 make_vocab_tail_mask,
-                                                sample_token)
+                                                ngram_propose,
+                                                sample_token, set_pool_row)
 from ray_tpu_torch.models.gpt2 import gpt2_config, gpt2_init
 from ray_tpu_torch.models.llama import llama_config, llama_init
-from ray_tpu_torch.serve.batching import ChunkCursor, RequestQueue
+from ray_tpu_torch.serve.batching import (ChunkCursor, HandoffCursor,
+                                          RequestQueue)
 from ray_tpu_torch.serve.batching import batch as _batch
 from ray_tpu_torch.serve.kv_pager import BlockPager
 from ray_tpu_torch.serve.kv_tier import (HostKVTier, empty_kv_tier,
                                          staging_buffers)
 from ray_tpu_torch.serve.kvscope import empty_kv_scope
 
+
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Speculative decoding for the continuous engine (a copy of
+    ``ray_tpu/serve/llm.py``'s).
+
+    draft: "ngram" (a host-side draft from each request's own history,
+    no weights) or "<family>:<preset>" (a small draft model, e.g.
+    "llama:llama-s", whose k + 1 decode steps run each round).  k
+    drafted tokens per slot are checked by one target verify forward
+    per round.  draft_seed: the draft model's init seed (None: the
+    engine's seed, so a draft of the target's family and preset is the
+    target itself when the target was initialised from the seed too).
+    """
+    draft: str = "ngram"
+    k: int = 4
+    ngram_order: int = 2
+    draft_seed: Optional[int] = None
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"spec k must be >= 1, got {self.k}")
+        if self.draft != "ngram":
+            parts = self.draft.split(":")
+            if len(parts) != 2 or parts[0] not in ("gpt2", "llama"):
+                raise ValueError(
+                    f"spec draft must be 'ngram' or "
+                    f"'<family>:<preset>' with family gpt2|llama, "
+                    f"got {self.draft!r}")
+        if self.ngram_order < 1:
+            raise ValueError(
+                f"ngram_order must be >= 1, got {self.ngram_order}")
+
+
 _ROADMAP_ITEM = {
-    "roles": "queue 1 item 3 (the rest of the continuous scheduler: "
-             "speculative decoding and prefill/decode roles)",
     "telemetry": "queue 1 item 4 (engine telemetry, engine_stats and "
                  "the admission policy)",
     "runtime": "queue 1 item 5 (the serve runtime: deployments, "
@@ -99,17 +143,19 @@ def _family_fns(family: str) -> types.SimpleNamespace:
             from_numpy=gpt2_params_from_numpy, prefill=m.prefill,
             step=m.decode_step, init_cache=m.init_cache,
             init_paged_cache=m.init_paged_cache,
-            paged_prefill=m.paged_prefill)
+            paged_prefill=m.paged_prefill, verify=m.verify_step)
     m = llama_decode
     return types.SimpleNamespace(
         config=llama_config, init=llama_init, generate=m.llama_generate,
         from_numpy=llama_params_from_numpy, prefill=m.llama_prefill,
         step=m.llama_decode_step, init_cache=m.llama_init_cache,
         init_paged_cache=m.llama_init_paged_cache,
-        paged_prefill=m.llama_paged_prefill)
+        paged_prefill=m.llama_paged_prefill, verify=m.llama_verify_step)
 
 
-def _engine_fns(fam, cfg) -> types.SimpleNamespace:
+def _engine_fns(fam, cfg, sp: Optional[SamplingParams] = None,
+                spec: Optional[SpecConfig] = None,
+                draft=None) -> types.SimpleNamespace:
     """The continuous engine's device functions, the reference's
     ``_jitted_engine_fns`` (``ray_tpu/serve/llm.py:131-346``) without
     jit: each is a plain function on tensors that updates the pool in
@@ -120,6 +166,15 @@ def _engine_fns(fam, cfg) -> types.SimpleNamespace:
           a pool decode step
       admit / clear_row / copy_block / install_blocks / save_block —
           pool bookkeeping and the host tier's copies
+      kv_handoff_export / kv_handoff_install — the prefill/decode
+          handoff: a copy of a prefill's filled block rows, and their
+          splice (with the row's table, pos and start) into a decode
+          engine's pool
+      spec_verify / draft_propose / draft_prefill — with ``spec``: the
+          verify round at ``sp``'s sampling knobs (decode_common
+          make_spec_verify); with a ``draft`` (its family's functions
+          and config) too, the draft model's k + 1 steps and its
+          prefill (None otherwise)
 
     The reference also jits sample-included twins (prefill,
     paged_prefill, pool_step) so that its default hot path is one
@@ -171,11 +226,46 @@ def _engine_fns(fam, cfg) -> types.SimpleNamespace:
         return (cache["k"][:, blk].to("cpu", copy=True),
                 cache["v"][:, blk].to("cpu", copy=True))
 
+    def kv_handoff_export(cache, blk_ids):
+        # the filled block rows of a finished prefill, (N, L, bs, H,
+        # hd): advanced indexing COPIES them out of the pool, so the
+        # prefill engine may free and reuse the blocks at once
+        return (cache["k"][:, blk_ids].transpose(0, 1),
+                cache["v"][:, blk_ids].transpose(0, 1))
+
+    def kv_handoff_install(cache, blk_ids, k_stack, v_stack, slot,
+                           row_bt, pos):
+        # the decode side: land the rows in this pool's blocks and
+        # point row `slot` at them at pos = the prompt length, start 0,
+        # exactly the state paged_prefill leaves
+        dev = cache["k"].device
+        cache["k"][:, blk_ids] = k_stack.to(dev).transpose(0, 1)
+        cache["v"][:, blk_ids] = v_stack.to(dev).transpose(0, 1)
+        set_pool_row(cache, slot, row_bt, pos)
+        return cache
+
+    spec_verify = draft_propose = draft_prefill = None
+    if spec is not None:
+        sp = sp or SamplingParams()
+        spec_verify = make_spec_verify(fam.verify, cfg, sp.temperature,
+                                       sp.top_k, sp.top_p)
+        if draft is not None:
+            d_fam, d_cfg = draft
+            draft_propose = make_draft_propose(
+                d_fam.step, d_cfg, spec.k, sp.temperature, sp.top_k,
+                sp.top_p, with_probs=sp.temperature > 0.0)
+
+            def draft_prefill(p, toks, lens):
+                return d_fam.prefill(p, toks, d_cfg, lengths=lens)
+
     return types.SimpleNamespace(
         prefill_raw=prefill_raw, paged_prefill_raw=paged_prefill_raw,
         pool_logits=pool_logits, admit=admit,
         clear_row=clear_row, copy_block=copy_block,
-        install_blocks=install_blocks, save_block=save_block)
+        install_blocks=install_blocks, save_block=save_block,
+        kv_handoff_export=kv_handoff_export,
+        kv_handoff_install=kv_handoff_install, spec_verify=spec_verify,
+        draft_propose=draft_propose, draft_prefill=draft_prefill)
 
 
 def _tier_saver(save_block, cache, tier):
@@ -250,7 +340,13 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
     kv_host_tier_bytes (paged: evicted prefix blocks spill to a host
     store of this many bytes and are restored by copy instead of
     re-prefill).  A continuous engine's ``__call__`` also takes
-    ``sampling=SamplingParams(...)`` per request and ``tenant=``.
+    ``sampling=SamplingParams(...)`` per request (not under
+    spec_decode) and ``tenant=``.  spec_decode: a SpecConfig (module
+    docstring; paged admissions reserve k slots of headroom).  role
+    "prefill" | "decode" (paged): a prefill engine's reply is a
+    HandoffCursor (rows kept on the device, or staged through host
+    memory with handoff_staged) that a decode engine's
+    ``admit_prefilled`` turns into prompt + continuation.
 
     Returns the engine class; ``await Engine()(prompt)`` answers one
     request."""
@@ -316,12 +412,16 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
         raise ValueError("mesh-sharded serving requires "
                          "scheduler='continuous' (the batch scheduler "
                          "is single-device)")
-    # the port has no SpecConfig (queue 1 item 3) or SLOConfig (item 4)
-    # yet, so any value is of a type the reference rejects first, under
-    # either scheduler
     if spec_decode is not None:
-        raise ValueError("spec_decode must be a SpecConfig, got "
-                         f"{type(spec_decode).__name__}")
+        if not isinstance(spec_decode, SpecConfig):
+            raise ValueError("spec_decode must be a SpecConfig, got "
+                             f"{type(spec_decode).__name__}")
+        if scheduler != "continuous":
+            raise ValueError("spec_decode requires "
+                             "scheduler='continuous' (speculation "
+                             "lives in the slot-pool engine loop)")
+    # the port has no SLOConfig yet (queue 1 item 4), so any value is
+    # of a type the reference rejects first, under either scheduler
     if slo is not None:
         raise ValueError("slo must be a serve.slo.SLOConfig, got "
                          f"{type(slo).__name__}")
@@ -341,8 +441,6 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
     if scheduler == "continuous":
         if mesh is not None:
             raise _not_ported("mesh-sharded serving", "mesh")
-        if role != "both":
-            raise _not_ported(f"role={role!r}", "roles")
         if admission_policy is not None:
             raise _not_ported("admission_policy", "telemetry")
     dev = resolve_device(device)
@@ -351,6 +449,10 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
     class LLM:
         def __init__(self):
             self.device = dev
+            #: the disaggregated serving role: "prefill" engines answer
+            #: with a HandoffCursor, "decode" ones take it through
+            #: admit_prefilled, "both" serve whole requests
+            self.role = role
             self.cfg = fam.config(preset, **dict(config_overrides or {}))
             if checkpoint_path:
                 # a parameter tree this project wrote (see docstring)
@@ -424,7 +526,7 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
         def _init_continuous(self):
             cfg = self.cfg
             max_seq = cfg.max_seq
-            self._fns = _engine_fns(fam, cfg)
+            self._init_spec()
             self._pager = None
             if kv_layout == "paged":
                 max_blk = max_seq // kv_block_size
@@ -466,6 +568,56 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             self._rec_ids = itertools.count()
             self._requeues = 0
 
+        def _init_spec(self) -> None:
+            """The engine's device functions and, with spec_decode, the
+            draft: for a model draft its config (the target's vocab, at
+            least its max_seq), its weights from draft_seed (default:
+            the engine's seed) and a dense pool of max_slots rows."""
+            cfg = self.cfg
+            draft = None
+            self._draft_params = self._draft_cache = None
+            self._draft_cfg = None
+            if spec_decode is not None:
+                # per slot: how many of last round's drafts the target
+                # rejected (the draft cache rewinds that many first)
+                self._spec_rej = np.zeros((max_slots,), np.int32)
+                if spec_decode.draft != "ngram":
+                    d_family, d_preset = spec_decode.draft.split(":")
+                    d_fam = _family_fns(d_family)
+                    # overrides describe THIS family's config fields; a
+                    # draft of the other family takes its preset as is
+                    d_over = (dict(config_overrides or {})
+                              if d_family == family else {})
+                    d_cfg = d_fam.config(d_preset, **d_over)
+                    if (d_cfg.vocab_size != cfg.vocab_size
+                            or d_cfg.padded_vocab != cfg.padded_vocab):
+                        raise ValueError(
+                            f"spec draft vocab "
+                            f"{d_cfg.vocab_size}/{d_cfg.padded_vocab} "
+                            f"!= target "
+                            f"{cfg.vocab_size}/{cfg.padded_vocab} — "
+                            "draft proposals index the target vocab")
+                    if d_cfg.max_seq < cfg.max_seq:
+                        raise ValueError(
+                            f"spec draft max_seq {d_cfg.max_seq} < "
+                            f"target max_seq {cfg.max_seq} — the "
+                            "draft cache must track every target "
+                            "position")
+                    d_seed = (spec_decode.draft_seed
+                              if spec_decode.draft_seed is not None
+                              else seed)
+                    self._draft_params = d_fam.init(
+                        d_cfg, torch.Generator(device=dev).manual_seed(
+                            d_seed), dev)
+                    # dense, whatever the target's layout: the draft is
+                    # small and a row pool keeps its pos arithmetic plain
+                    self._draft_cache = d_fam.init_cache(d_cfg, max_slots,
+                                                         device=dev)
+                    self._draft_cfg = d_cfg
+                    draft = (d_fam, d_cfg)
+            self._fns = _engine_fns(fam, cfg, default_sp, spec_decode,
+                                    draft)
+
         def _fence(self) -> None:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -505,17 +657,45 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 fut.set_result(np.concatenate(
                     [arr, np.asarray(out, np.int32)]))
 
+        def _draft_admit(self, slot, arr) -> None:
+            """Mirror a just-admitted request into the draft pool: a
+            draft prefill of the whole prompt (the dense draft pool has
+            no prefix cache) copied into row ``slot``.  The target's
+            first token stays the row's ``cur``; the draft's is not
+            drawn."""
+            if spec_decode is None:
+                return
+            self._spec_rej[slot] = 0
+            if self._draft_params is None:
+                return
+            n = int(arr.shape[0])
+            t_pad = -(-n // prefill_bucket) * prefill_bucket
+            t_pad = max(n, min(t_pad, self._draft_cfg.max_seq
+                               - max_new_tokens))
+            padded = np.zeros((1, t_pad), np.int32)
+            padded[0, t_pad - n:] = arr
+            _, row = self._fns.draft_prefill(
+                self._draft_params, torch.from_numpy(padded).to(dev),
+                torch.tensor([n], dtype=torch.int32, device=dev))
+            self._fns.admit(self._draft_cache, row, slot)
+
         def _admit_pending(self) -> None:
             """Prefill queued requests into free slots (one prefill
             each; K/V rows land in the pool).  Paged layout: blocks are
             matched/allocated through the pager first — a request the
             pool cannot hold yet goes back to the queue HEAD and
-            admission pauses until a retirement frees blocks."""
+            admission pauses until a retirement frees blocks.  A
+            HandoffCursor (admit_prefilled) is spliced in, never
+            prefilled."""
             while len(self._queue):
                 free = [i for i, s in enumerate(self._slots) if s is None]
                 if not free:
                     return
                 ((arr, rec, sp), fut), = self._queue.pop(1)
+                if isinstance(arr, HandoffCursor):
+                    if not self._admit_one_handoff(arr, rec, fut, free[0]):
+                        return          # pool exhausted — retry later
+                    continue
                 n = int(arr.shape[0])
                 if n == 0 or n + max_new_tokens > self.cfg.max_seq:
                     if not fut.done():
@@ -544,6 +724,7 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 self._cur[slot] = first
                 self._slots[slot] = {"prompt": arr, "out": [first],
                                      "fut": fut, "rec": rec, "sp": sp}
+                self._draft_admit(slot, arr)
 
         def _requeue(self, arr, rec, sp, fut) -> bool:
             self._pager.set_request(None)
@@ -563,7 +744,10 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             n = int(arr.shape[0])
             tokens = arr.tolist()
             self._set_request(rec)
-            need = pager.blocks_needed(n, max_new_tokens)
+            # spec decode: k slots of headroom, so the rejected drafts'
+            # K/V of a request's last rounds land in blocks the row owns
+            need = pager.blocks_needed(n, max_new_tokens,
+                                       headroom=self._headroom())
             prefix_len, matched = pager.match_prefix(tokens)
             alloc = pager.allocate(need - len(matched))
             if alloc is None:
@@ -633,10 +817,97 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 self._resolve(fut, arr, [first])
                 self._retire_paged_row(slot, blocks)
                 return True
+            if role == "prefill":
+                # the decode belongs to a decode engine: hand the filled
+                # rows over and free this row (registered full blocks
+                # park in the LRU, keeping the prefix warm)
+                self._handoff_out(slot, arr, rec, sp, fut, blocks, first)
+                return True
             self._cur[slot] = first
             self._slots[slot] = {"prompt": arr, "out": [first],
                                  "fut": fut, "rec": rec, "sp": sp,
                                  "blocks": blocks}
+            self._draft_admit(slot, arr)
+            return True
+
+        def _headroom(self) -> int:
+            return spec_decode.k if spec_decode is not None else 0
+
+        def _handoff_out(self, slot, arr, rec, sp, fut, blocks,
+                         first) -> None:
+            """Prefill role: copy the request's filled block rows out
+            of the pool and resolve its future with a HandoffCursor for
+            a decode engine's admit_prefilled.  The fast path keeps the
+            rows on the device; the staged path copies them to host
+            (pinned for a CUDA pool), the hop a package takes between
+            processes.  Either way they are the bytes the prefill
+            wrote, so the splice recreates the post-prefill state
+            exactly.  This engine's row and blocks are freed at once."""
+            n = int(arr.shape[0])
+            n_blk = -(-n // kv_block_size)
+            ids = torch.as_tensor(blocks[:n_blk], device=dev)
+            t0 = time.perf_counter()
+            k_rows, v_rows = self._fns.kv_handoff_export(self._cache, ids)
+            if handoff_staged:
+                pin = dev.type == "cuda"
+                k_rows, v_rows = (
+                    torch.empty(r.shape, dtype=r.dtype,
+                                pin_memory=pin).copy_(r)
+                    for r in (k_rows, v_rows))
+                path = "staged"
+            else:
+                # fence: the export window is device time, not launch
+                self._fence()
+                path = "fast"
+            t1 = time.perf_counter()
+            pkg = HandoffCursor(
+                prompt=arr, first_token=int(first), n_tokens=n,
+                n_blocks=n_blk, k_rows=k_rows, v_rows=v_rows,
+                nbytes=self._pager.bytes_per_block * n_blk, path=path,
+                t_export0=t0, t_export1=t1,
+                meta={"id": rec["id"], "tenant": rec.get("tenant"),
+                      "prompt_len": n},
+                sampling=sp)
+            self._retire_paged_row(slot, blocks)
+            if not fut.done():
+                fut.set_result(pkg)
+
+        def _admit_one_handoff(self, pkg, rec, fut, slot) -> bool:
+            """Decode role: admit a HandoffCursor.  Allocate a fresh
+            block chain, splice the exported rows and the row's table,
+            pos = prompt length and start = 0 into the pool (the state
+            paged_prefill leaves), index the imported full blocks, and
+            decode from the package's first token.  Returns False when
+            the pool cannot hold the chain yet (requeued at the head)."""
+            pager = self._pager
+            arr = pkg.prompt
+            n = int(pkg.n_tokens)
+            self._set_request(rec)
+            need = pager.blocks_needed(n, max_new_tokens,
+                                       headroom=self._headroom())
+            alloc = pager.allocate(need)
+            if alloc is None:
+                return self._requeue(pkg, rec, pkg.sampling, fut)
+            row_bt = np.zeros((self.cfg.max_seq // kv_block_size,),
+                              np.int32)
+            row_bt[:need] = alloc
+            self._fns.kv_handoff_install(
+                self._cache,
+                torch.as_tensor(alloc[:int(pkg.n_blocks)], device=dev),
+                pkg.k_rows, pkg.v_rows, slot,
+                torch.from_numpy(row_bt).to(dev), n)
+            # fence: the splice is done when the row is admitted
+            self._fence()
+            pkg.installed = True
+            # later prompts sharing the prefix hit HERE
+            pager.note_handoff_import(arr.tolist(), alloc)
+            pager.set_request(None)
+            first = int(pkg.first_token)
+            self._cur[slot] = first
+            self._slots[slot] = {"prompt": arr, "out": [first],
+                                 "fut": fut, "rec": rec,
+                                 "sp": pkg.sampling, "blocks": alloc}
+            self._draft_admit(slot, arr)
             return True
 
         def _prefill_tail(self, slot, arr, sp, row_bt, filled, c,
@@ -715,9 +986,16 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 self._slots[i] = None
                 self._retire_paged_row(i, st["blocks"])
                 return
+            if role == "prefill":
+                # a chunked prompt hands off at its last chunk
+                self._slots[i] = None
+                self._handoff_out(i, arr, st["rec"], st["sp"], st["fut"],
+                                  st["blocks"], first)
+                return
             self._cur[i] = first
             st["state"] = "decode"
             st["out"] = [first]
+            self._draft_admit(i, arr)
 
         def _finish_slot(self, i, st) -> None:
             """Retire a finished slot NOW — the freed slot (and its
@@ -735,15 +1013,24 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             parked before the step: pos and start 0 and (paged) its
             table at the null block, so its masked writes stay in its
             own dense row or the null block.  Admission (admit,
-            paged_prefill) sets all three afresh."""
+            paged_prefill) sets all three afresh.  Under spec decoding
+            a verify round moves every row by up to k + 1 and the draft
+            pool's rows by k + 1, so the draft pool's idle rows are
+            parked too (and rewind nothing next round)."""
             idle = [i for i in range(max_slots) if i not in decoding]
             if not idle:
                 return
             idx = torch.tensor(idle, device=dev)
-            self._cache["pos"][idx] = 0
-            self._cache["start"][idx] = 0
+            caches = [self._cache]
+            if self._draft_cache is not None:
+                caches.append(self._draft_cache)
+            for cache in caches:
+                cache["pos"][idx] = 0
+                cache["start"][idx] = 0
             if self._pager is not None:
                 self._cache["block_tables"][idx] = 0
+            if spec_decode is not None:
+                self._spec_rej[idle] = 0
 
         def _step(self, decoding):
             """One decode step over the pool: the logits once, then one
@@ -761,11 +1048,59 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 toks[rows] = full.cpu().numpy()[rows]
             return toks
 
+        def _spec_round(self, decoding) -> None:
+            """One speculative round over the pool: the draft proposes
+            k tokens a row (the draft model's k + 1 steps, or n-grams of
+            each request's history on the host), ONE target verify
+            forward checks all k + 1 positions, and each decoding row
+            emits its accepted drafts and one target token, token by
+            token against the budget and the stops; the caches move by
+            the kept count.  The round's host fence is reading the
+            verdict."""
+            kd = spec_decode.k
+            cur = torch.from_numpy(self._cur).to(dev)
+            qprobs = None
+            if self._draft_params is not None:
+                res = self._fns.draft_propose(
+                    self._draft_params, self._draft_cache, cur,
+                    torch.from_numpy(self._spec_rej).to(dev),
+                    self._generator)
+                drafts = res[0]
+                if default_sp.temperature > 0.0:
+                    qprobs = res[1]     # sampled accept needs q
+            else:
+                proposals = np.zeros((max_slots, kd), np.int32)
+                for i in decoding:
+                    st = self._slots[i]
+                    proposals[i] = ngram_propose(
+                        st["prompt"].tolist() + st["out"], kd,
+                        order=spec_decode.ngram_order)
+                drafts = torch.from_numpy(proposals).to(dev)
+            block = torch.cat([cur[:, None], drafts.to(torch.int32)], dim=1)
+            out, n_acc, _ = self._fns.spec_verify(
+                self.params, self._cache, block, self._generator, qprobs)
+            out, n_acc = out.cpu().numpy(), n_acc.cpu().numpy()
+            for i in decoding:
+                st = self._slots[i]
+                n = int(n_acc[i])
+                finished = False
+                for t in out[i, :n + 1]:
+                    st["out"].append(int(t))
+                    if len(st["out"]) >= max_new_tokens \
+                            or self._hit_stop(st["out"]):
+                        finished = True
+                        break
+                # the target token is the row's new cur (no K/V yet)
+                self._cur[i] = out[i, n]
+                self._spec_rej[i] = 0 if finished else kd - n
+                if finished:
+                    self._finish_slot(i, st)
+
         def _wave(self) -> bool:
             """One turn of the scheduler: admit → one pooled decode
-            step over the decoding slots → retire finished slots → at
-            most ONE chunk of pending chunked prefill.  Returns False
-            when no slot is active."""
+            step (or one speculative round) over the decoding slots →
+            retire finished slots → at most ONE chunk of pending
+            chunked prefill.  Returns False when no slot is active."""
             self._admit_pending()
             prefilling = [i for i, s in enumerate(self._slots)
                           if s is not None and s.get("state") == "prefill"]
@@ -773,7 +1108,10 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                         if st is not None and st.get("state") != "prefill"]
             if not prefilling and not decoding:
                 return False
-            if decoding:
+            if decoding and spec_decode is not None:
+                self._park_idle_rows(decoding)
+                self._spec_round(decoding)
+            elif decoding:
                 self._park_idle_rows(decoding)
                 toks = self._step(decoding)
                 for i in decoding:
@@ -832,16 +1170,57 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                     raise ValueError(
                         "sampling must be a SamplingParams, got "
                         f"{type(sampling).__name__}")
+                if spec_decode is not None:
+                    raise ValueError(
+                        "per-request sampling overrides are not "
+                        "supported with spec_decode (the verify "
+                        "program bakes in ONE sampling config; build "
+                        "a separate deployment per config)")
                 if sampling != default_sp:
                     sp = sampling
+            self._ensure_engine()
+            arr = np.asarray(prompt, np.int32).reshape(-1)
+            rec = {"id": next(self._rec_ids), "tenant": tenant}
+            fut = self._queue.put((arr, rec, sp))
+            self._wake.set()
+            return await fut
+
+        def _ensure_engine(self) -> None:
             if self._engine_task is None or self._engine_task.done():
                 # a fresh loop (or the first call) gets a fresh event
                 self._wake = asyncio.Event()
                 self._engine_task = asyncio.get_running_loop(
                 ).create_task(self._engine())
-            arr = np.asarray(prompt, np.int32).reshape(-1)
-            rec = {"id": next(self._rec_ids), "tenant": tenant}
-            fut = self._queue.put((arr, rec, sp))
+
+        async def admit_prefilled(self, pkg):
+            """The decode side of disaggregated serving: take a prefill
+            engine's HandoffCursor and answer with prompt +
+            continuation.  No prefill runs here: the package's rows are
+            spliced into this pool and decoding starts from its first
+            token.  The router that forwards packages between engines
+            is ROADMAP.md queue 1 item 5; until then the caller hands
+            the prefill engine's reply over itself."""
+            if role == "prefill":
+                raise ValueError(
+                    "admit_prefilled needs a decode-capable engine "
+                    "(role='decode' or 'both'); this replica is "
+                    "role='prefill'")
+            if getattr(self, "_pager", None) is None:
+                raise ValueError(
+                    "admit_prefilled requires kv_layout='paged'")
+            if not isinstance(pkg, HandoffCursor):
+                raise ValueError(
+                    "admit_prefilled takes a HandoffCursor, got "
+                    f"{type(pkg).__name__}")
+            if pkg.sampling is not None and spec_decode is not None:
+                raise ValueError(
+                    "per-request sampling overrides are not "
+                    "supported with spec_decode (the verify program "
+                    "bakes in ONE sampling config)")
+            self._ensure_engine()
+            rec = {"id": next(self._rec_ids),
+                   "tenant": (pkg.meta or {}).get("tenant")}
+            fut = self._queue.put((pkg, rec, pkg.sampling))
             self._wake.set()
             return await fut
 

@@ -37,11 +37,15 @@ def test_port_files_exist():
     assert all(f.exists() for f in files)
     assert len(files) > 10
     # the llama family, the paged layout's and the continuous
-    # scheduler's modules are scanned too
+    # scheduler's modules (spec decoding and the prefill/decode
+    # handoff among them) are scanned too
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"ray_tpu_torch/models/llama.py",
             "ray_tpu_torch/models/llama_decode.py",
+            "ray_tpu_torch/models/gpt2_decode.py",
             "ray_tpu_torch/models/decode_common.py",
+            "ray_tpu_torch/serve/batching.py",
+            "ray_tpu_torch/serve/llm.py",
             "ray_tpu_torch/serve/kv_pager.py",
             "ray_tpu_torch/serve/kv_tier.py",
             "ray_tpu_torch/serve/kvscope.py"} <= names

@@ -3,8 +3,9 @@ package's.
 
 Seeded random scripts of the engine's own call sequence (match,
 allocate or requeue, tier lookup and restore, COW of the write
-boundary, register, release) run on ``ray_tpu.serve.kv_pager`` and on
-``ray_tpu_torch.serve.kv_pager`` side by side: every call returns the
+boundary, register, a decode engine's handoff import, release) run
+on ``ray_tpu.serve.kv_pager`` and on ``ray_tpu_torch.serve.kv_pager``
+side by side: every call returns the
 same thing, and after every call ``stats()``, ``prefix_keys()`` and
 the kvscope block are equal.  The same for ``HostKVTier``'s
 put/take/refresh under a byte budget.  Then the port's copies of the
@@ -54,6 +55,7 @@ class _Twin:
             p.set_block_saver(lambda blk: (_rows(blk), _rows(-blk)))
             self.pagers.append(p)
         self.calls = 0
+        self.imports = 0
 
     def __call__(self, name, *args, **kw):
         out = []
@@ -87,11 +89,28 @@ def _run_script(seed, *, tier_budget, n_ops=160, bs=4, max_seq=32,
     """The engine's admission/retirement sequence on random prompts
     built from a few shared prefixes, under pool pressure."""
     rng = np.random.RandomState(seed)
+    handoffs = np.random.RandomState(seed + 100)
     twin = _Twin(num_blocks, bs, max_seq, tier_budget)
     prefixes = [list(rng.randint(1, 50, size=rng.randint(4, 17)))
                 for _ in range(4)]
     live = []                     # (tokens, blocks) per admitted request
     for _ in range(n_ops):
+        if handoffs.rand() < 0.15:
+            # a decode engine's handoff admission, beside the script (its
+            # own stream): a fresh chain (with spec headroom now and
+            # then), no prefix probe, the imported full blocks indexed
+            # without booking waste
+            base = prefixes[handoffs.randint(len(prefixes))]
+            tokens = [int(t) for t in base[:max_seq - 4]]
+            twin("set_request", -1, tenant="decode")
+            need, _ = twin("blocks_needed", len(tokens), 2,
+                           headroom=int(handoffs.randint(0, 3)))
+            alloc, _ = twin("allocate", need)
+            if alloc is not None:
+                twin("note_handoff_import", tokens, alloc)
+                twin.imports += 1
+                live.append((tokens, alloc))
+            twin("set_request", None)
         if live and rng.rand() < 0.4:
             tokens, blocks = live.pop(rng.randint(len(live)))
             twin("release", blocks)
@@ -139,6 +158,7 @@ def _run_script(seed, *, tier_budget, n_ops=160, bs=4, max_seq=32,
         live.append((tokens, blocks))
     for _, blocks in live:
         twin("release", blocks)
+    assert twin.imports > 0
     return twin.pagers[1]
 
 

@@ -156,20 +156,50 @@ def test_unknown_family_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    {"scheduler": "continuous", "kv_layout": "paged", "role": "prefill"},
     {"scheduler": "continuous", "mesh": object()},
     {"num_replicas": 2},
-    {"scheduler": "continuous", "kv_layout": "paged", "role": "prefill",
-     "handoff_staged": True},
-    {"scheduler": "continuous", "kv_layout": "paged", "role": "decode"},
     {"scheduler": "continuous", "admission_policy": object()}])
 def test_options_not_ported_yet_name_their_roadmap_item(kw):
     """What the reference accepts and the port has not yet: the
-    prefill/decode roles (item 3's rest), the admission policy (item
-    4), replicas (item 5) and a mesh (item 7)."""
+    admission policy (item 4), replicas (item 5) and a mesh (item 7)."""
     kw = {"family": "gpt2", **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         build_llm_deployment(preset="nano", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"scheduler": "continuous", "kv_layout": "paged", "role": "prefill"},
+    {"scheduler": "continuous", "kv_layout": "paged", "role": "prefill",
+     "handoff_staged": True},
+    {"scheduler": "continuous", "kv_layout": "paged", "role": "decode"}])
+def test_roles_serve(kw):
+    """The roles that once raised NotImplementedError serve: the
+    engine of ``kw`` and its counterpart role (the same staging) answer
+    a request together, the prefill engine with a HandoffCursor that
+    the decode engine's admit_prefilled turns into the prompt and
+    max_new_tokens more tokens."""
+    from ray_tpu_torch.serve.batching import HandoffCursor
+
+    other = "decode" if kw["role"] == "prefill" else "prefill"
+    engines = {kw["role"]: build_llm_deployment(
+        "gpt2", "nano", device="cpu", max_new_tokens=3, **kw)()}
+    engines[other] = build_llm_deployment(
+        "gpt2", "nano", device="cpu", max_new_tokens=3,
+        **dict(kw, role=other))()
+    prompt = np.arange(40, dtype=np.int32)
+
+    async def main():
+        try:
+            pkg = await engines["prefill"](prompt)
+            assert isinstance(pkg, HandoffCursor)
+            return await engines["decode"].admit_prefilled(pkg)
+        finally:
+            for e in engines.values():
+                e.shutdown_engine()
+
+    out = asyncio.run(main())
+    assert out.dtype == np.int32 and out.shape == (43,)
+    np.testing.assert_array_equal(out[:40], prompt)
 
 
 @pytest.mark.parametrize("kw", [
