@@ -92,9 +92,11 @@ Phases, each fatal on failure (any failure exits non-zero):
             second, tier restores in the fourth; then bf16 timing, 32
             such requests at once through a paged engine of 8 slots and
             through the batch scheduler, in turns: served tokens/s,
-            request latency p50/p95, prefix hit rate, evictions.  The
-            engines launch no kernel (their prefills and decode are
-            plain PyTorch), which the kernels line records.
+            request latency p50/p95, prefix hit rate, evictions; beside
+            the phase's clock each continuous engine's own telemetry
+            (engine_stats(): TTFT and inter-token p50/p95, decode
+            tokens/s).  The engines launch no kernel (their prefills and
+            decode are plain PyTorch), which the kernels line records.
 11. serve-spec-disagg — speculative decoding and the prefill/decode
             roles on phase 10's request set, oracle and near-tie rule:
             f32 engines (e) paged with n-gram spec (k=4), (f) dense with
@@ -104,16 +106,49 @@ Phases, each fatal on failure (any failure exits non-zero):
             staged through host memory with chunked prefill, (i) the
             pair of (g) with n-gram spec on the decode side; every reply
             held to the oracle; the acceptance rate of each spec engine
-            (counted by wrapping its spec_verify; the aligned draft's
-            must reach 0.9), the blocks handed off (= sum of ceil(n/16)),
+            (counted by wrapping its spec_verify and held equal to the
+            engine's own engine_stats()["spec"]; the aligned draft's
+            must reach 0.9), the blocks handed off (= sum of ceil(n/16),
+            and equal to the engines' engine_stats()["handoff"]),
             the decode engine's prefix hits for prompts sent straight
             to it after the handoffs (>= its imported prefix blocks),
             empty pagers; then bf16, 32 requests at once through 8
             slots: plain, n-gram spec and a llama-s draft in turns
             (served tokens/s, latency p50/p95, acceptance rate), and a
             fast and a staged prefill/decode pair (export and install ms
-            a request, bytes, GB/s).  No kernel launches.
-12. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
+            a request, bytes, GB/s), each engine's own telemetry beside
+            the phase's clock.  No kernel launches.
+12. serve-telemetry — the engine telemetry on llama-1b, phase 10's
+            request set, oracle and near-tie rule: (a) an f32 paged
+            engine of 4 slots with a generous SLOConfig: every reply
+            held to the oracle, engine_stats() with every top-level key
+            of the reference's, requests admitted = finished = 16,
+            tokens_generated = the replies' decode tokens, kv_cache =
+            kv_stats()'s, no breach, serve.paged_prefill and
+            serve.decode compiled, one HBM-ledger row whose limit is the
+            card's memory and whose headroom is limit - max(allocated,
+            pool), the roofline naming the card, a timeline with a lane
+            per slot, the queue's and the steps'; (b) bf16, 32 requests
+            at once through 8 slots: served tokens/s by the phase's
+            clock and the engine's, TTFT and inter-token p50/p95, slot
+            utilization, the share of the wall time spent inside the
+            EngineTelemetry methods (wrapped here), every record call
+            under torch.cuda.set_sync_debug_mode("error"), the decode
+            steps' and the prefills' share, and one run of 8 under
+            torch.profiler: the card's busy share; (c) admission_policy:
+            a queue bound of 4 (the shed = rejections_by_reason
+            ["shed_queue_full"] > 0, the rest reply), a headroom above
+            the card's memory (all shed as shed_hbm_headroom), a
+            headroom of 1 GiB (none shed); (d) a 0.001 ms TTFT target:
+            a breach and a flight-record dump holding the pager's
+            kv_reserve events; (e) a HealthMonitor and a ChaosInjector
+            freezing the engine for >= 600 ms, attached as the fleet
+            router attaches them: suspect, dead, recovered, with
+            time_to_detect_ms, f32 replies held to the oracle; (f) the
+            batch scheduler, 8 equal-length bf16 requests: 8 finished
+            with a latency sample each, 16 flash forward launches (one
+            prefill, zeroed just before).
+13. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
             whole block, ce_impl="pallas": a warm-up and 5 timed steps
             (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
             dQ and 16 dK/dV launches and 1 of each fused-CE kernel per
@@ -126,7 +161,7 @@ Phases, each fatal on failure (any failure exits non-zero):
             kernels at its attention (B=8, H=32, T=2048, D=64) held
             against their plain versions and timed beside their bounds,
             the dense composition and SDPA.
-13. llama-7b — llama-7b's width (d_model 4096, 32 heads of 128) cut to
+14. llama-7b — llama-7b's width (d_model 4096, 32 heads of 128) cut to
             2 layers: a dense and a pallas step at B=2, T=2048 checked
             against each other, the flash kernels held against their
             plain versions at the shape these steps give them (B=2,
@@ -151,9 +186,6 @@ import sys
 import time
 from pathlib import Path
 
-# peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 B, H, D = 8, 12, 64          # serve shape
 TRAIN_B, TRAIN_T = 24, 1024  # training shape (bench.py's GPT-2 step)
@@ -290,9 +322,12 @@ def in_turns(torch, fns: dict, rounds: int = BWD_TURNS) -> tuple:
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple:
     """(least time on this card in ms, "bytes" or "operations"): the
     larger of the bytes over the memory rate and the operations over
-    the peak rate of their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    the peak rate of their type: one H100 SXM's data-sheet rates, from
+    the port's table (ray_tpu_torch/_private/device_stats.py)."""
+    peak = importlib.import_module(
+        "ray_tpu_torch._private.device_stats").H100_SXM
+    t_bytes = nbytes / peak["hbm_bytes_per_s"] * 1e3
+    t_ops = flops / peak[f"{dtype}_flops"] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -2105,6 +2140,26 @@ def _pcts(xs) -> dict:
             "p95_ms": s[min(len(s) - 1, round(0.95 * (len(s) - 1)))] * 1e3}
 
 
+def engine_clock(stats: dict) -> dict:
+    """What an engine's own telemetry (engine_stats()) reads: TTFT and
+    inter-token (one decode step or spec round) p50/p95 in ms, decode
+    tokens/s over its step window, slot utilization."""
+    return {"ttft_p50_ms": stats["ttft_ms"]["p50"],
+            "ttft_p95_ms": stats["ttft_ms"]["p95"],
+            "itl_p50_ms": stats["inter_token_ms"]["p50"],
+            "itl_p95_ms": stats["inter_token_ms"]["p95"],
+            "tokens_per_sec": stats["tokens_per_sec"],
+            "slot_utilization": stats["slot_utilization"]}
+
+
+def engine_clock_line(stats: dict) -> str:
+    c = engine_clock(stats)
+    return (f"engine telemetry: TTFT p50 {c['ttft_p50_ms']} ms, p95 "
+            f"{c['ttft_p95_ms']} ms; inter-token p50 {c['itl_p50_ms']} ms, "
+            f"p95 {c['itl_p95_ms']} ms; {c['tokens_per_sec']} decode "
+            f"tokens/s; slot utilization {c['slot_utilization']}")
+
+
 def phase_serve_continuous(torch, np, fa, card: str, preset="llama-1b",
                            device="cuda", widths=None) -> dict:
     """The continuous scheduler on llama-1b: the f32 correctness gate
@@ -2183,7 +2238,8 @@ def phase_serve_continuous(torch, np, fa, card: str, preset="llama-1b",
         kv[tag] = stats = engine.kv_stats()
         line = (f"[serve-continuous] f32 engine ({tag}): {CONT_N} "
                 f"requests in {wall:.2f} s, all equal to the oracle or "
-                f"parted at a near-tie")
+                f"parted at a near-tie; "
+                f"{engine_clock_line(engine.engine_stats())}")
         if stats["kv_cache"] is not None:
             c, t = stats["kv_cache"], stats["kv_tier"]
             line += (f"; blocks in use after {c['blocks_in_use']}, prefix "
@@ -2273,10 +2329,12 @@ def time_continuous(torch, np, preset, dev, widths, card, drive,
         check_replies(np, prompts, outs, CONT_MAX_NEW, cfg.vocab_size, name)
         run = {"tokens_per_s": n_tok / wall, "wall_s": wall, **_pcts(lat)}
         if name == "continuous":
-            c = engine.kv_stats()["kv_cache"]
+            stats = engine.engine_stats()
+            c = stats["kv_cache"]
             run.update(prefix_hit_rate=c["prefix_hit_rate"],
                        evictions=c["evictions"],
-                       prefix_block_hits=c["prefix_block_hits"])
+                       prefix_block_hits=c["prefix_block_hits"],
+                       engine=engine_clock(stats))
             del engine
         runs[name].append(run)
         print(f"[serve-continuous] bf16 {name}: {CONT_TIMED_N} requests "
@@ -2284,7 +2342,8 @@ def time_continuous(torch, np, preset, dev, widths, card, drive,
               f"tokens/s, request latency p50 {run['p50_ms']:.1f} ms, p95 "
               f"{run['p95_ms']:.1f} ms"
               + (f", prefix hit rate {run['prefix_hit_rate']}, evictions "
-                 f"{run['evictions']}" if name == "continuous" else "")
+                 f"{run['evictions']}; {engine_clock_line(stats)}"
+                 if name == "continuous" else "")
               + f" [{card}]", flush=True)
     del batch
     return {"timed": runs}
@@ -2344,6 +2403,21 @@ class _Pair:
         self.pre.shutdown_engine()
         self.dec.shutdown_engine()
 
+    def check_engines(self, tag: str) -> None:
+        """The engines' own handoff counts (engine_stats()["handoff"])
+        equal the packages this pair handed over."""
+        want = {"handoffs_out": len(self.pkgs),
+                "handoffs_in": len(self.pkgs),
+                "blocks_moved": sum(p.n_blocks for p in self.pkgs)}
+        got = {"handoffs_out":
+               self.pre.engine_stats()["handoff"]["handoffs_out"]}
+        dec = self.dec.engine_stats()["handoff"]
+        got.update(handoffs_in=dec["handoffs_in"],
+                   blocks_moved=dec["blocks_moved"])
+        if got != want:
+            fail(f"[serve-spec-disagg] {tag}: engine_stats handoff {got} "
+                 f"!= the pair's count {want}")
+
     def handoffs(self) -> dict:
         """Export and install ms per request (means), bytes per request
         and the rate of each leg."""
@@ -2368,7 +2442,8 @@ class _Acceptance:
     and a counter list, not the engine (no reference cycle)."""
 
     def __init__(self, engine):
-        self.counts = counts = [0, 0, 0]    # rounds, proposed, accepted
+        # rounds, proposed, accepted, rounds x decoding rows
+        self.counts = counts = [0, 0, 0, 0]
         verify, slots = engine._fns.spec_verify, engine._slots
 
         def counted(params, cache, block, *args):
@@ -2378,6 +2453,7 @@ class _Acceptance:
             counts[0] += 1
             counts[1] += (block.shape[1] - 1) * len(rows)
             counts[2] += int(n_acc[rows].sum())
+            counts[3] += len(rows)
             return out, n_acc, cache
 
         engine._fns.spec_verify = counted
@@ -2385,6 +2461,18 @@ class _Acceptance:
     rounds = property(lambda self: self.counts[0])
     proposed = property(lambda self: self.counts[1])
     accepted = property(lambda self: self.counts[2])
+    row_rounds = property(lambda self: self.counts[3])
+
+    def check_engine(self, stats: dict, tag: str) -> None:
+        """The engine's own spec counts (engine_stats()["spec"], a
+        round counted once per decoding request) equal this count."""
+        spec = stats["spec"]
+        want = {"proposed": self.proposed, "accepted": self.accepted,
+                "rounds": self.row_rounds}
+        got = {k: spec[k] for k in want}
+        if got != want:
+            fail(f"[serve-spec-disagg] {tag}: engine_stats spec {got} != "
+                 f"the spec_verify wrapper's {want}")
 
     @property
     def rate(self) -> float:
@@ -2477,16 +2565,21 @@ def phase_serve_spec_disagg(torch, np, fa, card: str, gate: dict,
                 f"in {wall:.2f} s, all equal to the oracle or parted at a "
                 f"near-tie")
         if acc is not None:
+            acc.check_engine(target.engine_stats(), tag)
             rates[tag] = {"proposed": acc.proposed, "accepted": acc.accepted,
                           "rounds": acc.rounds, "rate": acc.rate}
             line += (f"; spec rounds {acc.rounds}, accepted {acc.accepted} "
-                     f"of {acc.proposed} drafts (rate {acc.rate:.4f})")
+                     f"of {acc.proposed} drafts (rate {acc.rate:.4f}; "
+                     f"engine_stats spec equal)")
+        line += f"; {engine_clock_line(target.engine_stats())}"
         pagers = []
         if isinstance(engine, _Pair):
+            engine.check_engines(tag)
             h = handoffs[tag] = engine.handoffs()
             line += (f"; {h['handoffs']} handoffs ({h['path']}), "
                      f"{h['blocks']} blocks (sum of ceil(n/16): "
-                     f"{want_blocks}), decode requeues "
+                     f"{want_blocks}; engine_stats handoff equal), decode "
+                     f"requeues "
                      f"{engine.dec.kv_stats()['requeues']}")
             if h["blocks"] != want_blocks or h["handoffs"] != CONT_N:
                 fail(f"[serve-spec-disagg] {tag} handed off {h['handoffs']} "
@@ -2592,8 +2685,12 @@ def time_spec(torch, np, preset, dev, widths, card, drive, sync,
         outs, lat = drive(e, prompts, CONT_TIMED_N)
         wall = time.perf_counter() - t0
         check_replies(np, prompts, outs, CONT_MAX_NEW, vocab, name)
+        stats = e.engine_stats()
+        if acc is not None:
+            acc.check_engine(stats, name)
         run = {"tokens_per_s": n_tok / wall, "wall_s": wall, **_pcts(lat),
-               "accept_rate": acc.rate if acc else None}
+               "accept_rate": acc.rate if acc else None,
+               "engine": engine_clock(stats)}
         runs[name].append(run)
         print(f"[serve-spec-disagg] bf16 {name}: {CONT_TIMED_N} requests "
               f"(+{CONT_MAX_NEW} each), {run['tokens_per_s']:.1f} served "
@@ -2601,7 +2698,7 @@ def time_spec(torch, np, preset, dev, widths, card, drive, sync,
               f"{run['p95_ms']:.1f} ms"
               + (f", acceptance rate {acc.rate:.4f} ({acc.accepted} of "
                  f"{acc.proposed} drafts, {acc.rounds} rounds)" if acc else "")
-              + f" [{card}]", flush=True)
+              + f"; {engine_clock_line(stats)} [{card}]", flush=True)
         del e, acc
     handoff = {}
     for staged in (False, True):
@@ -2610,6 +2707,7 @@ def time_spec(torch, np, preset, dev, widths, card, drive, sync,
             for r in ("prefill", "decode")), sync)
         outs, _ = drive(p, prompts, CONT_TIMED_N)
         check_replies(np, prompts, outs, CONT_MAX_NEW, vocab, "handoff")
+        p.check_engines("handoff")
         h = handoff["staged" if staged else "fast"] = p.handoffs()
         print(f"[serve-spec-disagg] bf16 handoff ({h['path']}): "
               f"{h['handoffs']} requests, {h['bytes_per_request'] / 2**20:.3f}"
@@ -2619,6 +2717,573 @@ def time_spec(torch, np, preset, dev, widths, card, drive, sync,
               f"GB/s) per request [{card}]", flush=True)
         del p
     return {"timed": runs, "timed_handoff": handoff}
+
+
+# phase serve-telemetry: the engine telemetry on llama-1b, phase
+# serve-continuous's request set P, oracle and near-tie rule.
+#: (b): requests all at once through TELE_SLOTS slots, bf16
+TELE_N, TELE_SLOTS = 32, 8
+#: (c): the queue bound of the shedding run
+TELE_MAX_QUEUE = 4
+#: (e): the health monitor's thresholds and the chaos freeze (polls of
+#: TELE_POLL_MS: >= 600 ms, past dead_ms however the waves around it
+#: run); the prober stands in for the fleet router's pump
+TELE_HEALTH = dict(suspect_ms=150.0, dead_ms=400.0, stall_ms=60_000.0,
+                   probe_ms=5.0)
+TELE_FREEZE_POLLS, TELE_POLL_MS = 120, 5.0
+#: (f): equal-length prompts through the batch scheduler
+TELE_BATCH_N, TELE_BATCH_T = 8, 128
+
+
+class _HostCostSpy:
+    """Times the host work that the telemetry adds to one engine's run,
+    by part: every public method of its EngineTelemetry instance; the
+    flight recorder's ``record`` (the pager's journal writes into it
+    too); the program registry's bookkeeping around each engine program
+    call (``_signature`` over the arguments' leaves, ``record_invoke``
+    and ``record_compile``; the wrapper's set lookup under its lock is
+    not timed); and the engine's ``pager.stats()`` and
+    ``_compose_kv_scope()``, whose results only telemetry reads.  Only
+    the outermost timed call counts, so a nested one is not counted
+    twice.  Every timed call runs under
+    torch.cuda.set_sync_debug_mode("error"), set and reset by the
+    wrapper outside the timed window, so a call that synchronizes the
+    card raises (``guard``: off where there is no card).  ``restore()``
+    takes the process-wide patches (the registry's) off again.  Holds
+    the objects it patches, so it is dropped with the engine."""
+
+    PARTS = ("EngineTelemetry methods", "flight recorder", "registry",
+             "pager.stats / kv_scope")
+
+    def __init__(self, torch, engine, guard: bool = True):
+        from ray_tpu_torch._private import device_stats
+
+        self.by_part = {p: 0.0 for p in self.PARTS}
+        self.calls = 0
+        self._depth = 0
+        self._undo = []
+        self._torch, self._guard = torch, guard
+        tel = engine._telemetry
+        for name in dir(tel):
+            if not name.startswith("_") and callable(getattr(tel, name)):
+                self._patch(tel, name, self.PARTS[0])
+        self._patch(tel.flightrec, "record", self.PARTS[1])
+        self._patch(device_stats, "_signature", self.PARTS[2])
+        reg = device_stats.get_registry()
+        self._patch(reg, "record_invoke", self.PARTS[2])
+        self._patch(reg, "record_compile", self.PARTS[2])
+        if engine._pager is not None:
+            self._patch(engine._pager, "stats", self.PARTS[3])
+        self._patch(engine, "_compose_kv_scope", self.PARTS[3])
+
+    def _patch(self, obj, name: str, part: str) -> None:
+        fn = getattr(obj, name)
+        had = name in getattr(obj, "__dict__", {})
+        torch, spy = self._torch, self
+
+        def wrapped(*a, **kw):
+            if spy._depth:
+                return fn(*a, **kw)
+            if spy._guard:
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+            spy._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spy.by_part[part] += time.perf_counter() - t0
+                spy.calls += 1
+                spy._depth -= 1
+                if spy._guard:
+                    torch.cuda.set_sync_debug_mode(prev)
+
+        setattr(obj, name, wrapped)
+        self._undo.append((obj, name, fn if had else None))
+
+    def restore(self) -> None:
+        for obj, name, fn in reversed(self._undo):
+            if fn is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, fn)
+        self._undo = []
+
+    @property
+    def seconds(self) -> float:
+        return sum(self.by_part.values())
+
+
+#: engine_stats()'s top-level keys (the reference's schema test,
+#: tests/test_engine_stats_schema.py:26-34)
+ENGINE_STATS_KEYS = {
+    "deployment", "uptime_s", "requests", "ttft_ms", "queue_wait_ms",
+    "request_latency_ms", "inter_token_ms", "engine_steps",
+    "tokens_generated", "tokens_per_sec", "slot_utilization",
+    "max_active_slots", "max_slots", "prefill_buckets",
+    "prefill_compiles", "program_compiles", "rejections_by_reason",
+    "kv_cache", "kv_scope", "kv_tier", "spec", "slo", "flightrec",
+    "programs", "latency_anatomy", "prefill_chunks", "role", "handoff",
+    "health"}
+
+
+def profile_serving(torch, np, engine, prompts, card: str) -> dict:
+    """One run of ``prompts``, all at once, under torch.profiler (CUPTI):
+    the card's busy time (kernels, copies and sets on its one stream)
+    over the run's wall time, and the busy time by kind.  The profiler
+    slows the host's launches, so the busy share it gives is a lower
+    bound of the unprofiled run's."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        asyncio.run(_serve_waves(engine, prompts, len(prompts)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    kinds = {}
+    for e in events:
+        kind = next((k for k, marks in PROFILE_KINDS if any(
+            m in e.key for m in marks)), "other elementwise")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    launches = sum(e.count for e in events)
+    print(f"[serve-telemetry] (b) profiled run, {len(prompts)} requests at "
+          f"once: wall {wall:.3f} s, device busy {busy:.3f} s = "
+          f"{100 * busy / wall:.1f}% ({launches} device ops, "
+          f"{1e6 * busy / max(launches, 1):.1f} us each); busy by kind "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
+              kinds.items(), key=lambda kv: -kv[1]))
+          + f" [{card}]", flush=True)
+    return {"wall_s": wall, "busy_s": busy, "busy_share": busy / wall,
+            "device_ops": launches, "by_kind_ms": kinds}
+
+
+def phase_serve_telemetry(torch, np, fa, card: str, gate: dict,
+                          preset="llama-1b", device="cuda",
+                          widths=None) -> dict:
+    """The serving telemetry on llama-1b: (a) an f32 paged engine of 4
+    slots with a generous SLOConfig, each reply held to the oracle, its
+    engine_stats() key tree, counts, HBM ledger, roofline and timeline
+    checked; (b) bf16, 32 requests at once through 8 slots: served
+    tokens/s by the phase's clock and the engine's, TTFT and
+    inter-token percentiles, slot utilization, telemetry's share of the
+    wall time, every record call under sync-debug "error"; (c) three
+    admission-policy runs (a queue bound, a headroom above the card's
+    memory, a headroom of 1 GiB); (d) a breached SLO dumping the flight
+    record; (e) a health monitor and a chaos freeze attached as the
+    fleet router attaches them, f32 replies held to the oracle; (f) the
+    batch scheduler: 8 equal-length bf16 requests, one prefill through
+    the flash forward (16 launches, zeroed just before).  ``preset``,
+    ``device`` and ``widths`` let it run cut down elsewhere."""
+    import os
+    import tempfile
+
+    from ray_tpu_torch.serve import build_llm_deployment
+    from ray_tpu_torch.serve.batching import (AdmissionPolicy,
+                                              OverloadedError)
+    from ray_tpu_torch.serve.chaos import ChaosConfig, ChaosInjector
+    from ray_tpu_torch.serve.health import HealthConfig, HealthMonitor
+    from ray_tpu_torch.serve.slo import SLOConfig
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    widths = dict(widths or {})
+    prompts, oracle = gate["prompts"], gate["oracle"]
+    out = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    launches = {}
+
+    def drive(engine, ps, wave1, extra=None):
+        zero_counts(fa)
+
+        async def run():
+            helper = (asyncio.ensure_future(extra())
+                      if extra is not None else None)
+            try:
+                return await _serve_waves(engine, ps, wave1)
+            finally:
+                if helper is not None:
+                    helper.cancel()
+
+        res = asyncio.run(run())
+        sync()
+        for k, v in read_counts(fa).items():
+            launches[k] = launches.get(k, 0) + v
+        return res
+
+    f32 = dict(scheduler="continuous", max_new_tokens=CONT_MAX_NEW,
+               prefill_bucket=CONT_BUCKET, seed=0, device=dev,
+               max_slots=CONT_SLOTS, kv_layout="paged",
+               kv_block_size=CONT_BLOCK, kv_num_blocks=CONT_F32_BLOCKS,
+               config_overrides=dict(widths, dtype=torch.float32,
+                                     max_seq=CONT_MAX_SEQ))
+    bf16 = dict(scheduler="continuous", kv_layout="paged",
+                kv_block_size=CONT_BLOCK, max_slots=TELE_SLOTS,
+                max_new_tokens=CONT_MAX_NEW, prefill_bucket=CONT_BUCKET,
+                seed=0, device=dev, config_overrides=widths)
+
+    def build(**kw):
+        return build_llm_deployment("llama", preset, **kw)()
+
+    # (a) -------------------------------------------------------------
+    engine = build(slo=SLOConfig(ttft_ms=600_000.0, e2e_ms=600_000.0,
+                                 queue_wait_ms=600_000.0), **f32)
+    params, cfg = engine.params, engine.cfg
+    # the registry is process-wide and an earlier phase's engine of the
+    # same identity shares these programs: count (a)'s own invokes
+    from ray_tpu_torch._private.device_stats import get_registry
+
+    def calls_of(names):
+        snap = get_registry().snapshot(prefix="serve.")
+        return {n: snap.get(n, {}).get("invokes", 0)
+                + snap.get(n, {}).get("compile_events", 0) for n in names}
+
+    served_by = ("serve.paged_prefill", "serve.decode")
+    calls0 = calls_of(served_by)
+    t0 = time.perf_counter()
+    outs, _ = drive(engine, prompts, CONT_WAVE1)
+    wall = time.perf_counter() - t0
+    calls = {n: c - calls0[n] for n, c in calls_of(served_by).items()}
+    check_replies(np, prompts, outs, CONT_MAX_NEW, cfg.vocab_size, "a")
+    ties = gate_against_oracle(torch, np, params, cfg, prompts, outs,
+                               oracle, "a f32 paged+slo", "serve-telemetry")
+    st = engine.engine_stats()
+    missing = ENGINE_STATS_KEYS - set(st)
+    if missing:
+        fail(f"[serve-telemetry] engine_stats() lacks {sorted(missing)}")
+    req = st["requests"]
+    decoded = sum(len(o) - len(p) - 1 for p, o in zip(prompts, outs))
+    checks = {
+        "admitted == finished == requests":
+            req["admitted"] == req["finished"] == len(prompts),
+        "tokens_generated == decode tokens of the replies":
+            st["tokens_generated"] == decoded,
+        "kv_cache == the pager's stats()": st["kv_cache"] ==
+            engine._pager.stats(),
+        "slo not breached": st["slo"]["breached"] is False,
+        "programs serve.paged_prefill and serve.decode compiled":
+            all(st["programs"].get(n, {}).get("compile_events", 0) >= 1
+                for n in served_by),
+        "serve.paged_prefill and serve.decode called in this run":
+            all(c >= 1 for c in calls.values()),
+    }
+    ledger = st["kv_scope"]["hbm_ledger"]["per_chip"]
+    pool = st["kv_cache"]["pool_bytes"]
+    if on_card:
+        total = torch.cuda.mem_get_info(dev)[1]
+        row = ledger[0] if len(ledger) == 1 else {}
+        checks.update({
+            "one ledger row with the card's total memory":
+                row.get("bytes_limit") == total,
+            "kv_pool_bytes == the pager's bytes":
+                row.get("kv_pool_bytes") == pool,
+            "headroom == limit - max(in use, pool)":
+                row.get("headroom_bytes") == total - max(
+                    row.get("bytes_in_use") or 0, pool),
+            "the roofline names the card": st["device"]["device_kind"] ==
+                torch.cuda.get_device_name(dev),
+        })
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "timeline.json")
+        engine.export_timeline(path)
+        with open(path) as f:
+            events = json.load(f)
+    lanes = {e["args"]["name"] for e in events if e["name"] == "thread_name"}
+    checks["timeline lanes: a slot each, the queue, the steps"] = lanes == \
+        {f"slot {i}" for i in range(CONT_SLOTS)} | {"queue", "engine steps"}
+    bad = [k for k, ok in checks.items() if not ok]
+    print(f"[serve-telemetry] (a) f32 paged engine, {CONT_SLOTS} slots, "
+          f"generous SLO: {len(prompts)} requests in {wall:.2f} s, all equal "
+          f"to the oracle or parted at a near-tie; requests {req}; "
+          f"tokens_generated {st['tokens_generated']}; programs "
+          f"{ {n: b['compile_events'] for n, b in st['programs'].items()} }; "
+          f"calls in this run {calls}; "
+          f"flightrec {st['flightrec']['recorded']} events; ledger "
+          f"{ledger}; roofline {st['device']}; timeline {len(events)} "
+          f"events; {engine_clock_line(st)} [{card}]", flush=True)
+    if bad:
+        fail(f"[serve-telemetry] (a) failed: {bad}")
+    out["a"] = {"wall_s": wall, "requests": req, "ledger": ledger,
+                "program_calls": calls,
+                "engine": engine_clock(st), "programs": {
+                    n: b["compile_events"] for n, b in st["programs"].items()}}
+    del engine
+
+    # (b) -------------------------------------------------------------
+    tprompts = continuous_prompts(np, cfg.vocab_size, TELE_N, seed=6)
+    engine = build(**bf16)
+    drive(engine, tprompts[:8], 8)          # warm-up, not timed
+    engine = build(**bf16)
+    spy = _HostCostSpy(torch, engine, guard=on_card)
+    sync()
+    t0 = time.perf_counter()
+    try:
+        outs, lat = drive(engine, tprompts, TELE_N)
+    finally:
+        spy.restore()
+    wall = time.perf_counter() - t0
+    check_replies(np, tprompts, outs, CONT_MAX_NEW, cfg.vocab_size, "b")
+    st = engine.engine_stats()
+    recs = engine.trace_records()
+    prefill_s = sum(r["first_token"] - r["admit"] for r in recs
+                    if r["first_token"] is not None
+                    and r["admit"] is not None)
+    step_s = st["inter_token_ms"]["mean"] * st["engine_steps"] / 1e3
+    served = TELE_N * CONT_MAX_NEW / wall
+    b = {"wall_s": wall, "served_tokens_per_s": served, **_pcts(lat),
+         "engine": engine_clock(st), "telemetry_s": spy.seconds,
+         "telemetry_calls": spy.calls,
+         "telemetry_share": spy.seconds / wall,
+         "telemetry_ms_by_part": {k: 1e3 * v
+                                  for k, v in spy.by_part.items()},
+         "decode_step_s": step_s, "decode_step_share": step_s / wall,
+         "prefill_s": prefill_s, "prefill_share": prefill_s / wall,
+         "engine_steps": st["engine_steps"]}
+    print(f"[serve-telemetry] (b) bf16 paged, {TELE_N} requests at once "
+          f"through {TELE_SLOTS} slots (+{CONT_MAX_NEW} each): {served:.1f} "
+          f"served tokens/s by the phase's clock ({wall:.3f} s; request "
+          f"latency p50 {b['p50_ms']:.1f} ms, p95 {b['p95_ms']:.1f} ms); "
+          f"{engine_clock_line(st)}; telemetry's host work {spy.calls} "
+          f"calls, {spy.seconds * 1e3:.2f} ms = "
+          f"{100 * b['telemetry_share']:.3f}% of the wall time ("
+          + ", ".join(f"{k} {v:.2f} ms"
+                      for k, v in b["telemetry_ms_by_part"].items())
+          + "), every timed call under sync-debug 'error'; "
+          f"decode steps {st['engine_steps']} taking {step_s:.3f} s "
+          f"({100 * step_s / wall:.1f}%), prefill (admit -> first token, "
+          f"summed over requests) {prefill_s:.3f} s [{card}]", flush=True)
+    if on_card:
+        b["profiled"] = profile_serving(torch, np, build(**bf16),
+                                        tprompts[:TELE_SLOTS], card)
+    out["b"] = b
+    del engine, spy
+
+    # (c) -------------------------------------------------------------
+    def shed_run(policy, tag):
+        engine = build(admission_policy=policy, **bf16)
+        # the admission gate's ledger refresh, timed on its own
+        scope = [0.0, 0]
+        compose = engine._compose_kv_scope
+
+        def timed_scope(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return compose(*a, **kw)
+            finally:
+                scope[0] += time.perf_counter() - t
+                scope[1] += 1
+
+        engine._compose_kv_scope = timed_scope
+
+        async def one(p):
+            try:
+                return await engine(p)
+            except OverloadedError as e:
+                return e
+
+        async def run():
+            try:
+                return await asyncio.gather(*(one(p) for p in tprompts))
+            finally:
+                engine.shutdown_engine()
+
+        sync()
+        t = time.perf_counter()
+        res = asyncio.run(run())
+        sync()
+        wall = time.perf_counter() - t
+        del engine._compose_kv_scope
+        shed = sum(isinstance(r, OverloadedError) for r in res)
+        served = [r for r in res if not isinstance(r, Exception)]
+        reasons = engine.engine_stats()["rejections_by_reason"]
+        print(f"[serve-telemetry] (c) {tag}: {shed} of {len(tprompts)} "
+              f"shed, {len(served)} replied in {wall:.3f} s; the gate's "
+              f"ledger refreshes {scope[1]} taking {1e3 * scope[0]:.3f} ms; "
+              f"rejections_by_reason {reasons} [{card}]", flush=True)
+        runs[tag] = {"wall_s": wall, "ledger_refreshes": scope[1],
+                     "ledger_ms": 1e3 * scope[0]}
+        for p, r in zip(tprompts, res):
+            if not isinstance(r, Exception):
+                check_replies(np, [p], [r], CONT_MAX_NEW, cfg.vocab_size,
+                              tag)
+            elif not isinstance(r, OverloadedError):
+                fail(f"[serve-telemetry] (c) {tag}: a request raised {r!r}")
+        return shed, len(served), reasons, engine
+
+    def admission_costs(engine, reps=50):
+        """The host work an admission_policy adds to each request, by
+        part, in us a call: the telemetry read that decide() takes,
+        and the headroom gate's ledger refresh (the pager's kvscope
+        block, the allocator read) beside the segment walk it leaves
+        out."""
+        from ray_tpu_torch._private.device_stats import device_memory_stats
+
+        parts = {
+            "engine_stats for decide": engine._telemetry.engine_stats,
+            "ledger refresh": lambda: engine._compose_kv_scope(
+                largest_alloc=False),
+            "pager kv_scope_stats": engine._pager.kv_scope_stats,
+            "allocator read": lambda: device_memory_stats(
+                [dev], largest_alloc=False),
+            "allocator read + segment walk": lambda: device_memory_stats(
+                [dev]),
+        }
+        us = {}
+        for name, fn in parts.items():
+            fn()
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            us[name] = 1e6 * (time.perf_counter() - t) / reps
+        print("[serve-telemetry] (c) an admission's host work, us a call ("
+              f"{reps} calls each): " + ", ".join(
+                  f"{k} {v:.1f}" for k, v in us.items()) + f" [{card}]",
+              flush=True)
+        return us
+
+    runs = {}
+    total = torch.cuda.mem_get_info(dev)[1] if on_card else None
+    n, ok, reasons, _ = shed_run(
+        AdmissionPolicy(max_queue_depth=TELE_MAX_QUEUE), "max_queue_depth=4")
+    if not n or reasons != {"shed_queue_full": n} or n + ok != TELE_N:
+        fail(f"[serve-telemetry] (c) the queue bound shed {n} and served "
+             f"{ok}; rejections {reasons}")
+    out["c"] = {"queue_full_shed": n}
+    if on_card:
+        n, ok, reasons, _ = shed_run(
+            AdmissionPolicy(min_headroom_bytes=2 * total),
+            "min_headroom_bytes=2 x the card's memory")
+        if n != TELE_N or reasons != {"shed_hbm_headroom": TELE_N}:
+            fail(f"[serve-telemetry] (c) a headroom above the card's memory "
+                 f"shed {n} of {TELE_N}; rejections {reasons}")
+        n, ok, reasons, engine = shed_run(
+            AdmissionPolicy(min_headroom_bytes=1 << 30),
+            "min_headroom_bytes=1 GiB")
+        if n or ok != TELE_N:
+            fail(f"[serve-telemetry] (c) a 1 GiB headroom shed {n}")
+        out["c"]["admission_us"] = admission_costs(engine)
+        del engine
+        # the same traffic with no policy: the 1 GiB run's wall beside it
+        if shed_run(None, "no admission_policy")[0]:
+            fail("[serve-telemetry] (c) a run without a policy shed")
+        out["c"]["headroom_runs"] = "all shed / none shed"
+    out["c"]["runs"] = runs
+
+    # (d) -------------------------------------------------------------
+    old = os.environ.get("RAYTPU_FLIGHTREC_DIR")
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["RAYTPU_FLIGHTREC_DIR"] = d
+        try:
+            engine = build(slo=SLOConfig(ttft_ms=0.001), **bf16)
+            drive(engine, tprompts[:8], 8)
+            blk = engine.engine_stats()["slo"]
+            dumps = list(blk["dumps"])
+            doc = None
+            if dumps and os.path.dirname(dumps[0]) == d:
+                with open(dumps[0]) as f:
+                    doc = json.load(f)
+        finally:
+            if old is None:
+                os.environ.pop("RAYTPU_FLIGHTREC_DIR", None)
+            else:
+                os.environ["RAYTPU_FLIGHTREC_DIR"] = old
+    kinds = (doc or {}).get("counts_by_kind", {})
+    print(f"[serve-telemetry] (d) SLO ttft 0.001 ms: breached "
+          f"{blk['breached']}, breaches {blk['breaches']}, {len(dumps)} "
+          f"dump(s); the dump's events by kind {kinds} [{card}]", flush=True)
+    if not blk["breached"] or not dumps or doc is None \
+            or not kinds.get("kv_reserve"):
+        fail("[serve-telemetry] (d) the breach did not dump a flight record "
+             "holding the pager's kv_reserve events")
+    out["d"] = {"breaches": blk["breaches"], "dumps": len(dumps),
+                "kinds": kinds}
+    del engine
+
+    # (e) -------------------------------------------------------------
+    engine = build(**f32)
+    label = "fleet/r0"
+    mon = HealthMonitor(HealthConfig(**TELE_HEALTH))
+    inj = ChaosInjector(ChaosConfig(
+        seed=0, freeze_replica=0, freeze_after_waves=4,
+        freeze_waves=TELE_FREEZE_POLLS, freeze_poll_ms=TELE_POLL_MS),
+        monitor=mon)
+    # as the fleet router attaches them (ray_tpu/serve/router.py:735-746)
+    engine._replica_label = label
+    engine._health = mon
+    mon.register(label, role="both", recorder=engine._telemetry.flightrec,
+                 telemetry=engine._telemetry)
+    engine._chaos = inj
+    inj.bind(label)
+
+    async def prober():
+        while True:
+            mon.maybe_probe()
+            await asyncio.sleep(TELE_HEALTH["probe_ms"] / 1e3)
+
+    t0 = time.perf_counter()
+    outs, _ = drive(engine, prompts, CONT_WAVE1, extra=prober)
+    wall = time.perf_counter() - t0
+    check_replies(np, prompts, outs, CONT_MAX_NEW, cfg.vocab_size, "e")
+    ties += gate_against_oracle(torch, np, params, cfg, prompts, outs,
+                                oracle, "e f32 paged+health+chaos",
+                                "serve-telemetry")
+    h = engine.engine_stats()["health"]
+    log = [(x["from"], x["to"], x["reason"]) for x in h["transition_log"]]
+    print(f"[serve-telemetry] (e) health + chaos freeze of "
+          f"{TELE_FREEZE_POLLS} polls of {TELE_POLL_MS} ms: {len(prompts)} "
+          f"f32 requests in {wall:.2f} s, equal to the oracle or parted at "
+          f"a near-tie; transitions {log}; time_to_detect_ms "
+          f"{h['time_to_detect_ms']}; chaos {inj.stats()} [{card}]",
+          flush=True)
+    if ("suspect", "dead", "heartbeat_lost") not in log \
+            or log[-1][1] != "healthy" or h["time_to_detect_ms"] is None \
+            or not any(t[1] == "suspect" for t in log):
+        fail("[serve-telemetry] (e) the monitor did not log the frozen "
+             "replica going suspect, dead and recovering")
+    out["e"] = {"transitions": log, "time_to_detect_ms":
+                h["time_to_detect_ms"], "wall_s": wall}
+    del engine, mon, inj, params
+
+    # (f) -------------------------------------------------------------
+    batch = build_llm_deployment(
+        "llama", preset, max_new_tokens=CONT_MAX_NEW,
+        max_batch_size=TELE_BATCH_N, seed=0, device=dev,
+        config_overrides=widths)()
+    rs = np.random.RandomState(9)
+    bprompts = [rs.randint(0, cfg.vocab_size, TELE_BATCH_T).astype(np.int32)
+                for _ in range(TELE_BATCH_N)]
+    zero_counts(fa)
+    outs, _ = asyncio.run(_serve_waves(batch, bprompts, TELE_BATCH_N))
+    sync()
+    counts = read_counts(fa)
+    check_replies(np, bprompts, outs, CONT_MAX_NEW, cfg.vocab_size, "f")
+    st = batch.engine_stats()
+    print(f"[serve-telemetry] (f) batch scheduler, {TELE_BATCH_N} "
+          f"requests of {TELE_BATCH_T} tokens: requests {st['requests']}, "
+          f"request latency count {st['request_latency_ms']['count']} p50 "
+          f"{st['request_latency_ms']['p50']} ms; kernel launches {counts} "
+          f"[{card}]", flush=True)
+    want_fwd = cfg.n_layer if on_card else 0
+    if st["requests"]["finished"] != TELE_BATCH_N \
+            or st["request_latency_ms"]["count"] != TELE_BATCH_N \
+            or counts["flash_fwd"] != want_fwd:
+        fail(f"[serve-telemetry] (f) expected {TELE_BATCH_N} finished "
+             f"requests with a latency sample each and {want_fwd} flash "
+             f"forward launches; got {st['requests']} and {counts}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    out["f"] = {"requests": st["requests"], "launches": counts}
+    del batch
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"counts": launches, "near_ties": ties, **out}
 
 
 def main() -> int:
@@ -2646,8 +3311,9 @@ def main() -> int:
     serve_llama = phase_serve(torch, np, fa, card, "llama", "serve-llama")
     with torch.inference_mode():
         serve_cont = phase_serve_continuous(torch, np, fa, card)
-        serve_spec = phase_serve_spec_disagg(torch, np, fa, card,
-                                             serve_cont.pop("gate"))
+        gate = serve_cont.pop("gate")
+        serve_spec = phase_serve_spec_disagg(torch, np, fa, card, gate)
+        serve_tele = phase_serve_telemetry(torch, np, fa, card, gate)
     train_llama = phase_train_llama(torch, fa, fc, card)
     llama_7b = phase_llama_7b(torch, fa, fc, card)
 
@@ -2658,6 +3324,7 @@ def main() -> int:
                    "serve_llama": serve_llama["counts"].get(name, 0),
                    "serve_continuous": serve_cont["counts"].get(name, 0),
                    "serve_spec_disagg": serve_spec["counts"].get(name, 0),
+                   "serve_telemetry": serve_tele["counts"].get(name, 0),
                    "train_llama": train_llama["counts"][name]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path,

@@ -17,14 +17,16 @@ from typing import Optional
 
 import torch
 
+from ray_tpu_torch._private.device_stats import H100_SXM
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models.gpt2 import (gpt2_config, gpt2_init, gpt2_loss,
                                        gpt2_param_count)
 from ray_tpu_torch.train.optim import adamw
 from ray_tpu_torch.train.trainer import build_train_step
 
-#: dense bf16 peak of one NVIDIA H100 SXM (data sheet, at 700 W)
-H100_BF16_PEAK_FLOPS = 989e12
+#: dense bf16 peak of one NVIDIA H100 SXM (data sheet, at 700 W), from
+#: the one table of the card's peak rates
+H100_BF16_PEAK_FLOPS = H100_SXM["bf16_flops"]
 
 
 def time_config(batch: int, seq: int = 1024, n_steps: int = 20,

@@ -3,12 +3,11 @@ continuous scheduler's queue and chunk cursor.
 
 Copies of ``batch`` and ``_BatchQueue`` (which here also keeps each
 running batch task referenced until it finishes), ``ChunkCursor``,
-``HandoffCursor``, ``RequestQueue`` and ``OverloadedError`` from
-``ray_tpu/serve/batching.py`` (pure asyncio; the port keeps its own
-copy rather than importing the JAX package).  Concurrent calls are
-collected into one list call, so the model runs one batched generation
-for many callers.  ``AdmissionPolicy`` waits for its slice (ROADMAP.md
-queue 1 item 4).
+``HandoffCursor``, ``RequestQueue``, ``OverloadedError`` and
+``AdmissionPolicy`` from ``ray_tpu/serve/batching.py`` (pure asyncio;
+the port keeps its own copy rather than importing the JAX package).
+Concurrent calls are collected into one list call, so the model runs
+one batched generation for many callers.
 
 Usage (async methods only — batching needs an event loop to park
 pending callers on):
@@ -237,7 +236,75 @@ class RequestQueue:
 
 
 class OverloadedError(Exception):
-    """Raised to a caller whose request was load-shed at admission.
-    Callers should back off and retry; proxies map this to HTTP 503.
-    Nothing in the port raises it until the admission policy
-    (ROADMAP.md queue 1 item 4) is ported."""
+    """Raised to a caller whose request was load-shed at admission
+    (AdmissionPolicy said the engine cannot meet its SLOs).  Callers
+    should back off and retry; proxies map this to HTTP 503."""
+
+
+class AdmissionPolicy:
+    """SLO-driven load shedding: the control loop closing serve
+    telemetry back into admission decisions.
+
+    The continuous engine consults ``decide(stats, queue_depth)``
+    before enqueueing each request, passing its own ``engine_stats()``
+    snapshot.  A request is shed (reason string returned) when:
+
+      * ``queue_depth >= max_queue_depth`` — backlog bound; or
+      * observed p95 queue wait exceeds ``queue_wait_slo_ms`` while a
+        backlog exists — admitted requests are already waiting longer
+        than the SLO, so new ones cannot meet it; or
+      * observed p95 TTFT exceeds ``ttft_slo_ms`` while a backlog
+        exists; or
+      * the kvscope HBM ledger's ``min_headroom_bytes`` (worst chip:
+        bytes_limit − max(live allocator bytes, KV pool + audited
+        program peak)) has fallen below ``min_headroom_bytes`` —
+        admitting more work risks a device OOM, which no amount of
+        queueing recovers from.
+
+    The percentile gates only fire with a backlog (``queue_depth >
+    0``): an idle engine with bad historical percentiles must accept
+    work, or it could shed forever on stale history.  The headroom
+    gate fires regardless of backlog — exhausted HBM does not heal by
+    admitting the request that would exhaust it — but is inert when
+    the ledger reports no measurable headroom (CPU backends, dense
+    engines).  ``None`` for any threshold disables that gate; the
+    default policy (all None except a generous queue bound) never
+    sheds in small test runs."""
+
+    def __init__(self, *, max_queue_depth: Optional[int] = None,
+                 queue_wait_slo_ms: Optional[float] = None,
+                 ttft_slo_ms: Optional[float] = None,
+                 min_headroom_bytes: Optional[int] = None):
+        self.max_queue_depth = max_queue_depth
+        self.queue_wait_slo_ms = queue_wait_slo_ms
+        self.ttft_slo_ms = ttft_slo_ms
+        self.min_headroom_bytes = min_headroom_bytes
+
+    def decide(self, stats, queue_depth: int) -> Optional[str]:
+        """None = admit; otherwise the shed reason (metric label)."""
+        if self.max_queue_depth is not None \
+                and queue_depth >= self.max_queue_depth:
+            return "queue_full"
+        if self.min_headroom_bytes is not None:
+            ledger = (stats.get("kv_scope") or {}).get("hbm_ledger") \
+                or {}
+            headroom = ledger.get("min_headroom_bytes")
+            if headroom is not None \
+                    and headroom < self.min_headroom_bytes:
+                return "hbm_headroom"
+        if queue_depth > 0:
+            qw = (stats.get("queue_wait_ms") or {}).get("p95")
+            if self.queue_wait_slo_ms is not None and qw is not None \
+                    and qw > self.queue_wait_slo_ms:
+                return "queue_wait_slo"
+            ttft = (stats.get("ttft_ms") or {}).get("p95")
+            if self.ttft_slo_ms is not None and ttft is not None \
+                    and ttft > self.ttft_slo_ms:
+                return "ttft_slo"
+        return None
+
+    def describe(self) -> dict:
+        return {"max_queue_depth": self.max_queue_depth,
+                "queue_wait_slo_ms": self.queue_wait_slo_ms,
+                "ttft_slo_ms": self.ttft_slo_ms,
+                "min_headroom_bytes": self.min_headroom_bytes}

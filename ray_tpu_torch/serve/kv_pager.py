@@ -101,8 +101,8 @@ class BlockPager:
         #: total keys handed out by prefix_keys() — how much affinity
         #: metadata this pager has published to routers
         self.prefix_keys_exported = 0
-        #: optional flight recorder (anything with ``record(event,
-        #: **fields)``; the port's is ROADMAP.md queue 1 item 4): block
+        #: optional flight recorder (_private/flightrec.py; the engine
+        #: passes its telemetry's): block
         #: reserve / evict / free / COW decisions journal themselves
         #: so a postmortem can replay pool pressure around an anomaly
         self._recorder = recorder

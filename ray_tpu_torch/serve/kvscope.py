@@ -1,9 +1,9 @@
-"""kvscope — KV-cache memory observatory (host-side core).
+"""kvscope — KV-cache & HBM memory observatory (host-side core).
 
-A copy of ``ray_tpu/serve/kvscope.py``'s ``KVScope`` and
-``empty_kv_scope`` (pure Python; the port keeps its own copy rather
-than importing the JAX package).  Two concerns, all pure host
-bookkeeping hanging off `BlockPager` (serve/kv_pager.py) callbacks:
+A copy of ``ray_tpu/serve/kvscope.py`` (pure Python; the port keeps its
+own copy rather than importing the JAX package).  Three concerns, all
+pure host bookkeeping hanging off `BlockPager` (serve/kv_pager.py)
+callbacks:
 
   * **occupancy timelines** — a bounded ring of per-wave pool
     snapshots (free / cached-LRU / in-use / null counts plus a
@@ -19,12 +19,17 @@ bookkeeping hanging off `BlockPager` (serve/kv_pager.py) callbacks:
     tenant.  A key the tier restores instead (``note_tier_hit``)
     books ``tier_hits``/``tokens_restored`` waste-AVOIDED, never
     waste: the forensics split residual churn cost from churn the
-    tier absorbed.
+    tier absorbed;
+  * **unified HBM ledger** (``hbm_ledger``) — one per-card table
+    merging the pager's pool bytes, the allocator view
+    (``_private/device_stats.device_memory_stats()``) and the serve
+    programs' audited peak budget into a single ``headroom_bytes`` that
+    an ``AdmissionPolicy(min_headroom_bytes=)`` gate can shed against.
+    The budget (``serve_program_budget_bytes``) is 0 until the port has
+    a static program auditor (ROADMAP.md queue 1 item 7), so the ledger
+    leans on the allocator view.
 
-The reference's third concern, the unified HBM ledger
-(``hbm_ledger``, ``serve_program_budget_bytes``), belongs to the
-engine telemetry, ROADMAP.md queue 1 item 4.  Everything is
-perf_counter-clocked and kill-switched by ``RAYTPU_KVSCOPE=0``: a
+Everything is perf_counter-clocked and kill-switched by ``RAYTPU_KVSCOPE=0``: a
 disabled scope costs one attribute check per hook.
 """
 
@@ -35,7 +40,8 @@ import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["KVScope", "empty_kv_scope"]
+__all__ = ["KVScope", "empty_kv_scope", "hbm_ledger",
+           "serve_program_budget_bytes"]
 
 #: occupancy ring length — one entry per engine wave, so at the
 #: default this is the last ~512 waves of pool history
@@ -323,4 +329,55 @@ def empty_kv_scope() -> Dict[str, object]:
             "top_keys": [],
         },
         "blocks_by_tenant": {},
+        "hbm_ledger": {"per_chip": [], "min_headroom_bytes": None},
     }
+
+
+def hbm_ledger(*, pool_bytes_per_chip: int = 0,
+               device_stats: Optional[Sequence[Dict]] = None,
+               program_budget_bytes: int = 0) -> Dict[str, object]:
+    """Unified per-chip HBM table: merges the KV pool's resident
+    bytes, the live allocator view (`device_memory_stats()` rows), and
+    the serve programs' audited peak budget into one
+    ``headroom_bytes`` per chip.
+
+    ``headroom = bytes_limit - max(bytes_in_use, pool + budget)`` —
+    the allocator view when it is the larger (live activations beyond
+    the audited programs), the static commitment when the allocator
+    under-reports (CPU backends report no live bytes at all).  Chips
+    with no ``bytes_limit`` (CPU) get ``headroom_bytes: None`` and are
+    excluded from ``min_headroom_bytes``, so the AdmissionPolicy gate
+    is inert off-accelerator by construction."""
+    rows: List[Dict[str, object]] = []
+    for d in device_stats or []:
+        limit = d.get("bytes_limit")
+        in_use = d.get("bytes_in_use")
+        committed = max(in_use or 0,
+                        pool_bytes_per_chip + program_budget_bytes)
+        rows.append({
+            "id": d.get("id"),
+            "platform": d.get("platform"),
+            "bytes_limit": limit,
+            "bytes_in_use": in_use,
+            "peak_bytes_in_use": d.get("peak_bytes_in_use"),
+            "kv_pool_bytes": int(pool_bytes_per_chip),
+            "program_budget_bytes": int(program_budget_bytes),
+            "headroom_bytes":
+                int(limit) - int(committed)
+                if limit is not None else None,
+        })
+    vals = [r["headroom_bytes"] for r in rows
+            if r["headroom_bytes"] is not None]
+    return {"per_chip": rows,
+            "min_headroom_bytes": min(vals) if vals else None}
+
+
+def serve_program_budget_bytes() -> int:
+    """Worst-case audited peak over the serve-path programs (prefill /
+    decode / verify) — the static 'what the programs may transiently
+    need' term of the ledger.  The JAX package reads it from
+    graftcheck's program catalog; the port has no such auditor yet
+    (ROADMAP.md queue 1 item 7), so this is 0, the JAX package's own
+    best-effort value when graftcheck cannot be imported: the ledger
+    then leans on the allocator view alone."""
+    return 0

@@ -30,19 +30,32 @@ Two schedulers:
     engine's ``admit_prefilled`` splices into its pool and decodes.
 
 The reference's jitted engine programs are plain functions here
-(``_engine_fns``) that update the pool in place.  The engine loop runs
-the device work synchronously inside asyncio, as the reference does,
-and fences the host once per decode wave.
+(``_engine_fns``) that update the pool in place, registered under the
+reference's names in the program registry
+(``_private/device_stats.py``).  The engine loop runs the device work
+synchronously inside asyncio, as the reference does, and fences the
+host once per decode wave.
+
+Both schedulers report every request's lifecycle to an
+``EngineTelemetry`` (``serve/telemetry.py``), timed around the host
+fences the engine already makes: ``engine_stats()``,
+``export_timeline()``, ``trace_records()``/``request_trace()``,
+``anatomy_samples()`` and ``metrics_snapshot()`` read it.  The
+continuous scheduler also takes ``admission_policy`` (load shedding
+with ``OverloadedError``) and ``slo`` (an ``SLOConfig``: burn rates,
+and flight-recorder dumps on a breach), and carries the fleet's attach
+points ``_health`` (a ``HealthMonitor``), ``_chaos`` (a
+``ChaosInjector``) and ``_replica_label``, which a caller sets as the
+reference's router does.
 
 ``build_llm_deployment`` takes every keyword of the reference's and
 validates them in its order: the combinations the reference rejects
 raise the same ValueError here.  Not ported yet, each raising
-NotImplementedError that names its ROADMAP.md item:
-``admission_policy`` and the engine telemetry (queue 1 item 4), the
-serve runtime that wraps engines in deployments and handles (and so
-``num_replicas`` > 1, and the router that forwards a prefill engine's
-HandoffCursor to a decode engine: item 5), and a ``mesh`` (item 7).
-Under "batch" the keywords only the continuous scheduler reads
+NotImplementedError that names its ROADMAP.md item: the serve runtime
+that wraps engines in deployments and handles (and so ``num_replicas``
+> 1, and the router that forwards a prefill engine's HandoffCursor to
+a decode engine: queue 1 item 5), and a ``mesh`` (item 7).  Under
+"batch" the keywords only the continuous scheduler reads
 (``stop_sequences``, ``eos_id``, ``max_slots``, ``prefill_bucket``,
 ``kv_block_size``, ``kv_num_blocks``, ``admission_policy``) are
 validated and ignored, as in the reference.  Here the engine class
@@ -54,7 +67,6 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
-import itertools
 import pickle
 import time
 import types
@@ -63,6 +75,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch._private.device_stats import (device_memory_stats,
+                                                 get_registry)
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models import gpt2_decode, llama_decode
 from ray_tpu_torch.models.convert import (gpt2_params_from_numpy,
@@ -77,12 +91,14 @@ from ray_tpu_torch.models.decode_common import (SamplingParams,
 from ray_tpu_torch.models.gpt2 import gpt2_config, gpt2_init
 from ray_tpu_torch.models.llama import llama_config, llama_init
 from ray_tpu_torch.serve.batching import (ChunkCursor, HandoffCursor,
-                                          RequestQueue)
+                                          OverloadedError, RequestQueue)
 from ray_tpu_torch.serve.batching import batch as _batch
 from ray_tpu_torch.serve.kv_pager import BlockPager
-from ray_tpu_torch.serve.kv_tier import (HostKVTier, empty_kv_tier,
-                                         staging_buffers)
-from ray_tpu_torch.serve.kvscope import empty_kv_scope
+from ray_tpu_torch.serve.kv_tier import HostKVTier, staging_buffers
+from ray_tpu_torch.serve.kvscope import (hbm_ledger,
+                                         serve_program_budget_bytes)
+from ray_tpu_torch.serve.slo import SLOConfig, SLOTracker
+from ray_tpu_torch.serve.telemetry import EngineTelemetry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,8 +135,9 @@ class SpecConfig:
 
 
 _ROADMAP_ITEM = {
-    "telemetry": "queue 1 item 4 (engine telemetry, engine_stats and "
-                 "the admission policy)",
+    "telemetry": "queue 1 item 4 (the train step's telemetry: "
+                 "train/telemetry.py, train/goodput.py and the program "
+                 "registry's train.step)",
     "runtime": "queue 1 item 5 (the serve runtime: deployments, "
                "replicas, router)",
     "mesh": "queue 1 item 7 (parallel/ and mesh-sharded serving)",
@@ -180,7 +197,10 @@ def _engine_fns(fam, cfg, sp: Optional[SamplingParams] = None,
     paged_prefill, pool_step) so that its default hot path is one
     dispatch; eager PyTorch gains nothing from that fusion, so the
     engine samples every logits row through its per-SamplingParams
-    sampler (``_sampler_for``)."""
+    sampler (``_sampler_for``).  The engine hands the scalar arguments
+    of paged_prefill_raw and kv_handoff_install over as numpy int32,
+    as the reference does, so that the program registry keys them by
+    type and not by value (``_instrumented``)."""
 
     def prefill_raw(p, toks, lens):
         return fam.prefill(p, toks, cfg, lengths=lens)
@@ -188,8 +208,9 @@ def _engine_fns(fam, cfg, sp: Optional[SamplingParams] = None,
     def paged_prefill_raw(p, cache, toks, row_bt, prefix_len, n_tail,
                           slot):
         logits, cache = fam.paged_prefill(
-            p, cache, toks, cfg, row_bt=row_bt, prefix_len=prefix_len,
-            n_tail=n_tail, slot=slot)
+            p, cache, toks, cfg, row_bt=row_bt,
+            prefix_len=int(prefix_len), n_tail=int(n_tail),
+            slot=int(slot))
         return logits[None], cache
 
     def pool_logits(p, cache, toks):
@@ -241,7 +262,7 @@ def _engine_fns(fam, cfg, sp: Optional[SamplingParams] = None,
         dev = cache["k"].device
         cache["k"][:, blk_ids] = k_stack.to(dev).transpose(0, 1)
         cache["v"][:, blk_ids] = v_stack.to(dev).transpose(0, 1)
-        set_pool_row(cache, slot, row_bt, pos)
+        set_pool_row(cache, int(slot), row_bt, int(pos))
         return cache
 
     spec_verify = draft_propose = draft_prefill = None
@@ -266,6 +287,41 @@ def _engine_fns(fam, cfg, sp: Optional[SamplingParams] = None,
         kv_handoff_export=kv_handoff_export,
         kv_handoff_install=kv_handoff_install, spec_verify=spec_verify,
         draft_propose=draft_propose, draft_prefill=draft_prefill)
+
+
+#: the engine programs the registry watches, under the reference's
+#: names (``ray_tpu/serve/llm.py:291-345``)
+_PROGRAMS = (("prefill_raw", "serve.prefill"),
+             ("paged_prefill_raw", "serve.paged_prefill"),
+             ("pool_logits", "serve.decode"),
+             ("spec_verify", "serve.spec_verify"),
+             ("draft_propose", "serve.spec_draft"),
+             ("kv_handoff_export", "serve.kv_handoff_export"),
+             ("kv_handoff_install", "serve.kv_handoff_install"))
+
+#: the instrumented programs of each engine identity.  The reference
+#: shares one set of jitted programs among the engines of one identity
+#: (its ``_JIT_CACHE``), so a second such engine compiles nothing;
+#: sharing the wrappers, and with them their seen signatures, keeps the
+#: registry's compile events the reference's.  The wrapped functions
+#: close over the family's functions and the configs only, never over
+#: an engine.
+_PROGRAM_CACHE: Dict[Any, Dict[str, Any]] = {}
+
+
+def _instrumented(fns: types.SimpleNamespace,
+                  key) -> types.SimpleNamespace:
+    """Swap ``fns``' engine programs for the registry-instrumented
+    ones of identity ``key`` (made from these on first sight)."""
+    progs = _PROGRAM_CACHE.get(key)
+    if progs is None:
+        registry = get_registry()
+        progs = _PROGRAM_CACHE[key] = {
+            attr: registry.instrument(name, getattr(fns, attr))
+            for attr, name in _PROGRAMS if getattr(fns, attr) is not None}
+    for attr, fn in progs.items():
+        setattr(fns, attr, fn)
+    return fns
 
 
 def _tier_saver(save_block, cache, tier):
@@ -347,6 +403,11 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
     HandoffCursor (rows kept on the device, or staged through host
     memory with handoff_staged) that a decode engine's
     ``admit_prefilled`` turns into prompt + continuation.
+    admission_policy (continuous): a ``serve.batching.AdmissionPolicy``
+    consulted before each request is queued; a shed request raises
+    ``OverloadedError``.  slo (continuous): a ``serve.slo.SLOConfig``
+    whose burn rates ``engine_stats()["slo"]`` reports, dumping the
+    flight recorder on a breach.
 
     Returns the engine class; ``await Engine()(prompt)`` answers one
     request."""
@@ -420,11 +481,14 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             raise ValueError("spec_decode requires "
                              "scheduler='continuous' (speculation "
                              "lives in the slot-pool engine loop)")
-    # the port has no SLOConfig yet (queue 1 item 4), so any value is
-    # of a type the reference rejects first, under either scheduler
     if slo is not None:
-        raise ValueError("slo must be a serve.slo.SLOConfig, got "
-                         f"{type(slo).__name__}")
+        if not isinstance(slo, SLOConfig):
+            raise ValueError("slo must be a serve.slo.SLOConfig, got "
+                             f"{type(slo).__name__}")
+        if scheduler != "continuous":
+            raise ValueError("slo requires scheduler='continuous' "
+                             "(the burn-rate watchdog runs from the "
+                             "slot-pool engine loop)")
     # validates the knobs; the engine's default per-request params
     default_sp = SamplingParams(temperature=temperature, top_k=top_k,
                                 top_p=top_p)
@@ -438,11 +502,8 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                          f"{num_replicas!r}")
     if num_replicas > 1:
         raise _not_ported(f"num_replicas={num_replicas}", "runtime")
-    if scheduler == "continuous":
-        if mesh is not None:
-            raise _not_ported("mesh-sharded serving", "mesh")
-        if admission_policy is not None:
-            raise _not_ported("admission_policy", "telemetry")
+    if scheduler == "continuous" and mesh is not None:
+        raise _not_ported("mesh-sharded serving", "mesh")
     dev = resolve_device(device)
     fam = _family_fns(family)
 
@@ -467,6 +528,22 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             # request would draw the same "random" continuation
             self._generator = torch.Generator(device=dev).manual_seed(
                 seed + 1)
+            # host-side lifecycle telemetry (enqueue / admit / first
+            # token / step / finish records → metrics, engine_stats,
+            # timeline); it reads no device tensor
+            self._telemetry = EngineTelemetry(
+                f"llm_{family}_{preset}",
+                max_slots=(max_slots if scheduler == "continuous"
+                           else max_batch_size),
+                role=role)
+            #: the fleet's health and chaos attach points: a router
+            #: (or a caller, until the router is ported) sets these
+            #: after construction; a standalone engine keeps them None,
+            #: one ``is None`` check a wave
+            self._health = None
+            self._chaos = None
+            self._replica_label = f"llm_{family}_{preset}"
+            self._pager = None
             if scheduler == "continuous":
                 self._init_continuous()
 
@@ -510,14 +587,31 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             # trim the left pads: each caller sees prompt+continuation
             return [row[t0 - n:] for row, n in zip(out, lens)]
 
-        async def _call_batch_checked(self, prompt):
+        async def _call_batch_checked(self, prompt, sampling=None):
+            if sampling is not None:
+                raise ValueError(
+                    "per-request sampling requires "
+                    "scheduler='continuous' (the batch scheduler runs "
+                    "one fused generate per micro-batch)")
+            # request-level telemetry wraps the @batch queue, so the
+            # recorded latency includes the batch-collection wait
             n_prompt = int(np.asarray(prompt).reshape(-1).shape[0])
+            rec = self._telemetry.record_enqueue(n_prompt)
             if n_prompt == 0 or \
                     n_prompt + max_new_tokens > self.cfg.max_seq:
                 # validate before batching: an oversized prompt would
                 # otherwise fail the whole micro-batch inside generate
+                self._telemetry.record_reject(
+                    rec, reason=f"prompt length {n_prompt}",
+                    label="oversized")
                 raise self._oversized(n_prompt)
-            return await self._call_batch(prompt)
+            try:
+                out = await self._call_batch(prompt)
+            except Exception as e:  # noqa: BLE001 - caller sees it too
+                self._telemetry.record_error(rec, error=repr(e))
+                raise
+            self._telemetry.record_finish(rec, n_tokens=max_new_tokens)
+            return out
 
         # ------------------------------------------------------------
         # "continuous" scheduler: slot pool with mid-flight admission
@@ -527,7 +621,6 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             cfg = self.cfg
             max_seq = cfg.max_seq
             self._init_spec()
-            self._pager = None
             if kv_layout == "paged":
                 max_blk = max_seq // kv_block_size
                 # default pool: every slot can hold a full sequence,
@@ -544,7 +637,9 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                              if kv_host_tier_bytes is not None else None)
                 self._pager = BlockPager(
                     n_blocks, kv_block_size, max_seq,
-                    bytes_per_block=bytes_per_block, host_tier=host_tier)
+                    bytes_per_block=bytes_per_block,
+                    recorder=self._telemetry.flightrec,
+                    host_tier=host_tier)
                 self._cache = fam.init_paged_cache(
                     cfg, max_slots, num_blocks=n_blocks,
                     block_size=kv_block_size, device=dev)
@@ -565,8 +660,18 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             self._samplers = {}     # SamplingParams -> sampler
             # round-robin cursor over slots mid-prefill (chunked)
             self._chunk_rr = 0
-            self._rec_ids = itertools.count()
             self._requeues = 0
+            # the registry's compile events count in this engine's
+            # program_compiles, and its storm trips reach the flight
+            # recorder (and, with an SLO, a dump); held weakly, so a
+            # retired engine drops out
+            get_registry().subscribe(
+                self._telemetry.record_program_compile)
+            get_registry().subscribe_storms(self._telemetry.record_storm)
+            if slo is not None:
+                self._telemetry.slo = SLOTracker(
+                    slo, self._telemetry,
+                    recorder=self._telemetry.flightrec)
 
         def _init_spec(self) -> None:
             """The engine's device functions and, with spec_decode, the
@@ -615,8 +720,11 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                                                          device=dev)
                     self._draft_cfg = d_cfg
                     draft = (d_fam, d_cfg)
-            self._fns = _engine_fns(fam, cfg, default_sp, spec_decode,
-                                    draft)
+            # the reference's _JIT_CACHE key (the draft's config follows
+            # from spec_decode and the target's)
+            self._fns = _instrumented(
+                _engine_fns(fam, cfg, default_sp, spec_decode, draft),
+                (family, cfg, default_sp, kv_layout, spec_decode))
 
         def _fence(self) -> None:
             if dev.type == "cuda":
@@ -650,12 +758,21 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             return False
 
         def _set_request(self, rec) -> None:
-            self._pager.set_request(rec["id"], tenant=rec.get("tenant"))
+            ctx = rec.get("ctx")
+            self._pager.set_request(
+                rec["id"], ctx.trace_id if ctx is not None else None,
+                tenant=rec.get("tenant"))
 
         def _resolve(self, fut, arr, out) -> None:
             if not fut.done():
                 fut.set_result(np.concatenate(
                     [arr, np.asarray(out, np.int32)]))
+
+        def _finish_early(self, fut, arr, rec, first) -> None:
+            """A request that ends at its first token (max_new_tokens
+            1 or a stop hit)."""
+            self._telemetry.record_finish(rec, n_tokens=1)
+            self._resolve(fut, arr, [first])
 
         def _draft_admit(self, slot, arr) -> None:
             """Mirror a just-admitted request into the draft pool: a
@@ -698,6 +815,9 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                     continue
                 n = int(arr.shape[0])
                 if n == 0 or n + max_new_tokens > self.cfg.max_seq:
+                    self._telemetry.record_reject(
+                        rec, reason=f"prompt length {n}",
+                        label="oversized")
                     if not fut.done():
                         fut.set_exception(self._oversized(n))
                     continue
@@ -710,6 +830,7 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 t_pad = -(-n // prefill_bucket) * prefill_bucket
                 t_pad = max(n, min(t_pad,
                                    self.cfg.max_seq - max_new_tokens))
+                self._telemetry.record_admit(rec, slot, t_pad)
                 padded = np.zeros((1, t_pad), np.int32)
                 padded[0, t_pad - n:] = arr
                 logits, row = self._fns.prefill_raw(
@@ -717,8 +838,9 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                     torch.tensor([n], dtype=torch.int32, device=dev))
                 tok = self._sampler_for(sp)(logits, self._generator)
                 first = int(tok[0].item())      # the prefill's fence
+                self._telemetry.record_first_token(rec)
                 if max_new_tokens <= 1 or self._hit_stop([first]):
-                    self._resolve(fut, arr, [first])
+                    self._finish_early(fut, arr, rec, first)
                     continue
                 self._fns.admit(self._cache, row, slot)
                 self._cur[slot] = first
@@ -726,9 +848,11 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                                      "fut": fut, "rec": rec, "sp": sp}
                 self._draft_admit(slot, arr)
 
-        def _requeue(self, arr, rec, sp, fut) -> bool:
+        def _requeue(self, arr, rec, sp, fut, need: int,
+                     reason: str) -> bool:
             self._pager.set_request(None)
             self._requeues += 1
+            self._telemetry.record_requeue(rec, need=need, reason=reason)
             self._queue.push_front((arr, rec, sp), fut)
             return False
 
@@ -744,6 +868,8 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             n = int(arr.shape[0])
             tokens = arr.tolist()
             self._set_request(rec)
+            t_kv0 = time.perf_counter()
+            ev0 = pager.evictions
             # spec decode: k slots of headroom, so the rejected drafts'
             # K/V of a request's last rounds land in blocks the row owns
             need = pager.blocks_needed(n, max_new_tokens,
@@ -752,7 +878,8 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             alloc = pager.allocate(need - len(matched))
             if alloc is None:
                 pager.release(matched)
-                return self._requeue(arr, rec, sp, fut)
+                return self._requeue(arr, rec, sp, fut, need,
+                                     "pool_exhausted")
             blocks = matched + alloc
             # second chance: full blocks the device prefix match missed
             # may survive in the host tier.  Restore each hit into a
@@ -777,8 +904,13 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 # fence: the staging buffers are refilled next restore,
                 # and the h2d bucket times the transfer, not the launch
                 self._fence()
-                pager.tier.note_h2d(time.perf_counter() - t0)
-                prefix_len += pager.note_tier_restore(pairs, alloc)
+                t1 = time.perf_counter()
+                pager.tier.note_h2d(t1 - t0)
+                restored = pager.note_tier_restore(pairs, alloc)
+                prefix_len += restored
+                self._telemetry.record_kv_fetch(
+                    rec, t0, t1, blocks=m, tokens=restored,
+                    bytes=sum(int(e["bytes"]) for _, e in pairs))
             wb = prefix_len // kv_block_size
             if wb < len(matched):
                 # the tail's first write lands inside a matched block
@@ -786,11 +918,20 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                     new_blk, src = pager.ensure_private(blocks[wb])
                 except MemoryError:
                     pager.release(blocks)
-                    return self._requeue(arr, rec, sp, fut)
+                    return self._requeue(arr, rec, sp, fut, need,
+                                         "cow_exhausted")
                 if src is not None:
                     blocks[wb] = new_blk
                     self._fns.copy_block(self._cache, src, new_blk)
+                    self._telemetry.record_cow()
             pager.set_request(None)
+            self._telemetry.record_kv_reserve(
+                rec, t_kv0, time.perf_counter(), blocks=len(blocks),
+                hit_blocks=len(matched), evicted=pager.evictions - ev0)
+            # tier-restored blocks count as reuse hits (a slower tier)
+            reused = len(matched) + len(pairs)
+            self._telemetry.record_prefix_reuse(
+                reused, pager.blocks_needed(n, 0) - reused)
             n_tail = n - prefix_len
             row_bt = np.zeros((self.cfg.max_seq // kv_block_size,),
                               np.int32)
@@ -802,6 +943,9 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 # as above, but the prefill runs chunk by chunk from
                 # the engine loop (_prefill_chunk_step), so decode
                 # waves interleave with a long prompt
+                self._telemetry.record_admit(
+                    rec, slot, -(-prefill_chunk_tokens // prefill_bucket)
+                    * prefill_bucket)
                 self._slots[slot] = {
                     "state": "prefill", "prompt": arr, "out": [],
                     "fut": fut, "rec": rec, "sp": sp, "blocks": blocks,
@@ -809,12 +953,16 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                     "cursor": ChunkCursor(
                         total=n, chunk_tokens=prefill_chunk_tokens,
                         filled=prefix_len)}
+                self._telemetry.record_kv_stats(pager.stats())
                 return True
+            self._telemetry.record_admit(
+                rec, slot, self._tail_bucket(n_tail))
             first = self._prefill_tail(slot, arr, sp, row_bt, prefix_len,
                                        n_tail, sample=True)
+            self._telemetry.record_first_token(rec)
             self._register(rec, tokens, blocks)
             if max_new_tokens <= 1 or self._hit_stop([first]):
-                self._resolve(fut, arr, [first])
+                self._finish_early(fut, arr, rec, first)
                 self._retire_paged_row(slot, blocks)
                 return True
             if role == "prefill":
@@ -828,6 +976,7 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                                  "fut": fut, "rec": rec, "sp": sp,
                                  "blocks": blocks}
             self._draft_admit(slot, arr)
+            self._telemetry.record_kv_stats(pager.stats())
             return True
 
         def _headroom(self) -> int:
@@ -860,14 +1009,22 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 self._fence()
                 path = "fast"
             t1 = time.perf_counter()
+            nbytes = self._pager.bytes_per_block * n_blk
+            # the decode engine's record is seeded from this, so the
+            # request keeps one clock: enqueue → prefill → handoff →
+            # decode, its critical path still summing to e2e
+            meta = {key: rec.get(key) for key in (
+                "enqueue", "engine_enqueue", "admit", "first_token",
+                "bucket", "requeue_ts", "kv_reserve", "kv_fetch",
+                "prefill_chunks", "tenant", "ctx")}
+            meta.update(prompt_len=n, requeues=rec.get("requeues", 0))
             pkg = HandoffCursor(
                 prompt=arr, first_token=int(first), n_tokens=n,
                 n_blocks=n_blk, k_rows=k_rows, v_rows=v_rows,
-                nbytes=self._pager.bytes_per_block * n_blk, path=path,
-                t_export0=t0, t_export1=t1,
-                meta={"id": rec["id"], "tenant": rec.get("tenant"),
-                      "prompt_len": n},
-                sampling=sp)
+                nbytes=nbytes, path=path, t_export0=t0, t_export1=t1,
+                meta=meta, sampling=sp)
+            self._telemetry.record_handoff_out(
+                rec, blocks=n_blk, nbytes=nbytes, path=path)
             self._retire_paged_row(slot, blocks)
             if not fut.done():
                 fut.set_result(pkg)
@@ -887,27 +1044,35 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                                        headroom=self._headroom())
             alloc = pager.allocate(need)
             if alloc is None:
-                return self._requeue(pkg, rec, pkg.sampling, fut)
+                return self._requeue(pkg, rec, pkg.sampling, fut, need,
+                                     "handoff_pool_exhausted")
+            n_blk = int(pkg.n_blocks)
             row_bt = np.zeros((self.cfg.max_seq // kv_block_size,),
                               np.int32)
             row_bt[:need] = alloc
             self._fns.kv_handoff_install(
-                self._cache,
-                torch.as_tensor(alloc[:int(pkg.n_blocks)], device=dev),
-                pkg.k_rows, pkg.v_rows, slot,
-                torch.from_numpy(row_bt).to(dev), n)
-            # fence: the splice is done when the row is admitted
+                self._cache, torch.as_tensor(alloc[:n_blk], device=dev),
+                pkg.k_rows, pkg.v_rows, np.int32(slot),
+                torch.from_numpy(row_bt).to(dev), np.int32(n))
+            # fence: the splice is done when the row is admitted, and
+            # the handoff window times the copy, not the launch
             self._fence()
+            t_done = time.perf_counter()
             pkg.installed = True
             # later prompts sharing the prefix hit HERE
             pager.note_handoff_import(arr.tolist(), alloc)
             pager.set_request(None)
+            self._telemetry.record_kv_handoff(
+                rec, pkg.t_export0, t_done, blocks=n_blk,
+                nbytes=int(pkg.nbytes), path=pkg.path)
+            self._telemetry.record_admit_handoff(rec, slot)
             first = int(pkg.first_token)
             self._cur[slot] = first
             self._slots[slot] = {"prompt": arr, "out": [first],
                                  "fut": fut, "rec": rec,
                                  "sp": pkg.sampling, "blocks": alloc}
             self._draft_admit(slot, arr)
+            self._telemetry.record_kv_stats(pager.stats())
             return True
 
         def _prefill_tail(self, slot, arr, sp, row_bt, filled, c,
@@ -918,25 +1083,32 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             when ``sample`` is False (an intermediate chunk, whose
             logits are discarded: the generator is drawn from once per
             admission, at its final chunk)."""
-            t_pad = -(-c // prefill_bucket) * prefill_bucket
-            t_pad = max(c, min(t_pad, self.cfg.max_seq))
+            t_pad = self._tail_bucket(c)
             toks = np.zeros((1, t_pad), np.int32)
             toks[0, t_pad - c:] = arr[filled:filled + c]
             logits, _ = self._fns.paged_prefill_raw(
                 self.params, self._cache, torch.from_numpy(toks).to(dev),
-                row_bt, filled, c, slot)
+                row_bt, np.int32(filled), np.int32(c), np.int32(slot))
             if not sample:
                 return None
             tok = self._sampler_for(sp)(logits, self._generator)
             return int(tok[0].item())
+
+        def _tail_bucket(self, c: int) -> int:
+            """The padded length of a c-token paged prefill: the next
+            prefill_bucket multiple, at most max_seq."""
+            t_pad = -(-c // prefill_bucket) * prefill_bucket
+            return max(c, min(t_pad, self.cfg.max_seq))
 
         def _register(self, rec, tokens, blocks) -> None:
             # the prompt's full blocks now hold exactly its K/V: index
             # them so later prompts can skip this work (kvscope books
             # re-prefill waste here, under the request's tenant)
             self._set_request(rec)
-            self._pager.register_prefix(tokens, blocks)
+            waste = self._pager.register_prefix(tokens, blocks)
             self._pager.set_request(None)
+            if waste:
+                self._telemetry.note_kv_waste(rec, waste)
 
         def _retire_paged_row(self, slot, blocks) -> None:
             """Free a finished row's blocks.  The row's table is
@@ -945,6 +1117,7 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             block the pager may re-hand out."""
             self._fns.clear_row(self._cache, slot)
             self._pager.release(blocks)
+            self._telemetry.record_kv_stats(self._pager.stats())
 
         def _prefill_chunk_step(self, candidates) -> None:
             """Run AT MOST ONE chunk of pending prefill — the engine
@@ -959,7 +1132,11 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             table): decode waves write masked garbage into every row at
             its pos, which must land in the null block, never in this
             row's half-filled blocks; the next chunk re-installs
-            row_bt/pos/start."""
+            row_bt/pos/start.  The last chunk's window ends at its host
+            fence (the sampled first token); an intermediate chunk is
+            not fenced (the reference fences each one), so on a card
+            its window is the launch and the next fence absorbs the
+            rest."""
             # next candidate strictly after the cursor, cyclically
             i = min(candidates,
                     key=lambda s: ((s - self._chunk_rr) % max_slots)
@@ -971,18 +1148,25 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             filled = cur.filled
             c = cur.next_chunk()
             last = filled + c >= int(arr.shape[0])
+            t0 = time.perf_counter()
             first = self._prefill_tail(i, arr, st["sp"], st["row_bt"],
                                        filled, c, sample=last)
+            t1 = time.perf_counter()
             cur.advance(c)
-            self._set_request(st["rec"])
+            rec = st["rec"]
+            self._telemetry.record_prefill_chunk(
+                rec, t0, t1, tokens=c, bucket=self._tail_bucket(c),
+                last=last)
+            self._set_request(rec)
             self._pager.note_fill(c, partial=not last)
             self._pager.set_request(None)
             if not last:
                 self._fns.clear_row(self._cache, i)
                 return
-            self._register(st["rec"], arr.tolist(), st["blocks"])
+            self._telemetry.record_first_token(rec)
+            self._register(rec, arr.tolist(), st["blocks"])
             if max_new_tokens <= 1 or self._hit_stop([first]):
-                self._resolve(st["fut"], arr, [first])
+                self._finish_early(st["fut"], arr, rec, first)
                 self._slots[i] = None
                 self._retire_paged_row(i, st["blocks"])
                 return
@@ -996,10 +1180,13 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             st["state"] = "decode"
             st["out"] = [first]
             self._draft_admit(i, arr)
+            self._telemetry.record_kv_stats(self._pager.stats())
 
         def _finish_slot(self, i, st) -> None:
             """Retire a finished slot NOW — the freed slot (and its
             paged blocks) is admissible in the same engine wave."""
+            self._telemetry.record_finish(st["rec"],
+                                          n_tokens=len(st["out"]))
             self._resolve(st["fut"], st["prompt"], st["out"])
             self._slots[i] = None           # slot freed NOW
             if self._pager is not None:
@@ -1048,7 +1235,7 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 toks[rows] = full.cpu().numpy()[rows]
             return toks
 
-        def _spec_round(self, decoding) -> None:
+        def _spec_round(self, decoding) -> int:
             """One speculative round over the pool: the draft proposes
             k tokens a row (the draft model's k + 1 steps, or n-grams of
             each request's history on the host), ONE target verify
@@ -1056,7 +1243,8 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             emits its accepted drafts and one target token, token by
             token against the budget and the stops; the caches move by
             the kept count.  The round's host fence is reading the
-            verdict."""
+            verdict.  Returns the tokens emitted (step telemetry)."""
+            t_round = time.perf_counter()
             kd = spec_decode.k
             cur = torch.from_numpy(self._cur).to(dev)
             qprobs = None
@@ -1080,80 +1268,144 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             out, n_acc, _ = self._fns.spec_verify(
                 self.params, self._cache, block, self._generator, qprobs)
             out, n_acc = out.cpu().numpy(), n_acc.cpu().numpy()
+            t_done = time.perf_counter()
+            total = 0
             for i in decoding:
                 st = self._slots[i]
                 n = int(n_acc[i])
+                self._telemetry.record_spec(st["rec"], proposed=kd,
+                                            accepted=n,
+                                            dur_s=t_done - t_round)
                 finished = False
+                emitted = 0
                 for t in out[i, :n + 1]:
                     st["out"].append(int(t))
+                    emitted += 1
                     if len(st["out"]) >= max_new_tokens \
                             or self._hit_stop(st["out"]):
                         finished = True
                         break
+                total += emitted
+                # one verify emitted `emitted` tokens for this row: they
+                # share the round's end in the inter-token trail
+                self._telemetry.record_token(st["rec"], n=emitted,
+                                             now=t_done)
                 # the target token is the row's new cur (no K/V yet)
                 self._cur[i] = out[i, n]
                 self._spec_rej[i] = 0 if finished else kd - n
                 if finished:
                     self._finish_slot(i, st)
+            return total
 
-        def _wave(self) -> bool:
-            """One turn of the scheduler: admit → one pooled decode
-            step (or one speculative round) over the decoding slots →
-            retire finished slots → at most ONE chunk of pending
-            chunked prefill.  Returns False when no slot is active."""
-            self._admit_pending()
-            prefilling = [i for i, s in enumerate(self._slots)
-                          if s is not None and s.get("state") == "prefill"]
-            decoding = [i for i, st in enumerate(self._slots)
-                        if st is not None and st.get("state") != "prefill"]
-            if not prefilling and not decoding:
-                return False
+        def _decode_wave(self, decoding, prefilling) -> None:
+            """One turn of the scheduler after admission: one pooled
+            decode step (or one speculative round) over the decoding
+            slots → retire finished slots → the SLO watchdog and the
+            health probe → one pool snapshot → at most ONE chunk of
+            pending chunked prefill.  The step's walltime is timed
+            around the host fence the step already makes (no added
+            sync)."""
             if decoding and spec_decode is not None:
                 self._park_idle_rows(decoding)
-                self._spec_round(decoding)
+                t_step = time.perf_counter()
+                n_tokens = self._spec_round(decoding)
+                self._telemetry.record_step(
+                    len(decoding), time.perf_counter() - t_step,
+                    n_tokens=n_tokens)
             elif decoding:
                 self._park_idle_rows(decoding)
+                t_step = time.perf_counter()
                 toks = self._step(decoding)
+                t_wave = time.perf_counter()
+                self._telemetry.record_step(len(decoding),
+                                            t_wave - t_step, now=t_wave)
                 for i in decoding:
                     st = self._slots[i]
                     st["out"].append(int(toks[i]))
+                    self._telemetry.record_token(st["rec"], now=t_wave)
                     self._cur[i] = toks[i]
                     if len(st["out"]) >= max_new_tokens \
                             or self._hit_stop(st["out"]):
                         self._finish_slot(i, st)
+            if self._telemetry.slo is not None:
+                # throttled burn-rate watchdog: a breach or a storm
+                # dumps the flight record
+                self._telemetry.slo.check()
+            if self._health is not None:
+                # throttled liveness sweep over the fleet's replicas
+                self._health.maybe_probe()
             if self._pager is not None:
                 # kvscope occupancy ring: one pool snapshot per wave
                 self._pager.sample_occupancy()
             if prefilling:
                 self._prefill_chunk_step(prefilling)
-            return True
 
         def _fail_all(self, e: Exception) -> None:
+            """A wave raised: journal it, dump the flight record (the
+            journal around the failure, before unwinding changes the
+            engine's state) and fail every request in flight and
+            queued."""
+            self._telemetry.flightrec.record("engine_crash",
+                                             error=repr(e)[:200])
+            try:
+                self._telemetry.flightrec.dump(
+                    reason="engine_crash",
+                    context={"error": repr(e)[:500]})
+            except Exception:  # noqa: BLE001 - the dump is best-effort
+                pass
             for i, st in enumerate(self._slots):
                 if st is not None:
+                    self._telemetry.record_error(st["rec"],
+                                                 error=repr(e))
                     if not st["fut"].done():
                         st["fut"].set_exception(e)
                     if self._pager is not None:
                         self._pager.release(st["blocks"])
                 self._slots[i] = None
-            for _, fut in self._queue.pop(len(self._queue)):
+            for (_, rec, _), fut in self._queue.pop(len(self._queue)):
+                self._telemetry.record_error(rec, error=repr(e))
                 if not fut.done():
                     fut.set_exception(e)
 
         async def _engine(self):
-            """The scheduler loop: waves while any slot is active,
-            yielding between them so callers can enqueue mid-flight;
-            parked on the wake event while idle.  A wave that raises
-            fails every request in flight and queued, loudly."""
+            """The scheduler loop, in the reference's order: the chaos
+            freeze (poll without working or heartbeating), the health
+            heartbeat, admission, idle parking (declared idle to the
+            health monitor), the chaos token delay, then the decode
+            wave; yielding between waves so callers can enqueue
+            mid-flight.  A wave that raises fails every request in
+            flight and queued, loudly."""
+            label = self._replica_label
             while True:
                 try:
+                    if self._chaos is not None and \
+                            self._chaos.frozen(label):
+                        await asyncio.sleep(self._chaos.freeze_poll_s)
+                        continue
+                    if self._health is not None:
+                        self._health.heartbeat(label)
                     with torch.no_grad():
-                        active = self._wave()
-                    if not active:
+                        self._admit_pending()
+                    prefilling = [
+                        i for i, st in enumerate(self._slots)
+                        if st is not None and st.get("state") == "prefill"]
+                    decoding = [
+                        i for i, st in enumerate(self._slots)
+                        if st is not None and st.get("state") != "prefill"]
+                    if not prefilling and not decoding:
                         self._wake.clear()
                         if not len(self._queue):
+                            if self._health is not None:
+                                # parked idle is not a failure
+                                self._health.note_idle(label)
                             await self._wake.wait()
                         continue
+                    if self._chaos is not None and decoding:
+                        delay_s = self._chaos.token_delay_s(label)
+                        if delay_s > 0:
+                            await asyncio.sleep(delay_s)
+                    with torch.no_grad():
+                        self._decode_wave(decoding, prefilling)
                 except Exception as e:  # noqa: BLE001 - to every caller
                     self._fail_all(e)
                 await asyncio.sleep(0)
@@ -1163,7 +1415,9 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             """One request: enqueue it and await prompt +
             continuation.  ``sampling`` overrides the engine's
             SamplingParams for this request; ``tenant`` tags it in the
-            pager's kvscope attribution."""
+            pager's kvscope attribution and the SLO slices.  With an
+            admission_policy a request it sheds raises
+            OverloadedError."""
             sp = None
             if sampling is not None:
                 if not isinstance(sampling, SamplingParams):
@@ -1180,7 +1434,30 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                     sp = sampling
             self._ensure_engine()
             arr = np.asarray(prompt, np.int32).reshape(-1)
-            rec = {"id": next(self._rec_ids), "tenant": tenant}
+            if admission_policy is not None:
+                # telemetry's percentiles decide the shed BEFORE the
+                # request costs the engine anything.  The HBM-headroom
+                # gate needs a fresh ledger: refreshed only when that
+                # gate is armed, so the allocator query stays off the
+                # default admission path, and without the segment walk
+                # the gate never reads
+                if getattr(admission_policy, "min_headroom_bytes",
+                           None) is not None and self._pager is not None:
+                    self._telemetry.record_kv_scope(
+                        self._compose_kv_scope(largest_alloc=False))
+                shed = admission_policy.decide(
+                    self._telemetry.engine_stats(), len(self._queue))
+                if shed is not None:
+                    rec = self._telemetry.record_enqueue(
+                        int(arr.shape[0]), tenant=tenant)
+                    self._telemetry.record_reject(
+                        rec, reason=f"load shed: {shed}",
+                        label=f"shed_{shed}")
+                    raise OverloadedError(
+                        f"request shed ({shed}): engine over SLO "
+                        f"with {len(self._queue)} queued")
+            rec = self._telemetry.record_enqueue(
+                int(arr.shape[0]), tenant=tenant)
             fut = self._queue.put((arr, rec, sp))
             self._wake.set()
             return await fut
@@ -1218,8 +1495,9 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                     "supported with spec_decode (the verify program "
                     "bakes in ONE sampling config)")
             self._ensure_engine()
-            rec = {"id": next(self._rec_ids),
-                   "tenant": (pkg.meta or {}).get("tenant")}
+            # the package's meta seeds a record that keeps the prefill
+            # engine's enqueue / admit / first-token clock
+            rec = self._telemetry.record_enqueue_handoff(pkg.meta or {})
             fut = self._queue.put((pkg, rec, pkg.sampling))
             self._wake.set()
             return await fut
@@ -1236,17 +1514,90 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
         def kv_stats(self) -> Dict[str, Any]:
             """The continuous engine's KV blocks: ``kv_cache`` (the
             pager's stats; None for dense), ``kv_tier`` and
-            ``kv_scope`` — those blocks of the reference's
-            ``engine_stats()``, whose rest is ROADMAP.md queue 1 item
-            4 — and ``requeues``, admissions pushed back because the
-            pool could not hold them yet."""
-            pager = self._pager
-            tier = pager.tier if pager is not None else None
-            return {"kv_cache": pager.stats() if pager else None,
-                    "kv_tier": tier.stats() if tier else empty_kv_tier(),
-                    "kv_scope": (pager.kv_scope_stats() if pager
-                                 else empty_kv_scope()),
+            ``kv_scope`` (with the HBM ledger), the blocks of
+            ``engine_stats()`` of those names, and ``requeues``,
+            admissions pushed back because the pool could not hold
+            them yet."""
+            stats = self.engine_stats()
+            return {"kv_cache": stats["kv_cache"],
+                    "kv_tier": stats["kv_tier"],
+                    "kv_scope": stats["kv_scope"],
                     "requeues": self._requeues}
+
+        # -- telemetry surface (both schedulers) ---------------------
+
+        def _compose_kv_scope(self, largest_alloc=True
+                              ) -> Dict[str, Any]:
+            """The whole ``engine_stats()["kv_scope"]`` block: the
+            pager's occupancy/forensics half plus the HBM ledger (the
+            pool's bytes, the allocator view of the pool's device and
+            the programs' audited budget → headroom_bytes).
+            ``largest_alloc=False`` leaves out the allocator walk that
+            only ``largest_alloc_size`` reads (the admission gate's
+            refresh)."""
+            pager = self._pager
+            block = pager.kv_scope_stats()
+            block["hbm_ledger"] = hbm_ledger(
+                pool_bytes_per_chip=pager.bytes_per_block
+                * pager.num_blocks,
+                device_stats=device_memory_stats(
+                    [self.device], largest_alloc=largest_alloc),
+                program_budget_bytes=serve_program_budget_bytes())
+            return block
+
+        def engine_stats(self) -> Dict[str, Any]:
+            """p50/p95/p99 TTFT, queue wait and inter-token time,
+            throughput, slot utilization, request counts, rejections
+            by reason, the paged KV blocks, spec and handoff counts,
+            the SLO block, the flight recorder's, the health block,
+            the latency anatomy and the registry's ``programs`` block
+            (the reference's key tree)."""
+            pager = self._pager
+            if pager is not None:
+                self._telemetry.record_kv_stats(pager.stats())
+                self._telemetry.record_kv_scope(self._compose_kv_scope())
+                if pager.tier is not None:
+                    self._telemetry.record_kv_tier(pager.tier.stats())
+            if self._health is not None:
+                self._telemetry.record_health(
+                    self._health.replica_block(self._replica_label))
+            stats = self._telemetry.engine_stats()
+            if admission_policy is not None:
+                stats["admission_policy"] = admission_policy.describe()
+            # the process-wide registry, filtered to the serve programs
+            stats["programs"] = get_registry().snapshot(prefix="serve.")
+            return stats
+
+        def export_timeline(self, path=None):
+            """Chrome-trace engine timeline (queue lane, per-slot
+            occupancy lanes, engine-step lane); writes ``path`` when
+            given and returns the event list."""
+            return self._telemetry.export_timeline(path)
+
+        def trace_records(self):
+            """Request snapshots (hop timestamps, token trail, spans)
+            of every retained request."""
+            return self._telemetry.trace_records()
+
+        def request_trace(self, request_id):
+            """One request's snapshot by trace id (or engine-local
+            id); None when this engine does not know it."""
+            return self._telemetry.find_request(request_id)
+
+        def anatomy_samples(self, tenant=None):
+            """Raw latency-anatomy samples (inter-token gaps, TPOT,
+            critical-path components), for a fleet to pool across
+            replicas before summarizing."""
+            return self._telemetry.anatomy_samples(tenant=tenant)
+
+        def metrics_snapshot(self):
+            """This process's serve_* metric dumps (histogram buckets
+            included) from the process-local registry."""
+            from ray_tpu_torch.util.metrics import _registry
+
+            return {name: dump for name, dump
+                    in _registry.snapshot().items()
+                    if name.startswith("serve_")}
 
     LLM.__call__ = (LLM._call_continuous if scheduler == "continuous"
                     else LLM._call_batch_checked)

@@ -51,7 +51,7 @@ def build_train_step(loss_fn: Callable, tx: AdamW, mesh=None,
     if telemetry:
         raise NotImplementedError(
             "train-step telemetry is not ported yet: ROADMAP.md queue 1 "
-            "item 4 (telemetry)")
+            "item 4 (the train step's telemetry)")
 
     def step(params, opt_state: Dict[str, Any], batch):
         if not donate:

@@ -38,7 +38,7 @@ def test_port_files_exist():
     assert len(files) > 10
     # the llama family, the paged layout's and the continuous
     # scheduler's modules (spec decoding and the prefill/decode
-    # handoff among them) are scanned too
+    # handoff among them) and the serving telemetry are scanned too
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {"ray_tpu_torch/models/llama.py",
             "ray_tpu_torch/models/llama_decode.py",
@@ -48,7 +48,17 @@ def test_port_files_exist():
             "ray_tpu_torch/serve/llm.py",
             "ray_tpu_torch/serve/kv_pager.py",
             "ray_tpu_torch/serve/kv_tier.py",
-            "ray_tpu_torch/serve/kvscope.py"} <= names
+            "ray_tpu_torch/serve/kvscope.py",
+            # the serving telemetry
+            "ray_tpu_torch/_private/telemetry.py",
+            "ray_tpu_torch/_private/flightrec.py",
+            "ray_tpu_torch/_private/device_stats.py",
+            "ray_tpu_torch/util/tracing.py",
+            "ray_tpu_torch/util/metrics.py",
+            "ray_tpu_torch/serve/health.py",
+            "ray_tpu_torch/serve/chaos.py",
+            "ray_tpu_torch/serve/slo.py",
+            "ray_tpu_torch/serve/telemetry.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -157,11 +157,10 @@ def test_unknown_family_raises():
 
 @pytest.mark.parametrize("kw", [
     {"scheduler": "continuous", "mesh": object()},
-    {"num_replicas": 2},
-    {"scheduler": "continuous", "admission_policy": object()}])
+    {"num_replicas": 2}])
 def test_options_not_ported_yet_name_their_roadmap_item(kw):
-    """What the reference accepts and the port has not yet: the
-    admission policy (item 4), replicas (item 5) and a mesh (item 7)."""
+    """What the reference accepts and the port has not yet: replicas
+    (item 5) and a mesh (item 7)."""
     kw = {"family": "gpt2", **kw}
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         build_llm_deployment(preset="nano", device="cpu", **kw)
@@ -209,12 +208,23 @@ def test_roles_serve(kw):
      "kv_host_tier_bytes": 1 << 20},
     {"scheduler": "continuous", "kv_layout": "paged",
      "prefill_chunk_tokens": 32},
-    {"family": "llama", "scheduler": "continuous", "kv_layout": "paged"}])
+    {"family": "llama", "scheduler": "continuous", "kv_layout": "paged"},
+    {"scheduler": "continuous", "kv_layout": "paged",
+     "admission_policy": "queue"},
+    {"scheduler": "continuous", "slo": "generous"}])
 def test_continuous_options_serve(kw):
     """The continuous scheduler's options that once raised
     NotImplementedError serve: a fresh-init engine answers a request
-    with its prompt and max_new_tokens more tokens."""
+    with its prompt and max_new_tokens more tokens (the admission
+    policy and the SLO among them)."""
+    from ray_tpu_torch.serve.batching import AdmissionPolicy
+    from ray_tpu_torch.serve.slo import SLOConfig
+
     kw = {"family": "gpt2", **kw}
+    if "admission_policy" in kw:
+        kw["admission_policy"] = AdmissionPolicy(max_queue_depth=8)
+    if "slo" in kw:
+        kw["slo"] = SLOConfig(ttft_ms=60_000.0)
     engine = build_llm_deployment(preset="nano", device="cpu",
                                   max_new_tokens=3, **kw)()
     prompt = np.arange(40, dtype=np.int32)
@@ -282,6 +292,37 @@ def test_batch_scheduler_rejections_match_the_reference_messages(kw):
     with pytest.raises(ValueError) as got:
         build_llm_deployment(device="cpu", **kw)
     assert str(got.value) == str(want.value)
+
+
+def test_batch_scheduler_slo_matches_the_reference_message():
+    """An SLOConfig (each package's own) with the batch scheduler: the
+    reference's ValueError, message for message."""
+    from ray_tpu.serve.slo import SLOConfig as JSLOConfig
+    from ray_tpu_torch.serve.slo import SLOConfig
+
+    with pytest.raises(ValueError) as want:
+        jllm.build_llm_deployment("gpt2", "nano",
+                                  slo=JSLOConfig(ttft_ms=1.0))
+    with pytest.raises(ValueError) as got:
+        build_llm_deployment("gpt2", "nano", device="cpu",
+                             slo=SLOConfig(ttft_ms=1.0))
+    assert str(got.value) == str(want.value)
+    assert "slo requires scheduler='continuous'" in str(got.value)
+
+
+def test_roadmap_message_names_what_is_left_of_telemetry():
+    """The serving telemetry is ported: item 4's message names only the
+    train step's telemetry, which build_train_step(telemetry=True)
+    still raises on."""
+    from ray_tpu_torch.serve.llm import _ROADMAP_ITEM, _not_ported
+    from ray_tpu_torch.train import build_train_step
+
+    msg = str(_not_ported("train-step telemetry", "telemetry"))
+    assert "queue 1 item 4" in msg and "train step" in msg
+    assert "admission" not in _ROADMAP_ITEM["telemetry"]
+    assert "engine_stats" not in _ROADMAP_ITEM["telemetry"]
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        build_train_step(lambda p, b: p, None, telemetry=True)
 
 
 def test_continuous_only_keywords_are_ignored_by_the_batch_scheduler():
