@@ -161,7 +161,28 @@ Phases, each fatal on failure (any failure exits non-zero):
             kernels at its attention (B=8, H=32, T=2048, D=64) held
             against their plain versions and timed beside their bounds,
             the dense composition and SDPA.
-14. llama-7b — llama-7b's width (d_model 4096, 32 heads of 128) cut to
+14. train-telemetry — the train step's telemetry at llama-1b's full
+            width (B=8, T=2048, pallas CE, AdamW): (a) build_train_step(
+            health=True) fed by watch_data over seeded numpy batches (the
+            copy to the card booked by note_h2d), a warm-up and 6 steps:
+            32/16/16/1/1/1 launches a step, train_stats() steps 7,
+            compiles 1, observed 7, anomalies 0, the registry's
+            train.step 1 compile and 6 invokes, every step's anatomy
+            legs summing to its wall; (b) save_sharded of the params
+            after step 3 (GB/s; the next step's checkpoint leg, the
+            checkpoint block); (d) raw and telemetry=True (health off)
+            steps in turns under torch.cuda.set_sync_debug_mode("warn"):
+            equal counts of synchronising calls, step ms, the wrappers'
+            own share of the wall; (e) accumulated_train_step(2
+            microbatches, telemetry=True): 64/32/32/2/2/2 launches, loss
+            against the plain step's, and in f32 at 2 layers loss and
+            updated params against it; (c) a NaN planted in a weight:
+            the next step dumps a postmortem within the step, which
+            ray_tpu_torch.tools.flightrec renders; restore_sharded of
+            step 3 gives the probe loss of the save bit for bit; (f)
+            ray_tpu_torch.bench.train_watch() at bench.py --train's
+            configuration (GPT-2-124M, B=8, T=1024, 20 + 1 steps).
+15. llama-7b — llama-7b's width (d_model 4096, 32 heads of 128) cut to
             2 layers: a dense and a pallas step at B=2, T=2048 checked
             against each other, the flash kernels held against their
             plain versions at the shape these steps give them (B=2,
@@ -1351,7 +1372,8 @@ def interleaved_steps(torch, params, batch, cfgs: dict, order) -> tuple:
     for name, c in cfgs.items():
         p = tree_map(torch.clone, params)
         state[name] = [build_train_step(
-            lambda p, b, c=c: loss_of(c)(p, b, c), tx), p, tx.init(p)]
+            lambda p, b, c=c: loss_of(c)(p, b, c), tx, telemetry=False), p,
+            tx.init(p)]
     wall = {name: [] for name in cfgs}
     for name in order:
         step, p, s = state[name]
@@ -1732,7 +1754,8 @@ def llama_main_path(torch, fa, cfg, card: str) -> dict:
     params = llama_init(cfg, gen, device="cuda")
     tx = adamw(3e-4, weight_decay=0.1)
     opt_state = tx.init(params)
-    step = build_train_step(lambda p, b: llama_loss(p, b, cfg), tx)
+    step = build_train_step(lambda p, b: llama_loss(p, b, cfg), tx,
+                            telemetry=False)
     batch = {"tokens": torch.randint(0, cfg.vocab_size,
                                      (LLAMA_B, LLAMA_T + 1), generator=gen,
                                      device="cuda")}
@@ -2007,6 +2030,455 @@ def phase_llama_7b(torch, fa, fc, card: str) -> dict:
     return {"steps": steps, "kernels_vs_plain": kernel_err,
             "ce_kernels_vs_plain": ce_err,
             "prefill_flash_vs_plain": prefill_check}
+
+
+# phase train-telemetry: the train step's telemetry on llama-1b.  The
+# instrumented step (a) takes a warm-up and TT_STEPS more steps, with a
+# checkpoint (b) after step TT_SAVE_AT; (d) runs TT_TURNS raw and
+# TT_TURNS instrumented steps in turns; (e) one accumulated step of
+# TT_MICRO microbatches against the plain step, in bf16 at full depth
+# and in f32 at TT_F32_LAYERS layers; (c) plants a NaN and restores.
+TT_NAME, TT_STEPS, TT_SAVE_AT, TT_TURNS, TT_MICRO = "smoke_llama", 6, 3, 4, 2
+#: (e): the accumulated step's loss against the plain step's, relative:
+#: bf16 activations, the microbatches' rows in other matmul shapes
+TT_ACCUM_RTOL = 2e-3
+#: (e) in f32: the loss (relative) and the first moments, 0.1 x the
+#: gradient, relative to each leaf's largest: the sum of B*T = 16,384
+#: f32 terms in another order, ~sqrt(16384) * 2**-24 = 7.6e-6 of the
+#: terms' size, more where they cancel
+TT_F32_LAYERS, TT_F32_LOSS_RTOL, TT_F32_GRAD_RTOL = 2, 1e-5, 1e-4
+#: (e) the updated parameters: AdamW's first update is lr * (g / (|g| +
+#: eps) + wd * p), whose change under a gradient change dg is at most
+#: lr * eps * |dg| / (m + eps)**2 (m: the least |g| between the two
+#: gradients, 0 across a sign change): each element is held to that
+#: bound from its two gradients, plus TT_F32_PARAM_ATOL for rounding
+TT_F32_PARAM_ATOL = 1e-6
+
+
+def _all_counts(fa) -> dict:
+    fc = _fc()
+    return {**{c: getattr(fa, c) for c in COUNTERS},
+            **{c: getattr(fc, c) for c in CE_COUNTERS}}
+
+
+def uncounted(fa, fn):
+    """fn() with the launch counters put back as they were after it:
+    a probe or a reference beside the main path is not the path."""
+    saved = _all_counts(fa)
+    try:
+        return fn()
+    finally:
+        fc = _fc()
+        for c, v in saved.items():
+            setattr(fa if c in COUNTERS else fc, c, v)
+
+
+#: the warning torch.cuda.set_sync_debug_mode("warn") gives for each
+#: synchronising call (its first use also warns that the mode is a
+#: prototype, which is not a sync)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class _SyncCount:
+    """Counts the synchronising CUDA calls made inside it (warned under
+    torch.cuda.set_sync_debug_mode); counts nothing off the card."""
+
+    def __init__(self, torch, on_card: bool):
+        self.torch, self.on_card, self.n = torch, on_card, 0
+
+    def __enter__(self):
+        import warnings
+
+        self._catch = warnings.catch_warnings(record=True)
+        self._caught = self._catch.__enter__()
+        warnings.simplefilter("always")
+        if self.on_card:
+            self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        if self.on_card:
+            self.torch.cuda.set_sync_debug_mode(0)
+        self.n += sum(SYNC_WARNING in str(w.message) for w in self._caught)
+        self._catch.__exit__(*exc)
+        return False
+
+
+def legs_sum(rec: dict) -> bool:
+    from ray_tpu_torch.train.goodput import ANATOMY_COMPONENTS
+
+    total = sum(rec[c] for c in ANATOMY_COMPONENTS)
+    return abs(total - rec["step_wall_ms"]) <= 1e-9 * max(
+        1.0, rec["step_wall_ms"])
+
+
+def phase_train_telemetry(torch, np, fa, card: str, preset=LLAMA_PRESET,
+                          device="cuda", rows=LLAMA_B, seq=LLAMA_T,
+                          watch=None) -> dict:
+    """Phase train-telemetry (module docstring, phase 14).  ``preset``,
+    ``device``, ``rows``, ``seq`` and ``watch`` (train_watch's keywords)
+    cut it down for a dry run on the CPU, where nothing launches and no
+    sync is counted."""
+    import os
+    import tempfile
+
+    from ray_tpu_torch._private.device_stats import get_registry
+    from ray_tpu_torch.bench import train_watch
+    from ray_tpu_torch.models.llama import (llama_config, llama_init,
+                                            llama_loss)
+    from ray_tpu_torch.tools.flightrec import load_dump, report_lines
+    from ray_tpu_torch.train import (accumulated_train_step, adamw,
+                                     build_train_step, get_goodput_tracker,
+                                     restore_sharded, save_sharded,
+                                     train_stats, watch_data)
+    from ray_tpu_torch.train.checkpointing import _tree_bytes
+    from ray_tpu_torch.train.goodput import dominant_component
+    from ray_tpu_torch.train.trainer import instrument_step
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def empty():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    tag = "[train-telemetry]"
+    cfg = llama_config(preset, ce_impl="pallas")
+    tx = adamw(3e-4, weight_decay=0.1)
+    loss_fn = lambda p, b, c=cfg: llama_loss(p, b, c)  # noqa: E731
+    empty()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = llama_init(cfg, gen, device=dev)
+    opt_state = tx.init(params)
+    step = build_train_step(loss_fn, tx, health=True, telemetry_name=TT_NAME)
+    tracker = get_goodput_tracker(TT_NAME)
+    rng = np.random.RandomState(0)
+
+    def fresh_batches():
+        while True:
+            yield {"tokens": rng.randint(0, cfg.vocab_size,
+                                         size=(rows, seq + 1)).astype(
+                                             np.int32)}
+
+    it = watch_data(fresh_batches(), trainer=TT_NAME)
+
+    def next_batch():
+        data = next(it)
+        t0 = time.perf_counter()
+        data = {"tokens": torch.from_numpy(data["tokens"]).to(dev)}
+        tracker.note_h2d(time.perf_counter() - t0)
+        return data
+
+    fixed = {"tokens": torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, size=(rows, seq + 1)).astype(np.int32)).to(dev)}
+
+    def probe(p):
+        """The loss of ``p`` on the fixed batch, no gradient."""
+        def run():
+            with torch.no_grad():
+                out = llama_loss(p, fixed, cfg).clone()
+            sync()
+            return out
+        return uncounted(fa, run)
+
+    ckpt_dir = tempfile.mkdtemp(prefix="smoke_ckpt_")
+    reg0 = get_registry().snapshot().get("train.step", {})
+
+    # (a) the instrumented step with the health watchdog, fed by
+    # watch_data, (b) with a save after step TT_SAVE_AT
+    zero_counts(fa)
+    losses, walls = [], []
+    for i in range(1 + TT_STEPS):
+        data = next_batch()
+        t0 = time.perf_counter()
+        params, opt_state, loss, _health = step(params, opt_state, data)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        if i == TT_SAVE_AT:
+            t0 = time.perf_counter()
+            save_sharded(params, ckpt_dir, step=i, trainer=TT_NAME)
+            save_s = time.perf_counter() - t0
+            probe_saved = probe(params)
+    sync()
+    counts = read_counts(fa)
+    losses = [float(x) for x in losses]
+    st = train_stats(TT_NAME)
+    reg = get_registry().snapshot()["train.step"]
+    reg_delta = {k: reg[k] - reg0.get(k, 0)
+                 for k in ("compile_events", "invokes")}
+    steps_raw = tracker.last_steps()
+    runs = 1 + TT_STEPS
+    per_step = llama_step_counts(cfg)
+    want = ({k: n * runs for k, n in per_step.items()} if on_card else
+            {k: 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+    nbytes = _tree_bytes(params)
+    ck = st["checkpoint"]
+    ratio = st["goodput"]["ratio"]
+    dom = dominant_component(st["anatomy"])
+    means = {k: st["anatomy"][k]["mean"] for k in st["anatomy"]}
+    print(f"{tag} (a) {preset}, B={rows} T={seq}, health on, fed by "
+          f"watch_data: {runs} steps launched {counts} (expected "
+          f"{per_step if on_card else 'none'} per step); losses "
+          f"{[round(x, 4) for x in losses]}; step walls (fenced) "
+          f"{[round(w, 2) for w in walls]} ms [{card}]", flush=True)
+    print(f"{tag} (a) train_stats: steps {st['steps']}, compiles "
+          f"{st['compiles']}, health observed {st['health']['observed']}, "
+          f"anomalies {st['health']['anomalies']}; registry train.step "
+          f"{reg_delta}; goodput ratio {ratio} ({st['goodput']}); dominant "
+          f"component {dom}; anatomy means (ms) {means} [{card}]",
+          flush=True)
+    bad = []
+    if counts != want:
+        bad.append(f"launches {counts}, expected {want}")
+    if (st["steps"], st["compiles"], st["health"]["observed"],
+            st["health"]["anomalies"]) != (runs, 1, runs, 0):
+        bad.append(f"train_stats steps {st['steps']}, compiles "
+                   f"{st['compiles']}, observed "
+                   f"{st['health']['observed']}, anomalies "
+                   f"{st['health']['anomalies']}")
+    if reg_delta != {"compile_events": 1, "invokes": TT_STEPS}:
+        bad.append(f"registry train.step {reg_delta}")
+    if len(steps_raw) != runs or not all(legs_sum(r) for r in steps_raw):
+        bad.append(f"anatomy legs do not sum to the wall: {steps_raw}")
+    if not all(math.isfinite(x) for x in losses):
+        bad.append(f"losses {losses}")
+    # (b) the checkpoint
+    after_save = steps_raw[TT_SAVE_AT + 1]["checkpoint_ms"]
+    print(f"{tag} (b) save_sharded of the params after step {TT_SAVE_AT}: "
+          f"{nbytes / 1e9:.3f} GB in {save_s * 1e3:.1f} ms "
+          f"({nbytes / save_s / 1e9:.3f} GB/s, device to host and "
+          f"torch.save to the file's close); step {TT_SAVE_AT + 1}'s "
+          f"checkpoint leg {after_save:.1f} ms; block {ck} [{card}]",
+          flush=True)
+    if not after_save > 0 or ck["saves"] != 1 or \
+            ck["bytes_written"] != nbytes or ck["last_step"] != TT_SAVE_AT:
+        bad.append(f"checkpoint: leg {after_save}, block {ck}, tree bytes "
+                   f"{nbytes}")
+    if bad:
+        fail("train-telemetry (a)/(b): " + "; ".join(bad))
+
+    # (d) no added sync: raw and instrumented (health off) steps in
+    # turns.  The instrumented one is build_train_step's own stack
+    # (instrument_step) over a timed raw step, so the wrappers' own
+    # host time is the outer call less the inner one
+    raw = build_train_step(loss_fn, tx, telemetry=False)
+    inner = []
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = raw(*args)
+        inner.append(time.perf_counter() - t0)
+        return out
+
+    tel = instrument_step(timed, TT_NAME + "_nosync")
+    for s in (raw, tel):      # each one's first call
+        params, opt_state = s(params, opt_state, fixed)[:2]
+    sync()
+    ms = {"raw": [], "telemetry": []}
+    syncs = {"raw": _SyncCount(torch, on_card),
+             "telemetry": _SyncCount(torch, on_card)}
+    own_s = wall_s = 0.0
+    for k in range(TT_TURNS):
+        for kind in (("raw", "telemetry") if k % 2 == 0
+                     else ("telemetry", "raw")):
+            t0 = time.perf_counter()
+            with syncs[kind]:
+                params, opt_state = (raw if kind == "raw" else tel)(
+                    params, opt_state, fixed)[:2]
+            call = time.perf_counter() - t0
+            sync()
+            wall = time.perf_counter() - t0
+            ms[kind].append(wall * 1e3)
+            if kind == "telemetry":
+                own_s += call - inner[-1]
+                wall_s += wall
+    share = own_s / wall_s
+    n_sync = {k: v.n for k, v in syncs.items()}
+    print(f"{tag} (d) {TT_TURNS} raw and {TT_TURNS} instrumented "
+          f"(telemetry=True, health=False) steps in turns, ms: raw "
+          f"{[round(x, 2) for x in ms['raw']]}, instrumented "
+          f"{[round(x, 2) for x in ms['telemetry']]}; medians "
+          f"{_median(ms['raw']):.2f} / {_median(ms['telemetry']):.2f}; "
+          f"the wrappers' own host time {own_s * 1e3:.3f} ms = "
+          f"{100 * share:.4f}% of the instrumented steps' wall; "
+          f"synchronising calls raw {n_sync['raw']}, instrumented "
+          f"{n_sync['telemetry']} [{card}]", flush=True)
+    if n_sync["raw"] != n_sync["telemetry"]:
+        fail(f"train-telemetry (d): the telemetry wrappers added "
+             f"synchronising calls: {n_sync}")
+
+    # (e) the accumulated step against the plain step
+    acc = accumulated_train_step(loss_fn, tx, num_microbatches=TT_MICRO,
+                                 telemetry=True,
+                                 telemetry_name=TT_NAME + "_accum")
+    plain = build_train_step(loss_fn, tx, donate=False, telemetry=False)
+    sync()
+    zero_counts(fa)
+    acc_loss = float(acc(params, opt_state, fixed)[2])
+    acc_counts = read_counts(fa)
+    plain_loss = uncounted(fa, lambda: float(
+        plain(params, opt_state, fixed)[2]))
+    empty()
+    acc_want = ({k: n * TT_MICRO for k, n in per_step.items()} if on_card
+                else {k: 0 for k in want})
+    rel = abs(acc_loss - plain_loss) / abs(plain_loss)
+    acc_st = train_stats(TT_NAME + "_accum")
+    print(f"{tag} (e) accumulated step, {TT_MICRO} microbatches of "
+          f"{rows // TT_MICRO}: launches {acc_counts} (expected "
+          f"{acc_want}); loss {acc_loss:.6f} vs the plain step's "
+          f"{plain_loss:.6f} (rel {rel:.3e}, tol {TT_ACCUM_RTOL}); "
+          f"train_stats steps {acc_st['steps']}, compiles "
+          f"{acc_st['compiles']}", flush=True)
+    if acc_counts != acc_want or rel > TT_ACCUM_RTOL or \
+            (acc_st["steps"], acc_st["compiles"]) != (1, 1):
+        fail("train-telemetry (e): the accumulated step disagrees")
+    f32 = check_accum_f32(torch, fa, preset, dev, rows, seq, tx)
+
+    # (c) a NaN in the final norm's scale: the next step dumps within
+    # the step; then the checkpoint of (b) comes back
+    fr_dir = tempfile.mkdtemp(prefix="smoke_flightrec_")
+    old_dir = os.environ.get("RAYTPU_FLIGHTREC_DIR")
+    os.environ["RAYTPU_FLIGHTREC_DIR"] = fr_dir
+    try:
+        with torch.no_grad():
+            params["ln_f"]["scale"][0] = float("nan")
+        data = next_batch()
+        n0 = len(step.watchdog.dumps)
+        params, opt_state, loss, _ = step(params, opt_state, data)
+        dumps = step.watchdog.dumps[n0:]
+    finally:
+        if old_dir is None:
+            del os.environ["RAYTPU_FLIGHTREC_DIR"]
+        else:
+            os.environ["RAYTPU_FLIGHTREC_DIR"] = old_dir
+    if len(dumps) != 1 or not dumps[0].startswith(fr_dir):
+        fail(f"train-telemetry (c): the NaN step left dumps {dumps}")
+    doc = load_dump(dumps[0])
+    ctx = doc["context"]
+    sig = str(((tuple(data["tokens"].shape), "int32"),))
+    lines = report_lines(doc)
+    print(f"{tag} (c) NaN planted in ln_f.scale[0]: dump within the step "
+          f"{os.path.basename(dumps[0])}, reason {doc['reason']}, context "
+          f"trainer {ctx['trainer']} step {ctx['step']} signature "
+          f"{ctx['signature']}; the CLI's report:", flush=True)
+    for line in lines:
+        print(f"{tag}     {line}", flush=True)
+    if (ctx["trainer"], ctx["step"], ctx["reason"], ctx["signature"]) != \
+            (TT_NAME, runs, "nonfinite_loss", sig) or \
+            not any("train anomalies" in x for x in lines):
+        fail(f"train-telemetry (c): the dump names {ctx}")
+    del params, opt_state, loss
+    empty()
+    t0 = time.perf_counter()
+    params = restore_sharded(ckpt_dir, step=TT_SAVE_AT, trainer=TT_NAME,
+                             device=dev)
+    restore_s = time.perf_counter() - t0
+    probe_back = probe(params)
+    ck = train_stats(TT_NAME)["checkpoint"]
+    same = torch.equal(probe_back, probe_saved)
+    print(f"{tag} (c) restore_sharded(step={TT_SAVE_AT}): "
+          f"{restore_s * 1e3:.1f} ms ({nbytes / restore_s / 1e9:.3f} GB/s,"
+          f" file to the device); probe loss {float(probe_back):.6f}, "
+          f"bitwise equal to the one after the save: {same}; block {ck} "
+          f"[{card}]", flush=True)
+    if not same or ck["restores"] != 1 or ck["bytes_read"] != nbytes:
+        fail("train-telemetry (c): the restore is not the save")
+    del params
+    empty()
+
+    # (f) bench.py --train's configuration (GPT-2-124M, B=8, T=1024, 20
+    # + 1 steps, health on)
+    records = train_watch(**(watch or {}))
+    for rec in records:
+        print(f"{tag} (f) {json.dumps(rec)} [{card}]", flush=True)
+    good = records[0]
+    if not (good["value"] and 0 < good["value"] <= 1) or \
+            good["detail"]["anomalies"] or \
+            good["detail"]["steps"] != (watch or {}).get("n_steps", 20) + 1:
+        fail(f"train-telemetry (f): {good}")
+    empty()
+    took = time.perf_counter() - t_phase
+    print(f"{tag} phase took {took:.1f} s", flush=True)
+    return {"counts": counts, "steps_run": runs, "goodput": st["goodput"],
+            "dominant": dom, "walls_ms": walls, "save_s": save_s,
+            "restore_s": restore_s, "ckpt_bytes": nbytes,
+            "turns_ms": ms, "syncs": n_sync, "host_share": share,
+            "accum": {"loss": acc_loss, "plain": plain_loss, "rel": rel,
+                      "counts": acc_counts, "f32": f32},
+            "train_watch": records, "seconds": took}
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def check_accum_f32(torch, fa, preset, dev, rows, seq, tx) -> dict:
+    """(e) in f32 at TT_F32_LAYERS layers of ``preset``'s width: one
+    accumulated step (TT_MICRO microbatches) and one plain step from
+    the same weights and batch; the losses and the updated parameters
+    must agree (TT_F32_LOSS_RTOL, TT_F32_PARAM_ATOL)."""
+    from ray_tpu_torch.models.llama import (llama_config, llama_init,
+                                            llama_loss)
+    from ray_tpu_torch.train import accumulated_train_step, build_train_step
+    from ray_tpu_torch.train.optim import tree_leaves
+
+    cfg = llama_config(preset, ce_impl="pallas", n_layer=TT_F32_LAYERS,
+                       dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = llama_init(cfg, gen, device=dev)
+    state = tx.init(params)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, seq + 1),
+                                     generator=gen, device=dev)}
+    loss_fn = lambda p, b: llama_loss(p, b, cfg)  # noqa: E731
+
+    def run():
+        a = accumulated_train_step(loss_fn, tx, num_microbatches=TT_MICRO)(
+            params, state, batch)
+        p = build_train_step(loss_fn, tx, donate=False, telemetry=False)(
+            params, state, batch)
+        return a, p
+
+    (pa, sa, la), (pp, sp, lp) = uncounted(fa, run)
+    rel = abs(float(la) - float(lp)) / abs(float(lp))
+    grad_rel = max(float((x - y).abs().max() / y.abs().max()) for x, y in
+                   zip(tree_leaves(sa["mu"]), tree_leaves(sp["mu"])))
+    diff, over, tight = 0.0, -math.inf, 0.0
+    for xa, xp, ma, mp in zip(tree_leaves(pa), tree_leaves(pp),
+                              tree_leaves(sa["mu"]), tree_leaves(sp["mu"])):
+        ga, gp = ma / (1 - tx.b1), mp / (1 - tx.b1)
+        m = torch.where(ga.sign() == gp.sign(),
+                        torch.minimum(ga.abs(), gp.abs()), 0.0)
+        sens = tx.learning_rate * tx.eps * (ga - gp).abs() / (m + tx.eps) ** 2
+        d = (xa - xp).abs()
+        diff = max(diff, float(d.max()))
+        over = max(over, float((d - sens - TT_F32_PARAM_ATOL).max()))
+        tight = max(tight, float(d[sens < TT_F32_PARAM_ATOL / 10].max()))
+    update = max(float((x - y).abs().max()) for x, y in
+                 zip(tree_leaves(pp), tree_leaves(params)))
+    print(f"[train-telemetry] (e) f32, {cfg.n_layer} layers at d_model "
+          f"{cfg.d_model}, B={rows} T={seq}: accumulated loss "
+          f"{float(la):.7f} vs plain {float(lp):.7f} (rel {rel:.3e}, tol "
+          f"{TT_F32_LOSS_RTOL}); first moments max |diff| / max |m| "
+          f"{grad_rel:.3e} (tol {TT_F32_GRAD_RTOL}); updated params max "
+          f"|diff| {diff:.3e} over all, {tight:.3e} where AdamW's "
+          f"sensitivity bound is under {TT_F32_PARAM_ATOL / 10:g}, the "
+          f"largest excess over the bound + {TT_F32_PARAM_ATOL:g} "
+          f"{over:.3e} (must be <= 0), against a largest update of "
+          f"{update:.3e}", flush=True)
+    if rel > TT_F32_LOSS_RTOL or grad_rel > TT_F32_GRAD_RTOL or over > 0:
+        fail("train-telemetry (e): the f32 accumulated step disagrees with "
+             "the plain step")
+    del pa, pp, sa, sp, params, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"loss_rel": rel, "grad_rel": grad_rel, "param_max_abs": diff,
+            "param_max_abs_insensitive": tight, "over_bound": over,
+            "max_update": update}
 
 
 # phase serve-continuous: llama-1b through the continuous scheduler.
@@ -3315,6 +3787,7 @@ def main() -> int:
         serve_spec = phase_serve_spec_disagg(torch, np, fa, card, gate)
         serve_tele = phase_serve_telemetry(torch, np, fa, card, gate)
     train_llama = phase_train_llama(torch, fa, fc, card)
+    train_tele = phase_train_telemetry(torch, np, fa, card)
     llama_7b = phase_llama_7b(torch, fa, fc, card)
 
     def launches(name):
@@ -3325,7 +3798,8 @@ def main() -> int:
                    "serve_continuous": serve_cont["counts"].get(name, 0),
                    "serve_spec_disagg": serve_spec["counts"].get(name, 0),
                    "serve_telemetry": serve_tele["counts"].get(name, 0),
-                   "train_llama": train_llama["counts"][name]}
+                   "train_llama": train_llama["counts"][name],
+                   "train_telemetry": train_tele["counts"][name]}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "launches_per_train_step":

@@ -308,9 +308,18 @@ class ProgramRegistry:
 
     # -- instrumentation ---------------------------------------------------
 
-    def instrument(self, program: str, fn: Callable) -> Callable:
+    def instrument(self, program: str, fn: Callable,
+                   n_devices: int = 1) -> Callable:
         """Wrap `fn` with compile detection and invoke timing under
-        `program`.  The wrapper executes `fn` itself."""
+        `program`.  The wrapper executes `fn` itself.  ``n_devices`` is
+        the JAX registry's keyword (the devices a sharded program runs
+        on); only 1 is ported: more raise NotImplementedError naming
+        ROADMAP.md queue 1 item 7."""
+        if n_devices > 1:
+            raise NotImplementedError(
+                f"a program over n_devices={n_devices} is not ported yet: "
+                f"ROADMAP.md queue 1 item 7 (parallel/); the port's "
+                f"programs run on one device")
         registry = self
         seen: set = set()
         seen_lock = threading.Lock()

@@ -135,9 +135,6 @@ class SpecConfig:
 
 
 _ROADMAP_ITEM = {
-    "telemetry": "queue 1 item 4 (the train step's telemetry: "
-                 "train/telemetry.py, train/goodput.py and the program "
-                 "registry's train.step)",
     "runtime": "queue 1 item 5 (the serve runtime: deployments, "
                "replicas, router)",
     "mesh": "queue 1 item 7 (parallel/ and mesh-sharded serving)",

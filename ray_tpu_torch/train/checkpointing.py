@@ -1,0 +1,157 @@
+"""Checkpoints of a parameter tree in torch state, on one device.
+Counterpart of ``ray_tpu/train/checkpointing.py``.
+
+The JAX package writes orbax checkpoints in which every host writes
+its own shards and a restore can re-shard onto another mesh.  The port
+runs on one device, so a checkpoint is the same ``step_N/`` directory
+holding one ``torch.save`` file of the tree (tensors copied to the
+host).  Every save and restore is timed and booked into the trainer's
+trainwatch state as the JAX package books it.  Meshes wait for
+ROADMAP.md queue 1 item 7 (parallel/), the AIR checkpoint for the same
+item (``air/checkpoint.py``).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Optional
+
+import torch
+
+from ray_tpu_torch.device import DeviceLike, resolve_device
+from ray_tpu_torch.train.optim import tree_leaves, tree_map
+
+__all__ = ["save_sharded", "restore_sharded", "latest_step",
+           "sharded_checkpoint_to_air"]
+
+#: the one file of a checkpoint directory
+TREE_FILE = "tree.pt"
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP.md queue 1 item 7 "
+        f"(parallel/, air/checkpoint.py); the port checkpoints one device")
+
+
+def _step_dir(path: str, step: Optional[int]) -> str:
+    return os.path.join(path, f"step_{step}") if step is not None else path
+
+
+def _tree_bytes(tree: Any) -> int:
+    """Total tensor bytes in a tree (numel * element_size)."""
+    return int(sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+                   if isinstance(x, torch.Tensor)))
+
+
+def _record_ckpt(kind: str, dur_s: float, nbytes: int, target: str,
+                 step: Optional[int], trainer: str) -> None:
+    """Book one save/restore pause into trainwatch: the goodput
+    tracker (so checkpoint pauses show up in the goodput denominator
+    and the next step's ``checkpoint`` anatomy leg) plus a
+    ``ckpt_save``/``ckpt_restore`` flight-recorder journal event."""
+    try:
+        from ray_tpu_torch.train.goodput import (get_goodput_tracker,
+                                                 get_train_recorder)
+
+        get_goodput_tracker(trainer).record_checkpoint(
+            kind, dur_s, nbytes=nbytes, step=step)
+        get_train_recorder(trainer).record(
+            f"ckpt_{kind}", step=step,
+            dur_ms=round(dur_s * 1e3, 3), bytes=nbytes, path=target)
+    except Exception:  # noqa: BLE001 - observability must not raise
+        pass
+
+
+def _to_host(x: Any) -> Any:
+    return x.detach().cpu() if isinstance(x, torch.Tensor) else x
+
+
+def save_sharded(params: Any, path: str, *,
+                 step: Optional[int] = None,
+                 trainer: str = "default") -> str:
+    """Write a tree (nested dicts of tensors) under ``path``
+    (``path/step_{step}`` when ``step`` is given); returns the
+    checkpoint directory.  The pause, from the device-to-host copy to
+    the file's close, is timed and journaled under the named trainer's
+    trainwatch state (``train_stats(trainer)["checkpoint"]``).  The
+    file is written beside its final name and renamed, so a crash
+    leaves the previous checkpoint whole."""
+    target = os.path.abspath(_step_dir(path, step))
+    os.makedirs(target, exist_ok=True)
+    final = os.path.join(target, TREE_FILE)
+    t0 = time.perf_counter()
+    host = tree_map(_to_host, params)
+    with open(final + ".tmp", "wb") as f:
+        torch.save(host, f)
+    os.replace(final + ".tmp", final)
+    _record_ckpt("save", time.perf_counter() - t0,
+                 _tree_bytes(params), target, step, trainer)
+    return target
+
+
+def _place(template: Any, restored: Any) -> Any:
+    """``restored`` in ``template``'s layout, each leaf cast to its
+    template leaf's dtype and placed on its device."""
+    if isinstance(template, dict):
+        got = sorted(restored) if isinstance(restored, dict) else restored
+        if got != sorted(template):
+            raise ValueError(f"checkpoint keys {got} do not match the "
+                             f"template's {sorted(template)}")
+        return {k: _place(template[k], restored[k]) for k in template}
+    if isinstance(template, torch.Tensor):
+        if tuple(restored.shape) != tuple(template.shape):
+            raise ValueError(f"checkpoint leaf of shape "
+                             f"{tuple(restored.shape)} where the template "
+                             f"has {tuple(template.shape)}")
+        return restored.to(device=template.device, dtype=template.dtype)
+    return restored
+
+
+def restore_sharded(path: str, *, step: Optional[int] = None,
+                    template: Any = None, mesh=None, axes: Any = None,
+                    rules=None, trainer: str = "default",
+                    device: DeviceLike = None) -> Any:
+    """Restore a tree saved with save_sharded.
+
+    With a ``template`` (a tree of tensors) the leaves take its
+    layout, dtypes and devices; without one they land on
+    ``resolve_device(device)``: the card unless the caller asks for
+    the CPU.  The pause, from the read to the last leaf on its device,
+    is timed and journaled as ``save_sharded``'s.  ``mesh``/``axes``/
+    ``rules`` (re-sharding) raise NotImplementedError naming
+    ROADMAP.md queue 1 item 7."""
+    if mesh is not None or axes is not None or rules is not None:
+        raise _not_ported("restoring onto a mesh")
+    target = os.path.abspath(_step_dir(path, step))
+    dev = None if template is not None else resolve_device(device)
+    t0 = time.perf_counter()
+    with open(os.path.join(target, TREE_FILE), "rb") as f:
+        host = torch.load(f, map_location="cpu", weights_only=True)
+    if template is not None:
+        restored = _place(template, host)
+    else:
+        restored = tree_map(lambda x: x.to(dev)
+                            if isinstance(x, torch.Tensor) else x, host)
+    _record_ckpt("restore", time.perf_counter() - t0,
+                 _tree_bytes(restored), target, step, trainer)
+    return restored
+
+
+def latest_step(path: str) -> Optional[int]:
+    """Largest step_N subdirectory under `path`, or None."""
+    try:
+        steps = [int(d[len("step_"):]) for d in os.listdir(path)
+                 if d.startswith("step_") and
+                 d[len("step_"):].isdigit()]
+    except OSError:
+        return None
+    return max(steps) if steps else None
+
+
+def sharded_checkpoint_to_air(path: str, step: Optional[int] = None):
+    """The JAX package wraps the directory as an AIR Checkpoint; the
+    AIR layer is not ported (NotImplementedError naming ROADMAP.md
+    queue 1 item 7)."""
+    raise _not_ported("an AIR Checkpoint (air/checkpoint.py)")

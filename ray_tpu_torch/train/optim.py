@@ -9,9 +9,11 @@ not use it).  Every leaf decays, biases and LayerNorm included, as
 optax does without a mask.
 
 Parameters are a nested dict of tensors (the JAX pytree's layout); the
-state holds first and second moments in the same layout.  ``update_``
-changes parameters and state in place, which is what JAX's buffer
-donation amounts to.
+state holds first and second moments in the same layout and the step
+count, a 0-d int32 tensor on the host as optax's ``count`` is an int32
+array (so a program registry keys it by shape and dtype, not by value,
+and reading it needs no device sync).  ``update_`` changes parameters
+and moments in place, which is what JAX's buffer donation amounts to.
 """
 
 from __future__ import annotations
@@ -68,9 +70,9 @@ class AdamW:
     weight_decay: float = 1e-4
 
     def init(self, params: Tree) -> Dict[str, Any]:
-        """{"count": steps taken, "mu": zeros, "nu": zeros} (moments in
-        the parameters' layout and dtype)."""
-        return {"count": 0,
+        """{"count": steps taken (0-d int32, CPU), "mu": zeros, "nu":
+        zeros} (moments in the parameters' layout and dtype)."""
+        return {"count": torch.zeros((), dtype=torch.int32),
                 "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}
 
@@ -79,8 +81,10 @@ class AdamW:
                 state: Dict[str, Any]) -> None:
         """One step, in place on ``params`` and ``state``; ``grads`` in
         tree_leaves order of ``params``."""
-        state["count"] += 1
-        t = state["count"]
+        # a new count tensor, not += : a caller's copy of the state
+        # (donate=False) shares the old one
+        state["count"] = state["count"] + 1
+        t = int(state["count"])
         bc1 = 1.0 - self.b1 ** t
         bc2 = 1.0 - self.b2 ** t
         for p, g, mu, nu in zip(tree_leaves(params), grads,

@@ -58,7 +58,13 @@ def test_port_files_exist():
             "ray_tpu_torch/serve/health.py",
             "ray_tpu_torch/serve/chaos.py",
             "ray_tpu_torch/serve/slo.py",
-            "ray_tpu_torch/serve/telemetry.py"} <= names
+            "ray_tpu_torch/serve/telemetry.py",
+            # the train step's telemetry and what reports into it
+            "ray_tpu_torch/train/telemetry.py",
+            "ray_tpu_torch/train/goodput.py",
+            "ray_tpu_torch/train/grad_accum.py",
+            "ray_tpu_torch/train/checkpointing.py",
+            "ray_tpu_torch/tools/flightrec.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -311,18 +311,17 @@ def test_batch_scheduler_slo_matches_the_reference_message():
 
 
 def test_roadmap_message_names_what_is_left_of_telemetry():
-    """The serving telemetry is ported: item 4's message names only the
-    train step's telemetry, which build_train_step(telemetry=True)
-    still raises on."""
+    """Both halves of the telemetry are ported: no message names item 4
+    any more, and build_train_step(telemetry=True) builds the wrapped
+    step."""
     from ray_tpu_torch.serve.llm import _ROADMAP_ITEM, _not_ported
     from ray_tpu_torch.train import build_train_step
 
-    msg = str(_not_ported("train-step telemetry", "telemetry"))
-    assert "queue 1 item 4" in msg and "train step" in msg
-    assert "admission" not in _ROADMAP_ITEM["telemetry"]
-    assert "engine_stats" not in _ROADMAP_ITEM["telemetry"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        build_train_step(lambda p, b: p, None, telemetry=True)
+    assert "telemetry" not in _ROADMAP_ITEM
+    assert not any("item 4" in v for v in _ROADMAP_ITEM.values())
+    assert "queue 1 item 5" in str(_not_ported("a fleet", "runtime"))
+    step = build_train_step(lambda p, b: p, None, telemetry=True)
+    assert step.goodput.name == "jax_trainer"
 
 
 def test_continuous_only_keywords_are_ignored_by_the_batch_scheduler():

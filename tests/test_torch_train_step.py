@@ -125,11 +125,19 @@ def test_donate_false_leaves_inputs_untouched():
 
 
 def test_unported_step_options_raise():
+    """Meshes still raise; the step's telemetry is ported (the JAX
+    default, telemetry=True, returns the wrapped step) and only a
+    registry program over several devices raises, naming item 7."""
     tx = adamw(3e-4)
     with pytest.raises(NotImplementedError, match="queue 1 items 6-7"):
         build_train_step(lambda p, b: 0.0, tx, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        build_train_step(lambda p, b: 0.0, tx, telemetry=True)
+    step = build_train_step(lambda p, b: 0.0, tx)
+    assert step.goodput is not None and step._raw_step is not None
+    from ray_tpu_torch._private.device_stats import get_registry
+
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        get_registry().instrument("train.step", step._raw_step,
+                                  n_devices=8)
 
 
 def test_time_config_on_cpu():
@@ -146,3 +154,20 @@ def test_time_config_on_cpu():
     assert np.all(np.isfinite(losses)) and losses[-1] < losses[0]
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         time_config(2, seq=64, preset="nano", device="cpu", mesh="fsdp")
+
+
+def test_time_config_books_bench_train_step():
+    """As bench.py:392 and :425-426: one compile event for the warm-up
+    step, one invoke of dt / n_steps per timed step."""
+    from ray_tpu_torch._private.device_stats import (get_registry,
+                                                     reset_registry)
+
+    reset_registry()
+    _, _, _, _, cost = time_config(2, seq=32, n_steps=3, preset="nano",
+                                   device="cpu", dtype=torch.float32)
+    got = get_registry().snapshot()["bench.train_step"]
+    assert (got["compile_events"], got["invokes"]) == (1, 3)
+    # invoke_ms is summarized to 3 decimals
+    assert got["invoke_ms"]["max"] == pytest.approx(cost["step_ms"],
+                                                    abs=1e-3)
+    assert cost["compile_seconds"] > 0
