@@ -148,6 +148,34 @@ Phases, each fatal on failure (any failure exits non-zero):
             batch scheduler, 8 equal-length bf16 requests: 8 finished
             with a latency sample each, 16 flash forward launches (one
             prefill, zeroed just before).
+12a. serve-fleet — the fleet layer (build_llm_fleet, run_traffic,
+            run_traffic_fleet, the tracebus) over llama-1b replicas:
+            (a) f32, 3 groups x 4 requests of a 256-token shared prefix
+            one at a time through 2 replicas by prefix routing and by
+            round robin: replies held to the solo oracle, prefix
+            routing's pooled hit rate above round robin's, routes by
+            prefix affinity, both replicas used, one route event per
+            request; (b) f32 disaggregated fleets (1 prefill + 1 decode
+            replica; fast, staged): phase 10's 8 cold prompts handed
+            off (handoffs = disagg_prefill routes), then 4 prompts of a
+            prefix resident on the decode replica routed there by
+            prefix affinity; a chaos-dropped handoff journaled and its
+            request still the oracle's; (c) bf16 autoscaling with an
+            injected clock: up on a burned SLO after the sustain
+            window, the new replica serving, down on idle through a
+            drain with no block in use, the flight record's scale and
+            drain events and its rendered routing table; (d) f32 health
+            + a chaos freeze of replica 0 with engine queues filled:
+            replica 0 dead in the monitor's log, its queue requeued to
+            replica 1, phase 10's replies held to the oracle; (e) bf16
+            two-tenant seeded traffic (48 requests) through 2 replicas
+            and through one engine in turns, all at once and as
+            Poisson arrivals at 6/s: served tokens/s, latency p50/p95
+            overall and per tenant, TTFT attainment, prefix hit rate,
+            the router's host share; the tracebus CLI's report on a
+            fleet dump exits 0 and each request's critical path sums to
+            its e2e within 5%.  Each sub-phase's replicas freed before
+            the next; no kernel launches.
 13. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
             whole block, ce_impl="pallas": a warm-up and 5 timed steps
             (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
@@ -675,7 +703,7 @@ def phase_serve(torch, np, fa, card: str, family: str = "gpt2",
     max_new, t_prompt = 16, 512
     t0 = time.perf_counter()
     engine = build_llm_deployment(family, preset, max_new_tokens=max_new,
-                                  max_batch_size=8, seed=0)()
+                                  max_batch_size=8, seed=0).func_or_class()
     cfg = engine.cfg
     torch.cuda.synchronize()
     print(f"[{tag}] {family} {preset}: {cfg.n_layer} layers, "
@@ -2685,7 +2713,7 @@ def phase_serve_continuous(torch, np, fa, card: str, preset="llama-1b",
                 len(p) // CONT_BLOCK for p in prompts)
         engine = build_llm_deployment(
             "llama", preset, max_slots=CONT_SLOTS, config_overrides=f32,
-            **common, **kw)()
+            **common, **kw).func_or_class()
         if oracle is None:
             cfg, params = engine.cfg, engine.params
             prompts = continuous_prompts(np, cfg.vocab_size, CONT_N, seed=5)
@@ -2767,7 +2795,7 @@ def time_continuous(torch, np, preset, dev, widths, card, drive,
     batch = build_llm_deployment(
         "llama", preset, max_new_tokens=CONT_MAX_NEW,
         max_batch_size=CONT_TIMED_SLOTS, seed=0, device=dev,
-        config_overrides=widths)()
+        config_overrides=widths).func_or_class()
     cfg = batch.cfg
     prompts = continuous_prompts(np, cfg.vocab_size, CONT_TIMED_N, seed=6)
     n_tok = CONT_TIMED_N * CONT_MAX_NEW
@@ -2777,7 +2805,7 @@ def time_continuous(torch, np, preset, dev, widths, card, drive,
             "llama", preset, scheduler="continuous", kv_layout="paged",
             kv_block_size=CONT_BLOCK, max_slots=CONT_TIMED_SLOTS,
             max_new_tokens=CONT_MAX_NEW, prefill_bucket=CONT_BUCKET, seed=0,
-            device=dev, config_overrides=widths)()
+            device=dev, config_overrides=widths).func_or_class()
 
     # warm-up of both (cuBLAS handles, allocator pools), not timed
     for engine in (continuous(), batch):
@@ -2997,7 +3025,8 @@ def phase_serve_spec_disagg(torch, np, fa, card: str, gate: dict,
     ngram = SpecConfig(draft="ngram", k=SPEC_K)
 
     def build(**kw):
-        return build_llm_deployment("llama", preset, **common, **kw)()
+        return build_llm_deployment("llama", preset, **common,
+                                    **kw).func_or_class()
 
     def pair(staged=False, pre_kw=None, dec_kw=None):
         return _Pair(torch,
@@ -3140,7 +3169,7 @@ def time_spec(torch, np, preset, dev, widths, card, drive, sync,
 
     def engine(name):
         return build_llm_deployment("llama", preset, spec_decode=specs[name],
-                                    **kw)()
+                                    **kw).func_or_class()
 
     vocab = llama_config(preset, **widths).vocab_size
     prompts = continuous_prompts(np, vocab, CONT_TIMED_N, seed=6)
@@ -3175,7 +3204,8 @@ def time_spec(torch, np, preset, dev, widths, card, drive, sync,
     handoff = {}
     for staged in (False, True):
         p = _Pair(torch, *(build_llm_deployment(
-            "llama", preset, role=r, handoff_staged=staged, **kw)()
+            "llama", preset, role=r, handoff_staged=staged,
+            **kw).func_or_class()
             for r in ("prefill", "decode")), sync)
         outs, _ = drive(p, prompts, CONT_TIMED_N)
         check_replies(np, prompts, outs, CONT_MAX_NEW, vocab, "handoff")
@@ -3402,7 +3432,7 @@ def phase_serve_telemetry(torch, np, fa, card: str, gate: dict,
                 seed=0, device=dev, config_overrides=widths)
 
     def build(**kw):
-        return build_llm_deployment("llama", preset, **kw)()
+        return build_llm_deployment("llama", preset, **kw).func_or_class()
 
     # (a) -------------------------------------------------------------
     engine = build(slo=SLOConfig(ttft_ms=600_000.0, e2e_ms=600_000.0,
@@ -3727,7 +3757,7 @@ def phase_serve_telemetry(torch, np, fa, card: str, gate: dict,
     batch = build_llm_deployment(
         "llama", preset, max_new_tokens=CONT_MAX_NEW,
         max_batch_size=TELE_BATCH_N, seed=0, device=dev,
-        config_overrides=widths)()
+        config_overrides=widths).func_or_class()
     rs = np.random.RandomState(9)
     bprompts = [rs.randint(0, cfg.vocab_size, TELE_BATCH_T).astype(np.int32)
                 for _ in range(TELE_BATCH_N)]
@@ -3758,6 +3788,576 @@ def phase_serve_telemetry(torch, np, fa, card: str, gate: dict,
     return {"counts": launches, "near_ties": ties, **out}
 
 
+# phase serve-fleet: the fleet layer (serve/router.py, serve/traffic.py,
+# tools/tracebus.py) over llama-1b replicas, on phase serve-continuous's
+# request set P, oracle and near-tie rule where the engine config is
+# serve-continuous's.
+#: (a): 3 groups x 4 requests, a FLEET_PREFIX-token shared prefix each
+#: plus a 2-5-token tail, shuffled; FLEET_MAX_NEW tokens each
+FLEET_GROUPS, FLEET_PER_GROUP, FLEET_PREFIX, FLEET_MAX_NEW = 3, 4, 256, 16
+#: (b): P's 8 cold prompts at once, then FLEET_RESIDENT prompts that
+#: extend the first cold prompt's full blocks (resident on the decode
+#: replica after its handoff), one at a time
+FLEET_RESIDENT = 4
+#: (d): the inflight cap above the slots, so engine queues fill; the
+#: interval of the pings submitted until the frozen replica is found
+#: dead (under a quarter of TELE_HEALTH's dead_ms), and their deadline
+FLEET_HEALTH_CAP = 2 * CONT_SLOTS
+FLEET_PING_MS, FLEET_PING_DEADLINE_S = 50.0, 60.0
+#: (e): the reference's fleet traffic (bench.py main_traffic_fleet, its
+#: on-chip branch) at llama's vocabulary: requests, max_new_tokens,
+#: slots, prefill bucket, the SLO (e2e; the interactive tenant's TTFT
+#: target is half of it, the batch tenant's e2e twice it) and the
+#: modelled Poisson rate of the time_scale=1 runs
+FLEET_TIMED_N, FLEET_TIMED_NEW, FLEET_TIMED_SLOTS = 64, 64, 8
+FLEET_TIMED_BUCKET, FLEET_SLO_MS, FLEET_RATE = 128, 20000.0, 32.0
+#: the critical path's components sum to each request's e2e within this
+FLEET_CP_TOL = 0.05
+
+
+class _RouterCostSpy(_HostCostSpy):
+    """Times the fleet router's own host work, as _HostCostSpy times
+    telemetry: ``LLMRouter._pump`` (the health sweep, WFQ pops, replica
+    picks, route records, dispatch task creation; run on every submit
+    and every completion), ``_normalize`` and ``FairQueue.push``
+    (submit's bookkeeping), and what ``_dispatch`` does beside awaiting
+    its replica: the handoff's ``_pick_handoff_target`` and route record
+    (``EngineTelemetry.record_route``: only routers record routes; the
+    ones inside ``_pump`` count once), each under sync-debug "error" on
+    the card.  Not timed: submit's TraceContext and future, asyncio's
+    task scheduling, and a dropped handoff's journal write.  Patches the
+    classes, so every router of the process is timed until
+    ``restore()``."""
+
+    PARTS = ("router",)
+
+    def __init__(self, torch, guard: bool = True):
+        from ray_tpu_torch.serve import router, telemetry
+
+        self.by_part = {p: 0.0 for p in self.PARTS}
+        self.calls = 0
+        self._depth = 0
+        self._undo = []
+        self._torch, self._guard = torch, guard
+        for obj, name in ((router.LLMRouter, "_pump"),
+                          (router.LLMRouter, "_normalize"),
+                          (router.LLMRouter, "_pick_handoff_target"),
+                          (router.FairQueue, "push"),
+                          (telemetry.EngineTelemetry, "record_route")):
+            self._patch(obj, name, self.PARTS[0])
+
+
+def shared_prefix_mix(np, vocab: int, prefix_len: int,
+                      n_groups: int = FLEET_GROUPS,
+                      per_group: int = FLEET_PER_GROUP,
+                      seed: int = 11) -> list:
+    """The reference's fleet workload (tests/test_serve_fleet.py:64-83)
+    at a given vocabulary and prefix length: ``n_groups`` prefixes,
+    ``per_group`` prompts each with a 2-4-token tail, shuffled."""
+    rng = np.random.RandomState(seed)
+    prefixes = [rng.randint(2, vocab, prefix_len) for _ in range(n_groups)]
+    order = rng.permutation(np.repeat(np.arange(n_groups), per_group))
+    return [np.concatenate([prefixes[g], rng.randint(
+        2, vocab, 2 + int(rng.randint(3)))]).astype(np.int32)
+        for g in order]
+
+
+def _tenant_stats(np, doc: dict, tenants) -> dict:
+    """Per tenant, from a tracebus dump's request snapshots: request
+    latency (enqueue -> finish) and TTFT (enqueue -> first token)
+    p50/p95, and the share of requests within each target the tenant's
+    TenantSpec declares (``ttft_slo_ms``, ``e2e_slo_ms``)."""
+    specs = {t.name: t for t in tenants}
+    out = {}
+    for t in sorted({r.get("tenant") or "default"
+                     for r in doc["requests"]}):
+        rs = [r for r in doc["requests"]
+              if (r.get("tenant") or "default") == t
+              and r.get("finish") is not None]
+        ttft = [r["first_token"] - r["enqueue"] for r in rs]
+        e2e = [r["finish"] - r["enqueue"] for r in rs]
+        ts = _pcts(ttft)
+        row = {"n": len(rs), **_pcts(e2e), "ttft_p50_ms": ts["p50_ms"],
+               "ttft_p95_ms": ts["p95_ms"]}
+        spec = specs.get(t)
+        for key, xs in (("ttft", ttft), ("e2e", e2e)):
+            target = getattr(spec, f"{key}_slo_ms", None)
+            if target is not None:
+                row[f"{key}_attainment"] = \
+                    sum(v * 1e3 <= target for v in xs) / len(xs)
+        out[t] = row
+    return out
+
+
+def phase_serve_fleet(torch, np, fa, card: str, gate: dict,
+                      preset="llama-1b", device="cuda", widths=None,
+                      timed_n=FLEET_TIMED_N, rate=FLEET_RATE) -> dict:
+    """The serve fleet on llama-1b replicas, through build_llm_fleet and
+    run_traffic(_fleet): (a) f32, 12 shared-prefix requests one at a
+    time through two replicas by prefix routing and by round robin,
+    replies held to the solo oracle; (b) f32 disaggregated fleets (one
+    prefill, one decode replica; fast, staged, and a dropped handoff),
+    P's cold prompts handed off and prompts of a resident prefix routed
+    straight to the decode replica; (c) bf16 autoscaling with an
+    injected clock: up on a burned SLO, the new replica serves, down on
+    idle through a drain, the flight record rendered; (d) f32 health and
+    a chaos freeze of replica 0, its queued requests requeued to replica
+    1, P's replies held to the oracle; (e) bf16 timing of two-tenant
+    seeded traffic through two replicas and through one engine, in
+    turns, fired at once and as Poisson arrivals, with the router's host
+    share and a tracebus dump whose CLI report must run.  Frees each
+    sub-phase's replicas before the next.  ``preset``, ``device``,
+    ``widths``, ``timed_n`` and ``rate`` let it run cut down
+    elsewhere."""
+    import gc
+    import os
+    import tempfile
+
+    from ray_tpu_torch.models.llama_decode import llama_generate
+    from ray_tpu_torch.serve import (AutoscalePolicy, SLOConfig, TenantSpec,
+                                     TrafficSpec, build_llm_fleet,
+                                     run_traffic, run_traffic_fleet)
+    from ray_tpu_torch.serve.chaos import ChaosConfig
+    from ray_tpu_torch.serve.health import HealthConfig
+    from ray_tpu_torch.tools import flightrec, tracebus
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    widths = dict(widths or {})
+    prompts, oracle = gate["prompts"], gate["oracle"]
+    out, launches, ties = {}, {}, []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def freed(tag):
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            mib = torch.cuda.memory_allocated(dev) / 2**20
+            print(f"[serve-fleet] after {tag}: {mib:.1f} MiB allocated on "
+                  f"the card [{card}]", flush=True)
+            out.setdefault("allocated_mib", {})[tag] = mib
+
+    def count(fn):
+        zero_counts(fa)
+        res = fn()
+        sync()
+        for k, v in read_counts(fa).items():
+            launches[k] = launches.get(k, 0) + v
+        return res
+
+    def drive(fleet, waves, extra=None):
+        """Each wave's prompts at once, the waves one after another;
+        (replies, fleet_stats) read before the fleet shuts down.
+        ``extra``: a coroutine function run beside the waves, awaited
+        after them; its result is returned third."""
+        async def main():
+            helper = (asyncio.ensure_future(extra())
+                      if extra is not None else None)
+            try:
+                outs = []
+                for wave in waves:
+                    outs += await asyncio.gather(*(fleet(p) for p in wave))
+                res = ([np.asarray(o) for o in outs],)
+                if helper is not None:
+                    res += (await helper,)
+                return res[:1] + (fleet.fleet_stats(),) + res[1:]
+            finally:
+                if helper is not None and not helper.done():
+                    helper.cancel()
+                fleet.shutdown()
+
+        return count(lambda: asyncio.run(main()))
+
+    def blocks_free(st, tag):
+        used = {n: r["kv_cache"]["blocks_in_use"]
+                for n, r in st["replicas"].items()}
+        if any(used.values()):
+            fail(f"[serve-fleet] {tag}: blocks still in use after every "
+                 f"request finished: {used}")
+
+    def oracle_of(params, cfg, ps, max_new):
+        with torch.inference_mode():
+            return [llama_generate(
+                params, torch.from_numpy(p)[None].to(dev), cfg,
+                max_new_tokens=max_new, temperature=0.0)[0].cpu().numpy()
+                for p in ps]
+
+    f32 = dict(max_slots=CONT_SLOTS, kv_block_size=CONT_BLOCK,
+               prefill_bucket=CONT_BUCKET, seed=0, device=dev,
+               config_overrides=dict(widths, dtype=torch.float32,
+                                     max_seq=CONT_MAX_SEQ))
+
+    # (a) -------------------------------------------------------------
+    stats, params, cfg, mix, want = {}, None, None, None, None
+    for routing in ("prefix", "round_robin"):
+        fleet = build_llm_fleet("llama", preset, num_replicas=2,
+                                routing=routing, fleet_name=f"a_{routing}",
+                                max_new_tokens=FLEET_MAX_NEW, **f32)
+        if params is None:
+            rep0 = fleet.router._replicas[0].inst
+            params, cfg = rep0.params, rep0.cfg
+            del rep0
+            mix = shared_prefix_mix(np, cfg.vocab_size, FLEET_PREFIX)
+            want = oracle_of(params, cfg, mix, FLEET_MAX_NEW)
+        t0 = time.perf_counter()
+        outs, st = drive(fleet, [[p] for p in mix])
+        wall = time.perf_counter() - t0
+        check_replies(np, mix, outs, FLEET_MAX_NEW, cfg.vocab_size, routing)
+        ties += gate_against_oracle(torch, np, params, cfg, mix, outs, want,
+                                    f"a {routing}", "serve-fleet")
+        blocks_free(st, f"(a) {routing}")
+        routes = fleet.telemetry.flightrec.snapshot()
+        n_route = sum(e["kind"] == "route" for e in routes)
+        stats[routing] = {
+            "prefix_hit_rate": st["prefix_hit_rate"],
+            "routed_by_policy": st["router"]["routed_by_policy"],
+            "routed": {n: r["routed"] for n, r in st["replicas"].items()},
+            "route_events": n_route, "wall_s": wall}
+        print(f"[serve-fleet] (a) f32 {routing}: {len(mix)} requests one at "
+              f"a time in {wall:.2f} s, all equal to the oracle or parted "
+              f"at a near-tie; prefix hit rate {st['prefix_hit_rate']}, "
+              f"routed by policy {st['router']['routed_by_policy']}, per "
+              f"replica {stats[routing]['routed']}, {n_route} route events "
+              f"[{card}]", flush=True)
+        if n_route != len(mix):
+            fail(f"[serve-fleet] (a) {routing}: {n_route} route events for "
+                 f"{len(mix)} requests")
+        del fleet
+    a_p, a_rr = stats["prefix"], stats["round_robin"]
+    if not a_p["prefix_hit_rate"] > a_rr["prefix_hit_rate"] \
+            or not a_p["routed_by_policy"]["prefix_affinity"] > 0 \
+            or not all(a_p["routed"].values()) \
+            or a_rr["routed_by_policy"]["round_robin"] != len(mix):
+        fail(f"[serve-fleet] (a) prefix routing {a_p} against round robin "
+             f"{a_rr}: expected a higher hit rate, prefix-affinity routes, "
+             f"both replicas used, and all {len(mix)} round robin")
+    out["a"] = stats
+    del params
+    freed("(a)")
+
+    # (b) -------------------------------------------------------------
+    cold = prompts[CONT_N // 4:CONT_N // 4 + CONT_N // 2]
+    cold_want = oracle[CONT_N // 4:CONT_N // 4 + CONT_N // 2]
+    base = cold[0][:len(cold[0]) // CONT_BLOCK * CONT_BLOCK]
+    rs = np.random.RandomState(12)
+    resident = None
+    b = {}
+    runs = (("fast", dict(), True), ("staged", dict(handoff_staged=True),
+                                     True),
+            ("dropped handoff", dict(chaos=ChaosConfig(drop_handoff_nth=2)),
+             False))
+    for tag, kw, with_resident in runs:
+        fleet = build_llm_fleet(
+            "llama", preset, num_prefill_replicas=1, num_decode_replicas=1,
+            fleet_name=f"b_{tag.split()[0]}", max_new_tokens=CONT_MAX_NEW,
+            **f32, **kw)
+        dec = fleet.router._replicas[1].inst
+        if resident is None:
+            resident = [np.concatenate([base, rs.randint(
+                2, dec.cfg.vocab_size, 3 + i)]).astype(np.int32)
+                for i in range(FLEET_RESIDENT)]
+            params, cfg = dec.params, dec.cfg
+            res_want = oracle_of(params, cfg, resident, CONT_MAX_NEW)
+        del dec
+        ps = cold + (resident if with_resident else [])
+        ws = cold_want + (res_want if with_resident else [])
+        waves = ([cold] + [[p] for p in resident] if with_resident
+                 else [[p] for p in cold])
+        t0 = time.perf_counter()
+        outs, st = drive(fleet, waves)
+        wall = time.perf_counter() - t0
+        check_replies(np, ps, outs, CONT_MAX_NEW, cfg.vocab_size, tag)
+        ties += gate_against_oracle(torch, np, params, cfg, ps, outs, ws,
+                                    f"b {tag}", "serve-fleet")
+        blocks_free(st, f"(b) {tag}")
+        by, h = st["router"]["routed_by_policy"], st["handoff"]
+        kinds = [e["kind"] for e in fleet.telemetry.flightrec.snapshot()]
+        dropped = kinds.count("handoff_dropped")
+        b[tag] = {"routed_by_policy": by, "handoffs":
+                  st["router"]["handoffs"], "handoff": h,
+                  "handoff_dropped": dropped, "wall_s": wall}
+        print(f"[serve-fleet] (b) f32 disaggregated, {tag}: {len(ps)} "
+              f"requests in {wall:.2f} s, all equal to the oracle or parted "
+              f"at a near-tie; routed by policy {by}, router handoffs "
+              f"{st['router']['handoffs']}, handoff block {h}, "
+              f"handoff_dropped events {dropped} [{card}]", flush=True)
+        want_hand = by["disagg_prefill"] - dropped
+        if st["router"]["handoffs"] != want_hand \
+                or h["handoffs_in"] != want_hand \
+                or by["disagg_prefill"] != len(cold):
+            fail(f"[serve-fleet] (b) {tag}: {st['router']['handoffs']} "
+                 f"handoffs for {by['disagg_prefill']} disagg_prefill "
+                 f"routes and {dropped} drops; expected all "
+                 f"{len(cold)} cold prompts routed disagg_prefill")
+        if with_resident and by["prefix_affinity"] != FLEET_RESIDENT:
+            fail(f"[serve-fleet] (b) {tag}: {by['prefix_affinity']} of the "
+                 f"{FLEET_RESIDENT} resident-prefix prompts routed "
+                 f"prefix_affinity to the decode replica")
+        if dropped != (0 if with_resident else 1):
+            fail(f"[serve-fleet] (b) {tag}: {dropped} handoff_dropped "
+                 "events journaled")
+        del fleet
+    out["b"] = b
+    del params
+    freed("(b)")
+
+    # (c) -------------------------------------------------------------
+    rs = np.random.RandomState(5)
+    bf16 = dict(max_slots=CONT_SLOTS, kv_block_size=CONT_BLOCK,
+                max_new_tokens=8, seed=0, device=dev,
+                config_overrides=widths)
+    fleet = build_llm_fleet(
+        "llama", preset, num_replicas=1, fleet_name="c_scale",
+        slo=SLOConfig(ttft_ms=1e-4, e2e_ms=1e-4, objective=0.5,
+                      windows_s=(30.0,), dump_on_breach=False),
+        autoscale=AutoscalePolicy(
+            min_replicas=1, max_replicas=2, burn_threshold=1.0,
+            queue_high=1e9, sustain_s=2.0, idle_s=2.0, up_cooldown_s=0.0,
+            down_cooldown_s=0.0), **bf16)
+    vocab = fleet.router._replicas[0].inst.cfg.vocab_size
+    sprompts = [rs.randint(2, vocab, 20).astype(np.int32) for _ in range(6)]
+    acts = []
+
+    async def episode():
+        try:
+            outs = [await fleet(p) for p in sprompts[:4]]
+            for now in (100.0, 101.0, 102.5):
+                acts.append(await fleet.autoscale_step(now=now))
+            outs += [await fleet(p) for p in sprompts[4:]]
+            fleet.autoscale_policy = AutoscalePolicy(
+                min_replicas=1, max_replicas=2, burn_threshold=1e9,
+                queue_high=1e9, sustain_s=2.0, idle_s=2.0,
+                up_cooldown_s=0.0, down_cooldown_s=0.0)
+            for now in (110.0, 112.5, 120.0):
+                acts.append(await fleet.autoscale_step(now=now))
+            outs.append(await fleet(sprompts[0]))
+            return outs, fleet.fleet_stats()
+        finally:
+            fleet.shutdown()
+
+    outs, st = count(lambda: asyncio.run(episode()))
+    check_replies(np, sprompts + sprompts[:1], outs, 8, vocab, "c")
+    with tempfile.TemporaryDirectory() as d:
+        fleet.telemetry.flightrec.dump_dir = d
+        doc = flightrec.load_dump(
+            fleet.telemetry.flightrec.dump(reason="autoscale"))
+    kinds = doc["counts_by_kind"]
+    text = "\n".join(flightrec.report_lines(doc))
+    routed = {n: r["routed"] for n, r in st["replicas"].items()}
+    up, down = acts[2], acts[4]
+    print(f"[serve-fleet] (c) bf16 autoscale: actions {acts}; routed "
+          f"{routed}; flight record {kinds}; the flightrec report's "
+          f"routing table:\n" + "\n".join(
+              line for line in text.splitlines()
+              if line.lstrip().startswith("c_scale/"))
+          + f" [{card}]", flush=True)
+    if acts[:2] != [None, None] or not up or up["action"] != "up" \
+            or up["reason"] != "burn_rate" or up["n_replicas"] != 2 \
+            or acts[3] is not None or not down or down["action"] != "down" \
+            or not down["drain"]["ok"] or down["drain"]["blocks_in_use"] \
+            or acts[5] is not None or st["num_replicas"] != 1 \
+            or not all(routed.values()) or len(routed) != 2:
+        fail(f"[serve-fleet] (c) autoscale actions {acts}, routed {routed}: "
+             "expected up after the sustain window, the new replica "
+             "serving, and down through a clean drain")
+    if (kinds.get("route"), kinds.get("scale_up"), kinds.get("scale_down"),
+            kinds.get("drain")) != (len(outs), 1, 1, 1) \
+            or "routing table (route events by replica):" not in text:
+        fail(f"[serve-fleet] (c) the flight record {kinds} lacks the "
+             "routes, scale-up, scale-down and drain, or its report the "
+             "routing table")
+    out["c"] = {"actions": acts, "routed": routed, "kinds": kinds}
+    del fleet
+    freed("(c)")
+
+    # (d) -------------------------------------------------------------
+    fleet = build_llm_fleet(
+        "llama", preset, num_replicas=2, fleet_name="d_health",
+        routing="round_robin", wfq=False,
+        max_inflight_per_replica=FLEET_HEALTH_CAP,
+        health=HealthConfig(**TELE_HEALTH),
+        chaos=ChaosConfig(seed=0, freeze_replica=0, freeze_after_waves=4,
+                          freeze_waves=TELE_FREEZE_POLLS,
+                          freeze_poll_ms=TELE_POLL_MS),
+        max_new_tokens=CONT_MAX_NEW, **f32)
+    rep0 = fleet.router._replicas[0]
+    params, cfg = rep0.inst.params, rep0.inst.cfg
+
+    pings = []
+
+    async def ping():
+        # as the reference's chaos test does: keep submitting pings
+        # through the fleet until the monitor has seen replica 0 die;
+        # every submit runs the router's health sweep, and the pings
+        # route around the sick replica
+        deadline = time.perf_counter() + FLEET_PING_DEADLINE_S
+        while (fleet.health.time_to_detect_ms is None
+               and time.perf_counter() < deadline):
+            pings.append(asyncio.ensure_future(fleet(prompts[0])))
+            await asyncio.sleep(FLEET_PING_MS / 1e3)
+        return [np.asarray(o) for o in await asyncio.gather(*pings)]
+
+    t0 = time.perf_counter()
+    outs, st, ping_outs = drive(fleet, [prompts], extra=ping)
+    wall = time.perf_counter() - t0
+    check_replies(np, prompts, outs, CONT_MAX_NEW, cfg.vocab_size, "d")
+    check_replies(np, [prompts[0]] * len(pings), ping_outs, CONT_MAX_NEW,
+                  cfg.vocab_size, "d pings")
+    ties += gate_against_oracle(torch, np, params, cfg,
+                                [prompts[0]] * len(pings), ping_outs,
+                                [oracle[0]] * len(pings), "d pings",
+                                "serve-fleet")
+    ties += gate_against_oracle(torch, np, params, cfg, prompts, outs,
+                                oracle, "d health+chaos", "serve-fleet")
+    hb = st["health"]
+    log = [(x["from"], x["to"], x["reason"])
+           for x in hb["replicas"][rep0.name]["transitions"]]
+    print(f"[serve-fleet] (d) f32 health + chaos freeze of replica 0 "
+          f"({TELE_FREEZE_POLLS} polls of {TELE_POLL_MS} ms): {len(prompts)} "
+          f"requests and {len(pings)} pings (one each {FLEET_PING_MS:g} ms "
+          f"until the monitor found replica 0 dead) in {wall:.2f} s, equal "
+          f"to the oracle or parted at a near-tie; replica 0 transitions "
+          f"{log}; requeued_on_death "
+          f"{hb['requeued_on_death']}; time_to_detect_ms "
+          f"{hb['time_to_detect_ms']}; routed "
+          f"{ {n: r['routed'] for n, r in st['replicas'].items()} } "
+          f"[{card}]", flush=True)
+    if ("suspect", "dead", "heartbeat_lost") not in log \
+            or hb["requeued_on_death"] < 1 \
+            or st["router"]["requeued_on_death"] != hb["requeued_on_death"]:
+        fail("[serve-fleet] (d) replica 0 did not go dead in the monitor's "
+             "log, or nothing of its queue was requeued")
+    blocks_free(st, "(d)")
+    out["d"] = {"transitions": log, "requeued_on_death":
+                hb["requeued_on_death"], "time_to_detect_ms":
+                hb["time_to_detect_ms"], "pings": len(pings), "wall_s": wall}
+    del fleet, rep0, params
+    freed("(d)")
+
+    # (e) -------------------------------------------------------------
+    # the reference's fleet traffic (bench.py main_traffic_fleet) at
+    # llama's vocabulary; its SLO without the breach dumps
+    vocab = cfg.vocab_size
+    tenants = (TenantSpec("interactive", rate_share=1.0,
+                          slo_class="interactive", prefix_groups=(0, 1),
+                          ttft_slo_ms=FLEET_SLO_MS / 2,
+                          e2e_slo_ms=FLEET_SLO_MS),
+               TenantSpec("batch", rate_share=1.0, slo_class="batch",
+                          prefix_groups=(2, 3), e2e_slo_ms=2 * FLEET_SLO_MS))
+    spec = TrafficSpec(num_requests=timed_n, seed=0, rate_rps=rate,
+                       num_prefix_groups=4, prefix_len=FLEET_PREFIX,
+                       p_shared=0.75, tail_len_mean=32.0, tail_len_max=128,
+                       vocab=vocab, tenants=tenants)
+    kw = dict(family="llama", preset=preset, kv_block_size=CONT_BLOCK,
+              max_slots=FLEET_TIMED_SLOTS, max_new_tokens=FLEET_TIMED_NEW,
+              prefill_bucket=FLEET_TIMED_BUCKET, config_overrides=widths,
+              slo=SLOConfig(ttft_ms=FLEET_SLO_MS / 2, e2e_ms=FLEET_SLO_MS,
+                            dump_on_breach=False), device=dev)
+    timed = {}
+    with tempfile.TemporaryDirectory() as d:
+        for scale in (0.0, 1.0):
+            for i, mode in enumerate(("single", "fleet", "fleet",
+                                      "single")):
+                dump = os.path.join(d, f"{mode}_{scale:g}_{i}.json")
+                spy = _RouterCostSpy(torch, guard=on_card)
+                try:
+                    sync()
+                    if mode == "fleet":
+                        rep = count(lambda: run_traffic_fleet(
+                            spec, num_replicas=2, time_scale=scale,
+                            trace_dump=dump, **kw))
+                        hit = rep["router_prefix_hit_rate"]
+                    else:
+                        rep = count(lambda: run_traffic(
+                            spec, time_scale=scale, trace_dump=dump, **kw))
+                        hit = rep["prefix_hit_rate"]
+                finally:
+                    spy.restore()
+                if rep["completed"] != timed_n or rep["shed"]:
+                    fail(f"[serve-fleet] (e) {mode}: {rep['completed']} of "
+                         f"{timed_n} requests completed")
+                doc = tracebus.load_dump(dump)
+                per = _tenant_stats(np, doc, tenants)
+                run = {"tokens_per_s": timed_n * FLEET_TIMED_NEW
+                       / rep["wall_s"], "wall_s": rep["wall_s"],
+                       "p50_ms": rep["latency_ms"]["p50"],
+                       "p95_ms": rep["latency_ms"]["p95"],
+                       "by_tenant": per, "prefix_hit_rate": hit,
+                       "router_s": spy.seconds,
+                       "router_share": spy.seconds / rep["wall_s"],
+                       "router_calls": spy.calls}
+                if mode == "fleet":
+                    run["tenant_slo_attainment"] = \
+                        rep["tenant_slo_attainment"]
+                timed.setdefault(f"{mode} time_scale={scale:g}",
+                                 []).append(run)
+                print(f"[serve-fleet] (e) bf16 {mode}"
+                      f"{' (2 replicas)' if mode == 'fleet' else ''}, "
+                      f"time_scale {scale:g}: {timed_n} requests (+"
+                      f"{FLEET_TIMED_NEW} each) in {rep['wall_s']:.3f} s, "
+                      f"{run['tokens_per_s']:.1f} served tokens/s; request "
+                      f"latency p50 {run['p50_ms']:.1f} ms, p95 "
+                      f"{run['p95_ms']:.1f} ms; by tenant " + "; ".join(
+                          f"{t}: n {v['n']}, latency p50 {v['p50_ms']:.1f} "
+                          f"p95 {v['p95_ms']:.1f} ms, TTFT p50 "
+                          f"{v['ttft_p50_ms']:.1f} p95 {v['ttft_p95_ms']:.1f}"
+                          f" ms, within its targets " + ", ".join(
+                              f"{k[:-11]} {v[k]:.4f}" for k in v
+                              if k.endswith("_attainment"))
+                          for t, v in per.items())
+                      + f"; prefix hit rate {hit}; router host work "
+                      f"{spy.seconds * 1e3:.2f} ms in {spy.calls} calls "
+                      f"({100 * run['router_share']:.3f}% of the wall)"
+                      + (f"; fleet tenant report "
+                         f"{run['tenant_slo_attainment']}"
+                         if mode == "fleet" else "") + f" [{card}]",
+                      flush=True)
+                if mode == "fleet" and i == 1 and scale == 0.0:
+                    gate_dump(doc, dump, card)
+                del spy, rep, doc
+    out["e"] = timed
+    freed("(e)")
+    print(f"[serve-fleet] kernel launches of the fleet runs: {launches} (the "
+          f"path runs plain PyTorch) [{card}]", flush=True)
+    if any(launches.values()):
+        fail("[serve-fleet] the fleet launched a kernel; its replicas' "
+             "prefills and decode are plain PyTorch")
+    return {"counts": launches, "near_ties": ties, **out}
+
+
+def gate_dump(doc: dict, dump: str, card: str) -> None:
+    """The tracebus CLI's report on a fleet dump exits 0 (run as its own
+    process, as a user runs it), and every completed request's
+    critical-path components sum to its e2e within FLEET_CP_TOL."""
+    from ray_tpu_torch.serve.telemetry import CRITICAL_PATH_COMPONENTS
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.tools.tracebus", "report",
+         dump], capture_output=True, text=True,
+        cwd=str(Path(__file__).resolve().parent), timeout=120)
+    worst = 0.0
+    for r in doc["requests"]:
+        cp = r.get("critical_path")
+        if cp and cp["e2e_ms"] > 0:
+            worst = max(worst, abs(sum(
+                cp[k] for k in CRITICAL_PATH_COMPONENTS) - cp["e2e_ms"])
+                / cp["e2e_ms"])
+    print(f"[serve-fleet] (e) tracebus report on the fleet's dump (exit "
+          f"{proc.returncode}):\n{proc.stdout.rstrip()}\n[serve-fleet] (e) "
+          f"critical path: components vs e2e, worst relative gap "
+          f"{worst:.3e} over {len(doc['requests'])} requests [{card}]",
+          flush=True)
+    if proc.returncode != 0:
+        fail(f"[serve-fleet] (e) python -m ray_tpu_torch.tools.tracebus "
+             f"report exited {proc.returncode}: {proc.stderr[-2000:]}")
+    if worst > FLEET_CP_TOL:
+        fail(f"[serve-fleet] (e) a request's critical-path components "
+             f"part from its e2e by {worst:.3e} > {FLEET_CP_TOL}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3786,6 +4386,7 @@ def main() -> int:
         gate = serve_cont.pop("gate")
         serve_spec = phase_serve_spec_disagg(torch, np, fa, card, gate)
         serve_tele = phase_serve_telemetry(torch, np, fa, card, gate)
+        serve_fleet = phase_serve_fleet(torch, np, fa, card, gate)
     train_llama = phase_train_llama(torch, fa, fc, card)
     train_tele = phase_train_telemetry(torch, np, fa, card)
     llama_7b = phase_llama_7b(torch, fa, fc, card)
@@ -3798,6 +4399,7 @@ def main() -> int:
                    "serve_continuous": serve_cont["counts"].get(name, 0),
                    "serve_spec_disagg": serve_spec["counts"].get(name, 0),
                    "serve_telemetry": serve_tele["counts"].get(name, 0),
+                   "serve_fleet": serve_fleet["counts"].get(name, 0),
                    "train_llama": train_llama["counts"][name],
                    "train_telemetry": train_tele["counts"][name]}
         return {"launches": sum(by_path.values()),

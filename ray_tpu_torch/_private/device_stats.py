@@ -225,6 +225,11 @@ class ProgramRegistry:
                 "invokes": 0,
                 "invoke_s": collections.deque(
                     maxlen=self._invoke_history),
+                # (end_ts, dur_s) on the process monotonic clock —
+                # the tracebus reads these to place device work on
+                # the same timeline as request spans
+                "invoke_events": collections.deque(
+                    maxlen=self._invoke_history),
                 "storms": 0,
                 "storm_active": False,
             }
@@ -254,12 +259,47 @@ class ProgramRegistry:
             self._notify_storms(program)
         self._notify(program)
 
-    def record_invoke(self, program: str, seconds: float) -> None:
-        """One steady-state invoke of `program` taking `seconds`."""
+    def record_invoke(self, program: str, seconds: float,
+                      now: Optional[float] = None) -> None:
+        """One steady-state invoke of `program` taking `seconds`;
+        `now` is the invoke's END instant (monotonic), defaulting to
+        the registry clock at record time."""
+        ts = self._now() if now is None else now
         with self._lock:
             rec = self._rec(program)
             rec["invokes"] += 1
             rec["invoke_s"].append(float(seconds))
+            rec["invoke_events"].append((ts, float(seconds)))
+
+    def invoke_events(self, prefix: Optional[str] = None
+                      ) -> Dict[str, List[tuple]]:
+        """Timestamped invoke windows per program — ``{name:
+        [(end_ts, dur_s), ...]}`` on the monotonic clock, optionally
+        filtered to names starting with `prefix`.  The tracebus's
+        device lane (``tools/tracebus.py``).  A window is the host's
+        wall around the program's call: on the card the call returns
+        once its work is queued, so it covers the launches, not the
+        device time."""
+        with self._lock:
+            return {name: list(rec["invoke_events"])
+                    for name, rec in self._programs.items()
+                    if prefix is None or name.startswith(prefix)}
+
+    def compile_windows(self, prefix: Optional[str] = None
+                        ) -> Dict[str, List[tuple]]:
+        """Per-program compile windows ``{name: [(end_ts, dur_s),
+        ...]}`` — compile_times keeps end instants; durations beyond
+        the retained ring are approximated by the mean compile cost
+        (exact when a program compiled once, the common case)."""
+        with self._lock:
+            out: Dict[str, List[tuple]] = {}
+            for name, rec in self._programs.items():
+                if prefix is not None and not name.startswith(prefix):
+                    continue
+                n = rec["compile_events"]
+                mean = (rec["compile_seconds"] / n) if n else 0.0
+                out[name] = [(ts, mean) for ts in rec["compile_times"]]
+            return out
 
     # -- subscribers (e.g. EngineTelemetry.record_program_compile) ---------
 

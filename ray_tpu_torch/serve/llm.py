@@ -50,17 +50,20 @@ reference's router does.
 
 ``build_llm_deployment`` takes every keyword of the reference's and
 validates them in its order: the combinations the reference rejects
-raise the same ValueError here.  Not ported yet, each raising
-NotImplementedError that names its ROADMAP.md item: the serve runtime
-that wraps engines in deployments and handles (and so ``num_replicas``
-> 1, and the router that forwards a prefill engine's HandoffCursor to
-a decode engine: queue 1 item 5), and a ``mesh`` (item 7).  Under
-"batch" the keywords only the continuous scheduler reads
-(``stop_sequences``, ``eos_id``, ``max_slots``, ``prefill_bucket``,
-``kv_block_size``, ``kv_num_blocks``, ``admission_policy``) are
-validated and ignored, as in the reference.  Here the engine class
-itself is the deployment: ``await engine(prompt)`` answers one
-request.
+raise the same ValueError here.  Not ported yet, raising
+NotImplementedError that names its ROADMAP.md item: a ``mesh`` (queue
+1 item 7).  Under "batch" the keywords only the continuous scheduler
+reads (``stop_sequences``, ``eos_id``, ``max_slots``,
+``prefill_bucket``, ``kv_block_size``, ``kv_num_blocks``,
+``admission_policy``) are validated and ignored, as in the reference.
+``build_llm_deployment`` returns a ``serve.api.Deployment`` record, as
+the reference does: ``.func_or_class()`` is an engine, and
+``await engine(prompt)`` answers one request.  ``num_replicas`` is
+recorded on it; ``serve/router.py``'s fleet builds engines behind its
+router, which also forwards a prefill engine's HandoffCursor to a
+decode engine.  The continuous engine's ``__call__`` takes the
+router's hooks ``enqueue_ts`` and ``trace``.  Running deployments as
+actors (the controller, handles) is queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -90,6 +93,7 @@ from ray_tpu_torch.models.decode_common import (SamplingParams,
                                                 sample_token, set_pool_row)
 from ray_tpu_torch.models.gpt2 import gpt2_config, gpt2_init
 from ray_tpu_torch.models.llama import llama_config, llama_init
+from ray_tpu_torch.serve.api import deployment
 from ray_tpu_torch.serve.batching import (ChunkCursor, HandoffCursor,
                                           OverloadedError, RequestQueue)
 from ray_tpu_torch.serve.batching import batch as _batch
@@ -135,8 +139,6 @@ class SpecConfig:
 
 
 _ROADMAP_ITEM = {
-    "runtime": "queue 1 item 5 (the serve runtime: deployments, "
-               "replicas, router)",
     "mesh": "queue 1 item 7 (parallel/ and mesh-sharded serving)",
 }
 
@@ -406,8 +408,12 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
     whose burn rates ``engine_stats()["slo"]`` reports, dumping the
     flight recorder on a breach.
 
-    Returns the engine class; ``await Engine()(prompt)`` answers one
-    request."""
+    num_replicas is recorded on the returned Deployment (a fleet of
+    engines: ``serve.router.build_llm_fleet``).
+
+    Returns ``deployment(name=f"llm_{family}_{preset}",
+    num_replicas=num_replicas)`` of the engine class;
+    ``await dep.func_or_class()(prompt)`` answers one request."""
     if family not in ("gpt2", "llama"):
         raise ValueError(f"unknown LM family {family!r}")
     if scheduler not in ("batch", "continuous"):
@@ -497,8 +503,6 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
     if not isinstance(num_replicas, int) or num_replicas < 1:
         raise ValueError(f"num_replicas must be a positive int, got "
                          f"{num_replicas!r}")
-    if num_replicas > 1:
-        raise _not_ported(f"num_replicas={num_replicas}", "runtime")
     if scheduler == "continuous" and mesh is not None:
         raise _not_ported("mesh-sharded serving", "mesh")
     dev = resolve_device(device)
@@ -1408,13 +1412,20 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 await asyncio.sleep(0)
 
         async def _call_continuous(self, prompt, sampling=None, *,
-                                   tenant=None):
+                                   tenant=None, enqueue_ts=None,
+                                   trace=None):
             """One request: enqueue it and await prompt +
             continuation.  ``sampling`` overrides the engine's
             SamplingParams for this request; ``tenant`` tags it in the
             pager's kvscope attribution and the SLO slices.  With an
             admission_policy a request it sheds raises
-            OverloadedError."""
+            OverloadedError.  ``enqueue_ts`` / ``trace`` are the fleet
+            router's hooks (serve/router.py): the router backdates
+            ``enqueue_ts`` to the instant the request entered its
+            queue, so TTFT/e2e charge the router wait, and ``trace`` is
+            the tracebus TraceContext born at router submit (a fresh
+            engine-origin one is minted when absent).  Direct callers
+            omit both."""
             sp = None
             if sampling is not None:
                 if not isinstance(sampling, SamplingParams):
@@ -1446,7 +1457,8 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                     self._telemetry.engine_stats(), len(self._queue))
                 if shed is not None:
                     rec = self._telemetry.record_enqueue(
-                        int(arr.shape[0]), tenant=tenant)
+                        int(arr.shape[0]), now=enqueue_ts,
+                        tenant=tenant, ctx=trace)
                     self._telemetry.record_reject(
                         rec, reason=f"load shed: {shed}",
                         label=f"shed_{shed}")
@@ -1454,7 +1466,8 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                         f"request shed ({shed}): engine over SLO "
                         f"with {len(self._queue)} queued")
             rec = self._telemetry.record_enqueue(
-                int(arr.shape[0]), tenant=tenant)
+                int(arr.shape[0]), now=enqueue_ts, tenant=tenant,
+                ctx=trace)
             fut = self._queue.put((arr, rec, sp))
             self._wake.set()
             return await fut
@@ -1471,8 +1484,8 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             engine's HandoffCursor and answer with prompt +
             continuation.  No prefill runs here: the package's rows are
             spliced into this pool and decoding starts from its first
-            token.  The router that forwards packages between engines
-            is ROADMAP.md queue 1 item 5; until then the caller hands
+            token.  The fleet router (serve/router.py) forwards each
+            package here; a caller driving two engines by hand hands
             the prefill engine's reply over itself."""
             if role == "prefill":
                 raise ValueError(
@@ -1598,4 +1611,5 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
 
     LLM.__call__ = (LLM._call_continuous if scheduler == "continuous"
                     else LLM._call_batch_checked)
-    return LLM
+    return deployment(name=f"llm_{family}_{preset}",
+                      num_replicas=num_replicas)(LLM)

@@ -105,7 +105,7 @@ def _engines(path, jkw=None, tkw=None, **kw):
         **_kw(dict(kw, **(jkw or {})))).func_or_class()
     t = tllm.build_llm_deployment(
         "gpt2", "nano", checkpoint_path=path, config_overrides=_TOVR,
-        device="cpu", **_kw(dict(kw, **(tkw or {}))))()
+        device="cpu", **_kw(dict(kw, **(tkw or {})))).func_or_class()
     return j, t
 
 
@@ -258,7 +258,8 @@ def test_prefill_decode_pair_matches_the_jax_pair(ckpt):
              {}),
             (tllm, lambda **kw: tllm.build_llm_deployment(
                 "gpt2", "nano", checkpoint_path=ckpt,
-                config_overrides=_TOVR, device="cpu", **_kw(kw))(), {})):
+                config_overrides=_TOVR, device="cpu",
+                **_kw(kw)).func_or_class(), {})):
         pre = build(scheduler="continuous", kv_layout="paged",
                     role="prefill")
         dec = build(scheduler="continuous", kv_layout="paged",

@@ -68,7 +68,7 @@ def serve_dump(tmp_path_factory):
             kv_layout="paged", max_new_tokens=4, kv_block_size=16,
             prefill_bucket=16, max_slots=2,
             slo=tslo.SLOConfig(ttft_ms=0.001),
-            config_overrides={"dtype": torch.float32})()
+            config_overrides={"dtype": torch.float32}).func_or_class()
         rs = np.random.RandomState(5)
         prompts = [rs.randint(2, 500, n).astype(np.int32)
                    for n in (9, 40, 13)]

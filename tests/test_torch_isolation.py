@@ -64,7 +64,13 @@ def test_port_files_exist():
             "ray_tpu_torch/train/goodput.py",
             "ray_tpu_torch/train/grad_accum.py",
             "ray_tpu_torch/train/checkpointing.py",
-            "ray_tpu_torch/tools/flightrec.py"} <= names
+            "ray_tpu_torch/tools/flightrec.py",
+            # the serve fleet: deployment records, router, traffic and
+            # the tracebus
+            "ray_tpu_torch/serve/api.py",
+            "ray_tpu_torch/serve/router.py",
+            "ray_tpu_torch/serve/traffic.py",
+            "ray_tpu_torch/tools/tracebus.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

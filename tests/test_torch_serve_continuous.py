@@ -95,7 +95,7 @@ def _kw(kw):
 def _port(family, path, **kw):
     return build_llm_deployment(family, "nano", checkpoint_path=path,
                                 device="cpu", config_overrides=_TOVR,
-                                **_kw(kw))()
+                                **_kw(kw)).func_or_class()
 
 
 def _jax_engine(family, path, **kw):

@@ -244,5 +244,5 @@ def test_admit_prefilled_errors_carry_the_reference_messages(case):
         want = ("per-request sampling overrides are not supported with "
                 "spec_decode (the verify program bakes in ONE sampling "
                 "config)")
-    engine = build_llm_deployment("gpt2", "nano", **kw)()
+    engine = build_llm_deployment("gpt2", "nano", **kw).func_or_class()
     assert _error(lambda: asyncio.run(engine.admit_prefilled(pkg))) == want

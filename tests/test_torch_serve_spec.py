@@ -290,7 +290,8 @@ def test_draft_model_errors_equal_the_reference(draft, overrides):
     def port():
         build_llm_deployment("gpt2", "nano", device="cpu", **dict(
             spec, spec_decode=SpecConfig(draft=draft),
-            config_overrides=dict(overrides, dtype=torch.float32)))()
+            config_overrides=dict(overrides, dtype=torch.float32))
+        ).func_or_class()
 
     def ref():
         jllm.build_llm_deployment("gpt2", "nano", **dict(
