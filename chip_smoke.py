@@ -176,6 +176,32 @@ Phases, each fatal on failure (any failure exits non-zero):
             fleet dump exits 0 and each request's critical path sums to
             its e2e within 5%.  Each sub-phase's replicas freed before
             the next; no kernel launches.
+12b. serve-run — llama-1b through ray_tpu_torch.init() and serve.run on
+            the core runtime: (a) the object store sized to /dev/shm
+            (min(2 GiB, half its free bytes); df printed),
+            cluster_resources()["GPU"] = the card count, ray_perf at a
+            quarter of its trials (tasks/s, actor calls/s, put/get GB/s of
+            10 MB) and the vendored msgpack's cost a message; (b) a task
+            granted one card sees CUDA_VISIBLE_DEVICES=0, the driver's
+            card and no jax/ray_tpu, and runs the flash forward at the
+            prefill's shape (B*H=256, T=512, D=64, causal, bf16) against
+            its plain version (1 launch); a task without a grant sees no
+            card and resolve_device(None) raises "no CUDA device" through
+            the runtime; (c) a numpy array and a CPU f32 tensor of 256 MiB
+            (at most a quarter of the store) and a 64 MiB bf16 CUDA tensor
+            made in a granted task, driver -> task -> driver, bitwise,
+            the CUDA one arriving on cuda:0, put/get GB/s; (d) f32: a
+            deployment class of this script (ServeRunLLM, by value)
+            wrapping the batch engine, num_gpus=1, 8 x 512-token prompts
+            at once through handle.remote, each reply the in-process
+            engine's or a near-tie of its logits, the replica's flash
+            launches (zeroed just before) = 16 x its prefills, status 1
+            replica, engine_stats' key tree the in-process engine's; (e)
+            bf16, the replica and the in-process engine in turns: served
+            tokens/s, a 1-token request's p50 through the handle and
+            direct, serve.run to the first reply; (f) serve.delete: the
+            replica exits and the card's free memory comes back within
+            256 MiB of its value before (d); shutdown leaves no worker.
 13. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
             whole block, ce_impl="pallas": a warm-up and 5 timed steps
             (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
@@ -4358,6 +4384,551 @@ def gate_dump(doc: dict, dump: str, card: str) -> None:
              f"part from its e2e by {worst:.3e} > {FLEET_CP_TOL}")
 
 
+#: phase serve-run: llama-1b through serve.run on the core runtime, 8
+#: equal-length prompts of 512 tokens, +16 (phase serve-llama's shape),
+#: the batch scheduler, in a replica actor holding the card
+RUN_B, RUN_T, RUN_NEW = 8, 512, 16
+#: (c): host values of 256 MiB and a bf16 CUDA tensor of 64 MiB, each at
+#: most a quarter of the store
+RUN_HOST_BYTES, RUN_CUDA_BYTES = 256 * 2**20, 64 * 2**20
+#: the store: the runtime's default (2 GiB) at most, and at most half of
+#: what /dev/shm has free (a write past a tmpfs's size is a SIGBUS)
+RUN_STORE_MAX = 2 * 2**30
+#: (f): the card's free memory back within this of its value before (d)
+RUN_MEM_TOL = 256 * 2**20
+#: (e): replica, engine, engine, replica, RUN_TURNS times; per turn and
+#: side RUN_ONE_TOKEN sequential requests of a 1-token prompt
+RUN_TURNS, RUN_ONE_TOKEN = 2, 5
+#: (a): ray_perf's trials, scaled
+RUN_PERF_SCALE = 0.25
+
+
+class ServeRunLLM:
+    """Phase serve-run's deployment: build_llm_deployment's llama engine
+    (batch scheduler) in a replica actor, counting its generate calls
+    (one prefill each) so that the replica can report its flash launches
+    against its prefills.  Defined in this script, it travels to the
+    replica by value (cloudpickle of a class of ``__main__``)."""
+
+    def __init__(self, preset, dtype, device, widths, batch, max_new):
+        import importlib
+
+        import torch
+
+        from ray_tpu_torch.serve import build_llm_deployment
+
+        over = dict(widths or {})
+        if dtype is not None:
+            over["dtype"] = getattr(torch, dtype)
+        self.engine = build_llm_deployment(
+            "llama", preset, scheduler="batch", max_batch_size=batch,
+            max_new_tokens=max_new, seed=0, device=device,
+            config_overrides=over).func_or_class()
+        self._fa = importlib.import_module(
+            "ray_tpu_torch.ops.flash_attention")
+        self.prefills = []
+        generate = self.engine._generate
+
+        def counted(toks, lengths=None):
+            self.prefills.append(int(toks.shape[0]))
+            return generate(toks, lengths)
+
+        self.engine._generate = counted
+
+    async def __call__(self, prompt):
+        return await self.engine(prompt)
+
+    def engine_stats(self):
+        return self.engine.engine_stats()
+
+    def counts(self, reset: bool = False) -> dict:
+        """The replica's flash forward launches and prefill batch sizes
+        (zeroed after reading when ``reset``), its process and card."""
+        import os
+
+        out = {"flash_fwd": self._fa.FLASH_FWD_LAUNCHES,
+               "prefills": list(self.prefills), "pid": os.getpid(),
+               "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+               "device": str(self.engine.device),
+               "foreign": sorted({m.split(".")[0] for m in sys.modules}
+                                 & {"jax", "jaxlib", "ray_tpu"})}
+        if reset:
+            self._fa.FLASH_FWD_LAUNCHES = 0
+            self.prefills = []
+        return out
+
+
+def _run_grant_probe(bh: int, t: int, d: int) -> dict:
+    """(b), in a task granted one card: what it sees, and the flash
+    forward kernel at the prefill's shape (causal, bf16) against its
+    plain version; the launches counted around the kernel's call."""
+    import os
+
+    import torch
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((bh, t, d), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    fa.FLASH_FWD_LAUNCHES = 0
+    o, lse = fa.flash_attention_fwd(q, k, v, scale=scale, causal=True)
+    launches = fa.FLASH_FWD_LAUNCHES
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, scale=scale,
+                                                      causal=True)
+    torch.cuda.synchronize()
+    return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "name": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+            "foreign": sorted({m.split(".")[0] for m in sys.modules}
+                              & {"jax", "jaxlib", "ray_tpu"}),
+            "launches": launches,
+            "err_o": (o.float() - o_ref.float()).abs().max().item(),
+            "err_lse": (lse - lse_ref).abs().max().item()}
+
+
+def _run_no_grant() -> dict:
+    """(b), in a task without a grant."""
+    import os
+
+    import torch
+
+    return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "cuda": torch.cuda.is_available()}
+
+
+def _run_resolve_default():
+    """(b), in a task without a grant: the port's default device."""
+    from ray_tpu_torch import resolve_device
+
+    return str(resolve_device(None))
+
+
+def _run_echo(x):
+    return x
+
+
+def _run_cuda_tensor(nbytes: int, seed: int):
+    """(c): a bf16 tensor made on the task's card from a seed."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(nbytes // 2, generator=g, device="cuda",
+                       dtype=torch.bfloat16)
+
+
+def _run_retire_gpu_workers(rt) -> None:
+    """Free the card of the pooled (idle) task workers (b) and (c)
+    leave holding a CUDA context: an actor granted every card makes the
+    node retire them, then goes itself."""
+    import os
+
+    @rt.remote(num_gpus=int(rt.cluster_resources().get("GPU", 0)))
+    class _Holder:
+        def pid(self):
+            return os.getpid()
+
+    holder = _Holder.remote()
+    pid = rt.get(holder.pid.remote(), timeout=120)
+    rt.kill(holder)
+    _run_wait_exit([pid], "the card-holding actor")
+
+
+def _run_wait_exit(pids, what: str, timeout: float = 30.0) -> None:
+    import os
+
+    def alive(pid):
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return False
+        try:  # an exited child not yet reaped is a zombie
+            with open(f"/proc/{pid}/stat") as f:
+                return f.read().rsplit(")", 1)[-1].split()[0] != "Z"
+        except OSError:
+            return False
+
+    deadline = time.monotonic() + timeout
+    left = list(pids)
+    while left and time.monotonic() < deadline:
+        left = [p for p in left if alive(p)]
+        time.sleep(0.05)
+    if left:
+        fail(f"[serve-run] {what}: processes {left} still alive "
+             f"{timeout:.0f} s after")
+
+
+def _key_tree(d):
+    if isinstance(d, dict):
+        return {k: _key_tree(v) for k, v in d.items()}
+    return None
+
+
+def phase_serve_run(torch, np, fa, card: str, preset="llama-1b",
+                    device="cuda", widths=None,
+                    turns: int = RUN_TURNS) -> dict:
+    """llama-1b through ``serve.run`` on the port's core runtime: (a)
+    the runtime on the card's host (its store sized from /dev/shm, the
+    GPU resource, ray_perf's rates and the vendored msgpack's cost a
+    message); (b) a task granted the card sees it alone, and no JAX,
+    and runs the flash forward at the prefill's shape against its plain
+    version; a task without a grant sees no card and the default device
+    raises; (c) objects driver -> task -> driver bitwise, a CUDA tensor
+    made in a task arriving on cuda:0, put/get GB/s; (d) f32: the
+    deployment as a replica actor granted the card, 8 prompts at once,
+    each reply the in-process engine's (or a near-tie of its logits),
+    16 flash launches per prefill in the replica, status and
+    engine_stats; (e) bf16: the replica and the in-process engine in
+    turns (served tokens/s, a 1-token request's p50 through the handle
+    and direct, serve.run to first reply); (f) delete frees the card,
+    shutdown leaves no worker.  ``preset``, ``device`` and ``widths``
+    let it run cut down elsewhere (then without (b), (c)'s CUDA tensor
+    and the card's memory)."""
+    import gc
+    import shutil
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve as rserve
+    from ray_tpu_torch._private import ray_perf, worker_context
+    from ray_tpu_torch._private._vendor import msgpack
+    from ray_tpu_torch.serve import build_llm_deployment
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    widths = dict(widths or {})
+    out = {"counts": {"flash_fwd": 0, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0}}
+
+    def free_mem(tag):
+        gc.collect()
+        if not on_card:
+            return 0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"[serve-run] card memory {tag}: {free / 2**30:.3f} GiB "
+              f"free of {total / 2**30:.3f} [{card}]", flush=True)
+        return free
+
+    free_mem("at the phase's start (the driver's engines freed)")
+
+    # (a) the runtime, its store sized to /dev/shm
+    df = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True,
+                        text=True, timeout=30)
+    shm_free = shutil.disk_usage("/dev/shm").free
+    store = min(RUN_STORE_MAX, shm_free // 2) // 2**20 * 2**20
+    print(f"[serve-run] (a) df -B1 /dev/shm:\n{df.stdout.rstrip()}\n"
+          f"[serve-run] (a) object store {store} bytes ({store / 2**20:.0f} "
+          f"MiB: min(2 GiB, half of /dev/shm's {shm_free} free))",
+          flush=True)
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, object_store_memory=store)
+    res = rt.cluster_resources()
+    print(f"[serve-run] (a) init in {time.perf_counter() - t0:.2f} s; "
+          f"cluster_resources {res}", flush=True)
+    want_gpus = torch.cuda.device_count() if on_card else 0
+    if res.get("GPU", 0) != want_gpus:
+        fail(f"[serve-run] (a) cluster_resources GPU {res.get('GPU')} != "
+             f"torch.cuda.device_count() {want_gpus}")
+    perf = {r["benchmark"]: r["value"]
+            for r in ray_perf.main(RUN_PERF_SCALE)}
+    msg = {"task_id": bytes(24), "fid": bytes(20), "job_id": bytes(4),
+           "name": "ping", "args": [{"k": "v", "d": bytes(64)}],
+           "kwargs": {}, "num_returns": 1, "caller": bytes(16),
+           "caller_addr": "/tmp/raytpu_torch/s_00000000/sockets/worker",
+           "seqno": 7, "resources": {"CPU": 1.0}}
+    n_msg = 2000
+    t0 = time.perf_counter()
+    for _ in range(n_msg):
+        msgpack.unpackb(msgpack.packb(msg), raw=False)
+    codec_us = (time.perf_counter() - t0) / n_msg * 1e6
+    out["ray_perf"] = perf
+    out["msgpack_us"] = codec_us
+    print(f"[serve-run] (a) ray_perf x{RUN_PERF_SCALE}: "
+          f"{perf['task_roundtrip']} tasks/s round trip "
+          f"({1e6 / perf['task_roundtrip']:.0f} us), "
+          f"{perf['actor_call_roundtrip']} actor calls/s "
+          f"({1e6 / perf['actor_call_roundtrip']:.0f} us), put/get 10 MB "
+          f"{perf['put_10MB_gbps']} / {perf['get_10MB_gbps']} GB/s; the "
+          f"vendored (pure-Python) msgpack: {codec_us:.1f} us to pack and "
+          f"unpack a task's spec [{card}]", flush=True)
+
+    # (b) the grant
+    if on_card:
+        bh = RUN_B * 32 if preset == "llama-1b" else RUN_B * 4
+        probe = rt.get(rt.remote(num_gpus=1)(_run_grant_probe).remote(
+            bh, RUN_T, 64), timeout=300)
+        print(f"[serve-run] (b) granted task: CUDA_VISIBLE_DEVICES="
+              f"{probe['visible']!r}, {probe['count']} card(s), "
+              f"{probe['name']}, jax/ray_tpu imported: {probe['foreign']}; "
+              f"flash forward (B*H={bh}, T={RUN_T}, D=64, causal, bf16) "
+              f"vs plain: max|o| {probe['err_o']:.3e} (tol "
+              f"{TOL[('bf16', 'o')]:.0e}), max|lse| {probe['err_lse']:.3e} "
+              f"(tol {TOL[('bf16', 'lse')]:.0e}), {probe['launches']} "
+              f"launch", flush=True)
+        if probe["visible"] != "0" or probe["count"] != 1 or \
+                probe["name"] != torch.cuda.get_device_name(0) or \
+                probe["foreign"]:
+            fail("[serve-run] (b) the granted task does not see the card "
+                 "alone, or imported jax/ray_tpu")
+        if probe["launches"] != 1 or \
+                probe["err_o"] > TOL[("bf16", "o")] or \
+                probe["err_lse"] > TOL[("bf16", "lse")]:
+            fail("[serve-run] (b) the flash forward in the granted task "
+                 "did not launch once or disagrees with its plain version")
+    bare = rt.get(rt.remote(_run_no_grant).remote(), timeout=300)
+    try:
+        rt.get(rt.remote(_run_resolve_default).remote(), timeout=120)
+        raised = None
+    except rt.exceptions.RayTaskError as e:
+        raised = str(e).split("\n")[0]
+    print(f"[serve-run] (b) task without a grant: CUDA_VISIBLE_DEVICES="
+          f"{bare['visible']!r}, torch.cuda.is_available() {bare['cuda']}; "
+          f"resolve_device(None) raised: {raised}", flush=True)
+    if bare["visible"] != "" or bare["cuda"] or raised is None or \
+            "no CUDA device" not in raised:
+        fail("[serve-run] (b) a task without a grant saw a card, or its "
+             "default device did not raise 'no CUDA device'")
+
+    # (c) objects, driver -> task -> driver, bitwise
+    echo = rt.remote(_run_echo)
+    host_bytes = min(RUN_HOST_BYTES, store // 4)
+    rng = np.random.default_rng(9)
+    values = {"numpy": rng.standard_normal(host_bytes // 8),
+              "cpu_f32": torch.from_numpy(rng.standard_normal(
+                  host_bytes // 4, dtype=np.float32))}
+    out["objects"] = {}
+
+    def timed_get(ref):
+        rt.wait([ref], num_returns=1, timeout=300)
+        t0 = time.perf_counter()
+        value = rt.get(ref, timeout=300)
+        return value, time.perf_counter() - t0
+
+    def report(kind, nbytes, put_s, get_s, same, extra=""):
+        out["objects"][kind] = {"bytes": nbytes, "put_gbps":
+                                nbytes / put_s / 1e9,
+                                "get_gbps": nbytes / get_s / 1e9}
+        print(f"[serve-run] (c) {kind} of {nbytes / 2**20:.0f} MiB "
+              f"driver -> task -> driver: bitwise equal {same}{extra}; put "
+              f"{nbytes / put_s / 1e9:.3f} GB/s, get "
+              f"{nbytes / get_s / 1e9:.3f} GB/s [{card}]", flush=True)
+        if not same:
+            fail(f"[serve-run] (c) the {kind} came back changed")
+
+    for kind, value in values.items():
+        t0 = time.perf_counter()
+        ref = rt.put(value)
+        put_s = time.perf_counter() - t0
+        back, get_s = timed_get(echo.remote(ref))
+        if kind == "numpy":
+            same = back.dtype == value.dtype and np.array_equal(
+                back.view(np.uint8), value.view(np.uint8))
+        else:
+            same = back.dtype == value.dtype and torch.equal(
+                back.view(torch.uint8), value.view(torch.uint8))
+        report(kind, value.nbytes if kind == "numpy"
+               else value.numel() * 4, put_s, get_s, same)
+        del ref, back
+    del values
+    if on_card:
+        cuda_bytes = min(RUN_CUDA_BYTES, store // 4)
+        made, get_s = timed_get(rt.remote(num_gpus=1)(
+            _run_cuda_tensor).remote(cuda_bytes, 11))
+        want = _run_cuda_tensor(cuda_bytes, 11)
+        same = made.device == torch.device("cuda:0") and torch.equal(
+            made.view(torch.int16), want.view(torch.int16))
+        t0 = time.perf_counter()
+        ref = rt.put(want)
+        put_s = time.perf_counter() - t0
+        back = rt.get(ref, timeout=300)
+        same = same and back.device == torch.device("cuda:0") and \
+            torch.equal(back.view(torch.int16), want.view(torch.int16))
+        report("cuda_bf16", cuda_bytes, put_s, get_s, same,
+               f" (made in a granted task, arrived on {made.device})")
+        del made, want, ref, back
+        _run_retire_gpu_workers(rt)
+
+    # (d) serve.run, f32: the replica's replies against the in-process
+    # engine's, the replica's flash launches against its prefills.  The
+    # driver's two in-process engines (f32, and bf16 for (e)) are built
+    # and run first and live until (f), so that what the card's free
+    # memory shows between here and (f) is the replicas' alone (the
+    # driver's first use of an op loads its kernels and cuBLAS's
+    # workspace, which no empty_cache() gives back)
+    rng = np.random.default_rng(12)
+    engine = build_llm_deployment(
+        "llama", preset, scheduler="batch", max_batch_size=RUN_B,
+        max_new_tokens=RUN_NEW, seed=0, device=dev,
+        config_overrides={"dtype": torch.float32, **widths}).func_or_class()
+    cfg = engine.cfg
+    prompts = [rng.integers(0, cfg.vocab_size, size=RUN_T, dtype=np.int32)
+               for _ in range(RUN_B)]
+    one = [rng.integers(0, cfg.vocab_size, size=1, dtype=np.int32)
+           for _ in range(RUN_ONE_TOKEN)]
+    want = asyncio.run(_serve_all(engine, prompts))
+    engine_bf16 = build_llm_deployment(
+        "llama", preset, scheduler="batch", max_batch_size=RUN_B,
+        max_new_tokens=RUN_NEW, seed=0, device=dev,
+        config_overrides=widths or None).func_or_class()
+    asyncio.run(_serve_all(engine_bf16, prompts))
+    asyncio.run(engine_bf16(one[0]))
+    free0 = free_mem("before (d)'s replica (the driver's two engines up)")
+    grant = {"num_gpus": 1} if on_card else None
+    dep = rserve.deployment(ServeRunLLM).options(
+        name="serve_run_f32", ray_actor_options=grant,
+        max_concurrent_queries=RUN_B)
+    t0 = time.perf_counter()
+    h = rserve.run(dep.bind(preset, "float32", None if on_card else device,
+                            widths, RUN_B, RUN_NEW))
+    rt.get(h.remote(prompts[0]), timeout=600)
+    first_f32 = time.perf_counter() - t0
+    before = rt.get(h.method("counts").remote(reset=True), timeout=60)
+    t0 = time.perf_counter()
+    got = rt.get([h.remote(p) for p in prompts], timeout=600)
+    wall = time.perf_counter() - t0
+    after = rt.get(h.method("counts").remote(), timeout=60)
+    check_replies(np, prompts, got, RUN_NEW, cfg.vocab_size, "serve-run")
+    ties = gate_against_oracle(torch, np, engine.params, cfg, prompts, got,
+                               want, "f32 replica", phase="serve-run")
+    equal = sum(bool(np.array_equal(a, b)) for a, b in zip(got, want))
+    launches, prefills = after["flash_fwd"], after["prefills"]
+    out["counts"]["flash_fwd"] = launches
+    print(f"[serve-run] (d) f32 replica (pid {after['pid']}, "
+          f"CUDA_VISIBLE_DEVICES={after['visible']!r}, engine on "
+          f"{after['device']}, jax/ray_tpu imported: {after['foreign']}): "
+          f"serve.run to its first reply {first_f32:.2f} s; {RUN_B} x "
+          f"{RUN_T}-token requests at once in {wall * 1e3:.1f} ms: "
+          f"{equal}/{RUN_B} replies equal to the in-process engine's, "
+          f"{len(ties)} parted at a near-tie; {launches} flash launches "
+          f"for prefills of {prefills} ({cfg.n_layer} layers) [{card}]",
+          flush=True)
+    if before["flash_fwd"] != (cfg.n_layer if on_card else 0) or \
+            before["foreign"] or after["foreign"]:
+        fail(f"[serve-run] (d) the replica's warm-up launched "
+             f"{before['flash_fwd']} flash forwards, or it imported "
+             f"jax/ray_tpu")
+    if on_card and (after["visible"] != "0" or after["device"] != "cuda:0"):
+        fail("[serve-run] (d) the replica does not hold the card as cuda:0")
+    if not prefills or launches != (cfg.n_layer * len(prefills)
+                                    if on_card else 0):
+        fail(f"[serve-run] (d) {launches} flash launches in the replica "
+             f"for {len(prefills)} prefills, expected {cfg.n_layer} each")
+    status = rserve.status()
+    # engine_stats()["programs"] is keyed by the programs the process's
+    # registry holds: the driver's holds every earlier phase's too, so
+    # that level is compared on the replica's programs
+    remote = _key_tree(rserve.engine_stats("serve_run_f32"))
+    local = _key_tree(engine.engine_stats())
+    names = set(remote.get("programs") or {})
+    same_tree = names <= set(local.get("programs") or {}) and remote == {
+        **local, "programs": {k: v for k, v in
+                              (local.get("programs") or {}).items()
+                              if k in names}}
+    print(f"[serve-run] (d) serve.status(): {status}; engine_stats() key "
+          f"tree equal to the in-process engine's: {same_tree} (the "
+          f"replica's programs {sorted(names)})", flush=True)
+    if status.get("serve_run_f32", {}).get("replicas") != 1:
+        fail("[serve-run] (d) serve.status() does not show the deployment "
+             "with 1 replica")
+    if not same_tree:
+        fail("[serve-run] (d) serve.engine_stats() key tree differs from "
+             "the in-process engine's")
+    f32_pid = after["pid"]
+    rserve.delete("serve_run_f32")
+    _run_wait_exit([f32_pid], "the f32 replica after serve.delete")
+    out.update(first_reply_f32_s=first_f32, ties=ties, equal=equal)
+    free_d = free_mem("after (d)'s serve.delete")
+    if on_card and abs(free_d - free0) > RUN_MEM_TOL:
+        fail(f"[serve-run] (d) the card's free memory {free_d} is not back "
+             f"within {RUN_MEM_TOL} of {free0} after the f32 replica")
+
+    # (e) bf16, the replica and the in-process engine in turns
+    dep = rserve.deployment(ServeRunLLM).options(
+        name="serve_run_bf16", ray_actor_options=grant,
+        max_concurrent_queries=RUN_B)
+    t0 = time.perf_counter()
+    h = rserve.run(dep.bind(preset, None, None if on_card else device,
+                            widths, RUN_B, RUN_NEW))
+    rt.get(h.remote(prompts[0]), timeout=600)
+    first = time.perf_counter() - t0
+    noop = []
+    for _ in range(4 * RUN_ONE_TOKEN):
+        t0 = time.perf_counter()
+        rt.get(h.method("counts").remote(), timeout=60)
+        noop.append(time.perf_counter() - t0)
+    noop_ms = sorted(noop)[len(noop) // 2] * 1e3
+
+    def replica_turn():
+        t0 = time.perf_counter()
+        rt.get([h.remote(p) for p in prompts], timeout=600)
+        wall = time.perf_counter() - t0
+        lat = []
+        for p in one:
+            t0 = time.perf_counter()
+            rt.get(h.remote(p), timeout=600)
+            lat.append(time.perf_counter() - t0)
+        return wall, lat
+
+    def engine_turn():
+        t0 = time.perf_counter()
+        asyncio.run(_serve_all(engine_bf16, prompts))
+        wall = time.perf_counter() - t0
+        lat = []
+        for p in one:
+            t0 = time.perf_counter()
+            asyncio.run(engine_bf16(p))
+            lat.append(time.perf_counter() - t0)
+        return wall, lat
+
+    walls, lats = {"replica": [], "engine": []}, {"replica": [],
+                                                  "engine": []}
+    for side in ["replica", "engine", "engine", "replica"] * turns:
+        wall, lat = (replica_turn if side == "replica" else engine_turn)()
+        walls[side].append(wall)
+        lats[side].extend(lat)
+    tps = {k: [RUN_B * RUN_NEW / w for w in v] for k, v in walls.items()}
+    p50 = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in lats.items()}
+    ratio = [r / e for r, e in zip(tps["replica"], tps["engine"])]
+    out.update(first_reply_s=first, tokens_per_s=tps, one_token_p50_ms=p50,
+               handle_overhead_ms=p50["replica"] - p50["engine"],
+               handle_noop_ms=noop_ms)
+    print(f"[serve-run] (e) bf16, in turns (replica, engine, engine, "
+          f"replica) x{turns}: served tokens/s through serve.run "
+          f"{[round(x, 1) for x in tps['replica']]}, in process "
+          f"{[round(x, 1) for x in tps['engine']]} (replica / engine "
+          f"{[round(x, 3) for x in ratio]}); a 1-token request, p50 of "
+          f"{len(lats['replica'])}: {p50['replica']:.2f} ms through the "
+          f"handle, {p50['engine']:.2f} ms direct (handle overhead "
+          f"{p50['replica'] - p50['engine']:.2f} ms); a no-op method "
+          f"through the handle, p50 of {len(noop)}: {noop_ms:.3f} ms; "
+          f"serve.run to first reply {first:.2f} s [{card}]", flush=True)
+
+    # (f) teardown frees the card and leaves no worker
+    bf16_pid = rt.get(h.method("counts").remote(), timeout=60)["pid"]
+    rserve.delete("serve_run_bf16")
+    _run_wait_exit([bf16_pid], "the bf16 replica after serve.delete")
+    free1 = free_mem("after (f)'s serve.delete")
+    if on_card and abs(free1 - free0) > RUN_MEM_TOL:
+        fail(f"[serve-run] (f) the card's free memory {free1} is not back "
+             f"within {RUN_MEM_TOL} of {free0} (before (d))")
+    del engine, engine_bf16, want, got
+    node = worker_context.node()
+    pids = [w.pid for w in list(node.node_manager.workers.values())]
+    rserve.shutdown()
+    rt.shutdown()
+    _run_wait_exit(pids, "the session's workers after shutdown()")
+    secs = time.perf_counter() - t_phase
+    out["phase_s"] = secs
+    print(f"[serve-run] (f) serve.delete: the replica exited, the card "
+          f"back to {free1 / 2**30:.3f} GiB free ({(free1 - free0) / 2**20:+.1f}"
+          f" MiB against before (d)); shutdown: none of the session's "
+          f"{len(pids)} workers alive; the phase in {secs:.1f} s [{card}]",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4387,6 +4958,7 @@ def main() -> int:
         serve_spec = phase_serve_spec_disagg(torch, np, fa, card, gate)
         serve_tele = phase_serve_telemetry(torch, np, fa, card, gate)
         serve_fleet = phase_serve_fleet(torch, np, fa, card, gate)
+        serve_run = phase_serve_run(torch, np, fa, card)
     train_llama = phase_train_llama(torch, fa, fc, card)
     train_tele = phase_train_telemetry(torch, np, fa, card)
     llama_7b = phase_llama_7b(torch, fa, fc, card)
@@ -4400,6 +4972,7 @@ def main() -> int:
                    "serve_spec_disagg": serve_spec["counts"].get(name, 0),
                    "serve_telemetry": serve_tele["counts"].get(name, 0),
                    "serve_fleet": serve_fleet["counts"].get(name, 0),
+                   "serve_run": serve_run["counts"].get(name, 0),
                    "train_llama": train_llama["counts"][name],
                    "train_telemetry": train_tele["counts"][name]}
         return {"launches": sum(by_path.values()),

@@ -1,26 +1,48 @@
-"""Serving in the port: deployment records, the LM engine, request
-batching, and the fleet (router, autoscaler, seeded traffic).  Running
-deployments as actors (``run``, handles, the controller, schemas) needs
-the core runtime: ROADMAP.md queue 1 item 6."""
+"""Serving in the port: deployment records and ``serve.run`` on the
+core runtime (the controller, replica actors, handles), the LM engine,
+request batching, and the fleet (router, autoscaler, seeded traffic).
+The HTTP proxy and ``schema.apply`` wait for ROADMAP.md queue 1 item
+6b.
 
-from ray_tpu_torch.models.decode_common import SamplingParams
-from ray_tpu_torch.serve.api import Deployment, deployment
-from ray_tpu_torch.serve.batching import (AdmissionPolicy, OverloadedError,
-                                          batch)
-from ray_tpu_torch.serve.kv_pager import BlockPager
-from ray_tpu_torch.serve.kv_tier import HostKVTier
-from ray_tpu_torch.serve.llm import SpecConfig, build_llm_deployment
-from ray_tpu_torch.serve.router import (AutoscalePolicy, LLMFleet,
-                                        LLMRouter, TenantClass,
-                                        build_llm_fleet)
-from ray_tpu_torch.serve.slo import SLOConfig, worst_burn_rate
-from ray_tpu_torch.serve.traffic import (TenantSpec, TrafficGenerator,
-                                         TrafficSpec, run_traffic,
-                                         run_traffic_fleet)
+Names resolve lazily (PEP 562): the controller and replica actors
+import ``ray_tpu_torch.serve.controller``/``.replica`` in their worker
+processes, and the package must not drag torch into a process that
+serves no model.
+"""
 
-__all__ = ["deployment", "Deployment", "batch", "build_llm_deployment",
-           "AdmissionPolicy", "OverloadedError", "BlockPager",
-           "HostKVTier", "TrafficSpec", "TrafficGenerator", "run_traffic",
-           "SamplingParams", "SpecConfig", "SLOConfig", "worst_burn_rate",
-           "TenantSpec", "TenantClass", "AutoscalePolicy", "LLMRouter",
-           "LLMFleet", "build_llm_fleet", "run_traffic_fleet"]
+import importlib
+
+_EXPORTS = {
+    "Deployment": "api", "deployment": "api", "run": "api",
+    "delete": "api", "shutdown": "api", "status": "api",
+    "engine_stats": "api", "get_deployment_handle": "api",
+    "DeploymentHandle": "handle",
+    "SamplingParams": "llm", "SpecConfig": "llm",
+    "build_llm_deployment": "llm",
+    "AdmissionPolicy": "batching", "OverloadedError": "batching",
+    "batch": "batching",
+    "BlockPager": "kv_pager", "HostKVTier": "kv_tier",
+    "AutoscalePolicy": "router", "LLMFleet": "router",
+    "LLMRouter": "router", "TenantClass": "router",
+    "build_llm_fleet": "router",
+    "SLOConfig": "slo", "worst_burn_rate": "slo",
+    "TenantSpec": "traffic", "TrafficGenerator": "traffic",
+    "TrafficSpec": "traffic", "run_traffic": "traffic",
+    "run_traffic_fleet": "traffic",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    mod = _EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{mod}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

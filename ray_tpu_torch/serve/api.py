@@ -1,12 +1,16 @@
-"""Deployments as records: a copy of the ``Deployment`` dataclass and
-the ``@deployment`` decorator of ``ray_tpu/serve/api.py``.
+"""Public serve API: a copy of ``ray_tpu/serve/api.py`` (reference
+analog: serve/api.py:251-277 @serve.deployment, :455 serve.run).
 
-A ``Deployment`` names a callable or class and how many replicas of it
+``Deployment`` names a callable or class and how many replicas of it
 to run; ``build_llm_deployment`` returns one, and the fleet
-(``serve/router.py``) builds its replicas from ``func_or_class``.
-What runs a deployment as actors (the controller, ``run``, handles,
-the HTTP proxy) needs the core runtime and is ROADMAP.md queue 1
-item 6.
+(``serve/router.py``) builds its replicas in process from
+``func_or_class``.  ``run`` deploys one (or a graph of them) on the
+core runtime: a detached ``ServeController`` actor starts one
+``RayServeReplica`` actor per replica, and the returned
+``DeploymentHandle`` routes calls to them.  A replica that should hold
+a card asks for it, ``ray_actor_options={"num_gpus": 1}``; its process
+then sees only its granted card as ``cuda:0``.  The HTTP ingress
+(``start_http_proxy``) is not ported yet (ROADMAP.md queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -14,7 +18,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Union
 
-__all__ = ["Deployment", "deployment"]
+from ray_tpu_torch._private._vendor import cloudpickle
+from ray_tpu_torch.serve.controller import CONTROLLER_NAME, ServeController
+from ray_tpu_torch.serve.handle import DeploymentHandle
+
+__all__ = ["Deployment", "deployment", "run", "get_deployment_handle",
+           "status", "engine_stats", "delete", "shutdown"]
 
 
 @dataclasses.dataclass
@@ -59,3 +68,142 @@ def deployment(_func_or_class=None, *, name: Optional[str] = None,
             route_prefix=route_prefix)
 
     return wrap(_func_or_class) if _func_or_class is not None else wrap
+
+
+def _get_or_create_controller():
+    import ray_tpu_torch
+
+    ray_tpu_torch._auto_init()
+    try:
+        return ray_tpu_torch.get_actor(CONTROLLER_NAME)
+    except Exception:  # noqa: BLE001 - not created yet
+        # concurrency sized for long-poll: every PROCESS parks one
+        # listen_for_change call per deployment on a controller slot
+        # (handle._SharedListener; parked calls wait on a Condition —
+        # threads, not CPU)
+        return ray_tpu_torch.remote(
+            num_cpus=0.1, lifetime="detached", name=CONTROLLER_NAME,
+            max_concurrency=128)(ServeController).remote()
+
+
+def _graphify(obj, deployed: set, controller, overrides=None):
+    """Deployment-graph support (reference: serve/deployment_graph.py on
+    Ray DAG): bound deployments nested in init args deploy first and are
+    replaced by handle markers the replica resolves at construction."""
+    from ray_tpu_torch.serve.replica import DeploymentHandleMarker
+
+    if isinstance(obj, Deployment):
+        _deploy_one(obj, deployed, controller, overrides=overrides)
+        return DeploymentHandleMarker(obj.name)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_graphify(x, deployed, controller, overrides)
+                         for x in obj)
+    if isinstance(obj, dict):
+        return {k: _graphify(v, deployed, controller, overrides)
+                for k, v in obj.items()}
+    return obj
+
+
+def _deploy_one(target: Deployment, deployed: set, controller,
+                route_prefix: Optional[str] = None,
+                overrides=None) -> None:
+    import ray_tpu_torch
+
+    if target.name in deployed:
+        return
+    deployed.add(target.name)
+    ov = (overrides or {}).get(target.name)
+    if ov:
+        target = target.options(**ov)
+    init_args = _graphify(target.init_args, deployed, controller,
+                          overrides)
+    init_kwargs = _graphify(target.init_kwargs or {}, deployed,
+                            controller, overrides)
+    ray_tpu_torch.get(controller.deploy.remote(
+        target.name, cloudpickle.dumps(target.func_or_class),
+        init_args, init_kwargs,
+        num_replicas=target.num_replicas,
+        ray_actor_options=target.ray_actor_options,
+        max_concurrent_queries=target.max_concurrent_queries,
+        autoscaling_config=target.autoscaling_config,
+        route_prefix=route_prefix or target.route_prefix), timeout=120)
+
+
+def run(target: Deployment, *, route_prefix: Optional[str] = None,
+        http: bool = False, http_port: int = 8000,
+        _overrides: Optional[Dict[str, Dict[str, Any]]] = None
+        ) -> DeploymentHandle:
+    """Deploy (a graph of) deployments and return the root handle
+    (reference serve.run, serve/api.py:455; graphs via .bind()
+    composition as in serve/deployment_graph.py).  ``_overrides``:
+    per-deployment option overlays applied to EVERY deployment in the
+    graph by name (the JAX package's declarative-config path,
+    serve/schema.py, whose ``apply`` is not ported yet).  The JAX
+    package's ``http=True`` ingress waits for ROADMAP.md queue 1 item
+    6b and raises NotImplementedError naming it."""
+    if http:
+        raise NotImplementedError(
+            f"serve.run(http=True) starts the HTTP proxy, which is not "
+            f"ported yet: ROADMAP.md queue 1 item 6b (port {http_port})")
+    controller = _get_or_create_controller()
+    # config-over-code precedence: a declarative route_prefix override
+    # on the root deployment wins over the code-level default
+    root_ov = (_overrides or {}).get(target.name) or {}
+    # route_prefix always defaults to /<name> (reference semantics) so
+    # a proxy started later can route to deployments created before it
+    prefix = route_prefix or root_ov.get("route_prefix") or \
+        target.route_prefix or f"/{target.name}"
+    deployed: set = set()
+    _deploy_one(target, deployed, controller, route_prefix=prefix,
+                overrides=_overrides)
+    if _overrides:
+        unmatched = set(_overrides) - deployed
+        if unmatched:
+            raise ValueError(
+                f"config deployments {sorted(unmatched)} matched no "
+                f"deployment in the graph (deployed: {sorted(deployed)})")
+    return DeploymentHandle(target.name, controller)
+
+
+def get_deployment_handle(name: str) -> DeploymentHandle:
+    return DeploymentHandle(name, _get_or_create_controller())
+
+
+def status() -> dict:
+    """Cluster serve status: {deployment: {status, replicas, ...}}
+    (reference: serve.status())."""
+    import ray_tpu_torch
+
+    controller = _get_or_create_controller()
+    return ray_tpu_torch.get(controller.status.remote(), timeout=30.0)
+
+
+def engine_stats(deployment_name: str, timeout: float = 30.0) -> dict:
+    """Engine telemetry snapshot from one replica of an LM deployment
+    (p50/p95/p99 TTFT + queue wait, throughput, slot utilization —
+    serve/telemetry.py).  Raises for deployments without an
+    ``engine_stats`` method; the dashboard's ``/api/serve/stats``
+    aggregates this across every deployment, skipping those."""
+    import ray_tpu_torch
+
+    handle = get_deployment_handle(deployment_name)
+    return ray_tpu_torch.get(handle.method("engine_stats").remote(),
+                       timeout=timeout)
+
+
+def delete(name: str) -> None:
+    import ray_tpu_torch
+
+    controller = _get_or_create_controller()
+    ray_tpu_torch.get(controller.delete_deployment.remote(name), timeout=60)
+
+
+def shutdown() -> None:
+    import ray_tpu_torch
+
+    try:
+        controller = ray_tpu_torch.get_actor(CONTROLLER_NAME)
+        ray_tpu_torch.get(controller.shutdown.remote(), timeout=60)
+        ray_tpu_torch.kill(controller)
+    except Exception:  # noqa: BLE001
+        pass

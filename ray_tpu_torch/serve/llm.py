@@ -62,8 +62,11 @@ the reference does: ``.func_or_class()`` is an engine, and
 recorded on it; ``serve/router.py``'s fleet builds engines behind its
 router, which also forwards a prefill engine's HandoffCursor to a
 decode engine.  The continuous engine's ``__call__`` takes the
-router's hooks ``enqueue_ts`` and ``trace``.  Running deployments as
-actors (the controller, handles) is queue 1 item 6.
+router's hooks ``enqueue_ts`` and ``trace``.  ``serve.run`` deploys
+the record as replica actors on the core runtime (``serve/api.py``);
+the device is resolved in the caller and again in the engine's
+``__init__``, so ``cuda:0`` in a replica is its granted card and a
+replica without a grant fails at construction.
 """
 
 from __future__ import annotations
@@ -510,7 +513,10 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
 
     class LLM:
         def __init__(self):
-            self.device = dev
+            # resolved again where the engine is built: in a replica
+            # actor without a GPU grant this raises "no CUDA device" at
+            # construction, not a raw CUDA error at the first request
+            self.device = resolve_device(dev)
             #: the disaggregated serving role: "prefill" engines answer
             #: with a HandoffCursor, "decode" ones take it through
             #: admit_prefilled, "both" serve whole requests

@@ -2,8 +2,8 @@
 (``ray_tpu/train/jax_trainer.py:66``), single device, with its
 telemetry.
 
-Meshes and sharding wait for ROADMAP.md queue 1 items 6-7 (the core
-runtime, parallel/) and raise NotImplementedError naming them.
+Meshes and sharding wait for ROADMAP.md queue 1 item 7 (parallel/)
+and raise NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -90,11 +90,11 @@ def build_train_step(loss_fn: Callable, tx: AdamW, mesh=None,
     signature.
 
     ``mesh``/``logical_axes``/``rules`` (sharding) raise
-    NotImplementedError naming ROADMAP.md queue 1 items 6-7."""
+    NotImplementedError naming ROADMAP.md queue 1 item 7."""
     if mesh is not None or logical_axes is not None or rules is not None:
         raise NotImplementedError(
             "mesh-sharded train steps are not ported yet: ROADMAP.md "
-            "queue 1 items 6-7 (core runtime, parallel/)")
+            "queue 1 item 7 (parallel/)")
 
     def step(params, opt_state: Dict[str, Any], batch):
         if not donate:

@@ -4,9 +4,9 @@ A copy of ``ray_tpu/util/metrics.py``: each process keeps a local
 registry (``_registry``) whose ``snapshot()`` dumps every metric.  The
 JAX package's background publisher, which pushes snapshots into the
 core runtime's GCS KV for the dashboard's ``/metrics`` page, and
-``collect_cluster_metrics``, which merges them, wait for the core
-runtime's port (ROADMAP.md queue 1 item 6); until then the registry is
-read in process.
+``collect_cluster_metrics``, which merges them, are not ported yet
+(ROADMAP.md queue 1 item 6b); until then the registry is read in
+process.
 """
 
 from __future__ import annotations

@@ -1,8 +1,16 @@
 """The port stands alone: no file of ray_tpu_torch/, and none of
 chip_smoke.py, fused_ce_limits.py and flash_bwd_limits.py, imports jax,
-jaxlib or the JAX package ray_tpu."""
+jaxlib or the JAX package ray_tpu.  A worker process of the port's
+runtime has neither in sys.modules, importing its entry module leaves
+torch out too, and the object store is built from the port's own copy
+of its source."""
 
 import ast
+import os
+import subprocess
+import sys
+import threading
+import time
 from pathlib import Path
 
 import pytest
@@ -70,7 +78,36 @@ def test_port_files_exist():
             "ray_tpu_torch/serve/api.py",
             "ray_tpu_torch/serve/router.py",
             "ray_tpu_torch/serve/traffic.py",
-            "ray_tpu_torch/tools/tracebus.py"} <= names
+            "ray_tpu_torch/tools/tracebus.py",
+            # the core runtime, serve on actors and the vendored codecs
+            "ray_tpu_torch/__init__.py",
+            "ray_tpu_torch/exceptions.py",
+            "ray_tpu_torch/actor.py",
+            "ray_tpu_torch/remote_function.py",
+            "ray_tpu_torch/_private/client.py",
+            "ray_tpu_torch/_private/config.py",
+            "ray_tpu_torch/_private/events.py",
+            "ray_tpu_torch/_private/gcs.py",
+            "ray_tpu_torch/_private/ids.py",
+            "ray_tpu_torch/_private/logs.py",
+            "ray_tpu_torch/_private/node.py",
+            "ray_tpu_torch/_private/node_manager.py",
+            "ray_tpu_torch/_private/object_store.py",
+            "ray_tpu_torch/_private/protocol.py",
+            "ray_tpu_torch/_private/ray_perf.py",
+            "ray_tpu_torch/_private/serialization.py",
+            "ray_tpu_torch/_private/spill.py",
+            "ray_tpu_torch/_private/storage.py",
+            "ray_tpu_torch/_private/usage_lib.py",
+            "ray_tpu_torch/_private/worker_context.py",
+            "ray_tpu_torch/_private/worker_main.py",
+            "ray_tpu_torch/_private/_vendor/cloudpickle/cloudpickle.py",
+            "ray_tpu_torch/_private/_vendor/msgpack/fallback.py",
+            "ray_tpu_torch/_private/_vendor/msgpack/ext.py",
+            "ray_tpu_torch/_private/_vendor/msgpack/exceptions.py",
+            "ray_tpu_torch/serve/controller.py",
+            "ray_tpu_torch/serve/replica.py",
+            "ray_tpu_torch/serve/handle.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -89,3 +126,112 @@ def test_scanner_catches_each_import_form(tmp_path):
                    "m = importlib.import_module('jaxlib.xla_client')\n")
     assert [m for _, m in _imported_roots(src)] == \
         ["jax", "ray_tpu", "importlib", "jaxlib"]
+
+
+def _fresh_imports(stmt):
+    """The roots of sys.modules after ``stmt`` in a fresh interpreter
+    run from the repo's root."""
+    code = (f"import sys; {stmt}; "
+            "print(sorted({m.split('.')[0] for m in sys.modules}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    return set(ast.literal_eval(out.strip().splitlines()[-1]))
+
+
+def test_worker_entry_module_imports_no_torch_jax_or_reference():
+    roots = _fresh_imports("import ray_tpu_torch._private.worker_main")
+    assert "ray_tpu_torch" in roots
+    assert not roots & {"torch", "jax", "jaxlib", "ray_tpu"}
+    # nor do the runtime's public API and the serve package's names
+    roots = _fresh_imports(
+        "import ray_tpu_torch; from ray_tpu_torch.serve import "
+        "controller, replica, handle, api")
+    assert not roots & {"torch", "jax", "jaxlib", "ray_tpu"}
+
+
+def test_object_store_builds_from_the_ports_source():
+    from ray_tpu_torch._private import object_store
+
+    src = Path(object_store._SRC).resolve()
+    assert src == ROOT / "ray_tpu_torch/_private/csrc/objstore.cc"
+    lib = Path(object_store.get_lib()._name).resolve()
+    assert lib.parent == ROOT / "ray_tpu_torch/_build"
+    assert lib.name.startswith("libobjstore_")
+    assert "ray_tpu/_private/_lib" not in str(lib)
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    # a zombie of an exited child still answers kill(0)
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def test_port_worker_processes_and_shutdown(monkeypatch):
+    """A runtime of the port comes up, runs a task and an actor, whose
+    processes hold neither jax nor ray_tpu; after shutdown() no thread,
+    worker process, shm segment or atexit hook of it is left for a
+    later test file in the same process to meet."""
+    import atexit
+
+    import ray_tpu_torch
+    import ray_tpu_torch._private.worker_context as wc
+
+    hooks = []
+    register, unregister = atexit.register, atexit.unregister
+
+    def record(fn, *args, **kwargs):
+        hooks.append(fn)
+        return register(fn, *args, **kwargs)
+
+    def drop(fn):
+        while fn in hooks:
+            hooks.remove(fn)
+        return unregister(fn)
+
+    monkeypatch.setattr(atexit, "register", record)
+    monkeypatch.setattr(atexit, "unregister", drop)
+    before = {t.ident for t in threading.enumerate()}
+    ray_tpu_torch.init(num_cpus=1, num_gpus=0,
+                       object_store_memory=32 * 1024 * 1024,
+                       log_to_driver=False)
+
+    def report():
+        return os.getpid(), sorted(
+            {m.split(".")[0] for m in sys.modules} &
+            {"jax", "jaxlib", "ray_tpu", "torch"})
+
+    task = ray_tpu_torch.remote(report)
+
+    @ray_tpu_torch.remote
+    class Actor:
+        def report(self):
+            return report()
+
+    try:
+        (pid_t, mods_t), (pid_a, mods_a) = ray_tpu_torch.get(
+            [task.remote(), Actor.remote().report.remote()], timeout=120)
+        shm = "/dev/shm" + wc.node().shm_name
+        assert os.path.exists(shm)
+    finally:
+        ray_tpu_torch.shutdown()
+    assert mods_t == [] and mods_a == []
+    deadline = time.monotonic() + 10
+    alive = [pid_t, pid_a]
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in alive if _pid_alive(p)]
+        time.sleep(0.05)
+    assert not alive
+    assert not os.path.exists(shm)
+    assert not ray_tpu_torch.is_initialized()
+    assert not [f for f in hooks
+                if getattr(f, "__module__", "").startswith("ray_tpu_torch")]
+    assert not [t.name for t in threading.enumerate()
+                if t.ident not in before and t.name.startswith("raytpu")]

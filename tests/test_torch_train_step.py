@@ -129,7 +129,7 @@ def test_unported_step_options_raise():
     default, telemetry=True, returns the wrapped step) and only a
     registry program over several devices raises, naming item 7."""
     tx = adamw(3e-4)
-    with pytest.raises(NotImplementedError, match="queue 1 items 6-7"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         build_train_step(lambda p, b: 0.0, tx, mesh=object())
     step = build_train_step(lambda p, b: 0.0, tx)
     assert step.goodput is not None and step._raw_step is not None
