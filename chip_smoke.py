@@ -202,6 +202,36 @@ Phases, each fatal on failure (any failure exits non-zero):
             direct, serve.run to the first reply; (f) serve.delete: the
             replica exits and the card's free memory comes back within
             256 MiB of its value before (d); shutdown leaves no worker.
+12c. serve-http — llama-1b over HTTP on a cluster the port's CLI starts:
+            (a) `python -m ray_tpu_torch start --head --num-gpus 0` and a
+            worker node `start --address <head> --num-gpus 1` as
+            subprocesses (each one's start time), the driver attached by
+            init(address=...): the two nodes alive beside the driver's
+            own, GPU = 1, `status` and `list nodes` exit 0 and agree;
+            (d1) a .bind() graph: a CPU task on the head feeds a task
+            granted the card on the worker node, which runs the flash
+            forward at the prefill's shape against its plain version (1
+            launch); a placement group of {"GPU": 1} and {"CPU": 1}
+            STRICT_SPREAD across the two nodes; `python -m ray_tpu_torch submit`
+            of a `python -c` job that attaches by init(address="auto"):
+            SUCCEEDED, its output in its logs, its env_vars reached; (b)
+            f32 llama-1b by serve.schema.apply (import path
+            ray_tpu_torch.serve.llm:build_llm_deployment, the batch
+            scheduler, num_gpus=1), the HTTP proxy on the head, 8 x
+            512-token prompts at once as HTTP POSTs: each reply (the
+            repr of the engine's int32 array) the in-process engine's or
+            a near-tie of its logits, the replica on the worker node, its
+            flash launches (kernel_counts, zeroed just before) 16 x its
+            prefills, serve.schema.status() 1 replica; (c) bf16 over
+            HTTP, through get_deployment_handle and in process, in turns:
+            a 1-token request's p50/p95, served tokens/s, and a no-op
+            deployment's p50 over HTTP and through the handle (the
+            proxy's hop); (d2) the replica's serve_* metrics in
+            collect_cluster_metrics within 3 publish intervals, published
+            from its process on the worker node; timeline(path) holding
+            the replica's actor tasks; (e) serve.delete, shutdown(),
+            `stop`: no process and no store segment of the port left,
+            the card's free memory back within 256 MiB.
 13. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
             whole block, ce_impl="pallas": a warm-up and 5 timed steps
             (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
@@ -4929,10 +4959,746 @@ def phase_serve_run(torch, np, fa, card: str, preset="llama-1b",
     return out
 
 
+#: phase serve-http: the cluster started by the port's CLI (a head with
+#: no card, a worker node with it), llama-1b deployed by serve.schema.apply
+#: and reached over HTTP through the proxy on the head
+HTTP_NOOP_N = 40
+#: (d): the publisher's interval is 5 s; its lines must show within 3
+HTTP_PUBLISH_WAIT_S = 3 * 5.0
+
+
+def _cli(*args, timeout: float = 120.0, check: bool = True):
+    """``python -m ray_tpu_torch <args>`` from the repo's root."""
+    import os
+
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + ":" + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                          cwd=root, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    if check and proc.returncode != 0:
+        fail(f"[serve-http] `python -m ray_tpu_torch {' '.join(args)}` "
+             f"exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    return proc
+
+
+def _cli_node(args, needle: str, timeout: float = 120.0):
+    """Start a node with the CLI; its process and the line holding
+    ``needle``, read from its output within ``timeout``."""
+    import os
+    import queue
+    import threading
+
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + ":" + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch", "start", *args], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines: "queue.Queue" = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+
+    threading.Thread(target=pump, daemon=True).start()
+    seen = []
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            line = lines.get(timeout=0.2)
+        except queue.Empty:
+            if proc.poll() is not None:
+                break
+            continue
+        seen.append(line)
+        if needle in line:
+            return proc, line.strip()
+    proc.kill()
+    fail(f"[serve-http] (a) `start {' '.join(args)}` did not print "
+         f"{needle!r}: {''.join(seen)[-2000:]}")
+
+
+def _http_post(url: str, payload, timeout: float = 600.0):
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def _parse_array_repr(np, text: str):
+    """The int32 array the batch engine returned, from the proxy's
+    ``{"result": repr(array)}`` (the reference's reply for a result that
+    is not JSON)."""
+    if not text.startswith("array([") or "dtype=int32" not in text:
+        fail(f"[serve-http] a reply is not an int32 array's repr: "
+             f"{text[:200]!r}")
+    inner = text.split("[", 1)[1].split("]", 1)[0]
+    return np.array([int(x) for x in inner.replace(",", " ").split()],
+                    dtype=np.int32)
+
+
+def _http_all(url: str, payloads, timeout: float = 600.0) -> list:
+    """POST every payload at once, one thread each; the replies in
+    order."""
+    import threading
+
+    out = [None] * len(payloads)
+
+    def send(i):
+        try:
+            out[i] = _http_post(url, payloads[i], timeout)
+        except Exception as e:  # noqa: BLE001 - read below
+            out[i] = (None, repr(e))
+
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout + 30)
+    for i, (status, body) in enumerate(out):
+        if status != 200:
+            fail(f"[serve-http] HTTP request {i} failed: {status} {body}")
+    return [body for _, body in out]
+
+
+def _http_noop(x):
+    return x
+
+
+def _http_bind_source(seed: int, bh: int, t: int, d: int) -> dict:
+    """(d), a CPU task on the head: q, k, v from a seed, and its node."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"node": os.environ.get("RAYTPU_NODE_ID"),
+            "qkv": [rng.standard_normal((bh, t, d), dtype=np.float32)
+                    for _ in range(3)]}
+
+
+def _http_bind_flash(src: dict, on_card: bool) -> dict:
+    """(d), a task granted the card: the flash forward on the source's
+    q, k, v (bf16, causal) against its plain version."""
+    import os
+
+    import torch
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    dev = "cuda" if on_card else "cpu"
+    q, k, v = (torch.tensor(a, device=dev).to(torch.bfloat16)
+               for a in src["qkv"])
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    fa.FLASH_FWD_LAUNCHES = 0
+    o, lse = fa.flash_attention_fwd(q, k, v, scale=scale, causal=True)
+    launches = fa.FLASH_FWD_LAUNCHES
+    o_ref, lse_ref = fa.flash_attention_fwd_reference(q, k, v, scale=scale,
+                                                      causal=True)
+    return {"node": os.environ.get("RAYTPU_NODE_ID"),
+            "source_node": src["node"],
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "launches": launches,
+            "err_o": (o.float() - o_ref.float()).abs().max().item(),
+            "err_lse": (lse - lse_ref).abs().max().item()}
+
+
+#: the variable that marks every process this script starts
+RUN_MARK_VAR = "CHIP_SMOKE_RUN"
+
+
+def _run_mark() -> bytes:
+    """This run's mark, set in this process's environment on the first
+    call: every process started after it inherits it (the CLI's nodes,
+    their workers, the attached driver's workers, a job's child), so
+    that it tells this run's processes from any other run's on the
+    host."""
+    import os
+
+    os.environ.setdefault(RUN_MARK_VAR, f"{os.getpid()}.{time.time_ns()}")
+    return f"{RUN_MARK_VAR}={os.environ[RUN_MARK_VAR]}".encode()
+
+
+def _ray_tpu_torch_pids() -> list:
+    """This run's processes (``_run_mark``), other than this one, of the
+    port's runtime: its worker processes and its CLI (nodes,
+    commands)."""
+    import os
+
+    me, mark = os.getpid(), _run_mark()
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit() or int(name) == me:
+            continue
+        try:
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            with open(f"/proc/{name}/stat") as f:
+                if f.read().rsplit(")", 1)[-1].split()[0] == "Z":
+                    continue
+            with open(f"/proc/{name}/environ", "rb") as f:
+                if mark not in f.read().split(b"\0"):
+                    continue
+        except OSError:
+            continue
+        argv = cmd.split()
+        if "ray_tpu_torch._private.worker_main" in argv or any(
+                a == "-m" and b == "ray_tpu_torch"
+                for a, b in zip(argv, argv[1:])):
+            out.append((int(name), cmd.strip()[:160]))
+    return out
+
+
+def phase_serve_http(torch, np, fa, card: str, preset="llama-1b",
+                     device="cuda", widths=None,
+                     turns: int = RUN_TURNS) -> dict:
+    """llama-1b over HTTP on a cluster started by the port's CLI: (a)
+    ``python -m ray_tpu_torch start --head --num-gpus 0`` and a worker
+    node offering the card, the driver attached by ``init(address=)``,
+    ``status`` and ``list nodes``; (d1) a ``.bind()`` graph from a CPU
+    task on the head into a task granted the card (the flash forward
+    against its plain version), a placement group across the two nodes,
+    a job through ``python -m ray_tpu_torch submit``; (b) f32 llama-1b
+    by ``serve.schema.apply`` on the worker node, the proxy on the head,
+    8 x 512-token prompts at once over HTTP, each reply the in-process
+    engine's (or a near-tie), 16 flash launches per prefill in the
+    replica; (c) bf16 over HTTP, through the handle and in process in
+    turns (1-token p50/p95, served tokens/s) and a no-op's p50 over HTTP
+    and through the handle; (d2) the replica's serve_* metrics through
+    the publisher and ``collect_cluster_metrics``, ``timeline()``; (e)
+    delete, shutdown, ``stop``: no process and no store segment left,
+    the card's memory back.
+    ``preset``, ``device`` and ``widths`` let it run cut down on the CPU
+    (then no card: no grant, the kernel runs its plain version)."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve as rserve
+    from ray_tpu_torch._private import worker_context
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.serve import schema
+    from ray_tpu_torch.util import metrics, state
+    from ray_tpu_torch.util.placement_group import (placement_group,
+                                                    remove_placement_group)
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    widths = dict(widths or {})
+    out = {"counts": {"flash_fwd": 0, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0}}
+    left = _ray_tpu_torch_pids()
+    if left:
+        fail(f"[serve-http] ray_tpu_torch processes alive before the "
+             f"phase: {left}")
+
+    def free_mem(tag):
+        gc.collect()
+        if not on_card:
+            return 0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"[serve-http] card memory {tag}: {free / 2**30:.3f} GiB "
+              f"free of {total / 2**30:.3f} [{card}]", flush=True)
+        return free
+
+    # the driver's in-process engines (the f32 oracle, the bf16 route of
+    # (c)) first, so that the card's free memory from here to (e) moves
+    # with the cluster's processes alone
+    from ray_tpu_torch.serve import build_llm_deployment
+
+    rng = np.random.default_rng(15)
+
+    engine = build_llm_deployment(
+        "llama", preset, scheduler="batch", max_batch_size=RUN_B,
+        max_new_tokens=RUN_NEW, seed=0, device=dev,
+        config_overrides={"dtype": torch.float32, **widths}).func_or_class()
+    cfg = engine.cfg
+    prompts = [rng.integers(0, cfg.vocab_size, size=RUN_T, dtype=np.int32)
+               for _ in range(RUN_B)]
+    one = [rng.integers(0, cfg.vocab_size, size=1, dtype=np.int32)
+           for _ in range(RUN_ONE_TOKEN)]
+    want = asyncio.run(_serve_all(engine, prompts))
+    engine_bf16 = build_llm_deployment(
+        "llama", preset, scheduler="batch", max_batch_size=RUN_B,
+        max_new_tokens=RUN_NEW, seed=0, device=dev,
+        config_overrides=widths or None).func_or_class()
+    asyncio.run(_serve_all(engine_bf16, prompts))
+    asyncio.run(engine_bf16(one[0]))
+    free0 = free_mem("before the cluster (the driver's two engines up)")
+
+    def segments(pids):
+        """The object-store segments in /dev/shm of the port's nodes
+        in processes ``pids`` (named ``raytpu_torch_<session>_<pid>``)."""
+        return {n for n in os.listdir("/dev/shm")
+                if n.startswith("raytpu_torch_")
+                and n.rsplit("_", 1)[-1] in {str(p) for p in pids}}
+
+    shm0 = segments([os.getpid()])
+
+    # (a) the cluster by the CLI, the driver attached
+    store = min(RUN_STORE_MAX, shutil.disk_usage("/dev/shm").free // 6) \
+        // 2**20 * 2**20
+    head = worker = stop = None
+    proxies = []
+    try:
+        t0 = time.perf_counter()
+        head, line = _cli_node(
+            ["--head", "--host", "127.0.0.1", "--port", "0", "--num-cpus",
+             "2", "--num-gpus", "0", "--object-store-memory", str(store)],
+            "GCS at ")
+        head_s = time.perf_counter() - t0
+        address = line.split("GCS at ")[-1]
+        t0 = time.perf_counter()
+        worker, line = _cli_node(
+            ["--address", address, "--num-cpus", "4", "--num-gpus",
+             "1" if on_card else "0", "--object-store-memory", str(store)],
+            "joined")
+        worker_s = time.perf_counter() - t0
+        worker_hex12 = line.split("node ", 1)[1].split(" ", 1)[0]
+        out["node_start_s"] = {"head": head_s, "worker": worker_s}
+        t0 = time.perf_counter()
+        # the driver's node offers half a CPU: room for its proxy (one a
+        # node, 0.1 CPU each), none for the placement group's CPU bundle
+        rt.init(address=address, num_cpus=0.5, object_store_memory=store)
+        attach_s = time.perf_counter() - t0
+        mine = worker_context.node().node_id.hex()
+        nodes = [n for n in rt.nodes() if n["Alive"]]
+        cluster = [n for n in nodes if n["NodeID"] != mine]
+        res = rt.cluster_resources()
+        worker_hex = next((n["NodeID"] for n in cluster
+                           if n["NodeID"].startswith(worker_hex12)), None)
+        head_hex = next((n["NodeID"] for n in cluster
+                         if n["NodeID"] != worker_hex), None)
+        st = _cli("status", "--address", address)
+        ls = _cli("list", "nodes", "--address", address)
+        listed = {n["node_id"]: n for n in json.loads(
+            ls.stdout[ls.stdout.index("["):ls.stdout.rindex("]") + 1])}
+        st_alive = {ln.split()[0] for ln in st.stdout.splitlines()
+                    if "alive=True" in ln}
+        agree = all(h is not None and listed.get(h, {}).get("alive")
+                    and h[:12] in st_alive for h in (head_hex, worker_hex))
+        totals = json.loads(st.stdout.split("cluster totals:", 1)[1]
+                            .splitlines()[0])
+        print(f"[serve-http] (a) head started in {head_s:.2f} s "
+              f"(GCS at {address}), the worker node in {worker_s:.2f} s, "
+              f"the driver attached in {attach_s:.2f} s; nodes(): "
+              f"{len(nodes)} alive (the head, the worker node and the "
+              f"driver's own, which offers half a CPU); cluster_resources "
+              f"GPU {res.get('GPU')}; `status` (exit 0) and `list nodes` "
+              f"(exit 0) agree on both nodes alive: {agree}, status's GPU "
+              f"total {totals.get('GPU')} [{card}]", flush=True)
+        if len(cluster) != 2 or worker_hex is None or head_hex is None:
+            fail(f"[serve-http] (a) nodes() shows {len(cluster)} alive "
+                 f"nodes beside the driver's, not the head and the worker")
+        want_gpu = 1.0 if on_card else None
+        if res.get("GPU") != want_gpu or totals.get("GPU") != want_gpu:
+            fail(f"[serve-http] (a) cluster_resources GPU {res.get('GPU')}"
+                 f", status's {totals.get('GPU')}, expected {want_gpu}")
+        if not agree:
+            fail("[serve-http] (a) `status` and `list nodes` disagree on "
+                 "the head and the worker node")
+
+        # (d1) a .bind() graph across both nodes, a placement group, a job
+        bh = RUN_B * 32 if preset == "llama-1b" else RUN_B * 4
+        src = rt.remote(num_cpus=1, resources={f"node:{head_hex}": 0.01})(
+            _http_bind_source)
+        sink = rt.remote(num_gpus=1 if on_card else 0, num_cpus=1,
+                         resources={f"node:{worker_hex}": 0.01})(
+            _http_bind_flash)
+        with InputNode() as seed:
+            dag = sink.bind(src.bind(seed, bh, RUN_T, 64), on_card)
+        t0 = time.perf_counter()
+        r = rt.get(dag.execute(7), timeout=600)
+        dag_s = time.perf_counter() - t0
+        print(f"[serve-http] (d) .bind() graph: a CPU task on the head "
+              f"({r['source_node'] == head_hex}) fed a task on the worker "
+              f"node ({r['node'] == worker_hex}, CUDA_VISIBLE_DEVICES="
+              f"{r['visible']!r}): flash forward (B*H={bh}, T={RUN_T}, "
+              f"D=64, causal, bf16) vs plain: max|o| {r['err_o']:.3e} (tol "
+              f"{TOL[('bf16', 'o')]:.0e}), max|lse| {r['err_lse']:.3e} (tol "
+              f"{TOL[('bf16', 'lse')]:.0e}), {r['launches']} launch; "
+              f"execute() to result {dag_s:.2f} s [{card}]", flush=True)
+        if r["source_node"] != head_hex or r["node"] != worker_hex:
+            fail("[serve-http] (d) the .bind() graph's tasks ran on the "
+                 "wrong nodes")
+        if r["launches"] != (1 if on_card else 0) or \
+                r["err_o"] > TOL[("bf16", "o")] or \
+                r["err_lse"] > TOL[("bf16", "lse")] or \
+                (on_card and r["visible"] != "0"):
+            fail("[serve-http] (d) the flash forward in the .bind() graph "
+                 "did not launch once on the card or disagrees with its "
+                 "plain version")
+        # the GCS places bundles in order, greedily: the card's first
+        bundles = [{"GPU": 1} if on_card else {"CPU": 1}, {"CPU": 1}]
+        pg = placement_group(bundles, strategy="STRICT_SPREAD",
+                             name="smoke_pg")
+        pg.ready(timeout=120)
+        info = next(p for p in worker_context.core_worker().io.run(
+            worker_context.core_worker().gcs.call("pg_list", {}))
+            if p["name"] == "smoke_pg")
+        placed = [n.hex() for n in info["bundle_nodes"]]
+        listed_pg = [p for p in state.list_placement_groups()
+                     if p["name"] == "smoke_pg"]
+        remove_placement_group(pg)
+        where = ["head" if n == head_hex else "worker" if n == worker_hex
+                 else n for n in placed]
+        print(f"[serve-http] (d) placement group {bundles} STRICT_SPREAD: "
+              f"{info['state']}, bundles on {where}; "
+              f"list_placement_groups(): {len(listed_pg)}", flush=True)
+        if info["state"] != "CREATED" or set(placed) != {head_hex,
+                                                         worker_hex} or \
+                (on_card and placed[0] != worker_hex) or len(listed_pg) != 1:
+            fail("[serve-http] (d) the placement group was not placed "
+                 "across the head and the worker node")
+        code = ("import os, ray_tpu_torch as r; r.init(address='auto'); "
+                "print('SMOKE_JOB', os.environ['SMOKE_ENV'], "
+                "r.cluster_resources().get('GPU'), len(r.nodes()))")
+        t0 = time.perf_counter()
+        job = _cli("submit", "--address", address, "--env",
+                   "SMOKE_ENV=reached", "--", sys.executable, "-c", code,
+                   timeout=300, check=False)
+        job_s = time.perf_counter() - t0
+        # submit waits for the job and prints its logs and its end
+        jid = next((ln.split()[-1] for ln in job.stdout.splitlines()
+                    if ln.startswith("submitted job ")), None)
+        listed_jobs = json.loads(_cli("job", "list", "--address",
+                                      address).stdout)
+        rec = next((j for j in listed_jobs if j["job_id"] == jid), {})
+        out["job_s"] = job_s
+        print(f"[serve-http] (d) `python -m ray_tpu_torch submit` exited "
+              f"{job.returncode} in {job_s:.2f} s: job {jid}, `job list` "
+              f"says {rec.get('status')} (started to ended "
+              f"{rec.get('end_time', 0) - rec.get('start_time', 0):.2f} s); "
+              f"submit's output: {job.stdout.strip()!r} [{card}]",
+              flush=True)
+        if job.returncode != 0 or rec.get("status") != "SUCCEEDED" or \
+                f"SMOKE_JOB reached {1.0 if on_card else None}" \
+                not in job.stdout:
+            fail(f"[serve-http] (d) the job did not succeed with its "
+                 f"env_vars: {job.stdout[-2000:]} {job.stderr[-2000:]}")
+
+        # (b) f32: apply, the proxy on the head, 8 prompts over HTTP
+        grant = {"num_gpus": 1} if on_card else None
+        dep_name = f"llm_llama_{preset}"
+
+        def app(dtype):
+            over = dict(widths)
+            if dtype is not None:
+                over["dtype"] = dtype
+            return {"import_path":
+                    "ray_tpu_torch.serve.llm:build_llm_deployment",
+                    "route_prefix": "/llm",
+                    "args": {"family": "llama", "preset": preset,
+                             "scheduler": "batch", "max_batch_size": RUN_B,
+                             "max_new_tokens": RUN_NEW, "seed": 0,
+                             "config_overrides": over or None,
+                             "device": None if on_card else device},
+                    "deployments": [{"name": dep_name,
+                                     "max_concurrent_queries": RUN_B,
+                                     "ray_actor_options": grant}]}
+
+        t0 = time.perf_counter()
+        h = schema.apply(app(torch.float32))
+        # one proxy a node, each pinned by its node:<hex>; requests go
+        # to the head's
+        rserve.start_http_proxy(port=_free_tcp_ports(len(nodes)),
+                                per_node=True)
+        proxies = sorted((a["name"], a["node_id"]) for a in
+                         state.list_actors() if a["state"] == "ALIVE" and
+                         a["name"].startswith("SERVE_HTTP_PROXY:"))
+        head_proxy = rt.get_actor(f"SERVE_HTTP_PROXY:{head_hex[:12]}")
+        url = rt.get(head_proxy.address.remote(), timeout=30)
+        proxy_node = dict(proxies).get(f"SERVE_HTTP_PROXY:{head_hex[:12]}")
+        _http_post(url + "/llm", prompts[0].tolist())
+        first_f32 = time.perf_counter() - t0
+        before = rt.get(h.method("kernel_counts").remote(reset=True),
+                        timeout=60)
+        t0 = time.perf_counter()
+        bodies = _http_all(url + "/llm", [p.tolist() for p in prompts])
+        wall = time.perf_counter() - t0
+        after = rt.get(h.method("kernel_counts").remote(), timeout=60)
+        got = [_parse_array_repr(np, b["result"]) for b in bodies]
+        check_replies(np, prompts, got, RUN_NEW, cfg.vocab_size,
+                      "serve-http")
+        ties = gate_against_oracle(torch, np, engine.params, cfg, prompts,
+                                   got, want, "f32 replica over HTTP",
+                                   phase="serve-http")
+        equal = sum(bool(np.array_equal(a, b)) for a, b in zip(got, want))
+        launches, prefills = after["flash_fwd"], after["prefills"]
+        out["counts"]["flash_fwd"] = launches
+        sstatus = schema.status()
+        replicas = sstatus["applications"].get(dep_name, {}).get("replicas")
+        print(f"[serve-http] (b) f32 by serve.schema.apply: the replica "
+              f"(pid {after['pid']}) on the worker node "
+              f"({after['node_id'] == worker_hex}, CUDA_VISIBLE_DEVICES="
+              f"{after['visible']!r}, engine on {after['device']}), "
+              f"start_http_proxy(per_node=True): {len(proxies)} proxies, the "
+              f"head's on the head ({proxy_node == head_hex}) at {url}; apply "
+              f"to the first HTTP reply {first_f32:.2f} s; {RUN_B} x "
+              f"{RUN_T}-token requests at once over HTTP in "
+              f"{wall * 1e3:.1f} ms: {equal}/{RUN_B} replies equal to the "
+              f"in-process engine's, {len(ties)} parted at a near-tie; "
+              f"{launches} flash launches in the replica for prefills "
+              f"{prefills} ({cfg.n_layer} layers); serve.schema.status(): "
+              f"{replicas} replica [{card}]", flush=True)
+        if after["node_id"] != worker_hex or proxy_node != head_hex or \
+                {n for _, n in proxies} != {n["NodeID"] for n in nodes}:
+            fail("[serve-http] (b) the replica is not on the worker node, "
+                 "or not one proxy on each node")
+        if on_card and (after["visible"] != "0" or
+                        after["device"] != "cuda:0"):
+            fail("[serve-http] (b) the replica does not hold the card as "
+                 "cuda:0")
+        if before["flash_fwd"] != (cfg.n_layer if on_card else 0) or \
+                not prefills or launches != (cfg.n_layer * prefills
+                                             if on_card else 0):
+            fail(f"[serve-http] (b) {launches} flash launches in the "
+                 f"replica for {prefills} prefills (warm-up "
+                 f"{before['flash_fwd']}), expected {cfg.n_layer} each")
+        if replicas != 1:
+            fail(f"[serve-http] (b) serve.schema.status() shows {replicas} "
+                 f"replicas, not 1")
+        f32_pid = after["pid"]
+        rserve.delete(dep_name)
+        _run_wait_exit([f32_pid], "the f32 replica after serve.delete")
+
+        # (c) bf16: over HTTP, through the handle and in process, in turns
+        t0 = time.perf_counter()
+        h = schema.apply(app(None))
+        _http_post(url + "/llm", prompts[0].tolist())
+        first = time.perf_counter() - t0
+        rserve.run(rserve.deployment(_http_noop, name="http_noop",
+                                     route_prefix="/noop").bind())
+        noop_h = rserve.get_deployment_handle("http_noop")
+        _http_post(url + "/noop", 0)
+        time.sleep(2.1)  # the proxy's route table holds /noop
+        noop = {"http": [], "handle": []}
+        for i in range(HTTP_NOOP_N):
+            for side in (("http", "handle") if i % 2 else
+                         ("handle", "http")):
+                t0 = time.perf_counter()
+                if side == "http":
+                    _http_post(url + "/noop", i)
+                else:
+                    rt.get(noop_h.remote(i), timeout=60)
+                noop[side].append(time.perf_counter() - t0)
+        noop_p50 = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in noop.items()}
+
+        def http_turn():
+            t0 = time.perf_counter()
+            _http_all(url + "/llm", [p.tolist() for p in prompts])
+            wall = time.perf_counter() - t0
+            lat = []
+            for p in one:
+                t0 = time.perf_counter()
+                _http_post(url + "/llm", p.tolist())
+                lat.append(time.perf_counter() - t0)
+            return wall, lat
+
+        def handle_turn():
+            t0 = time.perf_counter()
+            rt.get([h.remote(p) for p in prompts], timeout=600)
+            wall = time.perf_counter() - t0
+            lat = []
+            for p in one:
+                t0 = time.perf_counter()
+                rt.get(h.remote(p), timeout=600)
+                lat.append(time.perf_counter() - t0)
+            return wall, lat
+
+        def engine_turn():
+            t0 = time.perf_counter()
+            asyncio.run(_serve_all(engine_bf16, prompts))
+            wall = time.perf_counter() - t0
+            lat = []
+            for p in one:
+                t0 = time.perf_counter()
+                asyncio.run(engine_bf16(p))
+                lat.append(time.perf_counter() - t0)
+            return wall, lat
+
+        sides = {"http": http_turn, "handle": handle_turn,
+                 "engine": engine_turn}
+        walls = {k: [] for k in sides}
+        lats = {k: [] for k in sides}
+        for side in ["http", "handle", "engine", "engine", "handle",
+                     "http"] * turns:
+            wall, lat = sides[side]()
+            walls[side].append(wall)
+            lats[side].extend(lat)
+        tps = {k: [RUN_B * RUN_NEW / w for w in v] for k, v in walls.items()}
+        pct = {k: {"p50": sorted(v)[len(v) // 2] * 1e3,
+                   "p95": sorted(v)[min(len(v) - 1,
+                                        int(0.95 * len(v)))] * 1e3}
+               for k, v in lats.items()}
+        out.update(first_reply_s=first, first_reply_f32_s=first_f32,
+                   tokens_per_s=tps, one_token_ms=pct, noop_p50_ms=noop_p50,
+                   proxy_hop_ms=noop_p50["http"] - noop_p50["handle"],
+                   ties=ties, equal=equal)
+        print(f"[serve-http] (c) bf16, in turns (http, handle, engine, "
+              f"engine, handle, http) x{turns}: served tokens/s over HTTP "
+              f"{[round(x, 1) for x in tps['http']]}, through the handle "
+              f"{[round(x, 1) for x in tps['handle']]}, in process "
+              f"{[round(x, 1) for x in tps['engine']]} (HTTP / handle "
+              f"{[round(a / b, 3) for a, b in zip(tps['http'], tps['handle'])]}"
+              f"); a 1-token request p50/p95 of {len(lats['http'])}: HTTP "
+              f"{pct['http']['p50']:.2f}/{pct['http']['p95']:.2f} ms, handle "
+              f"{pct['handle']['p50']:.2f}/{pct['handle']['p95']:.2f} ms, "
+              f"in process {pct['engine']['p50']:.2f}/"
+              f"{pct['engine']['p95']:.2f} ms; a no-op deployment, p50 of "
+              f"{HTTP_NOOP_N}: {noop_p50['http']:.3f} ms over HTTP, "
+              f"{noop_p50['handle']:.3f} ms through the handle (the proxy's "
+              f"hop {noop_p50['http'] - noop_p50['handle']:.3f} ms); apply "
+              f"to the first bf16 HTTP reply {first:.2f} s [{card}]",
+              flush=True)
+
+        # (d2) the replica's metrics through the publisher: the publish
+        # lag is the time from a request's end to collect_cluster_metrics
+        # showing the replica's finished count with it; the timeline
+        counts = rt.get(h.method("kernel_counts").remote(), timeout=60)
+        cw = worker_context.core_worker()
+        label = f'worker="{counts["worker_id"][:12]}"'
+
+        def replica_lines():
+            return [ln for ln in metrics.collect_cluster_metrics(
+                cw.kv_get, cw.kv_keys)
+                if ln.startswith("raytpu_app_serve_") and label in ln]
+
+        def finished(lines):
+            return sum(float(ln.rsplit(" ", 1)[1]) for ln in lines
+                       if ln.startswith(
+                           "raytpu_app_serve_requests_finished_total{"))
+
+        published0 = finished(replica_lines())
+        rt.get(h.remote(one[0]), timeout=600)
+        target = rt.get(h.method("engine_stats").remote(),
+                        timeout=60)["requests"]["finished"]
+        t0 = time.perf_counter()
+        lines, shown = [], published0
+        while time.perf_counter() - t0 < HTTP_PUBLISH_WAIT_S:
+            lines = replica_lines()
+            shown = finished(lines)
+            if shown >= target:
+                break
+            time.sleep(0.05)
+        lag = time.perf_counter() - t0
+        names = sorted({ln.split("{", 1)[0] for ln in lines})
+        out["publish_lag_s"] = lag
+        print(f"[serve-http] (d) collect_cluster_metrics: {len(lines)} "
+              f"serve_* lines from the replica's process ({label}, on the "
+              f"worker node {counts['node_id'] == worker_hex}); its "
+              f"finished count published {published0:g} before one more "
+              f"request, {target} in the replica after it, {shown:g} "
+              f"shown {lag:.3f} s after its end (the publish lag; interval "
+              f"{metrics._PUBLISH_INTERVAL_S} s): {names[:6]}"
+              f"{' ...' if len(names) > 6 else ''}", flush=True)
+        if shown < target or counts["node_id"] != worker_hex:
+            fail(f"[serve-http] (d) the replica's finished count {target} "
+                 f"not published within {HTTP_PUBLISH_WAIT_S} s")
+        with tempfile.TemporaryDirectory() as d:
+            trace_path = os.path.join(d, "serve_http_timeline.json")
+            deadline = time.monotonic() + 10  # events flush every ~1 s
+            while True:
+                events = rt.timeline(trace_path)
+                mine_ev = [e for e in events if e["pid"] == counts["pid"]]
+                if mine_ev or time.monotonic() > deadline:
+                    break
+                time.sleep(0.25)
+            with open(trace_path) as f:
+                on_disk = len(json.load(f))
+        print(f"[serve-http] (d) timeline(path): {len(events)} "
+              f"events ({on_disk} on disk), {len(mine_ev)} of the "
+              f"replica's actor tasks (pid {counts['pid']}): "
+              f"{sorted({e['name'] for e in mine_ev})[:4]}", flush=True)
+        if not mine_ev or on_disk != len(events) or \
+                any(e["ph"] != "X" or e["cat"] != "task" for e in events):
+            fail("[serve-http] (d) the timeline holds none of the "
+                 "replica's actor tasks")
+
+        # (e) teardown
+        bf16_pid = counts["pid"]
+        rserve.delete(dep_name)
+        rserve.delete("http_noop")
+        _run_wait_exit([bf16_pid], "the bf16 replica after serve.delete")
+        rserve.shutdown()  # the controller (and the one-proxy name only)
+        for name, _ in proxies:
+            rt.kill(rt.get_actor(name))
+    finally:
+        try:
+            rt.shutdown()
+        finally:
+            if head is not None:
+                stop = _cli("stop", check=False)
+            for p in (worker, head):
+                if p is None:
+                    continue
+                try:
+                    p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+    left = []
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        left = _ray_tpu_torch_pids()
+        if not left:
+            break
+        time.sleep(0.2)
+    free1 = free_mem("after stop")
+    shm_left = sorted(segments([head.pid, worker.pid, os.getpid()]) - shm0)
+    secs = time.perf_counter() - t_phase
+    out["phase_s"] = secs
+    print(f"[serve-http] (e) serve.delete, shutdown() and `stop` "
+          f"({stop.stdout.strip()}, exit {stop.returncode}): the nodes "
+          f"exited {head.returncode}, {worker.returncode}; ray_tpu_torch "
+          f"processes left: {left}, store segments left: {shm_left}; the "
+          f"card back to {free1 / 2**30:.3f} "
+          f"GiB free ({(free1 - free0) / 2**20:+.1f} MiB against before the "
+          f"cluster); the phase in {secs:.1f} s [{card}]", flush=True)
+    if stop.returncode != 0 or left or shm_left:
+        fail(f"[serve-http] (e) processes of the phase still alive ({left}) "
+             f"or its store segments left in /dev/shm ({shm_left})")
+    if on_card and abs(free1 - free0) > RUN_MEM_TOL:
+        fail(f"[serve-http] (e) the card's free memory {free1} is not back "
+             f"within {RUN_MEM_TOL} of {free0}")
+    del engine, engine_bf16, want
+    return out
+
+
+def _free_tcp_ports(n: int) -> int:
+    """The first of ``n`` consecutive free ports."""
+    import socket
+
+    while True:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        try:
+            for i in range(1, n):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+
+
+
 def main() -> int:
     import numpy as np
     import torch
 
+    _run_mark()  # before any process starts: _ray_tpu_torch_pids
     name, card = phase_card(torch)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     kernels = importlib.import_module("ray_tpu_torch.ops._kernels")
@@ -4959,6 +5725,7 @@ def main() -> int:
         serve_tele = phase_serve_telemetry(torch, np, fa, card, gate)
         serve_fleet = phase_serve_fleet(torch, np, fa, card, gate)
         serve_run = phase_serve_run(torch, np, fa, card)
+        serve_http = phase_serve_http(torch, np, fa, card)
     train_llama = phase_train_llama(torch, fa, fc, card)
     train_tele = phase_train_telemetry(torch, np, fa, card)
     llama_7b = phase_llama_7b(torch, fa, fc, card)
@@ -4973,6 +5740,7 @@ def main() -> int:
                    "serve_telemetry": serve_tele["counts"].get(name, 0),
                    "serve_fleet": serve_fleet["counts"].get(name, 0),
                    "serve_run": serve_run["counts"].get(name, 0),
+                   "serve_http": serve_http["counts"].get(name, 0),
                    "train_llama": train_llama["counts"][name],
                    "train_telemetry": train_tele["counts"][name]}
         return {"launches": sum(by_path.values()),

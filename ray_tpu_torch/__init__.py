@@ -12,21 +12,23 @@ first use and bound through ctypes (``ops/_kernels.py``).  Each keeps a
 plain PyTorch version beside it: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel or raises.
 
-The core runtime is a copy of the JAX package's, single node: tasks
-(``@remote`` functions), actors (``@remote`` classes) and objects
-(immutable values in a per-node shared-memory store), with ``init``,
-``get``/``put``/``wait`` and the rest of the reference's API.  The
-accelerator resource is ``"GPU"`` (``num_gpus``): a worker whose task
-or actor holds it starts with ``CUDA_VISIBLE_DEVICES`` set to its
-granted cards, any other worker with ``CUDA_VISIBLE_DEVICES=""``.
-``ray_tpu_torch.serve.run`` deploys on it (``serve/controller.py``,
-replica actors, handles).  Importing the runtime does not import torch:
-a CPU worker never pays for it.
+The core runtime is a copy of the JAX package's: tasks (``@remote``
+functions), actors (``@remote`` classes) and objects (immutable values
+in a per-node shared-memory store), with ``init``, ``get``/``put``/
+``wait`` and the rest of the reference's API, on one node or on a
+cluster of them (``python -m ray_tpu_torch start``, ``init(address=
+...)``, ``cluster_utils.Cluster``).  The accelerator resource is
+``"GPU"`` (``num_gpus``): a worker whose task or actor holds it starts
+with ``CUDA_VISIBLE_DEVICES`` set to its granted cards, any other
+worker with ``CUDA_VISIBLE_DEVICES=""``.  ``ray_tpu_torch.serve.run``
+deploys on it (``serve/controller.py``, replica actors, handles, the
+HTTP proxy, ``serve.schema.apply``).  Importing the runtime does not
+import torch: a CPU worker never pays for it.
 
     import ray_tpu_torch
     from ray_tpu_torch import serve
 
-    ray_tpu_torch.init()
+    ray_tpu_torch.init()          # or init(address="host:port")
     h = serve.run(serve.build_llm_deployment("llama", "llama-1b")
                   .options(ray_actor_options={"num_gpus": 1}).bind())
     tokens = ray_tpu_torch.get(h.remote(prompt_ids))
@@ -52,12 +54,9 @@ __all__ = [
     "init", "shutdown", "is_initialized", "remote", "get", "put", "wait",
     "kill", "cancel", "get_actor", "nodes", "cluster_resources",
     "available_resources", "ObjectRef", "ActorHandle", "method",
-    "get_runtime_context", "exceptions", "timeline", "resolve_device",
-    "__version__",
+    "get_runtime_context", "exceptions", "timeline", "client",
+    "resolve_device", "__version__",
 ]
-
-#: what the multi-node runtime, the DAG API and the timeline wait for
-SLICE_6B = "ROADMAP.md queue 1 item 6b"
 
 
 def __getattr__(name: str):
@@ -70,11 +69,60 @@ def __getattr__(name: str):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
+class ClientContext:
+    """Handle returned by ``ray_tpu_torch.client(...).connect()``
+    (reference: ray.client ClientContext — disconnect() detaches the
+    driver)."""
+
+    def __init__(self, info: dict):
+        self.address = info.get("gcs_address", "")
+        self.session_dir = info.get("session_dir", "")
+
+    def disconnect(self) -> None:
+        shutdown()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.disconnect()
+
+
+class ClientBuilder:
+    """``ray_tpu_torch.client("host:port").connect()`` — remote-driver
+    attach (reference: python/ray/client_builder.py ClientBuilder).
+
+    The driver protocol is already remote-capable over TCP, so the
+    builder is a thin veneer over ``init(address=...)`` with the
+    reference's call shape."""
+
+    def __init__(self, address: Optional[str] = None):
+        self._address = address
+        self._init_kwargs: Dict[str, Any] = {}
+
+    def namespace(self, ns: str) -> "ClientBuilder":
+        self._init_kwargs["namespace"] = ns
+        return self
+
+    def connect(self) -> ClientContext:
+        info = init(address=self._address, **self._init_kwargs)
+        return ClientContext(info if isinstance(info, dict) else {})
+
+
+def client(address: Optional[str] = None) -> ClientBuilder:
+    """Remote-driver connection builder; accepts ``ray://host:port`` or
+    plain ``host:port`` (reference: ray.client())."""
+    if address and address.startswith("ray://"):
+        address = address[len("ray://"):]
+    return ClientBuilder(address)
+
+
 def timeline(filename=None):
     """Chrome-trace dump of finished task events (reference:
-    ray.timeline).  Not ported yet: it reads ``util/state.py``."""
-    raise NotImplementedError(
-        f"timeline() is not ported yet: {SLICE_6B} (dag and timeline)")
+    ray.timeline, python/ray/_private/state.py:413)."""
+    from ray_tpu_torch.util.state import timeline as _timeline
+
+    return _timeline(filename)
 
 
 logger = logging.getLogger(__name__)
@@ -92,21 +140,22 @@ def init(address: Optional[str] = None, *,
          storage: Optional[str] = None,
          _system_config: Optional[Dict[str, Any]] = None,
          **kwargs):
-    """Start a single-node cluster in this process (GCS + node manager
-    on an IO thread, workers as subprocesses), as the JAX package's
-    ``init()`` does with no address.
+    """Start (or connect to) a cluster.
+
+    With no address: bootstraps a single-node cluster in-process (GCS +
+    node manager on an IO thread, workers as subprocesses) — the analog
+    of the reference's ``ray.init()`` local bootstrap (worker.py:1031).
+    With ``address="host:port"`` (or ``"ray://host:port"``): attaches
+    to a head started by ``python -m ray_tpu_torch start --head``;
+    ``"auto"`` and no address read ``RAYTPU_ADDRESS``.
 
     ``num_gpus`` is the count of cards the node offers as the ``"GPU"``
-    resource; ``None`` counts them (``detect_num_gpus``).  Attaching to
-    a running cluster (``address``) waits for the multi-node runtime.
+    resource; ``None`` counts them (``detect_num_gpus``) on a head and
+    offers none on an attaching driver's node.
     """
     if "num_tpus" in kwargs:
         raise ValueError("num_tpus is the JAX package's resource; the "
                          "port's accelerator resource is num_gpus")
-    if address is not None:
-        raise NotImplementedError(
-            f"attaching to a running cluster (address={address!r}) is "
-            f"not ported yet: {SLICE_6B} (multi-node)")
     with _init_lock:
         if worker_context.is_initialized():
             if ignore_reinit_error:
@@ -123,10 +172,45 @@ def init(address: Optional[str] = None, *,
         from ray_tpu_torch._private.ids import JobID
         from ray_tpu_torch._private.node import Node
 
-        node = Node(head=True, num_cpus=num_cpus, num_gpus=num_gpus,
-                    resources=resources,
-                    object_store_memory=object_store_memory,
-                    config=config)
+        # Address resolution (reference: worker.py:1092-1110): explicit
+        # address wins; "auto"/None fall back to RAYTPU_ADDRESS (set for
+        # submitted jobs by the JobSupervisor, like RAY_ADDRESS).
+        import os as _os
+
+        if address and "://" in address:
+            # Remote-driver URI (reference: ray://host:port goes through
+            # the Ray Client proxy).  Attaching drivers here are
+            # first-class cluster members over TCP, so the scheme simply
+            # strips — no proxy process needed.
+            address = address.split("://", 1)[1]
+        if address == "auto":
+            address = _os.environ.get("RAYTPU_ADDRESS") or None
+            if address is None:
+                raise ConnectionError(
+                    'init(address="auto") but RAYTPU_ADDRESS is not set '
+                    "and no running cluster was found")
+        elif address is None:
+            address = _os.environ.get("RAYTPU_ADDRESS") or None
+
+        if address:
+            # Attach to an existing cluster: the driver brings up its own
+            # worker node (local store + node manager) registered with the
+            # remote GCS — so it always has a local object store and lease
+            # target, and its tasks spill to the rest of the cluster.
+            # Attaching drivers contribute NO schedulable capacity by
+            # default (their host isn't cluster hardware and dies with
+            # them); pass num_cpus/num_gpus explicitly to opt in.
+            node = Node(head=False,
+                        num_cpus=0 if num_cpus is None else num_cpus,
+                        num_gpus=0 if num_gpus is None else num_gpus,
+                        resources=resources,
+                        object_store_memory=object_store_memory,
+                        config=config, gcs_address=address)
+        else:
+            node = Node(head=True, num_cpus=num_cpus, num_gpus=num_gpus,
+                        resources=resources,
+                        object_store_memory=object_store_memory,
+                        config=config)
         node.start()
         cw = CoreWorker(
             gcs_address=node.gcs_address,
@@ -143,9 +227,11 @@ def init(address: Optional[str] = None, *,
             _announce(cw, storage)
         if log_to_driver:
             _start_log_streaming(cw)
-        from ray_tpu_torch._private.usage_lib import start_usage_reporter
+        if node.head:
+            from ray_tpu_torch._private.usage_lib import \
+                start_usage_reporter
 
-        start_usage_reporter(cw, node.session_dir)
+            start_usage_reporter(cw, node.session_dir)
         atexit.register(shutdown)
         return _client_info()
 

@@ -1,0 +1,4 @@
+from ray_tpu_torch.scripts.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

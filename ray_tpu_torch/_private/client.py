@@ -65,6 +65,52 @@ class EventLoopThread:
         self.thread.join(timeout=5)
 
 
+class _SendTurn:
+    """One actor call's place in its caller's send order.  Calls to an
+    actor are sent in the order they were submitted (reference: the
+    sequential actor task submitter sends in seqno order): each push
+    takes a ticket as it starts, before its first await, and pushes
+    start in submission order (``io.post`` runs them FIFO); it then
+    sends only on its turn, whatever order its dependencies and the
+    actor's address resolve in, and a call that fails before sending
+    passes its turn on.  Without it, calls parked on a starting actor's
+    address resumed in the order the GCS answered them, and their
+    seqnos (taken at send time) followed that order.  Loop-thread
+    only."""
+
+    __slots__ = ("order", "ticket", "done")
+
+    def __init__(self, order: dict):
+        self.order = order
+        self.ticket = order["issued"]
+        order["issued"] += 1
+        self.done = False
+
+    async def wait(self) -> None:
+        order = self.order
+        if order["next"] != self.ticket:
+            fut = asyncio.get_running_loop().create_future()
+            order["waiters"][self.ticket] = fut
+            await fut
+
+    def release(self) -> None:
+        if self.done:
+            return
+        self.done = True
+        order = self.order
+        order["next"] = self.ticket + 1
+        fut = order["waiters"].pop(order["next"], None)
+        if fut is not None and not fut.done():
+            fut.set_result(None)
+
+    async def pass_on(self) -> None:
+        """A call that will not send: wait for its turn, then hand it
+        to the next."""
+        if not self.done:
+            await self.wait()
+            self.release()
+
+
 class MemoryStoreEntry:
     __slots__ = ("data", "is_error", "in_store", "event", "waiters")
 
@@ -215,7 +261,8 @@ class CoreWorker:
         self._exported_fns: set[bytes] = set()
         self._fn_lock = threading.Lock()
         self._actor_seqno: Dict[bytes, int] = {}
-        self._actor_send_locks: Dict[bytes, asyncio.Lock] = {}
+        #: per actor, the send order of this caller's calls (_SendTurn)
+        self._actor_send_order: Dict[bytes, dict] = {}
         self._actor_addr_cache: Dict[bytes, str] = {}
         self._current_task_id = TaskID.for_driver(job_id)
         self._task_counter = 0
@@ -289,7 +336,7 @@ class CoreWorker:
                 self.config.worker_start_timeout_s)
             if mode == "worker" else self.config.rpc_connect_timeout_s)
         self.io.run(self._connect(), timeout=connect_timeout + 5)
-        self.io.post(self._decref_pump())
+        self._pump = self.io.post(self._decref_pump())
 
     async def _decref_pump(self):
         """Periodic drain so refs dropped by GC free promptly even when no
@@ -424,6 +471,14 @@ class CoreWorker:
         self._closed = True
 
         async def _close():
+            # end the pump here: a task left pending when the loop stops
+            # is reported ("Task was destroyed but it is pending!") on
+            # stderr at exit, which lands in a submitted job's logs
+            pump = getattr(self, "_pump", None)
+            if pump is not None:
+                pump.cancel()
+                for _ in range(2):  # the cancel crosses call_soon_threadsafe
+                    await asyncio.sleep(0)
             for c in list(self._worker_conns.values()):
                 await c.close()
             if self.gcs:
@@ -1634,30 +1689,40 @@ class CoreWorker:
                                args: tuple, kwargs: dict,
                                dial_retries: int = 3):
         pins: List[ObjectRefInfo] = []
+        # out-of-band probes take no turn (they enter no ordered queue)
+        turn = None if spec["method"] == "raytpu_probe" else _SendTurn(
+            self._actor_send_order.setdefault(
+                actor_id, {"issued": 0, "next": 0, "waiters": {}}))
         try:
-            dep_error = await self._async_resolve_deps(args, kwargs)
-            if dep_error is not None:
-                for i in range(spec["num_returns"]):
-                    oid = ObjectID.for_return(
-                        TaskID(spec["task_id"]), i + 1).binary()
-                    self._store_local(oid, dep_error, True)
+            try:
+                dep_error = await self._async_resolve_deps(args, kwargs)
+                if dep_error is not None:
+                    for i in range(spec["num_returns"]):
+                        oid = ObjectID.for_return(
+                            TaskID(spec["task_id"]), i + 1).binary()
+                        self._store_local(oid, dep_error, True)
+                    return
+                nested: List[ObjectRefInfo] = []
+                spec["args"] = [self._marshal_arg(a, nested) for a in args]
+                spec["kwargs"] = {k: self._marshal_arg(v, nested)
+                                  for k, v in kwargs.items()}
+                pins = self._pin_refs(
+                    list(spec["args"]) + list(spec["kwargs"].values()),
+                    nested)
+            except Exception as e:  # noqa: BLE001 - marshalling failed
+                self._fail_actor_task(spec, e)
                 return
-            nested: List[ObjectRefInfo] = []
-            spec["args"] = [self._marshal_arg(a, nested) for a in args]
-            spec["kwargs"] = {k: self._marshal_arg(v, nested)
-                              for k, v in kwargs.items()}
-            pins = self._pin_refs(
-                list(spec["args"]) + list(spec["kwargs"].values()), nested)
-        except Exception as e:  # noqa: BLE001 - marshalling failed
-            self._fail_actor_task(spec, e)
-            return
-        try:
-            await self._push_actor_task_inner(actor_id, spec, dial_retries)
+            try:
+                await self._push_actor_task_inner(actor_id, spec,
+                                                  dial_retries, turn)
+            finally:
+                self._unpin_now(pins)  # worker acked its borrows pre-reply
         finally:
-            self._unpin_now(pins)  # worker acked its borrows pre-reply
+            if turn is not None:
+                await turn.pass_on()
 
     async def _push_actor_task_inner(self, actor_id: bytes, spec: dict,
-                                     dial_retries: int = 3):
+                                     dial_retries: int = 3, turn=None):
         # Phase 1 — resolve + connect. Safe to retry: nothing was sent yet
         # (a restarting actor resolves to its new address).
         conn = None
@@ -1685,29 +1750,35 @@ class CoreWorker:
                         f"actor unreachable: {e}"))
                     return
                 await asyncio.sleep(0.2)
-        # Phase 2 — push. Seqno is assigned at SEND time under a per-actor
-        # lock, so seqnos are contiguous and sent in order even when calls
-        # resolve deps/addresses at different speeds; a failed call before
-        # send never consumes a seqno. NOT retried after send: the task may
-        # have executed (actor tasks default to max_task_retries=0, matching
-        # reference ray_option_utils.py:159 semantics).
+        # Phase 2 — push. The call's turn (_SendTurn) lets one ordered call
+        # at a time take its seqno and send, in submission order, however
+        # fast each resolved its deps and the actor's address; a call that
+        # fails before sending passes its turn on and takes no seqno.  The
+        # connection's own send lock keeps a probe's frame whole.  NOT
+        # retried after send: the task may have executed (actor tasks
+        # default to max_task_retries=0, matching reference
+        # ray_option_utils.py:159 semantics).
         if spec["task_id"] in self._cancelled:
             self._fail_actor_task(spec, exceptions.TaskCancelledError(
                 "actor task was cancelled"))
             return
-        lock = self._actor_send_locks.setdefault(actor_id, asyncio.Lock())
+        if turn is not None:
+            await turn.wait()
         try:
-            async with lock:
-                if spec["method"] == "raytpu_probe":
-                    # Out-of-band: answered on the worker's server loop,
-                    # never enters the ordered queue — consuming a seqno
-                    # would leave a permanent gap stalling real calls.
-                    spec["seqno"] = -1
-                else:
-                    seqno = self._actor_seqno.get(actor_id, 0)
-                    self._actor_seqno[actor_id] = seqno + 1
-                    spec["seqno"] = seqno
+            if turn is None:
+                # A probe: answered on the worker's server loop, it never
+                # enters the ordered queue — consuming a seqno would leave
+                # a permanent gap stalling real calls.
+                spec["seqno"] = -1
+            else:
+                seqno = self._actor_seqno.get(actor_id, 0)
+                self._actor_seqno[actor_id] = seqno + 1
+                spec["seqno"] = seqno
+            try:
                 waiter = await conn.call_send("push_actor_task", spec)
+            finally:
+                if turn is not None:
+                    turn.release()
             self._inflight_tasks[spec["task_id"]] = addr
             reply = await waiter
             if self._ingest_returns(spec, reply):

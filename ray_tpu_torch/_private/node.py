@@ -5,9 +5,10 @@ reference's Node/services orchestration, ``python/ray/_private/node.py:41
 class Node``): the head's GCS and the node manager are asyncio services
 on a dedicated IO thread inside the driver process; worker processes
 are real subprocesses.  The accelerator is counted as CUDA cards
-(``detect_num_gpus``) where the JAX package counts TPU chips.  The CLI
-that runs the same services standalone for multi-node clusters
-(``ray_tpu start``) is not ported yet (ROADMAP.md queue 1 item 6b).
+(``detect_num_gpus``) where the JAX package counts TPU chips.
+``python -m ray_tpu_torch start`` (scripts/cli.py) runs the same
+services standalone for multi-node clusters; a node joins one with
+``head=False`` and the head's ``gcs_address``.
 """
 
 from __future__ import annotations

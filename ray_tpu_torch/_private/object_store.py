@@ -253,6 +253,12 @@ class ObjectStoreClient:
         self.seal(object_id)
 
     def abort(self, object_id: ObjectID) -> None:
+        """Drop an unsealed create.  A no-op once this client is closed:
+        a pull's failure path can run after its node tore the store down
+        (a coroutine finalized with its node manager after ``close()``
+        detached the handle), and the handle is freed memory then."""
+        if self._closed:
+            return
         self._lib.os_obj_abort(self._h, object_id.binary())
 
     # -- read path ---------------------------------------------------------

@@ -116,12 +116,10 @@ class ActorClass:
 
     def bind(self, *args, **kwargs):
         """Record a lazy actor-construction DAG node (reference:
-        ray.dag ClassNode).  Not ported yet."""
-        from ray_tpu_torch import SLICE_6B
+        ray.dag ClassNode)."""
+        from ray_tpu_torch.dag import ClassNode
 
-        raise NotImplementedError(
-            f"{self._cls.__name__}.bind() builds a DAG node; dag is not "
-            f"ported yet: {SLICE_6B} (dag and timeline)")
+        return ClassNode(self, args, kwargs)
 
     def __reduce__(self):
         return (ActorClass, (self._cls, self._options))

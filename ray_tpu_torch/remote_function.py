@@ -83,12 +83,10 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """Record a lazy DAG node instead of submitting (reference:
-        ray.dag — fn.bind builds a FunctionNode).  Not ported yet."""
-        from ray_tpu_torch import SLICE_6B
+        ray.dag — fn.bind builds a FunctionNode)."""
+        from ray_tpu_torch.dag import FunctionNode
 
-        raise NotImplementedError(
-            f"{self.__name__}.bind() builds a DAG node; dag is not ported "
-            f"yet: {SLICE_6B} (dag and timeline)")
+        return FunctionNode(self, args, kwargs)
 
     def __reduce__(self):
         # Remote functions captured in closures of other remote functions

@@ -1,8 +1,8 @@
 """Serving in the port: deployment records and ``serve.run`` on the
 core runtime (the controller, replica actors, handles), the LM engine,
-request batching, and the fleet (router, autoscaler, seeded traffic).
-The HTTP proxy and ``schema.apply`` wait for ROADMAP.md queue 1 item
-6b.
+request batching, the fleet (router, autoscaler, seeded traffic), the
+HTTP proxy (``start_http_proxy``) and the declarative config
+(``schema.apply``, also ``apply_config``).
 
 Names resolve lazily (PEP 562): the controller and replica actors
 import ``ray_tpu_torch.serve.controller``/``.replica`` in their worker
@@ -16,6 +16,9 @@ _EXPORTS = {
     "Deployment": "api", "deployment": "api", "run": "api",
     "delete": "api", "shutdown": "api", "status": "api",
     "engine_stats": "api", "get_deployment_handle": "api",
+    "start_http_proxy": "api",
+    "ServeApplicationSchema": "schema", "DeploymentSchema": "schema",
+    "apply_config": "schema",
     "DeploymentHandle": "handle",
     "SamplingParams": "llm", "SpecConfig": "llm",
     "build_llm_deployment": "llm",
@@ -39,7 +42,8 @@ def __getattr__(name: str):
     if mod is None:
         raise AttributeError(
             f"module {__name__!r} has no attribute {name!r}")
-    value = getattr(importlib.import_module(f"{__name__}.{mod}"), name)
+    value = getattr(importlib.import_module(f"{__name__}.{mod}"),
+                    "apply" if name == "apply_config" else name)
     globals()[name] = value
     return value
 

@@ -10,7 +10,9 @@ core runtime: a detached ``ServeController`` actor starts one
 ``DeploymentHandle`` routes calls to them.  A replica that should hold
 a card asks for it, ``ray_actor_options={"num_gpus": 1}``; its process
 then sees only its granted card as ``cuda:0``.  The HTTP ingress
-(``start_http_proxy``) is not ported yet (ROADMAP.md queue 1 item 6b).
+(``start_http_proxy``, ``run(http=True)``) is a detached
+``HTTPProxyActor`` (``serve/http_proxy.py``) on one node or, with
+``per_node=True``, on each.
 """
 
 from __future__ import annotations
@@ -23,7 +25,10 @@ from ray_tpu_torch.serve.controller import CONTROLLER_NAME, ServeController
 from ray_tpu_torch.serve.handle import DeploymentHandle
 
 __all__ = ["Deployment", "deployment", "run", "get_deployment_handle",
-           "status", "engine_stats", "delete", "shutdown"]
+           "start_http_proxy", "status", "engine_stats", "delete",
+           "shutdown"]
+
+_PROXY_NAME = "SERVE_HTTP_PROXY"
 
 
 @dataclasses.dataclass
@@ -135,22 +140,17 @@ def run(target: Deployment, *, route_prefix: Optional[str] = None,
         ) -> DeploymentHandle:
     """Deploy (a graph of) deployments and return the root handle
     (reference serve.run, serve/api.py:455; graphs via .bind()
-    composition as in serve/deployment_graph.py).  ``_overrides``:
-    per-deployment option overlays applied to EVERY deployment in the
-    graph by name (the JAX package's declarative-config path,
-    serve/schema.py, whose ``apply`` is not ported yet).  The JAX
-    package's ``http=True`` ingress waits for ROADMAP.md queue 1 item
-    6b and raises NotImplementedError naming it."""
-    if http:
-        raise NotImplementedError(
-            f"serve.run(http=True) starts the HTTP proxy, which is not "
-            f"ported yet: ROADMAP.md queue 1 item 6b (port {http_port})")
+    composition as in serve/deployment_graph.py).  With http=True the
+    HTTP ingress proxy is started as well.  ``_overrides`` (the
+    declarative-config path, serve/schema.py): per-deployment option
+    overlays applied to EVERY deployment in the graph by name."""
     controller = _get_or_create_controller()
     # config-over-code precedence: a declarative route_prefix override
     # on the root deployment wins over the code-level default
     root_ov = (_overrides or {}).get(target.name) or {}
     # route_prefix always defaults to /<name> (reference semantics) so
-    # a proxy started later can route to deployments created before it
+    # a proxy started later — e.g. the per-node fleet — can route to
+    # deployments created before it
     prefix = route_prefix or root_ov.get("route_prefix") or \
         target.route_prefix or f"/{target.name}"
     deployed: set = set()
@@ -162,11 +162,55 @@ def run(target: Deployment, *, route_prefix: Optional[str] = None,
             raise ValueError(
                 f"config deployments {sorted(unmatched)} matched no "
                 f"deployment in the graph (deployed: {sorted(deployed)})")
+    if http:
+        start_http_proxy(port=http_port)
     return DeploymentHandle(target.name, controller)
 
 
 def get_deployment_handle(name: str) -> DeploymentHandle:
     return DeploymentHandle(name, _get_or_create_controller())
+
+
+def start_http_proxy(port: int = 8000, host: str = "127.0.0.1",
+                     per_node: bool = False) -> str:
+    """Start the HTTP ingress.  ``per_node=True`` starts one proxy actor
+    on EVERY alive node, pinned via each node's affinity resource
+    (reference: serve/_private/http_state.py HTTPProxyStateManager —
+    one proxy per node, node:<ip> affinity), so ingress scales
+    horizontally with the cluster and requests enter on the node they
+    hit; the i-th node's proxy listens on ``port + i``.  Returns the
+    local (first) proxy's address."""
+    import ray_tpu_torch
+    from ray_tpu_torch.serve.http_proxy import HTTPProxyActor
+
+    controller = _get_or_create_controller()
+    if not per_node:
+        try:
+            proxy = ray_tpu_torch.get_actor(_PROXY_NAME)
+        except Exception:  # noqa: BLE001
+            proxy = ray_tpu_torch.remote(
+                num_cpus=0.1, lifetime="detached", name=_PROXY_NAME)(
+                HTTPProxyActor).remote(controller, host, port)
+        ray_tpu_torch.get(proxy.ping.remote(), timeout=60)
+        return ray_tpu_torch.get(proxy.address.remote(), timeout=30)
+
+    proxies = []
+    for i, node in enumerate(n for n in ray_tpu_torch.nodes()
+                             if n["Alive"]):
+        node_hex = node["NodeID"]
+        name = f"{_PROXY_NAME}:{node_hex[:12]}"
+        try:
+            proxy = ray_tpu_torch.get_actor(name)
+        except Exception:  # noqa: BLE001
+            proxy = ray_tpu_torch.remote(
+                num_cpus=0.1, lifetime="detached", name=name,
+                resources={f"node:{node_hex}": 0.01},
+            )(HTTPProxyActor).remote(controller, host, port + i)
+        proxies.append(proxy)
+    addrs = ray_tpu_torch.get([p.address.remote() for p in proxies],
+                              timeout=60)
+    ray_tpu_torch.get([p.ping.remote() for p in proxies], timeout=60)
+    return addrs[0]
 
 
 def status() -> dict:
@@ -205,5 +249,10 @@ def shutdown() -> None:
         controller = ray_tpu_torch.get_actor(CONTROLLER_NAME)
         ray_tpu_torch.get(controller.shutdown.remote(), timeout=60)
         ray_tpu_torch.kill(controller)
+    except Exception:  # noqa: BLE001
+        pass
+    try:
+        proxy = ray_tpu_torch.get_actor(_PROXY_NAME)
+        ray_tpu_torch.kill(proxy)
     except Exception:  # noqa: BLE001
         pass

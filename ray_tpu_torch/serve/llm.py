@@ -551,6 +551,8 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             self._chaos = None
             self._replica_label = f"llm_{family}_{preset}"
             self._pager = None
+            #: the batch scheduler's generate calls, one prefill each
+            self._generate_calls = 0
             if scheduler == "continuous":
                 self._init_continuous()
 
@@ -566,6 +568,7 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
         # ------------------------------------------------------------
 
         def _generate(self, toks, lengths=None):
+            self._generate_calls += 1
             with torch.inference_mode():
                 return fam.generate(
                     self.params, toks, self.cfg,
@@ -1614,6 +1617,37 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             return {name: dump for name, dump
                     in _registry.snapshot().items()
                     if name.startswith("serve_")}
+
+        def kernel_counts(self, reset: bool = False) -> Dict[str, Any]:
+            """This process's launches of each hand-written kernel (the
+            wrappers' counts; the JAX engine's Pallas kernels count
+            none, so the reference has no such method) and the batch
+            scheduler's generate calls, one prefill each; zeroed after
+            reading when ``reset``.  A replica reports through it what
+            ran in its own process (``handle.method("kernel_counts")``)."""
+            import importlib
+            import os
+
+            fa = importlib.import_module(
+                "ray_tpu_torch.ops.flash_attention")
+            fc = importlib.import_module("ray_tpu_torch.ops.fused_ce")
+            names = {"flash_fwd": (fa, "FLASH_FWD_LAUNCHES"),
+                     "flash_bwd_dq": (fa, "FLASH_BWD_DQ_LAUNCHES"),
+                     "flash_bwd_dkv": (fa, "FLASH_BWD_DKV_LAUNCHES"),
+                     "fused_ce_fwd": (fc, "FUSED_CE_FWD_LAUNCHES"),
+                     "fused_ce_bwd_dh": (fc, "FUSED_CE_BWD_DH_LAUNCHES"),
+                     "fused_ce_bwd_dw": (fc, "FUSED_CE_BWD_DW_LAUNCHES")}
+            out = {k: getattr(m, a) for k, (m, a) in names.items()}
+            out.update(prefills=self._generate_calls, pid=os.getpid(),
+                       node_id=os.environ.get("RAYTPU_NODE_ID", ""),
+                       worker_id=os.environ.get("RAYTPU_WORKER_ID", ""),
+                       visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                       device=str(self.device))
+            if reset:
+                for m, a in names.values():
+                    setattr(m, a, 0)
+                self._generate_calls = 0
+            return out
 
     LLM.__call__ = (LLM._call_continuous if scheduler == "continuous"
                     else LLM._call_batch_checked)

@@ -14,8 +14,8 @@ transition here.  Three sinks hang off those records:
    wait, inter-token latency, slot occupancy, queue depth,
    admissions/rejections, tokens, and a recompile counter keyed by
    prefill bucket) in the process-local registry
-   (``metrics_snapshot()``; the publisher to a dashboard waits for
-   ROADMAP.md queue 1 item 6b).
+   (``metrics_snapshot()``), which the registry's publisher pushes
+   to the GCS KV for ``collect_cluster_metrics``.
 2. **engine_stats()** — an on-demand snapshot (p50/p95/p99 TTFT and
    queue wait, throughput, slot utilization, request counts) exposed as
    a deployment method and aggregated at ``/api/serve/stats``.

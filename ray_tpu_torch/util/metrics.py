@@ -1,20 +1,25 @@
 """Application-defined metrics: Counter / Gauge / Histogram.
 
-A copy of ``ray_tpu/util/metrics.py``: each process keeps a local
-registry (``_registry``) whose ``snapshot()`` dumps every metric.  The
-JAX package's background publisher, which pushes snapshots into the
-core runtime's GCS KV for the dashboard's ``/metrics`` page, and
-``collect_cluster_metrics``, which merges them, are not ported yet
-(ROADMAP.md queue 1 item 6b); until then the registry is read in
-process.
+A copy of ``ray_tpu/util/metrics.py`` (role-equivalent of the
+reference's custom-metrics API, ``python/ray/util/metrics.py``, and its
+per-node Prometheus agent, ``_private/metrics_agent.py:93``): each
+process keeps a local registry (``_registry``) and a background
+publisher thread flushes its snapshot into the GCS KV
+(``metrics:<worker_id>``) every ``_PUBLISH_INTERVAL_S``, encoded by the
+vendored msgpack; ``collect_cluster_metrics`` merges every live
+snapshot into one Prometheus text page.  Neither imports torch.
 """
 
 from __future__ import annotations
 
 import re
 import threading
+import time
 import warnings
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+_KV_PREFIX = "metrics:"
+_PUBLISH_INTERVAL_S = 5.0
 
 #: Prometheus-safe metric names
 _NAME_RE = re.compile(r"^[a-z][a-z0-9_]*$")
@@ -24,6 +29,7 @@ class _Registry:
     def __init__(self):
         self.metrics: Dict[str, "Metric"] = {}
         self._lock = threading.Lock()
+        self._publisher: Optional[threading.Thread] = None
         self._dup_warned: set = set()
 
     def register(self, metric: "Metric") -> None:
@@ -41,10 +47,37 @@ class _Registry:
                     f"previous one in the registry (share one instance "
                     f"instead)", RuntimeWarning, stacklevel=4)
             self.metrics[metric.name] = metric
+        self._ensure_publisher()
+
+    def _ensure_publisher(self) -> None:
+        with self._lock:
+            if self._publisher is not None:
+                return
+            self._publisher = threading.Thread(
+                target=self._publish_loop, daemon=True,
+                name="raytpu-metrics")
+            self._publisher.start()
 
     def snapshot(self) -> dict:
         with self._lock:
             return {name: m._dump() for name, m in self.metrics.items()}
+
+    def _publish_loop(self) -> None:
+        from ray_tpu_torch._private import worker_context
+        from ray_tpu_torch._private._vendor import msgpack
+
+        while True:
+            time.sleep(_PUBLISH_INTERVAL_S)
+            cw = worker_context.maybe_core_worker()
+            if cw is None:
+                continue
+            try:
+                cw.kv_put(
+                    _KV_PREFIX + cw.worker_id.hex(),
+                    msgpack.packb({"ts": time.time(),
+                                   "metrics": self.snapshot()}))
+            except Exception:  # noqa: BLE001 - shutdown race
+                pass
 
 
 _registry = _Registry()
@@ -164,3 +197,52 @@ class Histogram(Metric):
                     "boundaries": list(self.boundaries),
                     "values": values}
 
+
+
+def collect_cluster_metrics(kv_get, kv_keys, max_age_s: float = 60.0
+                            ) -> List[str]:
+    """Merge every process's published snapshot into Prometheus text
+    lines (what the JAX package's dashboard serves at /metrics)."""
+    from ray_tpu_torch._private._vendor import msgpack
+
+    lines: List[str] = []
+    seen_help: set = set()
+    now = time.time()
+    for key in kv_keys(_KV_PREFIX):
+        raw = kv_get(key)
+        if not raw:
+            continue
+        try:
+            snap = msgpack.unpackb(raw, raw=False)
+        except Exception:  # noqa: BLE001
+            continue
+        if now - snap.get("ts", 0) > max_age_s:
+            continue
+        wid = key[len(_KV_PREFIX):][:12]
+        for name, m in snap.get("metrics", {}).items():
+            full = f"raytpu_app_{name}"
+            kind = m["kind"]
+            if full not in seen_help:
+                seen_help.add(full)
+                ptype = {"counter": "counter",
+                         "histogram": "histogram"}.get(kind, "gauge")
+                lines.append(f"# HELP {full} {m.get('desc', '')}")
+                lines.append(f"# TYPE {full} {ptype}")
+            for tag_list, value in m.get("values", []):
+                tags = dict(tag_list)
+                stat = tags.pop("_stat", None)
+                series = full
+                if kind == "histogram":
+                    # Prometheus exposition: <name>_bucket{le=...},
+                    # <name>_sum, <name>_count.
+                    if stat == "sum":
+                        series = full + "_sum"
+                    elif stat == "count":
+                        series = full + "_count"
+                    elif "le" in tags:
+                        series = full + "_bucket"
+                label_str = ",".join(
+                    [f'worker="{wid}"'] +
+                    [f'{k}="{v}"' for k, v in sorted(tags.items())])
+                lines.append(f"{series}{{{label_str}}} {value}")
+    return lines

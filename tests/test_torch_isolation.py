@@ -1,9 +1,12 @@
 """The port stands alone: no file of ray_tpu_torch/, and none of
 chip_smoke.py, fused_ce_limits.py and flash_bwd_limits.py, imports jax,
-jaxlib or the JAX package ray_tpu.  A worker process of the port's
-runtime has neither in sys.modules, importing its entry module leaves
-torch out too, and the object store is built from the port's own copy
-of its source."""
+jaxlib or the JAX package ray_tpu, nor aiohttp, yaml or pydantic (the
+card's machine has none of the three).  A worker process of the port's
+runtime has neither in sys.modules, importing its entry module, the
+serve control plane (the HTTP proxy among it), the metrics publisher,
+the CLI and the rest of the runtime's front door leaves torch out too,
+and the object store is built from the port's own copy of its
+source."""
 
 import ast
 import os
@@ -16,7 +19,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "ray_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ray_tpu", "aiohttp", "yaml", "pydantic")
 
 
 def _port_files():
@@ -107,7 +110,24 @@ def test_port_files_exist():
             "ray_tpu_torch/_private/_vendor/msgpack/exceptions.py",
             "ray_tpu_torch/serve/controller.py",
             "ray_tpu_torch/serve/replica.py",
-            "ray_tpu_torch/serve/handle.py"} <= names
+            "ray_tpu_torch/serve/handle.py",
+            # the front door: multi-node attach, the CLI, the HTTP
+            # proxy, declarative apply, jobs, the metrics publisher,
+            # dag and the state API
+            "ray_tpu_torch/__main__.py",
+            "ray_tpu_torch/cluster_utils.py",
+            "ray_tpu_torch/dag/__init__.py",
+            "ray_tpu_torch/dashboard/__init__.py",
+            "ray_tpu_torch/job/__init__.py",
+            "ray_tpu_torch/job/manager.py",
+            "ray_tpu_torch/runtime_env/__init__.py",
+            "ray_tpu_torch/scripts/__init__.py",
+            "ray_tpu_torch/scripts/cli.py",
+            "ray_tpu_torch/serve/http_proxy.py",
+            "ray_tpu_torch/serve/schema.py",
+            "ray_tpu_torch/util/placement_group.py",
+            "ray_tpu_torch/util/scheduling_strategies.py",
+            "ray_tpu_torch/util/state.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -123,9 +143,17 @@ def test_scanner_catches_each_import_form(tmp_path):
     src.write_text("import jax.numpy as jnp\n"
                    "from ray_tpu.ops import attention\n"
                    "import importlib\n"
-                   "m = importlib.import_module('jaxlib.xla_client')\n")
-    assert [m for _, m in _imported_roots(src)] == \
-        ["jax", "ray_tpu", "importlib", "jaxlib"]
+                   "m = importlib.import_module('jaxlib.xla_client')\n"
+                   "from aiohttp import web\n"
+                   "import yaml\n"
+                   "def f():\n"
+                   "    import pydantic.v1 as pd\n")
+    found = sorted(_imported_roots(src))
+    assert found == [(1, "jax"), (2, "ray_tpu"), (3, "importlib"),
+                     (4, "jaxlib"), (5, "aiohttp"), (6, "yaml"),
+                     (8, "pydantic")]
+    assert sorted(m for _, m in found if m in FORBIDDEN) == sorted(
+        FORBIDDEN)
 
 
 def _fresh_imports(stmt):
@@ -148,6 +176,17 @@ def test_worker_entry_module_imports_no_torch_jax_or_reference():
         "import ray_tpu_torch; from ray_tpu_torch.serve import "
         "controller, replica, handle, api")
     assert not roots & {"torch", "jax", "jaxlib", "ray_tpu"}
+    # nor the front door: the HTTP proxy's and the publisher's modules,
+    # the CLI, jobs, dag and the state API
+    roots = _fresh_imports(
+        "import ray_tpu_torch.__main__, ray_tpu_torch.cluster_utils, "
+        "ray_tpu_torch.dag, ray_tpu_torch.job, ray_tpu_torch.runtime_env; "
+        "from ray_tpu_torch.serve import http_proxy, schema; "
+        "from ray_tpu_torch.util import metrics, state, placement_group; "
+        "from ray_tpu_torch.scripts import cli; "
+        "metrics.Counter('isolation_probe_total').inc()")
+    assert not roots & {"torch", "jax", "jaxlib", "ray_tpu", "aiohttp",
+                        "yaml", "pydantic"}
 
 
 def test_object_store_builds_from_the_ports_source():

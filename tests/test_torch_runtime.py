@@ -265,14 +265,23 @@ def test_unsupported_accelerator_options_raise(runtimes, opts, match):
 
 
 def test_init_names_num_gpus_and_unported_parts():
+    """What still raises: the JAX package's accelerator option names the
+    port's, and the rllib CLI and the dashboard name their ROADMAP.md
+    items (attaching, ``timeline()`` and ``.bind()`` work now:
+    test_torch_multinode.py, test_torch_dag_state.py)."""
+    from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.scripts import cli
+
     with pytest.raises(ValueError, match="num_gpus"):
         ray_tpu_torch.init(num_tpus=1)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        ray_tpu_torch.init(address="127.0.0.1:6379")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        ray_tpu_torch.timeline()
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        ray_tpu_torch.remote(lambda: 1).bind()
+    for sub in (["algorithms"], ["train", "--run", "PPO", "--env", "x"],
+                ["evaluate", "ckpt", "--run", "PPO", "--env", "x"]):
+        with pytest.raises(NotImplementedError,
+                           match=r"queue 1 item 7 \(rllib/\)"):
+            cli.main(["rllib", *sub])
+    with pytest.raises(NotImplementedError,
+                       match=r"queue 1 item 6b \(the dashboard\)"):
+        start_dashboard(port=18265)
 
 
 @pytest.mark.parametrize("visible,names", [
