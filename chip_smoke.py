@@ -232,6 +232,22 @@ Phases, each fatal on failure (any failure exits non-zero):
             the replica's actor tasks; (e) serve.delete, shutdown(),
             `stop`: no process and no store segment of the port left,
             the card's free memory back within 256 MiB.
+12d. dashboard — on serve-http's cluster before its teardown (e):
+            start_dashboard (a detached actor, port 0) and GET
+            /api/nodes, /api/actors, /api/serve/applications,
+            /api/serve/stats, /metrics and /: /api/nodes lists
+            util.state.list_nodes()' nodes, /metrics carries raytpu_nodes,
+            the worker node's raytpu_resource_total{...resource="gpu"} 1.0
+            and the replica's published serve_* lines, /api/serve/stats
+            the replica's finished requests of (c) and (d2); each route's
+            p50 over 20 GETs.
+12e. bench-cli — `python -m ray_tpu_torch.bench --ce-impl pallas --steps
+            5` and `python -m ray_tpu_torch.bench --decode` as
+            subprocesses (GPT-2-124M on the card): their metric lines
+            bear the JAX harness's names (bench.py's on a TPU); per step
+            12 launches of each flash kernel and 1 of each fused-CE
+            kernel, per prefill 12 flash forwards, read in the
+            subprocess; tokens/s, MFU and TTFT printed.
 13. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
             whole block, ce_impl="pallas": a warm-up and 5 timed steps
             (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
@@ -5627,6 +5643,9 @@ def phase_serve_http(torch, np, fa, card: str, preset="llama-1b",
             fail("[serve-http] (d) the timeline holds none of the "
                  "replica's actor tasks")
 
+        out["dashboard"] = phase_dashboard(
+            rt, state, card, dep_name, target, worker_hex, counts, on_card)
+
         # (e) teardown
         bf16_pid = counts["pid"]
         rserve.delete(dep_name)
@@ -5673,6 +5692,195 @@ def phase_serve_http(torch, np, fa, card: str, preset="llama-1b",
         fail(f"[serve-http] (e) the card's free memory {free1} is not back "
              f"within {RUN_MEM_TOL} of {free0}")
     del engine, engine_bf16, want
+    return out
+
+
+#: each kernel's launch counter
+CE_OR_FLASH = {"flash_fwd": "FLASH_FWD_LAUNCHES",
+               "flash_bwd_dq": "FLASH_BWD_DQ_LAUNCHES",
+               "flash_bwd_dkv": "FLASH_BWD_DKV_LAUNCHES",
+               "fused_ce_fwd": "FUSED_CE_FWD_LAUNCHES",
+               "fused_ce_bwd_dh": "FUSED_CE_BWD_DH_LAUNCHES",
+               "fused_ce_bwd_dw": "FUSED_CE_BWD_DW_LAUNCHES"}
+#: GETs per dashboard route for its latency p50
+DASH_GETS = 20
+#: the dashboard routes phase dashboard reads
+DASH_ROUTES = ("/api/nodes", "/api/actors", "/api/serve/applications",
+               "/api/serve/stats", "/metrics", "/")
+
+
+def _http_get(url: str, timeout: float = 60.0):
+    """(status, content type, body text) of a GET."""
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.headers.get("Content-Type"), r.read().decode()
+
+
+def phase_dashboard(rt, state, card: str, dep_name: str, finished: int,
+                    worker_hex: str, counts: dict, on_card: bool) -> dict:
+    """12d: the port's dashboard on serve-http's cluster, while the bf16
+    replica ``dep_name`` is up (``finished`` requests done, its process
+    ``counts`` on node ``worker_hex``, which offers the card when
+    ``on_card``)."""
+    from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.dashboard.app import DASHBOARD_NAME
+
+    t0 = time.perf_counter()
+    url = start_dashboard(port=0)
+    start_s = time.perf_counter() - t0
+    try:
+        got = {r: _http_get(url + r) for r in DASH_ROUTES}
+        bad = {r: g[0] for r, g in got.items() if g[0] != 200}
+        if bad:
+            fail(f"[dashboard] routes answered {bad}")
+        nodes = json.loads(got["/api/nodes"][2])
+        want = state.list_nodes()
+
+        def ids(ns):
+            return sorted((n["node_id"], n["alive"]) for n in ns)
+
+        metrics = got["/metrics"][2].splitlines()
+        gpu = [ln for ln in metrics if ln.startswith(
+            f'raytpu_resource_total{{node="{worker_hex[:12]}",'
+            f'resource="gpu"}}')]
+        label = f'worker="{counts["worker_id"][:12]}"'
+        served = [ln for ln in metrics if ln.startswith("raytpu_app_serve_")
+                  and label in ln]
+        stats = json.loads(got["/api/serve/stats"][2]).get(dep_name, {})
+        done = (stats.get("requests") or {}).get("finished")
+        apps = json.loads(got["/api/serve/applications"][2])
+        actors = json.loads(got["/api/actors"][2])
+        print(f"[dashboard] start_dashboard() in {start_s:.2f} s at {url}; "
+              f"/api/nodes {len(nodes)} nodes, equal to "
+              f"util.state.list_nodes(): {ids(nodes) == ids(want)}; "
+              f"/api/actors {len(actors)}; /api/serve/applications "
+              f"{sorted(apps.get('applications', {}))}; /api/serve/stats "
+              f"{dep_name}: {done} finished (the replica's own count "
+              f"{finished}); /metrics {len(metrics)} lines, raytpu_nodes "
+              f"{any(ln.startswith('raytpu_nodes ') for ln in metrics)}, the "
+              f"worker node's gpu total {gpu}, {len(served)} of the "
+              f"replica's serve_* lines; / {len(got['/'][2])} bytes of "
+              f"{got['/'][1]} [{card}]", flush=True)
+        if ids(nodes) != ids(want):
+            fail("[dashboard] /api/nodes disagrees with "
+                 "util.state.list_nodes()")
+        gpu_ok = (len(gpu) == 1 and float(gpu[0].rsplit(" ", 1)[1]) == 1.0
+                  if on_card else not gpu)
+        if not any(ln.startswith("raytpu_nodes ") for ln in metrics) or \
+                not gpu_ok or not served:
+            fail("[dashboard] /metrics lacks raytpu_nodes, the worker "
+                 "node's gpu total or the replica's serve_* lines")
+        if done is None or done < finished or \
+                dep_name not in apps.get("applications", {}):
+            fail(f"[dashboard] /api/serve/stats shows {done} finished "
+                 f"requests of {dep_name}, not the {finished} sent")
+        p50 = {}
+        for r in DASH_ROUTES:
+            lat = []
+            for _ in range(DASH_GETS):
+                t1 = time.perf_counter()
+                _http_get(url + r)
+                lat.append(time.perf_counter() - t1)
+            p50[r] = sorted(lat)[len(lat) // 2] * 1e3
+        print(f"[dashboard] GET p50 of {DASH_GETS} (a connection each): "
+              + ", ".join(f"{r} {v:.2f} ms" for r, v in p50.items())
+              + f" [{card}]", flush=True)
+    finally:
+        rt.kill(rt.get_actor(DASHBOARD_NAME))
+    return {"start_s": start_s, "get_p50_ms": p50}
+
+
+#: what `python -m ray_tpu_torch.bench` runs in phase bench-cli, and the
+#: metric names the JAX harness gives the same modes on a TPU (bench.py
+#: :1297 the train line, :571 and :608-624 the decode lines)
+BENCH_RUNS = {
+    "train": (["--ce-impl", "pallas", "--steps", "5"],
+              ["gpt2_124m_train_tokens_per_sec_per_chip"]),
+    "decode": (["--decode"],
+               ["gpt2_decode_prefill_ttft_ms", "gpt2_decode_tokens_per_sec",
+                "gpt2_decode_tokens_per_sec_per_chip"]),
+}
+#: the bench's module run as `python -m` runs it (runpy, run_name
+#: "__main__"), then the process's kernel launch counters printed
+BENCH_WRAPPER = """
+import importlib, json, runpy, sys
+sys.argv = ["ray_tpu_torch.bench", *sys.argv[1:]]
+runpy.run_module("ray_tpu_torch.bench", run_name="__main__", alter_sys=True)
+fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+fc = importlib.import_module("ray_tpu_torch.ops.fused_ce")
+print("BENCH_COUNTS " + json.dumps({
+    **{c: getattr(fa, c) for c in %r}, **{c: getattr(fc, c) for c in %r}}))
+""" % (COUNTERS, CE_COUNTERS)
+
+
+def phase_bench_cli(torch, card: str) -> dict:
+    """12e: ``python -m ray_tpu_torch.bench`` on the card, train (pallas
+    CE, 5 timed steps + 1 warm-up) and --decode (1 warm-up + 3 TTFT
+    prefills), each in a subprocess whose launch counters start at 0."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    out = {}
+    for mode, (args, names) in BENCH_RUNS.items():
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", BENCH_WRAPPER, *args],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=600)
+        secs = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"[bench-cli] python -m ray_tpu_torch.bench {' '.join(args)}"
+                 f" exited {r.returncode}: {r.stderr[-3000:]}")
+        lines = [json.loads(ln) for ln in r.stdout.splitlines()
+                 if ln.startswith("{")]
+        counts = json.loads(next(ln for ln in r.stdout.splitlines()
+                                 if ln.startswith("BENCH_COUNTS "))
+                            .split(" ", 1)[1])
+        got = [rec["metric"] for rec in lines]
+        if got != names:
+            fail(f"[bench-cli] {mode}: metric lines {got}, the JAX "
+                 f"harness's are {names}")
+        rec = lines[0]
+        if mode == "train":
+            steps = int(args[args.index("--steps") + 1]) + 1  # + warm-up
+            want = {"FLASH_FWD_LAUNCHES": 12, "FLASH_BWD_DQ_LAUNCHES": 12,
+                    "FLASH_BWD_DKV_LAUNCHES": 12,
+                    "FUSED_CE_FWD_LAUNCHES": 1, "FUSED_CE_BWD_DH_LAUNCHES": 1,
+                    "FUSED_CE_BWD_DW_LAUNCHES": 1}
+            per = {k: counts[k] / steps for k in want}
+            print(f"[bench-cli] python -m ray_tpu_torch.bench "
+                  f"{' '.join(args)} in {secs:.1f} s: {rec['metric']} "
+                  f"{rec['value']} tokens/s, MFU {rec['detail']['mfu']} "
+                  f"(vs_baseline {rec['vs_baseline']}), loss "
+                  f"{rec['detail']['loss']}, B={rec['detail']['batch']} "
+                  f"T={rec['detail']['seq']} remat "
+                  f"{rec['detail']['remat_policy']} ce "
+                  f"{rec['detail']['ce_impl']}; launches per step over "
+                  f"{steps} steps {per} [{card}]", flush=True)
+            if per != want or rec["detail"]["mfu"] is None or \
+                    not math.isfinite(rec["detail"]["loss"]):
+                fail(f"[bench-cli] train: launches per step {per}, "
+                     f"expected {want}; MFU {rec['detail']['mfu']}")
+        else:
+            prefills = 1 + 3
+            per = counts["FLASH_FWD_LAUNCHES"] / prefills
+            d = rec["detail"]
+            print(f"[bench-cli] python -m ray_tpu_torch.bench "
+                  f"{' '.join(args)} in {secs:.1f} s: TTFT p50 "
+                  f"{rec['value']} ms (best {d['ttft_best_ms']} ms), "
+                  f"decode {lines[1]['value']} tokens/s, B={d['batch']} "
+                  f"prompt {d['prompt_len']} +{d['new_tokens']}; flash "
+                  f"forwards per prefill {per} over {prefills}, other "
+                  f"kernels {sum(v for k, v in counts.items() if k != 'FLASH_FWD_LAUNCHES')} "
+                  f"[{card}]", flush=True)
+            if per != 12 or sum(counts.values()) != counts[
+                    "FLASH_FWD_LAUNCHES"]:
+                fail(f"[bench-cli] decode: {counts} launches for "
+                     f"{prefills} prefills, expected 12 flash forwards "
+                     f"each and nothing else")
+        out[mode] = {"records": lines, "counts": counts, "s": secs}
     return out
 
 
@@ -5726,6 +5934,7 @@ def main() -> int:
         serve_fleet = phase_serve_fleet(torch, np, fa, card, gate)
         serve_run = phase_serve_run(torch, np, fa, card)
         serve_http = phase_serve_http(torch, np, fa, card)
+    bench_cli = phase_bench_cli(torch, card)
     train_llama = phase_train_llama(torch, fa, fc, card)
     train_tele = phase_train_telemetry(torch, np, fa, card)
     llama_7b = phase_llama_7b(torch, fa, fc, card)
@@ -5741,6 +5950,10 @@ def main() -> int:
                    "serve_fleet": serve_fleet["counts"].get(name, 0),
                    "serve_run": serve_run["counts"].get(name, 0),
                    "serve_http": serve_http["counts"].get(name, 0),
+                   "bench_cli_train": bench_cli["train"]["counts"][
+                       CE_OR_FLASH[name]],
+                   "bench_cli_decode": bench_cli["decode"]["counts"][
+                       CE_OR_FLASH[name]],
                    "train_llama": train_llama["counts"][name],
                    "train_telemetry": train_tele["counts"][name]}
         return {"launches": sum(by_path.values()),

@@ -39,6 +39,8 @@ from ray_tpu_torch import exceptions
 logger = logging.getLogger(__name__)
 
 INLINE_LIMIT_DEFAULT = 100 * 1024
+#: the longest EventLoopThread.stop waits for the cancelled tasks to end
+_SETTLE_S = 5.0
 
 
 class EventLoopThread:
@@ -61,8 +63,29 @@ class EventLoopThread:
         return asyncio.run_coroutine_threadsafe(coro, self.loop)
 
     def stop(self):
+        """Stop the loop, first cancelling the tasks still pending on it
+        and waiting up to ``_SETTLE_S`` for them to end: a task left
+        pending on a stopped loop is reported ("Task was destroyed but
+        it is pending!") whenever the loop is collected, into whatever
+        runs then (a lease grant or a request handler mid-flight, a
+        task push whose lease is on its way back)."""
+        if self.thread.is_alive() and \
+                threading.current_thread() is not self.thread:
+            try:
+                self.run(_cancel_pending(_SETTLE_S), timeout=_SETTLE_S + 5)
+            except Exception:  # noqa: BLE001 - stop regardless
+                pass
         self.loop.call_soon_threadsafe(self.loop.stop)
         self.thread.join(timeout=5)
+
+
+async def _cancel_pending(timeout: float) -> None:
+    me = asyncio.current_task()
+    tasks = [t for t in asyncio.all_tasks() if t is not me]
+    for t in tasks:
+        t.cancel()
+    if tasks:
+        await asyncio.wait(tasks, timeout=timeout)
 
 
 class _SendTurn:
@@ -336,7 +359,7 @@ class CoreWorker:
                 self.config.worker_start_timeout_s)
             if mode == "worker" else self.config.rpc_connect_timeout_s)
         self.io.run(self._connect(), timeout=connect_timeout + 5)
-        self._pump = self.io.post(self._decref_pump())
+        self.io.post(self._decref_pump())
 
     async def _decref_pump(self):
         """Periodic drain so refs dropped by GC free promptly even when no
@@ -471,14 +494,8 @@ class CoreWorker:
         self._closed = True
 
         async def _close():
-            # end the pump here: a task left pending when the loop stops
-            # is reported ("Task was destroyed but it is pending!") on
-            # stderr at exit, which lands in a submitted job's logs
-            pump = getattr(self, "_pump", None)
-            if pump is not None:
-                pump.cancel()
-                for _ in range(2):  # the cancel crosses call_soon_threadsafe
-                    await asyncio.sleep(0)
+            # the pump, like every task still pending, ends when the
+            # loop stops (EventLoopThread.stop)
             for c in list(self._worker_conns.values()):
                 await c.close()
             if self.gcs:
@@ -1397,6 +1414,15 @@ class CoreWorker:
                     fut.set_exception(last_exc)
         finally:
             state.inflight_requests -= 1
+            # A task queued while this request was still counted in
+            # flight (say, during the return of a lease granted after
+            # the queue drained) asked for no lease of its own: ask now,
+            # or it waits forever.  Not when the request was cancelled
+            # or the worker is closing: the loop is stopping, and a task
+            # started now would be left pending on it.
+            if state.queue and not self._closed and \
+                    not asyncio.current_task().cancelling():
+                self._maybe_request_lease(skey, state)
 
     async def _lease_once(self, payload) -> dict:
         lease = await self.nm.call("request_worker_lease", payload)

@@ -1,9 +1,8 @@
 """Seeded chaos fault injection for the serve fleet.
 
 A copy of ``ray_tpu/serve/chaos.py``.  ``build_llm_fleet`` and its
-router are ROADMAP.md queue 1 item 5; until they are ported, a caller
-attaches an injector to an engine itself (``engine._chaos``), as the
-router will.
+router (``serve/router.py``) attach the injector to each replica's
+engine (``engine._chaos``).
 
 Healthwatch (serve/health.py) is only trustworthy if its detection
 paths are *exercised*, deterministically, in tests and benches — this

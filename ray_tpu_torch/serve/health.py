@@ -1,9 +1,8 @@
 """Healthwatch: the fleet health observatory (replica liveness).
 
-A copy of ``ray_tpu/serve/health.py``.  The fleet router that attaches
-a monitor to its replicas is ROADMAP.md queue 1 item 5; until it is
-ported, a caller attaches one to an engine itself as the router will
-(``engine._health``, ``engine._replica_label``).
+A copy of ``ray_tpu/serve/health.py``.  The fleet router
+(``serve/router.py``, ``build_llm_fleet(health=)``) attaches a monitor
+to its replicas (``engine._health``, ``engine._replica_label``).
 
 ``EngineTelemetry`` measures latency and ``SLOTracker`` judges it;
 this module answers the operational question neither can: **which

@@ -487,8 +487,7 @@ class BlockPager:
         """Resident prefix keys (exact block-aligned token tuples),
         exported as cluster-visible routing metadata.
 
-        A fleet router (the reference's serve/router.py; the port's is
-        ROADMAP.md queue 1 item 5) matches an incoming prompt's
+        A fleet router (serve/router.py) matches an incoming prompt's
         block-aligned prefixes against each replica's exported keys and
         sends the request where the KV blocks already live.  The keys
         are content (token tuples), not block ids — a router on another

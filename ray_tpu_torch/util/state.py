@@ -108,6 +108,9 @@ class profile_device:
     def __init__(self, logdir: str):
         self.logdir = logdir
         self._prof = None
+        #: whether the profiler started (the JAX package's attribute:
+        #: the dashboard's profile route reports it)
+        self._active = False
 
     def __enter__(self):
         try:
@@ -119,6 +122,7 @@ class profile_device:
             prof = torch.profiler.profile(activities=acts)
             prof.__enter__()
             self._prof = prof
+            self._active = True
         except Exception as e:  # noqa: BLE001 - no profiler support
             import logging
 

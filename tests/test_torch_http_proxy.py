@@ -33,6 +33,8 @@ from ray_tpu import serve as jserve
 from ray_tpu.models import llama as jllama
 from ray_tpu_torch import serve as tserve
 from ray_tpu_torch._private._vendor import cloudpickle as port_cloudpickle
+# autouse: the JAX runtime's loops settle before they stop
+from tests.test_torch_jax_teardown import settle_jax_loops  # noqa: F401
 
 port_cloudpickle.register_pickle_by_value(sys.modules[__name__])
 
@@ -42,7 +44,7 @@ MAX_NEW = 4
 
 def _free_port(n=1):
     """The first of ``n`` consecutive free ports."""
-    while True:
+    for _ in range(1000):
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             base = s.getsockname()[1]
@@ -53,6 +55,7 @@ def _free_port(n=1):
             return base
         except OSError:
             continue
+    raise RuntimeError(f"no {n} consecutive free ports in 1000 tries")
 
 
 def echo(payload):
@@ -325,7 +328,7 @@ def test_llama_over_http_matches_jax(proxies, llama_checkpoint):
             # the replica's first call builds (and for JAX compiles) the
             # engine, which on a loaded host can outlast the proxy's 60 s
             # call timeout; greedy decoding makes the warm-up harmless
-            handle.call(prompts[0], timeout=600)
+            handle.call(prompts[0], timeout=300)
             time.sleep(2.1)  # past the proxy's 2 s route-table TTL
             replies[key] = [_request(proxies[key], "POST", "/llm",
                                      json.dumps(p)) for p in prompts]

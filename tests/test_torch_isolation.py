@@ -127,7 +127,12 @@ def test_port_files_exist():
             "ray_tpu_torch/serve/schema.py",
             "ray_tpu_torch/util/placement_group.py",
             "ray_tpu_torch/util/scheduling_strategies.py",
-            "ray_tpu_torch/util/state.py"} <= names
+            "ray_tpu_torch/util/state.py",
+            # the dashboard on the shared HTTP layer, and the bench CLI
+            "ray_tpu_torch/_private/http_server.py",
+            "ray_tpu_torch/dashboard/app.py",
+            "ray_tpu_torch/dashboard/frontend.py",
+            "ray_tpu_torch/bench.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_files(),

@@ -14,6 +14,7 @@ dashboard name their ROADMAP items) and tests/test_client_builder.py.
 
 import os
 import re
+import select
 import signal
 import stat
 import subprocess
@@ -31,6 +32,8 @@ from ray_tpu import job as jjob
 from ray_tpu import runtime_env as jre
 from ray_tpu_torch import job as tjob
 from ray_tpu_torch import runtime_env as tre
+# autouse: the JAX runtime's loops settle before they stop
+from tests.test_torch_jax_teardown import settle_jax_loops  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 STORE = 128 * 1024 * 1024
@@ -184,6 +187,12 @@ def _wait_line(proc, needle, timeout=60):
     deadline = time.monotonic() + timeout
     lines = []
     while time.monotonic() < deadline:
+        # readline blocks: wait for output (or the end) at most until the
+        # deadline, so a silent node fails here instead of hanging
+        ready, _, _ = select.select(
+            [proc.stdout], [], [], max(0.0, deadline - time.monotonic()))
+        if not ready:
+            break
         line = proc.stdout.readline()
         if not line:
             if proc.poll() is not None:
@@ -322,26 +331,32 @@ def test_cli_files_are_the_ports_own(cli_tmp):
 
 
 def test_cli_memory_and_unported_subcommands(cli_tmp):
-    """`memory`'s per-node store stats; the rllib subcommands and the
-    dashboard name what they wait for."""
+    """`memory`'s per-node store stats; the rllib subcommands name what
+    they wait for; the dashboard starts and lists a submitted job."""
+    import json
+    import urllib.request
+
+    from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.job import submit_job
     from ray_tpu_torch.scripts import cli
 
     ray_tpu_torch.init(num_cpus=2, num_gpus=0, object_store_memory=STORE,
                        log_to_driver=False)
     try:
-        ray_tpu_torch.get(ray_tpu_torch.put(b"x" * 200_000))
+        ray_tpu_torch.get(ray_tpu_torch.put(b"x" * 200_000), timeout=120)
         stats = list(cli._each_node_stats())
         assert stats and stats[0][1]["object_store"]["capacity"] > 0
         assert stats[0][1]["object_store"]["bytes_used"] >= 200_000
+        url = start_dashboard(port=0)
+        job = submit_job("echo dashboard")
+        with urllib.request.urlopen(url + "/api/jobs", timeout=60) as r:
+            listed = json.loads(r.read())
+        assert job in [j["job_id"] for j in listed]
     finally:
         ray_tpu_torch.shutdown()
     r = _cli(cli_tmp, "rllib", "algorithms")
     assert r.returncode != 0
     assert "queue 1 item 7 (rllib/)" in r.stderr
-    from ray_tpu_torch.dashboard import start_dashboard
-
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        start_dashboard()
 
 
 # ---- the client builder ------------------------------------------------
@@ -355,7 +370,7 @@ def _client_round_trip(rt):
         def ping():
             return "pong"
 
-        got = rt.get(ping.remote())
+        got = rt.get(ping.remote(), timeout=120)
     finally:
         ctx.disconnect()
     return [up, got, rt.is_initialized()]
@@ -453,7 +468,7 @@ def test_job_can_use_cluster(job_clusters):
             job_api, f"{PY} -c \"import {pkg} as rt\n"
                      "rt.init(address='auto')\n"
                      "f = rt.remote(lambda x: x * 10)\n"
-                     "print('RESULT:' + str(rt.get(f.remote(4))))\"")
+                     "print('RESULT:' + str(rt.get(f.remote(4), timeout=120)))\"")
         out[key] = [status, msg, "RESULT:40" in logs]
     assert out["torch"] == out["jax"]
     assert out["torch"] == ["SUCCEEDED", "", True]

@@ -26,6 +26,8 @@ from ray_tpu.util import metrics as jmetrics
 from ray_tpu_torch._private._vendor import cloudpickle as port_cloudpickle
 from ray_tpu_torch._private._vendor import msgpack as port_msgpack
 from ray_tpu_torch.util import metrics as tmetrics
+# autouse: the JAX runtime's loops settle before they stop
+from tests.test_torch_jax_teardown import settle_jax_loops  # noqa: F401
 
 port_cloudpickle.register_pickle_by_value(sys.modules[__name__])
 

@@ -23,6 +23,8 @@ import ray_tpu_torch
 from ray_tpu.cluster_utils import Cluster as JaxCluster
 from ray_tpu_torch._private._vendor import cloudpickle as port_cloudpickle
 from ray_tpu_torch.cluster_utils import Cluster as PortCluster
+# autouse: the JAX runtime's loops settle before they stop
+from tests.test_torch_jax_teardown import settle_jax_loops  # noqa: F401
 
 # what this module defines travels by value to the port's workers, so
 # they never import this file (and the JAX package it imports)

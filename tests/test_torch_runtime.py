@@ -24,12 +24,16 @@ import ray_tpu_torch
 from ray_tpu._private.node_manager import pick_tpu_chips
 from ray_tpu_torch._private._vendor import cloudpickle as port_cloudpickle
 from ray_tpu_torch._private.node_manager import pick_gpus
+# autouse: the JAX runtime's loops settle before they stop
+from tests.test_torch_jax_teardown import settle_jax_loops  # noqa: F401
 
 # what this module defines travels by value to the port's workers, so
 # they never import this file (and the JAX package it imports)
 port_cloudpickle.register_pickle_by_value(sys.modules[__name__])
 
 STORE = 128 * 1024 * 1024
+#: the longest a test waits for one result
+WAIT_S = 120
 
 
 @pytest.fixture(scope="module")
@@ -64,7 +68,7 @@ def prog_put_get(rt):
               "text", 7, b"raw bytes",
               # past the inline limit: through the shared-memory store
               np.random.default_rng(0).standard_normal((512, 512))]
-    return [rt.get(rt.put(v)) for v in values]
+    return [rt.get(rt.put(v), timeout=WAIT_S) for v in values]
 
 
 def prog_tasks(rt):
@@ -83,14 +87,15 @@ def prog_tasks(rt):
     @rt.remote
     def outer(n):
         # a task that submits a task and waits on it
-        return rt.get(inner.remote(n)).sum() + 1
+        return rt.get(inner.remote(n), timeout=WAIT_S).sum() + 1
 
     x = rt.put(np.arange(5.0))
     head, tail = split.remote(x)
     total = add.remote(add.remote(head, head), 1.0)
-    return [rt.get(head), rt.get(tail), rt.get(total),
-            rt.get(outer.remote(4)),
-            rt.get([add.remote(i, i) for i in range(4)])]
+    return [rt.get(head, timeout=WAIT_S), rt.get(tail, timeout=WAIT_S),
+            rt.get(total, timeout=WAIT_S),
+            rt.get(outer.remote(4), timeout=WAIT_S),
+            rt.get([add.remote(i, i) for i in range(4)], timeout=WAIT_S)]
 
 
 def prog_task_error(rt):
@@ -105,7 +110,7 @@ def prog_task_error(rt):
     out = []
     for ref in (boom.remote(3), passthrough.remote(boom.remote(4))):
         try:
-            rt.get(ref)
+            rt.get(ref, timeout=WAIT_S)
             out.append(None)
         except Exception as e:  # noqa: BLE001 - the chain is the result
             chain = [c.__name__ for c in type(e).__mro__
@@ -149,8 +154,9 @@ def prog_actors(rt):
             return self.n
 
     c = Counter.options(name="counter").remote(10)
-    seq = rt.get([c.inc.remote() for _ in range(3)])
-    again = rt.get(rt.get_actor("counter").inc.remote(5))
+    seq = rt.get([c.inc.remote() for _ in range(3)], timeout=WAIT_S)
+    again = rt.get(rt.get_actor("counter").inc.remote(5),
+                   timeout=WAIT_S)
     rt.kill(c)
     try:
         rt.get(c.inc.remote(), timeout=60)
@@ -200,11 +206,12 @@ def _grant_sequence(rt, key, env):
         def visible(self):
             return os.environ[env]
 
-    seq = [rt.get(one.remote()), rt.get(one.remote())]
+    seq = [rt.get(one.remote(), timeout=WAIT_S),
+           rt.get(one.remote(), timeout=WAIT_S)]
     holders = [Holder.remote(), None]
-    seq.append(rt.get(holders[0].visible.remote()))
+    seq.append(rt.get(holders[0].visible.remote(), timeout=WAIT_S))
     holders[1] = Holder.remote()
-    seq.append(rt.get(holders[1].visible.remote()))
+    seq.append(rt.get(holders[1].visible.remote(), timeout=WAIT_S))
     for h in holders:
         rt.kill(h)
     seq.append(rt.get(two.remote(), timeout=60))
@@ -232,8 +239,8 @@ def test_task_without_grant_sees_no_card(runtimes):
         return [os.environ.get("CUDA_VISIBLE_DEVICES"),
                 rt.get_runtime_context().get_gpu_ids()]
 
-    assert rt.get(probe.remote()) == ["", []]
-    visible, ids = rt.get(granted.remote())
+    assert rt.get(probe.remote(), timeout=WAIT_S) == ["", []]
+    visible, ids = rt.get(granted.remote(), timeout=WAIT_S)
     assert [int(c) for c in visible.split(",")] == ids and len(ids) == 1
 
 
@@ -264,12 +271,16 @@ def test_unsupported_accelerator_options_raise(runtimes, opts, match):
         rt.remote(**opts)(A).remote()
 
 
-def test_init_names_num_gpus_and_unported_parts():
+def test_init_names_num_gpus_and_unported_parts(runtimes):
     """What still raises: the JAX package's accelerator option names the
-    port's, and the rllib CLI and the dashboard name their ROADMAP.md
-    items (attaching, ``timeline()`` and ``.bind()`` work now:
-    test_torch_multinode.py, test_torch_dag_state.py)."""
+    port's, and the rllib CLI names its ROADMAP.md item.  The dashboard
+    starts (on a free port) and answers with this runtime's node
+    (test_torch_dashboard.py holds every route to the JAX package's)."""
+    import json
+    import urllib.request
+
     from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.dashboard.app import DASHBOARD_NAME
     from ray_tpu_torch.scripts import cli
 
     with pytest.raises(ValueError, match="num_gpus"):
@@ -279,9 +290,14 @@ def test_init_names_num_gpus_and_unported_parts():
         with pytest.raises(NotImplementedError,
                            match=r"queue 1 item 7 \(rllib/\)"):
             cli.main(["rllib", *sub])
-    with pytest.raises(NotImplementedError,
-                       match=r"queue 1 item 6b \(the dashboard\)"):
-        start_dashboard(port=18265)
+    url = start_dashboard(port=0)
+    try:
+        with urllib.request.urlopen(url + "/api/nodes", timeout=60) as r:
+            nodes = json.loads(r.read())
+        assert [n["node_id"] for n in nodes] == \
+            [n["NodeID"] for n in ray_tpu_torch.nodes()]
+    finally:
+        ray_tpu_torch.kill(ray_tpu_torch.get_actor(DASHBOARD_NAME))
 
 
 @pytest.mark.parametrize("visible,names", [
@@ -304,3 +320,40 @@ def test_grant_names_follow_the_nodes_visible_cards(tmp_path, monkeypatch,
                      {"CPU": 1.0, "GPU": 2.0}, "/raytpu_torch_unused",
                      str(tmp_path / "gcs"))
     assert [nm._gpu_names[i] for i in nm._gpus_free] == names
+
+
+def test_a_lone_task_after_a_drained_burst_gets_a_lease(runtimes,
+                                                        monkeypatch):
+    """Regression: a lease granted after its burst's queue drained is
+    handed back while its request still counts as in flight; a task
+    submitted in that window asked for no lease of its own and waited
+    forever (tests/test_torch_dag_state.py's lone ``cube`` hung the test
+    suite).  Each lease's hand-back is slowed by 0.5 s to hold the window
+    open, and lone tasks are submitted one after another across it: each
+    must come back within its bound."""
+    import asyncio
+
+    from ray_tpu_torch._private import protocol
+
+    call = protocol.Connection.call
+
+    async def slow_hand_back(self, method, payload=None, timeout=None):
+        if method == "return_worker":
+            await asyncio.sleep(0.5)
+        return await call(self, method, payload, timeout)
+
+    monkeypatch.setattr(protocol.Connection, "call", slow_hand_back)
+
+    @ray_tpu_torch.remote
+    def nap(i):
+        time.sleep(0.05)
+        return i
+
+    assert ray_tpu_torch.get([nap.remote(i) for i in range(8)],
+                             timeout=WAIT_S) == list(range(8))
+    # the burst's leases go back, then the requests queued behind them
+    # are granted and go back in turn: lone tasks, one after another,
+    # cover that stretch
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < 2.5:
+        assert ray_tpu_torch.get(nap.remote(-1), timeout=10) == -1

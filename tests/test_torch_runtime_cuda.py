@@ -74,7 +74,7 @@ def test_cuda_tensors_cross_bitwise_onto_cuda0(runtime):
     device_type, back = rt.get(roundtrip.remote(x), timeout=120)
     assert device_type == "cuda" and back.device == torch.device("cuda:0")
     assert torch.equal(back.view(torch.int16), x.view(torch.int16))
-    got = rt.get(rt.put(x))
+    got = rt.get(rt.put(x), timeout=120)
     assert got.device == torch.device("cuda:0") and torch.equal(got, x)
 
     @rt.remote

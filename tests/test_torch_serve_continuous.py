@@ -187,10 +187,12 @@ def test_two_waves_through_three_slots_match_the_jax_oracle(ckpt, family,
     async def main():
         try:
             wave1 = [asyncio.ensure_future(inst(p)) for p in prompts[:8]]
-            await asyncio.wait(wave1, return_when=asyncio.FIRST_COMPLETED)
-            assert sum(f.done() for f in wave1) < 8
+            await asyncio.wait(wave1, timeout=120,
+                               return_when=asyncio.FIRST_COMPLETED)
+            assert 0 < sum(f.done() for f in wave1) < 8
             wave2 = [asyncio.ensure_future(inst(p)) for p in prompts[8:]]
-            return await asyncio.gather(*wave1, *wave2)
+            return await asyncio.wait_for(
+                asyncio.gather(*wave1, *wave2), timeout=120)
         finally:
             inst.shutdown_engine()
 

@@ -1,7 +1,8 @@
 """Prefill/decode roles of the port's continuous engine: the KV handoff.
 
 The counterparts of ``tests/test_serve_disagg.py``'s engine cases,
-without the router (ROADMAP.md queue 1 item 5): the test hands each
+without the router (``serve/router.py``, whose dispatch
+``test_torch_serve_fleet_disagg.py`` holds): the test hands each
 ``role="prefill"`` engine's ``HandoffCursor`` to a ``role="decode"``
 engine's ``admit_prefilled`` itself.  GPT-2 nano and llama nano are
 initialized by JAX and served in f32 on the CPU; every reply must be

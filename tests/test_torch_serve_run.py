@@ -27,6 +27,8 @@ from ray_tpu.models import gpt2 as jgpt2
 from ray_tpu.models import llama as jllama
 from ray_tpu_torch import serve as tserve
 from ray_tpu_torch._private._vendor import cloudpickle as port_cloudpickle
+# autouse: the JAX runtime's loops settle before they stop
+from tests.test_torch_jax_teardown import settle_jax_loops  # noqa: F401
 
 port_cloudpickle.register_pickle_by_value(sys.modules[__name__])
 

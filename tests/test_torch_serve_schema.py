@@ -24,6 +24,8 @@ from ray_tpu.serve import schema as jschema
 from ray_tpu_torch import serve as tserve
 from ray_tpu_torch._private._vendor import cloudpickle as port_cloudpickle
 from ray_tpu_torch.serve import schema as tschema
+# autouse: the JAX runtime's loops settle before they stop
+from tests.test_torch_jax_teardown import settle_jax_loops  # noqa: F401
 
 port_cloudpickle.register_pickle_by_value(sys.modules[__name__])
 
