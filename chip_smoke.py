@@ -248,6 +248,29 @@ Phases, each fatal on failure (any failure exits non-zero):
             12 launches of each flash kernel and 1 of each fused-CE
             kernel, per prefill 12 flash forwards, read in the
             subprocess; tokens/s, MFU and TTFT printed.
+12f. data-air — Data and AIR on the port's runtime (init(num_gpus=1));
+            first, whether pyarrow and pandas import here: (a) 1,536 seeded
+            rows of 1,025 int32 tokens in 16 blocks, data.from_numpy ->
+            random_shuffle(seed=0) -> iter_torch_batches(batch_size=24,
+            drop_last=True) onto the card feed GPT-2-124M's train step
+            (B=24, T=1024, remat mlp_only, ce_impl="pallas", AdamW) for 8
+            steps: every batch bit for bit the dataset's numpy batch moved
+            by hand, every loss the hand-fed step's from the same start
+            (CE_LOSS_TOL), 12/12/12/1/1/1 launches a step; tokens/s
+            dataset-fed and direct in turns, the wait for a batch p50/p99,
+            the shuffle's wall; (b) the parameters and AdamW state after
+            (a) through air.Checkpoint dict -> directory -> dict and
+            through save_sharded -> sharded_checkpoint_to_air -> restore,
+            bit for bit, GB/s; (c) air.BatchPredictor of those parameters
+            over 64 prompts of 512 tokens (blocks of 8) on
+            ActorPoolStrategy(size=1, num_gpus=1): a Predictor defined in
+            the phase runs one forward a batch (12 flash forwards) and
+            returns the next token's argmax and the prompt's mean nll;
+            each row the driver's own predictor's (argmax, or a near-tie
+            of the driver's logits; nll within LOGIT_TOL), exactly 96
+            flash forwards and no other launch in the actor's process (its
+            counts booked in the cluster KV), rows/s in the actor and in
+            the driver.
 13. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
             whole block, ce_impl="pallas": a warm-up and 5 timed steps
             (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
@@ -5884,6 +5907,474 @@ def phase_bench_cli(torch, card: str) -> dict:
     return out
 
 
+
+#: phase data-air (12f): the token dataset (rows x (seq + 1) int32 over
+#: GPT-2's vocabulary, seeded), its blocks, the dataset-fed steps (the
+#: first a warm-up), the timed turns, and the predictor's prompts
+DATA_ROWS, DATA_BLOCKS, DATA_STEPS = 1536, 16, 8
+DATA_SEED = 17
+DATA_TURNS = ("dataset", "direct", "direct", "dataset")
+PREDICT_PROMPTS, PREDICT_T, PREDICT_B = 64, 512, 8
+#: the predictor's nll against the driver's: phase serve's logit
+#: tolerance (bf16 compute, f32 logits)
+PREDICT_NLL_TOL = LOGIT_TOL
+#: where a pool actor's predictor books its launch counts (the KV)
+PREDICT_KV = "chip_smoke:data_predict:"
+
+
+def _importable(name: str):
+    """Whether ``import name`` works here, and its version."""
+    try:
+        mod = importlib.import_module(name)
+    except ImportError as e:
+        return False, str(e)
+    return True, getattr(mod, "__version__", "?")
+
+
+def _gpt2_predictor(cfg, device, kv_prefix: str):
+    """Phase data-air's Predictor class: GPT-2 (``cfg``) from an AIR
+    checkpoint's ``"params"``, one forward of each batch of prompts
+    through the flash forward (``gpt2_forward``: 12 launches a batch at
+    full depth), returning the next token's argmax and the prompt's mean
+    nll.  Built in a pool actor (``from_checkpoint``) it requires a card
+    granted through CUDA_VISIBLE_DEVICES, zeroes its process's launch
+    counters and books them after each batch under ``kv_prefix`` + its
+    pid in the cluster KV.  Defined here, it travels to the actor by
+    value."""
+    from ray_tpu_torch.air import Predictor
+
+    class GPT2Predictor(Predictor):
+        def __init__(self, params, dev, book: bool):
+            self.params, self.dev, self.book = params, dev, book
+            self.batch_s = []
+
+        @classmethod
+        def load(cls, ckpt, granted: bool):
+            import os
+
+            import ray_tpu_torch.ops.fused_ce as fc
+            from ray_tpu_torch.device import resolve_device
+            from ray_tpu_torch.train.optim import tree_map
+
+            fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+            dev = resolve_device(device)
+            if granted and dev.type == "cuda" and not os.environ.get(
+                    "CUDA_VISIBLE_DEVICES"):
+                raise RuntimeError("the predictor's actor was not granted "
+                                   "a card (CUDA_VISIBLE_DEVICES is empty)")
+            params = tree_map(lambda x: x.to(dev), ckpt.to_dict()["params"])
+            if granted:
+                for c in COUNTERS:
+                    setattr(fa, c, 0)
+                for c in CE_COUNTERS:
+                    setattr(fc, c, 0)
+            return cls(params, dev, granted)
+
+        @classmethod
+        def from_checkpoint(cls, ckpt):
+            return cls.load(ckpt, granted=True)
+
+        def forward(self, tokens):
+            """(next-token argmax, mean nll of the prompt, last-column
+            logits over the real vocabulary) of tokens (B, T)."""
+            import torch
+
+            from ray_tpu_torch.models.gpt2 import gpt2_forward
+
+            with torch.inference_mode():
+                toks = torch.as_tensor(tokens).to(self.dev).long()
+                lv = gpt2_forward(self.params, toks, cfg)[..., :cfg.vocab_size]
+                last = lv[:, -1]
+                head = lv[:, :-1]
+                nll = (torch.logsumexp(head, -1) - head.gather(
+                    -1, toks[:, 1:, None])[..., 0]).mean(-1)
+                return last.argmax(-1), nll, last
+
+        def predict(self, batch):
+            import json
+            import os
+
+            import numpy
+            import ray_tpu_torch.ops.fused_ce as fc
+            from ray_tpu_torch._private import worker_context
+
+            fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+            t0 = time.perf_counter()
+            nxt, nll, _ = self.forward(batch["tokens"])
+            out = {"next": nxt.cpu().numpy().astype(numpy.int64),
+                   "nll": nll.float().cpu().numpy()}
+            self.batch_s.append(time.perf_counter() - t0)
+            if self.book:
+                worker_context.core_worker().kv_put(
+                    f"{kv_prefix}{os.getpid()}", json.dumps({
+                        "pid": os.getpid(), "batch_s": self.batch_s,
+                        "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                        "counts": {**{c: getattr(fa, c) for c in COUNTERS},
+                                   **{c: getattr(fc, c)
+                                      for c in CE_COUNTERS}}}).encode())
+            return out
+
+    return GPT2Predictor
+
+
+def _tree_bitwise_equal(torch, a, b) -> bool:
+    """Every leaf of two trees of tensors equal bit for bit (bf16 and
+    f32 alike), in the same layout."""
+    from ray_tpu_torch.train.optim import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.detach().cpu().reshape(-1).view(torch.uint8),
+            y.detach().cpu().reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def _tree_nbytes(tree) -> int:
+    from ray_tpu_torch.train.optim import tree_leaves
+
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def phase_data_air(torch, np, fa, card: str, preset: str = "gpt2",
+                   device: str = "cuda", rows: int = DATA_ROWS,
+                   seq: int = TRAIN_T, batch: int = TRAIN_B,
+                   blocks: int = DATA_BLOCKS, steps: int = DATA_STEPS,
+                   prompts: int = PREDICT_PROMPTS,
+                   prompt_len: int = PREDICT_T,
+                   predict_b: int = PREDICT_B) -> dict:
+    """12f: Data and AIR on the card, on the port's runtime
+    (``ray_tpu_torch.init(num_gpus=1)``).  (a) ``rows`` seeded token rows
+    in ``blocks`` blocks, ``from_numpy`` -> ``random_shuffle(seed=0)`` ->
+    ``iter_torch_batches(batch_size=batch, drop_last=True)`` onto the
+    card feed GPT-2's train step (``preset``, remat mlp_only,
+    ``ce_impl="pallas"``, AdamW) for ``steps`` steps: every batch
+    bit for bit the dataset's numpy batch moved by hand, every loss the
+    hand-fed step's from the same start within CE_LOSS_TOL, 12/12/12/
+    1/1/1 launches a step; tokens/s fed from the dataset and directly,
+    in turns, the wait for a batch (p50/p99), the shuffle's wall.  (b)
+    the parameters and AdamW state after (a) through
+    ``air.Checkpoint`` dict -> directory -> dict, and through
+    ``save_sharded`` -> ``sharded_checkpoint_to_air`` -> restore, bit
+    for bit, GB/s.  (c) ``air.BatchPredictor`` of (b)'s parameters over
+    ``prompts`` prompts of ``prompt_len`` tokens in blocks of
+    ``predict_b``, on an ``ActorPoolStrategy(size=1, num_gpus=1)``
+    actor: each row the driver's own predictor's (argmax, or a near-tie
+    of the driver's logits; nll within PREDICT_NLL_TOL), the actor's
+    flash forwards exactly n_layer a batch and no other launch.
+    ``preset``/``device`` and the sizes let it run cut down on the CPU
+    (then the pool actor holds no card)."""
+    import gc
+    import itertools
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import air, data
+    from ray_tpu_torch._private import worker_context
+    from ray_tpu_torch.bench import H100_BF16_PEAK_FLOPS
+    from ray_tpu_torch.models.gpt2 import (gpt2_config, gpt2_init, gpt2_loss,
+                                           gpt2_param_count)
+    from ray_tpu_torch.train import (adamw, build_train_step, restore_sharded,
+                                     save_sharded, sharded_checkpoint_to_air)
+    from ray_tpu_torch.train.optim import tree_map
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    arrow = _importable("pyarrow")
+    pandas = _importable("pandas")
+    print(f"[data-air] pyarrow importable: {arrow[0]} ({arrow[1]}); pandas "
+          f"importable: {pandas[0]} ({pandas[1]}) [{card}]", flush=True)
+    out = {"pyarrow": arrow[0], "pandas": pandas[0]}
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    shm_free = shutil.disk_usage("/dev/shm").free
+    store = min(RUN_STORE_MAX, shm_free // 2) // 2**20 * 2**20
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1 if on_card else 0,
+            object_store_memory=store)
+    print(f"[data-air] init(num_gpus={1 if on_card else 0}) in "
+          f"{time.perf_counter() - t0:.2f} s, store {store / 2**20:.0f} MiB; "
+          f"cluster_resources {rt.cluster_resources()}", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_air_")
+    try:
+        # -- (a) ingest into training ------------------------------------
+        cfg = gpt2_config(preset, max_seq=seq, remat_policy="mlp_only",
+                          ce_impl="pallas")
+        L = cfg.n_layer
+        tokens = np.random.default_rng(DATA_SEED).integers(
+            0, cfg.vocab_size, (rows, seq + 1)).astype(np.int32)
+        t0 = time.perf_counter()
+        ds = data.from_numpy({"tokens": tokens}, parallelism=blocks)
+        t_put = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sh = ds.random_shuffle(seed=0)
+        rt.wait(sh._block_refs, num_returns=len(sh._block_refs),
+                timeout=600)
+        t_shuffle = time.perf_counter() - t0
+        print(f"[data-air] (a) {rows} x {seq + 1} int32 tokens "
+              f"({tokens.nbytes / 1e6:.2f} MB) in {ds.num_blocks} blocks: "
+              f"from_numpy {t_put * 1e3:.1f} ms, random_shuffle(seed=0) "
+              f"{t_shuffle * 1e3:.1f} ms ({sh.num_blocks} blocks; "
+              f"{sh.stats()})", flush=True)
+        want = [b["tokens"] for b in itertools.islice(
+            sh.iter_batches(batch_size=batch, batch_format="numpy",
+                            drop_last=True), steps)]
+        if len(want) != steps or np.array_equal(
+                np.concatenate(want), tokens[:steps * batch]):
+            fail(f"[data-air] (a) the shuffled dataset gave {len(want)} "
+                 f"batches, or its rows were not shuffled")
+        by_hand = [torch.from_numpy(b.copy()).to(dev) for b in want]
+
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params0 = gpt2_init(cfg, gen, device=dev)
+        tx = adamw(3e-4, weight_decay=0.1)
+        step = build_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx,
+                                telemetry=False)
+        # off the card every kernel takes its plain version: no launch
+        n = 1 if on_card else 0
+        per_step = {"flash_fwd": n * L, "flash_bwd_dq": n * L,
+                    "flash_bwd_dkv": n * L, "fused_ce_fwd": n,
+                    "fused_ce_bwd_dh": n, "fused_ce_bwd_dw": n}
+
+        def fresh():
+            p = tree_map(torch.clone, params0)
+            return p, tx.init(p)
+
+        # the main path: the dataset feeds the step; counters zeroed
+        # just before, read just after
+        params, opt = fresh()
+        losses, waits, bad, counts_by_step = [], [], [], []
+        sync()
+        zero_counts(fa)
+        it = sh.iter_torch_batches(batch_size=batch, drop_last=True,
+                                   device=None if on_card else dev)
+        for i in range(steps):
+            t0 = time.perf_counter()
+            b = next(it)
+            waits.append(time.perf_counter() - t0)
+            before = read_counts(fa)
+            params, opt, loss = step(params, opt, b)
+            after = read_counts(fa)
+            counts_by_step.append({k: after.get(k, 0) - before.get(k, 0)
+                                   for k in per_step})
+            losses.append(loss)
+            if not torch.equal(b["tokens"], by_hand[i]):
+                bad.append(i)
+        it.close()
+        sync()
+        counts_train = read_counts(fa)
+        fed = [float(x) for x in losses]
+        if bad:
+            fail(f"[data-air] (a) batches {bad} differ from the dataset's "
+                 f"numpy batches moved by hand")
+        if any(c != per_step for c in counts_by_step):
+            fail(f"[data-air] (a) launches by step {counts_by_step}, "
+                 f"expected {per_step} each")
+        # the same steps fed the hand-moved batches, from the same start
+        params_d, opt_d = fresh()
+        direct = []
+        for b in by_hand:
+            params_d, opt_d, loss = uncounted(
+                fa, lambda: step(params_d, opt_d, {"tokens": b}))
+            direct.append(loss)
+        direct = [float(x) for x in direct]
+        diffs = [abs(a - b) for a, b in zip(fed, direct)]
+        print(f"[data-air] (a) {steps} steps fed by iter_torch_batches "
+              f"(B={batch}, T={seq}, {L} layers, remat mlp_only, pallas CE, "
+              f"AdamW): every batch bit for bit the dataset's numpy batch "
+              f"moved by hand; launches per step {counts_by_step[0]} (all "
+              f"{steps} equal); losses {[round(x, 5) for x in fed]}; the "
+              f"hand-fed steps' {[round(x, 5) for x in direct]}, max |diff| "
+              f"{max(diffs):.3e} (tol {CE_LOSS_TOL}) [{card}]", flush=True)
+        if max(diffs) > CE_LOSS_TOL or not all(map(math.isfinite, fed)):
+            fail(f"[data-air] (a) dataset-fed losses {fed} against the "
+                 f"hand-fed {direct}")
+        del params_d, opt_d
+
+        # dataset-fed and direct, in turns (warm-up already paid)
+        walls = {"dataset": [], "direct": []}
+        for kind in DATA_TURNS:
+            p, o = fresh()
+            sync()
+            t0 = time.perf_counter()
+            if kind == "dataset":
+                it = sh.iter_torch_batches(batch_size=batch, drop_last=True,
+                                           device=None if on_card else dev)
+                for _ in range(steps):
+                    t1 = time.perf_counter()
+                    b = next(it)
+                    waits.append(time.perf_counter() - t1)
+                    p, o, _ = uncounted(fa, lambda: step(p, o, b))
+                it.close()
+            else:
+                for b in by_hand:
+                    p, o, _ = uncounted(fa, lambda: step(p, o, {"tokens": b}))
+            sync()
+            walls[kind].append(time.perf_counter() - t0)
+            del p, o
+        n_params = gpt2_param_count(cfg)
+        tps = {k: [steps * batch * seq / w for w in v]
+               for k, v in walls.items()}
+        wait_ms = sorted(w * 1e3 for w in waits)
+        p50 = wait_ms[len(wait_ms) // 2]
+        p99 = wait_ms[min(len(wait_ms) - 1, int(0.99 * len(wait_ms)))]
+        mfu = {k: [6 * n_params * t / H100_BF16_PEAK_FLOPS for t in v]
+               for k, v in tps.items()} if on_card else None
+        print(f"[data-air] (a) in turns {list(DATA_TURNS)}, {steps} steps "
+              f"each: tokens/s fed from the dataset "
+              f"{[round(x, 1) for x in tps['dataset']]}, fed directly "
+              f"{[round(x, 1) for x in tps['direct']]} (MFU "
+              f"{mfu and {k: [round(x, 4) for x in v] for k, v in mfu.items()}}"
+              f"); the wait for a batch (next() of iter_torch_batches) over "
+              f"{len(waits)} batches p50 {p50:.3f} ms, p99 {p99:.3f} ms "
+              f"[{card}]", flush=True)
+        out.update(counts_train=counts_train, losses=fed, direct=direct,
+                   tokens_per_s=tps, wait_ms_p50=p50, wait_ms_p99=p99,
+                   shuffle_ms=t_shuffle * 1e3, steps_run=steps)
+
+        # -- (b) the checkpoint ------------------------------------------
+        tree = {"params": params, "opt_state": opt}
+        nbytes = _tree_nbytes(tree)
+        sync()
+        t0 = time.perf_counter()
+        ckpt = air.Checkpoint.from_dict(tree)
+        t_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path = ckpt.to_directory(f"{tmp}/air")
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = air.Checkpoint.from_directory(path).to_dict()
+        t_read = time.perf_counter() - t0
+        ok_air = _tree_bitwise_equal(torch, tree, back)
+        sync()
+        t0 = time.perf_counter()
+        target = save_sharded(tree, f"{tmp}/sharded", step=steps)
+        t_save = time.perf_counter() - t0
+        ck2 = sharded_checkpoint_to_air(f"{tmp}/sharded", step=steps)
+        got_path = ck2.to_dict()["sharded_checkpoint_path"]
+        t0 = time.perf_counter()
+        restored = restore_sharded(got_path, device=dev)
+        sync()
+        t_restore = time.perf_counter() - t0
+        ok_sharded = got_path == target and _tree_bitwise_equal(
+            torch, tree, restored)
+        gbs = {"to_host": nbytes / t_host / 1e9,
+               "to_directory": nbytes / t_write / 1e9,
+               "from_directory": nbytes / t_read / 1e9,
+               "save_sharded": nbytes / t_save / 1e9,
+               "restore_sharded": nbytes / t_restore / 1e9}
+        print(f"[data-air] (b) {nbytes / 1e9:.3f} GB (params and AdamW "
+              f"state after (a)): Checkpoint.from_dict -> to_directory -> "
+              f"from_directory -> to_dict bit for bit {ok_air}; "
+              f"save_sharded -> sharded_checkpoint_to_air -> "
+              f"restore_sharded bit for bit {ok_sharded}; GB/s "
+              f"{ {k: round(v, 3) for k, v in gbs.items()} } [{card}]",
+              flush=True)
+        if not (ok_air and ok_sharded):
+            fail(f"[data-air] (b) a checkpoint round trip changed the tree "
+                 f"(AIR {ok_air}, sharded {ok_sharded})")
+        out["checkpoint_gbs"] = gbs
+        out["checkpoint_bytes"] = nbytes
+        host_params = back["params"]
+        del tree, back, restored, ckpt, params, opt, params0
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # -- (c) batch inference on a GPU actor --------------------------
+        pcfg = gpt2_config(preset, max_seq=seq)
+        Pred = _gpt2_predictor(pcfg, None if on_card else device,
+                               PREDICT_KV)
+        pds = data.from_numpy({"tokens": tokens[:prompts, :prompt_len]},
+                              parallelism=prompts // predict_b)
+        pckpt = air.Checkpoint.from_dict({"params": host_params})
+        cw = worker_context.core_worker()
+        for k in cw.kv_keys(PREDICT_KV):
+            cw.kv_del(k)
+        t0 = time.perf_counter()
+        rows_out = air.BatchPredictor.from_checkpoint(pckpt, Pred).predict(
+            pds, compute=data.ActorPoolStrategy(
+                size=1, num_gpus=1 if on_card else 0)).take_all()
+        t_pool = time.perf_counter() - t0
+        books = [json.loads(cw.kv_get(k)) for k in cw.kv_keys(PREDICT_KV)]
+        if len(books) != 1:
+            fail(f"[data-air] (c) {len(books)} pool actors booked launches, "
+                 f"expected 1")
+        book = books[0]
+        counts_predict = book["counts"]
+        # the actor's first batch pays its process's first forward
+        # (the kernel library's load, cuBLAS's handles)
+        warm = book["batch_s"][1:]
+        actor_rps = predict_b * len(warm) / sum(warm)
+        want_pred = {c: 0 for c in COUNTERS + CE_COUNTERS}
+        want_pred["FLASH_FWD_LAUNCHES"] = n * L * (prompts // predict_b)
+        # the driver's own predictor, batch by batch
+        mine = Pred.load(pckpt, granted=False)
+        t0 = time.perf_counter()
+        drv = [mine.forward(tokens[i:i + predict_b, :prompt_len])
+               for i in range(0, prompts, predict_b)]
+        sync()
+        t_drv = time.perf_counter() - t0
+        nxt = torch.cat([d[0] for d in drv]).cpu()
+        nll = torch.cat([d[1] for d in drv]).float().cpu()
+        last = torch.cat([d[2] for d in drv]).float().cpu()
+        ties, nll_diff = [], 0.0
+        for i, r in enumerate(rows_out):
+            nll_diff = max(nll_diff, abs(r["nll"] - float(nll[i])))
+            if r["next"] != int(nxt[i]):
+                gap = float(last[i, int(nxt[i])] - last[i, r["next"]])
+                scale = float(last[i].abs().max())
+                ties.append((i, gap, CONT_NEAR_TIE * scale))
+        print(f"[data-air] (c) BatchPredictor over {prompts} prompts of "
+              f"{prompt_len} tokens in blocks of {predict_b} on "
+              f"ActorPoolStrategy(size=1, num_gpus={1 if on_card else 0}): "
+              f"{len(rows_out)} rows in {t_pool:.2f} s with the actor's start "
+              f"({prompts / t_pool:.1f} rows/s); the actor's predict by "
+              f"batch {[round(x * 1e3, 2) for x in book['batch_s']]} ms "
+              f"({actor_rps:.1f} rows/s after the first), the driver's "
+              f"{t_drv:.3f} s ({prompts / t_drv:.1f} rows/s); the actor "
+              f"(pid {book['pid']}, CUDA_VISIBLE_DEVICES="
+              f"{book['visible']!r}) launched {counts_predict}; argmax "
+              f"parted at {len(ties)} rows {ties}; nll max |diff| "
+              f"{nll_diff:.3e} (tol {PREDICT_NLL_TOL}) [{card}]", flush=True)
+        if len(rows_out) != prompts:
+            fail(f"[data-air] (c) {len(rows_out)} rows, expected {prompts}")
+        if counts_predict != want_pred:
+            fail(f"[data-air] (c) the actor launched {counts_predict}, "
+                 f"expected {want_pred}")
+        if any(gap > bound for _, gap, bound in ties) or \
+                nll_diff > PREDICT_NLL_TOL:
+            fail(f"[data-air] (c) the actor's rows part from the driver's: "
+                 f"ties {ties}, nll max |diff| {nll_diff}")
+        if on_card and not book["visible"]:
+            fail("[data-air] (c) the pool actor held no card")
+        out["counts_predict"] = {"flash_fwd": counts_predict[
+            "FLASH_FWD_LAUNCHES"], "flash_bwd_dq": counts_predict[
+            "FLASH_BWD_DQ_LAUNCHES"], "flash_bwd_dkv": counts_predict[
+            "FLASH_BWD_DKV_LAUNCHES"]}
+        out.update(predict_rows_per_s=actor_rps,
+                   predict_rows_per_s_wall=prompts / t_pool,
+                   driver_rows_per_s=prompts / t_drv, ties=ties,
+                   nll_diff=nll_diff)
+        # the datasets' blocks (and numpy views of them) go before the
+        # store does
+        del mine, drv, host_params, pckpt, want, sh, ds, pds
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
 def _free_tcp_ports(n: int) -> int:
     """The first of ``n`` consecutive free ports."""
     import socket
@@ -5935,6 +6426,7 @@ def main() -> int:
         serve_run = phase_serve_run(torch, np, fa, card)
         serve_http = phase_serve_http(torch, np, fa, card)
     bench_cli = phase_bench_cli(torch, card)
+    data_air = phase_data_air(torch, np, fa, card)
     train_llama = phase_train_llama(torch, fa, fc, card)
     train_tele = phase_train_telemetry(torch, np, fa, card)
     llama_7b = phase_llama_7b(torch, fa, fc, card)
@@ -5954,6 +6446,8 @@ def main() -> int:
                        CE_OR_FLASH[name]],
                    "bench_cli_decode": bench_cli["decode"]["counts"][
                        CE_OR_FLASH[name]],
+                   "data_train": data_air["counts_train"].get(name, 0),
+                   "data_predict": data_air["counts_predict"].get(name, 0),
                    "train_llama": train_llama["counts"][name],
                    "train_telemetry": train_tele["counts"][name]}
         return {"launches": sum(by_path.values()),

@@ -952,10 +952,14 @@ class NodeManager:
         return self._store_client
 
     async def _spill_op(self, fn, *args):
-        """Run a spill-manager call from this event loop (local-disk
-        ops run inline; the JAX package hops remote spill backends to an
-        executor thread, and the port has none)."""
+        """Run a spill-manager call from this event loop.  Remote spill
+        backends (kv://, s3://) block on network/RPC — and kv:// rides
+        the GCS, which on a head node shares THIS loop — so remote ops
+        hop to an executor thread; local-disk ops stay inline."""
         self._store()
+        if self._spill.is_remote:
+            return await asyncio.get_running_loop().run_in_executor(
+                None, fn, *args)
         return fn(*args)
 
     async def _pull_remote(self, oid: bytes, remote_addr: str):

@@ -12,10 +12,9 @@ The spill directory is node-local and shared by every process on the node
 (handed out by the node manager at registration, like the object store
 name).
 
-A copy of ``ray_tpu/_private/spill.py`` for a local directory.  A URI
-target (``kv://``, ``s3://``, ...) goes through the Data filesystem
-seam in the JAX package, which the port does not have yet: it raises
-NotImplementedError naming ROADMAP.md queue 1 item 7.
+A copy of ``ray_tpu/_private/spill.py``: a URI target (``kv://``,
+``mem://``, ``s3://``) goes through the port's Data filesystem seam
+(``ray_tpu_torch/data/filesystem.py``).
 """
 
 from __future__ import annotations
@@ -32,29 +31,49 @@ logger = logging.getLogger(__name__)
 
 
 class SpillManager:
-    """Per-process handle on the node's spill directory: a plain path
-    spills to node-local disk (mkstemp + atomic rename, seekable range
-    reads)."""
+    """Per-process handle on the node's spill directory.
+
+    A plain path spills to node-local disk (mkstemp + atomic rename,
+    seekable range reads).  A scheme'd path (``kv://spill``,
+    ``mem://…``, ``s3://bucket/spill``) routes through the Data
+    filesystem seam instead — the collapsed analog of the reference's
+    smart_open remote spill (external_storage.py:445): same
+    object-per-file layout, remote bytes."""
 
     def __init__(self, store: ObjectStoreClient, spill_dir: str):
-        if "://" in (spill_dir or ""):
-            raise NotImplementedError(
-                f"spilling to {spill_dir!r} needs the Data filesystem "
-                f"seam, which is not ported yet: ROADMAP.md queue 1 "
-                f"item 7 (data); give a local directory")
         self.store = store
         self.dir = spill_dir
         self._ensured = False
+        self._remote = "://" in (spill_dir or "")
+        #: resolved-once backend for remote schemes (cloud backends are
+        #: expensive to construct; never re-resolve on the read path)
+        self._fs_cached = None
 
     @property
     def enabled(self) -> bool:
         return bool(self.dir)
 
+    @property
+    def is_remote(self) -> bool:
+        return self._remote
+
+    def _fs(self):
+        if self._fs_cached is None:
+            from ray_tpu_torch.data import filesystem as fs_mod
+
+            self._fs_cached = fs_mod.resolve(self.dir)[0]
+        return self._fs_cached
+
     def _path(self, oid: bytes) -> str:
+        if self._remote:
+            from ray_tpu_torch.data.filesystem import join
+
+            # scheme-less operand for the cached backend
+            return join(self.dir.split("://", 1)[1], oid.hex())
         return os.path.join(self.dir, oid.hex())
 
     def _ensure_dir(self):
-        if not self._ensured:
+        if not self._remote and not self._ensured:
             os.makedirs(self.dir, exist_ok=True)
             self._ensured = True
 
@@ -78,20 +97,28 @@ class SpillManager:
             return False  # raced with eviction/delete
         try:
             with buf:
-                fd, tmp = tempfile.mkstemp(dir=self.dir, suffix=".tmp")
-                try:
-                    with os.fdopen(fd, "wb") as f:
-                        f.write(buf.data)
-                        f.write(buf.metadata)
-                    os.rename(tmp, self._path(oid.binary()))
-                except BaseException:
+                if self._remote:
+                    with self._fs().open_output(
+                            self._path(oid.binary())) as f:
+                        f.write(bytes(buf.data))
+                        f.write(bytes(buf.metadata))
+                else:
+                    fd, tmp = tempfile.mkstemp(dir=self.dir,
+                                               suffix=".tmp")
                     try:
-                        os.unlink(tmp)
-                    except OSError:
-                        pass
-                    raise
-        except Exception as e:  # noqa: BLE001 - a failed spill must
-            # never crash the allocation path, only report 0 bytes freed
+                        with os.fdopen(fd, "wb") as f:
+                            f.write(buf.data)
+                            f.write(buf.metadata)
+                        os.rename(tmp, self._path(oid.binary()))
+                    except BaseException:
+                        try:
+                            os.unlink(tmp)
+                        except OSError:
+                            pass
+                        raise
+        except Exception as e:  # noqa: BLE001 - remote backends raise
+            # their own error types; a failed spill must never crash the
+            # allocation path, only report 0 bytes freed
             logger.warning("spill of %s failed: %s", oid, e)
             return False
         self.store.delete(oid)
@@ -103,6 +130,10 @@ class SpillManager:
         even after spilling/eviction (reference: plasma
         CreateAndSpillIfNeeded / fallback allocator, client.h:128).
         Readers find it via the normal spill restore-on-get path."""
+        if self._remote:
+            with self._fs().open_output(self._path(oid)) as f:
+                f.write(payload)
+            return
         self._ensure_dir()
         fd, tmp = tempfile.mkstemp(dir=self.dir, suffix=".tmp")
         try:
@@ -121,6 +152,8 @@ class SpillManager:
     def contains(self, oid: bytes) -> bool:
         if not self.enabled:
             return False
+        if self._remote:
+            return self._fs().exists(self._path(oid))
         return os.path.exists(self._path(oid))
 
     def read(self, oid: bytes) -> Optional[bytes]:
@@ -130,6 +163,9 @@ class SpillManager:
         if not self.enabled:
             return None
         try:
+            if self._remote:
+                with self._fs().open_input(self._path(oid)) as f:
+                    return f.read()
             with open(self._path(oid), "rb") as f:
                 return f.read()
         except FileNotFoundError:
@@ -137,10 +173,15 @@ class SpillManager:
 
     def read_range(self, oid: bytes, off: int, length: int
                    ) -> Optional[bytes]:
-        """One chunk of a spilled object."""
+        """One chunk of a spilled object (local: seek; remote: the
+        backend stream is read through and sliced)."""
         if not self.enabled:
             return None
         try:
+            if self._remote:
+                with self._fs().open_input(self._path(oid)) as f:
+                    f.seek(off)
+                    return f.read(length)
             with open(self._path(oid), "rb") as f:
                 f.seek(off)
                 return f.read(length)
@@ -151,12 +192,17 @@ class SpillManager:
         if not self.enabled:
             return None
         try:
+            if self._remote:
+                return self._fs().size(self._path(oid))
             return os.path.getsize(self._path(oid))
         except OSError:
             return None
 
     def delete(self, oid: bytes) -> None:
         if not self.enabled:
+            return
+        if self._remote:
+            self._fs().delete(self._path(oid))
             return
         try:
             os.unlink(self._path(oid))
@@ -167,6 +213,19 @@ class SpillManager:
         """(oid, size) of every spilled object (observability)."""
         if not self.enabled:
             return []
+        if self._remote:
+            fs = self._fs()
+            out = []
+            for p in fs.list(self.dir.split("://", 1)[1]):
+                name = p.rsplit("/", 1)[-1]
+                try:
+                    oid = bytes.fromhex(name)
+                except ValueError:
+                    continue
+                sz = self.size(oid)
+                if sz is not None:
+                    out.append((oid, sz))
+            return out
         if not os.path.isdir(self.dir):
             return []
         out = []

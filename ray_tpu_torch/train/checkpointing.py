@@ -7,8 +7,8 @@ runs on one device, so a checkpoint is the same ``step_N/`` directory
 holding one ``torch.save`` file of the tree (tensors copied to the
 host).  Every save and restore is timed and booked into the trainer's
 trainwatch state as the JAX package books it.  Meshes wait for
-ROADMAP.md queue 1 item 7 (parallel/), the AIR checkpoint for the same
-item (``air/checkpoint.py``).
+ROADMAP.md queue 1 item 7.7 (parallel/).  ``sharded_checkpoint_to_air``
+wraps a checkpoint directory as an AIR Checkpoint (``air/``).
 """
 
 from __future__ import annotations
@@ -31,8 +31,8 @@ TREE_FILE = "tree.pt"
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 item 7 "
-        f"(parallel/, air/checkpoint.py); the port checkpoints one device")
+        f"{what} is not ported yet: ROADMAP.md queue 1 item 7.7 "
+        f"(parallel/); the port checkpoints one device")
 
 
 def _step_dir(path: str, step: Optional[int]) -> str:
@@ -121,7 +121,7 @@ def restore_sharded(path: str, *, step: Optional[int] = None,
     the CPU.  The pause, from the read to the last leaf on its device,
     is timed and journaled as ``save_sharded``'s.  ``mesh``/``axes``/
     ``rules`` (re-sharding) raise NotImplementedError naming
-    ROADMAP.md queue 1 item 7."""
+    ROADMAP.md queue 1 item 7.7."""
     if mesh is not None or axes is not None or rules is not None:
         raise _not_ported("restoring onto a mesh")
     target = os.path.abspath(_step_dir(path, step))
@@ -151,7 +151,14 @@ def latest_step(path: str) -> Optional[int]:
 
 
 def sharded_checkpoint_to_air(path: str, step: Optional[int] = None):
-    """The JAX package wraps the directory as an AIR Checkpoint; the
-    AIR layer is not ported (NotImplementedError naming ROADMAP.md
-    queue 1 item 7)."""
-    raise _not_ported("an AIR Checkpoint (air/checkpoint.py)")
+    """Wrap a checkpoint directory as an AIR Checkpoint so it flows
+    through session.report / Tune bookkeeping like any other artifact
+    (the directory itself stays in place: a checkpoint is too big to
+    ship through the object store).  As ``ray_tpu/train/
+    checkpointing.py:134-143``: a dict holding the directory's absolute
+    path under ``"sharded_checkpoint_path"``."""
+    from ray_tpu_torch.air import Checkpoint
+
+    return Checkpoint.from_dict({
+        "sharded_checkpoint_path": os.path.abspath(
+            _step_dir(path, step))})

@@ -6,7 +6,9 @@ runtime has neither in sys.modules, importing its entry module, the
 serve control plane (the HTTP proxy among it), the metrics publisher,
 the CLI and the rest of the runtime's front door leaves torch out too,
 and the object store is built from the port's own copy of its
-source."""
+source.  The Data and AIR layers import neither torch, pyarrow nor
+pandas when imported, and a data task's worker holds none of them.
+"""
 
 import ast
 import os
@@ -132,7 +134,60 @@ def test_port_files_exist():
             "ray_tpu_torch/_private/http_server.py",
             "ray_tpu_torch/dashboard/app.py",
             "ray_tpu_torch/dashboard/frontend.py",
-            "ray_tpu_torch/bench.py"} <= names
+            "ray_tpu_torch/bench.py",
+            # Data and AIR
+            *DATA_AIR_FILES} <= names
+
+
+#: the Data and AIR layers: besides the rest, none of them imports
+#: pyarrow or pandas at module level (the layer runs without them)
+DATA_AIR_FILES = tuple(
+    [f"ray_tpu_torch/data/{m}.py" for m in (
+        "__init__", "block", "dataset", "datasource", "filesystem",
+        "shuffle", "streaming")] +
+    [f"ray_tpu_torch/air/{m}.py" for m in (
+        "__init__", "batch_predictor", "checkpoint", "config", "result",
+        "session")])
+
+
+def _module_level_roots(path: Path):
+    """The roots a module imports when it is imported: import
+    statements outside every def and class body."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            continue
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, (node.module or "").split(".")[0]
+        else:
+            todo.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("rel", DATA_AIR_FILES)
+def test_data_and_air_import_no_pyarrow_or_pandas_at_module_level(rel):
+    bad = [(line, mod) for line, mod in _module_level_roots(ROOT / rel)
+           if mod in ("pyarrow", "pandas", "torch")]
+    assert not bad, f"{rel} imports {bad} at module level"
+
+
+def test_module_level_scanner_skips_function_bodies(tmp_path):
+    src = tmp_path / "planted.py"
+    src.write_text("import numpy\n"
+                   "try:\n"
+                   "    import pandas\n"
+                   "except ImportError:\n"
+                   "    pass\n"
+                   "def f():\n"
+                   "    import pyarrow\n"
+                   "class C:\n"
+                   "    import torch\n")
+    assert sorted(_module_level_roots(src)) == [(1, "numpy"), (3, "pandas")]
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -192,6 +247,52 @@ def test_worker_entry_module_imports_no_torch_jax_or_reference():
         "metrics.Counter('isolation_probe_total').inc()")
     assert not roots & {"torch", "jax", "jaxlib", "ray_tpu", "aiohttp",
                         "yaml", "pydantic"}
+
+
+def test_data_and_air_import_no_torch_pyarrow_or_pandas():
+    roots = _fresh_imports(
+        "import ray_tpu_torch.data, ray_tpu_torch.air; "
+        "from ray_tpu_torch.data import block, shuffle, streaming, "
+        "datasource, filesystem; from ray_tpu_torch._private import spill")
+    assert "ray_tpu_torch" in roots
+    assert not roots & {"torch", "pyarrow", "pandas", "jax", "jaxlib",
+                        "ray_tpu"}
+
+
+DATA_TASK = r"""
+import sys
+import ray_tpu_torch as rt
+from ray_tpu_torch import data
+
+rt.init(num_cpus=2, num_gpus=0, object_store_memory=64 * 2**20,
+        log_to_driver=False)
+try:
+    def report(batch):
+        import os
+        mods = sorted({m.split(".")[0] for m in sys.modules} &
+                      {"torch", "pyarrow", "pandas", "jax", "ray_tpu"})
+        return {"pid": [os.getpid()], "mods": [",".join(mods)]}
+
+    ds = data.range(40, parallelism=4).map_batches(
+        lambda b: {"k": b["id"] % 3, "v": b["id"]}).random_shuffle(seed=1)
+    rows = ds.groupby("k").count().map_batches(report).take_all()
+    print("ROWS", rows)
+finally:
+    rt.shutdown()
+"""
+
+
+def test_a_data_tasks_worker_imports_no_torch_pyarrow_or_pandas():
+    """The port's data tasks (a fused map stage, the shuffle's map and
+    reduce tasks, a groupby) run in worker processes that hold none of
+    torch, pyarrow and pandas: blocks are numpy columns."""
+    out = subprocess.run([sys.executable, "-c", DATA_TASK], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = next(ln for ln in out.stdout.splitlines()
+                if ln.startswith("ROWS "))
+    rows = ast.literal_eval(line[len("ROWS "):])
+    assert rows and all(r["mods"] == "" for r in rows), rows
 
 
 def test_object_store_builds_from_the_ports_source():
