@@ -271,6 +271,25 @@ Phases, each fatal on failure (any failure exits non-zero):
             flash forwards and no other launch in the actor's process (its
             counts booked in the cluster KV), rows/s in the actor and in
             the driver.
+12g. moe-mesh — the device plane and mixture-of-experts: (a) a world-1
+            NCCL process group on the card and parallel.make_mesh over it
+            (six named axes), GPT-2-124M's widths with 8 experts, top-2
+            (capacity 1.25, aux 0.01, whole-block remat, pallas CE)
+            placed by shard_params; (b) one f32 step at B=2, T=1024
+            through the kernels held against the plain versions (plain
+            attention, dense CE: loss, gradient norm, wte gradient),
+            then 5 timed bf16 AdamW steps at B=8, T=1024 after a warm-up:
+            step ms, tokens/s, peak memory against the reckoned peak, a
+            profile of one more step (device time by kind),
+            24/12/12/1/1/1 launches a step (worked out from the code:
+            the remat recompute runs each block's flash forward again)
+            against the measured; (c) the same step through
+            build_train_step(mesh=...) on the world-1 mesh against the
+            unsharded step from the same start (bit for bit, or the
+            largest difference); (d) a declared collective group of two
+            runtime actors, one granted the card: allreduce, allgather,
+            broadcast and send/recv on a CUDA tensor against numpy, µs
+            an op.
 13. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
             whole block, ce_impl="pallas": a warm-up and 5 timed steps
             (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
@@ -6375,6 +6394,376 @@ def phase_data_air(torch, np, fa, card: str, preset: str = "gpt2",
         torch.cuda.empty_cache()
     return out
 
+#: phase moe-mesh (12g): GPT-2-124M's widths with experts in every block
+#: (Mixtral-8x7B's routing: 8 experts, top-2), its timed batch, the
+#: small f32 batch held against the plain versions, the timed steps
+#: after a warm-up, and the declared group's tensor and rounds
+MOE_KW = dict(n_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+              moe_aux_weight=0.01, remat_policy="full", ce_impl="pallas")
+MOE_B, MOE_CHECK_B, MOE_STEPS = 8, 2, 5
+MOE_SEED = 23
+GROUP_ELEMS, GROUP_ROUNDS = 1 << 18, 20
+
+
+class _GroupMember:
+    """A member of a declared collective group on the port's runtime
+    (phase moe-mesh (d)): rank 0 holds the card when the node has one,
+    rank 1 none.  ``run`` does allreduce, allgather, broadcast and
+    send/recv on its tensor (on the card where it has one), returns the
+    results on the host and the µs each op took over ``rounds``."""
+
+    def __init__(self, rank: int, world: int, name: str):
+        from ray_tpu_torch.parallel import collective
+
+        collective.init_collective_group(world, rank, group_name=name)
+        self.rank, self.name = rank, name
+
+    def run(self, n: int, rounds: int) -> dict:
+        import os
+
+        import torch
+
+        from ray_tpu_torch.parallel import collective as col
+
+        dev = "cuda" if torch.cuda.is_available() else "cpu"
+        x = torch.arange(n, dtype=torch.float32, device=dev) + 1000 * self.rank
+        g = self.name
+
+        def sync():
+            if dev == "cuda":
+                torch.cuda.synchronize()
+
+        def p2p():
+            if self.rank == 0:
+                col.send(x, 1, group_name=g)
+                return x
+            return col.recv(0, group_name=g, like=x)
+
+        ops = {"allreduce": lambda: col.allreduce(x, group_name=g),
+               "allgather": lambda: torch.stack(col.allgather(
+                   x, group_name=g)),
+               "broadcast": lambda: col.broadcast(x, src_rank=0,
+                                                  group_name=g),
+               "send_recv": p2p}
+        out = {"device": str(x.device),
+               "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+               "result_devices": {}, "results": {}, "us": {}}
+        for name, op in ops.items():
+            got = op()
+            sync()
+            out["result_devices"][name] = str(got.device)
+            out["results"][name] = got.cpu().numpy()
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                op()
+            sync()
+            out["us"][name] = (time.perf_counter() - t0) / rounds * 1e6
+        # the group's keys go with the runtime: a member that deleted
+        # them here could do so before the other has read its part
+        col.barrier(group_name=g)
+        return out
+
+
+def moe_step_counts(cfg) -> dict:
+    """Launches of each kernel in one AdamW step of GPT-2 with experts
+    under whole-block remat, flash attention and the fused CE, worked
+    out from the code: gpt2_hidden runs each block once forward and
+    once more in the backward (torch.utils.checkpoint recomputes it),
+    each run one flash forward; the block's backward one dQ and one
+    dK/dV; the head one of each fused CE kernel."""
+    L = cfg.n_layer
+    return {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "fused_ce_fwd": 1, "fused_ce_bwd_dh": 1, "fused_ce_bwd_dw": 1}
+
+
+def moe_peak_bytes(cfg, batch: int, seq: int) -> dict:
+    """The step's memory, reckoned before the run: f32 parameters,
+    gradients and two AdamW moments (16 bytes a parameter); the block
+    inputs that whole-block remat keeps (L x B x T x d in the compute
+    dtype); and one block's MoE tensors at a time in its recompute and
+    backward, N x E x C elements each in the compute dtype: the slot
+    one-hot, the combine tensor, the combine's gradient, and the 1-byte
+    mask they are made from."""
+    from ray_tpu_torch.models.gpt2 import gpt2_param_count
+
+    n_params = gpt2_param_count(cfg) + (cfg.padded_vocab - cfg.vocab_size) \
+        * cfg.d_model
+    el = 2 if cfg.dtype is not None and str(cfg.dtype).endswith(
+        "bfloat16") else 4
+    N = batch * seq
+    C = math.ceil(N * cfg.moe_top_k / cfg.n_experts * cfg.moe_capacity_factor)
+    nec = N * cfg.n_experts * C
+    parts = {"state": 16 * n_params,
+             "block_inputs": cfg.n_layer * N * cfg.d_model * el,
+             "moe_block": nec * (3 * el + 1)}
+    parts["total"] = sum(parts.values())
+    parts.update(params=n_params, tokens=N, capacity=C)
+    return parts
+
+
+def _tree_max_diff(torch, a, b) -> float:
+    from ray_tpu_torch.train.optim import tree_leaves
+
+    diff = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x = x.to_local() if hasattr(x, "to_local") else x
+        y = y.to_local() if hasattr(y, "to_local") else y
+        diff = max(diff, float((x.float() - y.float()).abs().max()))
+    return diff
+
+
+def phase_moe_mesh(torch, np, fa, card: str, preset: str = "gpt2",
+                   device: str = "cuda", seq: int = TRAIN_T,
+                   batch: int = MOE_B, check_batch: int = MOE_CHECK_B,
+                   steps: int = MOE_STEPS, group_elems: int = GROUP_ELEMS,
+                   group_rounds: int = GROUP_ROUNDS) -> dict:
+    """12g: the device plane and mixture-of-experts on the card.  (a) a
+    world-1 NCCL process group on the card (localhost rendezvous), a
+    make_mesh over it with the six named axes, GPT-2 (``preset``'s
+    widths, MOE_KW: 8 experts, top-2, capacity 1.25, aux 0.01, whole
+    -block remat, pallas CE, flash) placed by shard_params; (b) one f32
+    step at ``check_batch`` rows through the kernels held against the
+    step through the plain versions (plain attention, dense CE), then
+    ``steps`` timed bf16 AdamW steps at ``batch`` rows after a warm-up:
+    step ms (median), tokens/s, peak memory against the reckoned one,
+    launches a step against moe_step_counts, the loss finite and
+    falling; (c) the same step through build_train_step(mesh=...) on
+    the world-1 mesh against the unsharded step from the same start:
+    bit for bit, or the largest difference printed; (d) a declared
+    collective group of two runtime actors, one granted the card,
+    running allreduce, allgather, broadcast and send/recv on a CUDA
+    tensor against numpy, µs an op.  ``preset``/``device`` and the
+    sizes let it run cut down on the CPU (gloo, no launches)."""
+    import gc
+    import shutil
+
+    import torch.distributed as dist
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.gpt2 import (gpt2_config, gpt2_init,
+                                           gpt2_logical_axes, gpt2_loss)
+    from ray_tpu_torch.parallel import MeshSpec, make_mesh, shard_params
+    from ray_tpu_torch.parallel.mesh import mesh_shape
+    from ray_tpu_torch.train import adamw, build_train_step
+    from ray_tpu_torch.train.optim import tree_leaves, tree_map
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    out = {}
+    # -- (a) the process group and the mesh ------------------------------
+    backend = "nccl" if on_card else "gloo"
+    port = _free_tcp_ports(1)
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(MeshSpec())
+        t_group = time.perf_counter() - t0
+        got = dist.get_backend()
+        print(f"[moe-mesh] (a) process group: backend {got}, world size "
+              f"{dist.get_world_size()}, rank {dist.get_rank()}; mesh "
+              f"{mesh_shape(mesh)} on {mesh.device_type} (group and mesh in "
+              f"{t_group:.2f} s) [{card}]", flush=True)
+        if got != backend or mesh.device_type != dev.type:
+            fail(f"[moe-mesh] (a) backend {got} on {mesh.device_type}, "
+                 f"expected {backend} on {dev.type}")
+        cfg = gpt2_config(preset, max_seq=seq, **MOE_KW)
+        axes = gpt2_logical_axes(cfg)
+        gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+        params0 = gpt2_init(cfg, gen, device=dev)
+        placed = shard_params(params0, axes, mesh)
+        kinds = sorted({str(p.placements) for p in tree_leaves(placed)})
+        print(f"[moe-mesh] (a) GPT-2 {preset} widths with {cfg.n_experts} "
+              f"experts, top-{cfg.moe_top_k}: {len(tree_leaves(placed))} "
+              f"leaves placed by shard_params(DEFAULT_RULES) as DTensors, "
+              f"placements {kinds}", flush=True)
+        del placed
+
+        # -- (b) the step against the plain versions, then timed -----------
+        L = cfg.n_layer
+        want = moe_step_counts(cfg) if on_card else {
+            k: 0 for k in moe_step_counts(cfg)}
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        small = {"tokens": torch.randint(0, cfg.vocab_size,
+                                         (check_batch, seq + 1),
+                                         generator=gen, device=dev)}
+        head_only = torch.ones(cfg.padded_vocab, dtype=torch.bool,
+                               device=dev)
+        head_only[small["tokens"][:, :-1].flatten()] = False
+        if on_card:
+            kern = one_step(torch, fa, params0, small, cfg32)
+            plain = uncounted(fa, lambda: one_step(
+                torch, fa, params0, small, dataclasses.replace(
+                    cfg32, use_flash=False, ce_impl="dense")))
+            vs, text, ok = compare_steps(kern, plain, "dense", head_only)
+            print(f"[moe-mesh] (b) f32, B={check_batch}, T={seq}: the step "
+                  f"through the kernels loss {kern['loss']:.6f}, grad norm "
+                  f"{kern['grad_norm']:.6f}, launches {kern['counts']} "
+                  f"(expected {want}){text} [{card}]", flush=True)
+            if not ok or kern["counts"] != want or kern["nonfinite"]:
+                fail(f"[moe-mesh] (b) the f32 step disagrees with the plain "
+                     f"versions or launched {kern['counts']}: {vs}")
+            out["f32_vs_plain"] = vs
+            del kern, plain
+        big = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                                       generator=gen, device=dev)}
+        tx = adamw(3e-4, weight_decay=0.1)
+        step = build_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx,
+                                telemetry=False)
+
+        def fresh():
+            p = tree_map(torch.clone, params0)
+            return p, tx.init(p)
+
+        reckoned = moe_peak_bytes(cfg, batch, seq)
+        print(f"[moe-mesh] (b) reckoned before the run: {reckoned['params']} "
+              f"parameters, N={reckoned['tokens']} tokens, capacity "
+              f"C={reckoned['capacity']} slots an expert; f32 state "
+              f"{reckoned['state'] / 2**30:.2f} GiB + block inputs "
+              f"{reckoned['block_inputs'] / 2**30:.2f} GiB + one block's MoE "
+              f"tensors {reckoned['moe_block'] / 2**30:.2f} GiB = "
+              f"{reckoned['total'] / 2**30:.2f} GiB peak", flush=True)
+        params, opt = fresh()
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        walls, losses, by_step = [], [], []
+        zero_counts(fa)
+        for i in range(steps + 1):
+            before = read_counts(fa)
+            sync()
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, big)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            after = read_counts(fa)
+            by_step.append({k: after.get(k, 0) - before.get(k, 0)
+                            for k in want})
+            losses.append(float(loss))
+        counts = read_counts(fa)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        med = sorted(walls[1:])[len(walls[1:]) // 2]
+        tps = batch * seq / med
+        print(f"[moe-mesh] (b) bf16, B={batch}, T={seq}, {L} layers: "
+              f"{steps} timed steps after a warm-up, step ms "
+              f"{[round(w * 1e3, 2) for w in walls]}, median "
+              f"{med * 1e3:.2f} ms, {tps:.1f} tokens/s; peak allocated "
+              f"{peak / 2**30:.2f} GiB (reckoned "
+              f"{reckoned['total'] / 2**30:.2f}); launches a step "
+              f"{by_step[0]} (predicted {want}; all {steps + 1} equal: "
+              f"{all(c == want for c in by_step)}); losses "
+              f"{[round(x, 4) for x in losses]} [{card}]", flush=True)
+        if any(c != want for c in by_step):
+            fail(f"[moe-mesh] (b) launches by step {by_step}, expected "
+                 f"{want} each")
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            fail(f"[moe-mesh] (b) the loss is not finite and falling: "
+                 f"{losses}")
+        out.update(step_ms=med * 1e3, tokens_per_s=tps, peak_gib=peak / 2**30,
+                   reckoned_gib=reckoned["total"] / 2**30, losses=losses,
+                   per_step=by_step[0], predicted=want)
+        if on_card:
+            # where the step's device time goes (one more step, outside
+            # the main path's count)
+            out["profile"] = uncounted(fa, lambda: profile_step(
+                torch, {"batch": big, "moe": [step, params, opt]}, "moe",
+                med * 1e3, card, tag="moe-mesh"))
+        del params, opt
+
+        # -- (c) the sharded step against the unsharded one ----------------
+        p_ref, o_ref = fresh()
+        p_ref, o_ref, l_ref = uncounted(fa, lambda: step(p_ref, o_ref, big))
+        p_sh = shard_params(tree_map(torch.clone, params0), axes, mesh)
+        o_sh = tx.init(p_sh)
+        sstep = build_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx,
+                                 mesh=mesh, logical_axes=axes,
+                                 telemetry=False)
+        before = read_counts(fa)
+        p_sh, o_sh, l_sh = sstep(p_sh, o_sh, big)
+        sync()
+        after = read_counts(fa)
+        counts = read_counts(fa)
+        sharded_counts = {k: after.get(k, 0) - before.get(k, 0)
+                          for k in want}
+        d_params = _tree_max_diff(torch, p_sh, p_ref)
+        d_mu = _tree_max_diff(torch, o_sh["mu"], o_ref["mu"])
+        d_loss = abs(float(l_sh) - float(l_ref))
+        bitwise = d_params == 0.0 and d_mu == 0.0 and d_loss == 0.0
+        why = ("" if bitwise else
+               "; not bit for bit: the sharded step's loss and updates run "
+               "through other code (gathered local views, the mesh's "
+               "all-reduce of the loss)")
+        print(f"[moe-mesh] (c) build_train_step(mesh=...) on the world-1 "
+              f"mesh vs the unsharded step from the same start: loss "
+              f"{float(l_sh):.6f} vs {float(l_ref):.6f}; max |diff| of the "
+              f"updated parameters {d_params:.3e}, of the first moments "
+              f"{d_mu:.3e}; bit for bit: {bitwise}{why}; launches "
+              f"{sharded_counts} (the unsharded step's {want}) [{card}]",
+              flush=True)
+        if sharded_counts != want or d_loss > CE_LOSS_TOL or \
+                d_params > 2 * 3e-4:
+            fail(f"[moe-mesh] (c) the sharded step differs: loss |diff| "
+                 f"{d_loss}, params {d_params}, launches {sharded_counts}")
+        out.update(sharded_bitwise=bitwise, sharded_param_diff=d_params,
+                   counts=counts)
+        del p_ref, o_ref, p_sh, o_sh
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- (d) the declared collective group on the runtime -----------------
+    shm_free = shutil.disk_usage("/dev/shm").free
+    store = min(RUN_STORE_MAX, shm_free // 2) // 2**20 * 2**20
+    rt.init(num_cpus=4, num_gpus=1 if on_card else 0,
+            object_store_memory=store)
+    try:
+        member = rt.remote(_GroupMember)
+        a = rt.remote(num_gpus=1 if on_card else 0)(_GroupMember).remote(
+            0, 2, "chip_smoke_moe_mesh")
+        b = member.remote(1, 2, "chip_smoke_moe_mesh")
+        r0, r1 = rt.get([a.run.remote(group_elems, group_rounds),
+                         b.run.remote(group_elems, group_rounds)],
+                        timeout=600)
+    finally:
+        rt.shutdown()
+    x = [np.arange(group_elems, dtype=np.float32) + 1000 * r for r in (0, 1)]
+    expect = {"allreduce": x[0] + x[1], "allgather": np.stack(x),
+              "broadcast": x[0]}
+    bad = []
+    for r, res in ((0, r0), (1, r1)):
+        for name, w in expect.items():
+            if not np.array_equal(res["results"][name], w):
+                bad.append(f"rank {r} {name}")
+    if not np.array_equal(r1["results"]["send_recv"], x[0]):
+        bad.append("rank 1 recv")
+    print(f"[moe-mesh] (d) declared group of 2 runtime actors (rank 0 on "
+          f"{r0['device']}, CUDA_VISIBLE_DEVICES={r0['visible']!r}; rank 1 "
+          f"on {r1['device']}), {group_elems} f32 elements: results on "
+          f"{r0['result_devices']} / {r1['result_devices']}, equal to "
+          f"numpy's: {not bad}; µs an op over {group_rounds} rounds, rank 0 "
+          f"{ {k: round(v, 1) for k, v in r0['us'].items()} }, rank 1 "
+          f"{ {k: round(v, 1) for k, v in r1['us'].items()} } [{card}]",
+          flush=True)
+    if bad:
+        fail(f"[moe-mesh] (d) {bad} differ from numpy's")
+    if on_card and not (r0["device"].startswith("cuda") and all(
+            d.startswith("cuda") for d in r0["result_devices"].values())):
+        fail(f"[moe-mesh] (d) rank 0 ran on {r0['device']}, results on "
+             f"{r0['result_devices']}: expected the card")
+    out["group_us"] = {"rank0": r0["us"], "rank1": r1["us"]}
+    return out
+
+
 def _free_tcp_ports(n: int) -> int:
     """The first of ``n`` consecutive free ports."""
     import socket
@@ -6427,6 +6816,7 @@ def main() -> int:
         serve_http = phase_serve_http(torch, np, fa, card)
     bench_cli = phase_bench_cli(torch, card)
     data_air = phase_data_air(torch, np, fa, card)
+    moe_mesh = phase_moe_mesh(torch, np, fa, card)
     train_llama = phase_train_llama(torch, fa, fc, card)
     train_tele = phase_train_telemetry(torch, np, fa, card)
     llama_7b = phase_llama_7b(torch, fa, fc, card)
@@ -6448,6 +6838,7 @@ def main() -> int:
                        CE_OR_FLASH[name]],
                    "data_train": data_air["counts_train"].get(name, 0),
                    "data_predict": data_air["counts_predict"].get(name, 0),
+                   "moe_mesh": moe_mesh["counts"].get(name, 0),
                    "train_llama": train_llama["counts"][name],
                    "train_telemetry": train_tele["counts"][name]}
         return {"launches": sum(by_path.values()),
@@ -6455,7 +6846,8 @@ def main() -> int:
                 "launches_per_train_step":
                     train_ce["counts"][name] / train_ce["steps_run"],
                 "launches_per_llama_train_step":
-                    train_llama["counts"][name] / train_llama["steps_run"]}
+                    train_llama["counts"][name] / train_llama["steps_run"],
+                "launches_per_moe_train_step": moe_mesh["per_step"][name]}
 
     # each kernel at llama-1b's shapes (phase train-llama)
     at_llama = {"flash_fwd": train_llama["kernels"]["flash"]["fwd"],

@@ -24,7 +24,7 @@ XLA's cost harvest (``compiled.cost_analysis()`` FLOPs and bytes,
 ``memory_analysis()`` peak HBM) has no counterpart in eager PyTorch, so
 a program's ``xla_flops``, ``bytes_accessed``, ``arithmetic_intensity``,
 ``peak_hbm_bytes`` and ``mfu`` stay in its block as None (a cost model
-is ROADMAP.md queue 1 item 7).  The rest of the JAX module waits for
+is ROADMAP.md queue 1 item 7.12).  The rest of the JAX module waits for
 the same item.
 """
 
@@ -354,11 +354,11 @@ class ProgramRegistry:
         `program`.  The wrapper executes `fn` itself.  ``n_devices`` is
         the JAX registry's keyword (the devices a sharded program runs
         on); only 1 is ported: more raise NotImplementedError naming
-        ROADMAP.md queue 1 item 7."""
+        ROADMAP.md queue 1 item 7.7b."""
         if n_devices > 1:
             raise NotImplementedError(
                 f"a program over n_devices={n_devices} is not ported yet: "
-                f"ROADMAP.md queue 1 item 7 (parallel/); the port's "
+                f"ROADMAP.md queue 1 item 7.7b; the port's "
                 f"programs run on one device")
         registry = self
         seen: set = set()

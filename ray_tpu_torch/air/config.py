@@ -9,7 +9,7 @@ asks for cards: ``use_gpu`` and ``num_gpus_per_worker`` (the runtime's
 ``num_tpus_per_worker``; given the TPU names it raises the ValueError
 that ``remote(num_tpus=...)`` raises.  ``topology`` and ``mesh`` (a
 slice-aware mesh) raise NotImplementedError naming ROADMAP.md queue 1
-item 7.7 (``parallel/``).  FailureConfig, CheckpointConfig and
+item 7.7b.  FailureConfig, CheckpointConfig and
 RunConfig are the reference's.
 """
 
@@ -19,7 +19,8 @@ import dataclasses
 from typing import Any, Dict, Optional, Union
 
 #: the ROADMAP item a mesh waits for
-MESH_ITEM = "ROADMAP.md queue 1 item 7.7 (parallel/)"
+MESH_ITEM = ("ROADMAP.md queue 1 item 7.7b (ScalingConfig's topology "
+             "and mesh)")
 
 
 @dataclasses.dataclass(init=False)

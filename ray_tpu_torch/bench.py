@@ -23,9 +23,13 @@ reference's CPU smoke configurations.  Without a card and without that
 request it raises as ``resolve_device`` does: nothing falls back to the
 CPU.  MFU is stated against one NVIDIA H100 SXM's dense bf16 peak, 989
 TFLOP/s (NVIDIA's data sheet, at 700 W); a run off the card reports no
-MFU.  One device only: ``--chips`` > 1 and every ``--mesh`` but ``data``
-raise NotImplementedError naming ROADMAP.md queue 1 item 7.7, and
-``--autopilot`` and the perf ledger's append item 7.12.  The JAX
+MFU.  The training modes run over the ranks of torch.distributed's
+default process group when one is initialized (``--mesh`` data, fsdp
+or data_fsdp: ``parallel.make_mesh``), else on one device; ``--chips``
+above the group's world size raises ValueError.  ``--mesh tensor`` (a
+tensor-parallel decode mesh) raises NotImplementedError naming
+ROADMAP.md queue 1 item 7.7b, and ``--autopilot`` and the perf
+ledger's append item 7.12.  The JAX
 harness's TPU probes (``_probe_tpu``, ``_pin_cpu``, ``ensure_backend``)
 and its TPU result record have no counterpart.
 
@@ -64,11 +68,24 @@ H100_BF16_PEAK_FLOPS = H100_SXM["bf16_flops"]
 #: vs_baseline = MFU / this, as ``bench.py``'s BASELINE_MFU
 BASELINE_MFU = 0.40
 
-#: what a mesh over several devices waits for
-MESH_ITEM = "ROADMAP.md queue 1 item 7.7 (parallel/)"
+#: what a tensor-parallel decode mesh waits for
+MESH_ITEM = ("ROADMAP.md queue 1 item 7.7b (tensor-parallel decode and "
+             "its cache shardings)")
+#: time_config's layouts (bench.py:335-349)
+TRAIN_MESHES = ("data", "fsdp", "data_fsdp")
 #: what --autopilot and the perf ledger's append wait for
 AUTOPILOT_ITEM = ("ROADMAP.md queue 1 item 7.12 (tools/autopilot; the "
                   "perf ledger, tools/perfledger.py, comes with it)")
+
+
+def _world_size() -> int:
+    """Ranks of torch.distributed's default process group, 1 without
+    one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
 
 
 def time_config(batch: int, seq: int = 1024, n_steps: int = 20,
@@ -94,21 +111,54 @@ def time_config(batch: int, seq: int = 1024, n_steps: int = 20,
     for the warm-up step, then one invoke of dt / n_steps per timed
     step.
 
-    Only ``mesh="data"`` over one device is ported; other meshes and
-    ``n_devices > 1`` raise NotImplementedError naming ROADMAP.md queue
-    1 item 7.7."""
-    if mesh != "data" or n_devices > 1:
-        raise NotImplementedError(
-            f"mesh={mesh!r} over n_devices={n_devices} is not ported yet: "
-            f"{MESH_ITEM}; the port times one device")
-    dev = resolve_device(device)
+    With torch.distributed's default process group initialized, every
+    rank calls it and the step runs over a mesh of all its ranks
+    (``mesh``: ``data`` all data-parallel, ``fsdp`` all ZeRO-3, or
+    ``data_fsdp`` fsdp=2 inside data, as ``bench.py:335-349``): the
+    parameters placed by ``shard_params``, the batch (the global one,
+    the same seeded tokens on every rank) split over the ranks, and
+    tok_s is per rank.  ``device`` is then the mesh's.  Without a
+    group it runs on one device whatever ``mesh`` says (a mesh of one
+    device is the plain step).  ``n_devices`` above the world size
+    raises ValueError, as does one below it (the mesh spans the whole
+    group)."""
+    import torch.distributed as dist
+
+    if mesh not in TRAIN_MESHES:
+        raise ValueError(f"mesh must be one of {TRAIN_MESHES} (got "
+                         f"{mesh!r}); a tensor-parallel mesh is a decode "
+                         f"layout: {MESH_ITEM}")
+    grouped = dist.is_available() and dist.is_initialized()
+    n_chips = dist.get_world_size() if grouped else 1
+    if n_devices and n_devices != n_chips:
+        raise ValueError(
+            f"n_devices={n_devices} against a process group of "
+            f"{n_chips} rank(s): the mesh spans the whole group; start "
+            f"that many ranks (torch.distributed.init_process_group)")
     cfg = gpt2_config(preset, max_seq=seq, **overrides)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = gpt2_init(cfg, gen, device=dev)
     tx = adamw(3e-4, weight_decay=0.1)
+    loss_fn = lambda p, b: gpt2_loss(p, b, cfg)  # noqa: E731
+    if grouped:
+        from ray_tpu_torch.models.gpt2 import gpt2_logical_axes
+        from ray_tpu_torch.parallel import MeshSpec, make_mesh, shard_params
+
+        spec = {"data": MeshSpec(data=-1), "fsdp": MeshSpec(fsdp=-1),
+                "data_fsdp": MeshSpec(
+                    data=-1, fsdp=2 if n_chips % 2 == 0 else 1)}[mesh]
+        dmesh = make_mesh(spec)
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dmesh.device_type == "cuda" else torch.device("cpu"))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        axes = gpt2_logical_axes(cfg)
+        params = shard_params(gpt2_init(cfg, gen, device=dev), axes, dmesh)
+        step = build_train_step(loss_fn, tx, mesh=dmesh, logical_axes=axes,
+                                telemetry=False)
+    else:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = gpt2_init(cfg, gen, device=dev)
+        step = build_train_step(loss_fn, tx, telemetry=False)
     opt_state = tx.init(params)
-    step = build_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx,
-                            telemetry=False)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
                            generator=gen, device=dev)
     data = {"tokens": tokens}
@@ -134,7 +184,7 @@ def time_config(batch: int, seq: int = 1024, n_steps: int = 20,
         reg.record_invoke("bench.train_step", dt / max(1, n_steps))
 
     n_params = gpt2_param_count(cfg)
-    tok_s = batch * seq * n_steps / dt
+    tok_s = batch * seq * n_steps / dt / n_chips
     on_card = dev.type == "cuda"
     mfu: Optional[float] = (6 * n_params * tok_s / H100_BF16_PEAK_FLOPS
                             if on_card else None)
@@ -146,7 +196,7 @@ def time_config(batch: int, seq: int = 1024, n_steps: int = 20,
             "step_ms": dt / n_steps * 1e3,
             "compile_seconds": round(compile_s, 3),
             "losses": [float(x) for x in losses]}
-    return tok_s, mfu, cost["losses"][-1], 1, cost
+    return tok_s, mfu, cost["losses"][-1], n_chips, cost
 
 
 def train_watch(preset: str = "gpt2", batch: int = 8, seq: int = 1024,
@@ -222,12 +272,13 @@ def parse_args(argv=None):
         description="GPT-2-124M training and serving throughput on one "
                     "NVIDIA H100: one JSON line a metric.")
     ap.add_argument("--chips", type=int, default=0,
-                    help="devices to run on; more than 1 raises (a mesh "
-                         f"waits for {MESH_ITEM})")
+                    help="ranks to run on: the process group's world "
+                         "size (more raises)")
     ap.add_argument("--mesh", default="data",
                     choices=["data", "fsdp", "data_fsdp", "tensor"],
-                    help="parallelism layout; only 'data' over one device "
-                         f"is ported, the others wait for {MESH_ITEM}")
+                    help="parallelism layout over the process group's "
+                         "ranks; 'tensor' (decode) waits for "
+                         f"{MESH_ITEM}")
     ap.add_argument("--preset", default="",
                     help="model preset override; default gpt2 on the "
                          "card, tiny on the CPU")
@@ -384,7 +435,7 @@ def time_decode(batch, prompt_len=128, new_tokens=64, preset="gpt2",
     decode step's, a (1 + new_tokens, batch) CPU tensor read after the
     timing.  ``params`` replaces the seeded weights.  The prompt is
     drawn from a CPU generator seeded 1.  A mesh raises naming
-    ROADMAP.md queue 1 item 7.7."""
+    ROADMAP.md queue 1 item 7.7b."""
     from ray_tpu_torch.models.decode_common import (make_vocab_tail_mask,
                                                     sample_token)
     from ray_tpu_torch.models.gpt2_decode import decode_step, prefill
@@ -924,9 +975,14 @@ def main_train(args, dev: torch.device) -> None:
     timed by :func:`time_config`; on the card GPT-2-124M, B=24, T=1024,
     remat ``mlp_only`` at the default batch; on the CPU the tiny smoke
     (B=2, T=128, full remat, no flash)."""
+    if args.mesh == "tensor":
+        raise SystemExit("--mesh tensor is a serve layout; combine it "
+                         "with --decode or --traffic (train layouts: "
+                         "data, fsdp, data_fsdp)")
     on_card = dev.type == "cuda"
+    n_ranks = _world_size()
     seq = 1024
-    batch = args.batch or (24 if on_card else 2)
+    batch = args.batch or (24 * n_ranks if on_card else 2)
     remat_policy = args.remat or ("mlp_only" if not args.batch
                                   else "full")
     cfg_kw = {}
@@ -938,15 +994,17 @@ def main_train(args, dev: torch.device) -> None:
         if on_card:
             tok_s, mfu, final_loss, n_chips, cost = time_config(
                 batch, seq=seq, n_steps=args.steps or 20,
-                preset=args.preset or "gpt2", remat_policy=remat_policy,
+                preset=args.preset or "gpt2", mesh=args.mesh,
+                n_devices=args.chips, remat_policy=remat_policy,
                 device=dev, **cfg_kw)
         else:  # the CPU smoke
             remat_policy = "full"
             seq = 128
             tok_s, mfu, final_loss, n_chips, cost = time_config(
                 batch, seq=seq, n_steps=args.steps or 2,
-                preset=args.preset or "tiny", use_flash=False,
-                device=dev, **cfg_kw)
+                preset=args.preset or "tiny", mesh=args.mesh,
+                n_devices=args.chips, use_flash=False, device=dev,
+                **cfg_kw)
     emit({
         "metric": ("gpt2_124m_train_tokens_per_sec_per_chip" if on_card
                    else "gpt2_tiny_cpu_smoke_tokens_per_sec"),
@@ -955,7 +1013,8 @@ def main_train(args, dev: torch.device) -> None:
         "vs_baseline": (round(mfu / BASELINE_MFU, 3) if mfu is not None
                         else None),
         "detail": {"chips": n_chips, "batch": batch, "seq": seq,
-                   "mesh": args.mesh,
+                   "mesh": ("data" if args.mesh == "data_fsdp"
+                            and n_chips % 2 else args.mesh),
                    "mfu": round(mfu, 4) if mfu is not None else None,
                    # the compiler's numbers of the JAX harness: the
                    # port has no cost model yet (item 7.12)
@@ -975,10 +1034,15 @@ def main(args=None, device: DeviceLike = None) -> None:
     stdout.  ``device`` (or ``--device``) picks the device; None is the
     card."""
     args = args or parse_args()
-    if args.chips > 1 or args.mesh != "data":
+    if args.mesh == "tensor" and (args.decode or args.traffic):
         raise NotImplementedError(
-            f"--chips {args.chips} --mesh {args.mesh} is not ported yet: "
-            f"{MESH_ITEM}; the port runs one device")
+            f"--mesh tensor (a tensor-parallel decode mesh over "
+            f"--chips {args.chips}) is not ported yet: {MESH_ITEM}")
+    if args.chips > _world_size():
+        raise ValueError(
+            f"--chips {args.chips} is above the process group's world "
+            f"size {_world_size()}: start that many ranks "
+            f"(torch.distributed.init_process_group) first")
     if args.autopilot:
         raise NotImplementedError(
             f"--autopilot is not ported yet: {AUTOPILOT_ITEM}")

@@ -463,12 +463,13 @@ class Dataset:
         copy queues behind the step that is still running (as
         ``jax.device_put`` does).  ``dtypes``: per-column torch dtypes,
         cast on the device after the copy.  A batch sharded over
-        a mesh (``sharding``) waits for ROADMAP.md queue 1 item 7.7
-        (``parallel/``) and raises NotImplementedError."""
+        a mesh (``sharding``) waits for ROADMAP.md queue 1 item 7.7b
+        and raises NotImplementedError."""
         if sharding is not None:
             raise NotImplementedError(
                 "a batch sharded over a mesh is not ported yet: ROADMAP.md "
-                "queue 1 item 7.7 (parallel/); iter_torch_batches places "
+                "queue 1 item 7.7b (sharded Data batches); "
+                "iter_torch_batches places "
                 "each batch on one device")
         import warnings
 

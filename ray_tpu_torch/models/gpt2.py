@@ -13,8 +13,12 @@ is eager PyTorch over the stacked layers, differentiable with
 (f32 logits), "streaming_xla" (ops/vocab_ce.py) and "pallas" (the
 fused lm-head + CE kernels, ops/fused_ce.py), and each remat policy of
 the JAX package ("full", "mlp_only", "dots", "dots_nb", "attn_out").
-Not ported yet, each raising NotImplementedError naming its ROADMAP.md
-item: MoE blocks and sequence parallelism (queue 1 item 7).
+``n_experts > 0`` replaces every block's MLP with a mixture of experts
+(models/moe.py), whose load-balance loss ``gpt2_loss`` adds.  Under a
+mesh (the train step's, ``parallel/``) the functions run on this
+rank's share of the batch with plain local tensors, so the kernels see
+what they see on one device.  Sequence parallelism is not ported yet
+and raises NotImplementedError naming ROADMAP.md queue 1 item 7.7b.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import causal_attention, flash_auto_dispatch
 from ray_tpu_torch.ops.fused_ce import fused_lm_ce
 from ray_tpu_torch.ops.vocab_ce import streaming_ce
+from ray_tpu_torch.parallel.mesh import active_mesh
+from ray_tpu_torch.parallel.sharding import DEFAULT_RULES
 
 #: The three lm-head + cross-entropy implementations (GPT2Config.ce_impl),
 #: named as in the JAX package: "dense" materializes f32 (B,T,V)
@@ -164,6 +170,40 @@ def gpt2_param_count(cfg: GPT2Config) -> int:
         ff = 2 * d * f + d + f
     per_layer = (4 * d * d + 4 * d) + ff + 4 * d  # attn+ff+2ln
     return cfg.vocab_size * d + cfg.max_seq * d + L * per_layer + 2 * d
+
+
+def gpt2_logical_axes(cfg: GPT2Config) -> Dict[str, Any]:
+    """Tree (matching gpt2_init's) of logical-axis tuples.  A leading
+    ``None`` on block leaves is the stacked-layer axis.  "embed" maps
+    to fsdp (ZeRO-3), "heads"/"mlp"/"vocab" to tensor, "expert" to
+    expert: parallel/sharding.py DEFAULT_RULES."""
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "ln_f": {"scale": ("embed",), "bias": ("embed",)},
+        "blocks": {
+            "ln1": {"scale": (None, "embed"), "bias": (None, "embed")},
+            "ln2": {"scale": (None, "embed"), "bias": (None, "embed")},
+            "attn": {
+                "qkv_w": (None, "embed", None, "heads", "head_dim"),
+                "qkv_b": (None, None, "heads", "head_dim"),
+                "o_w": (None, "heads", "head_dim", "embed"),
+                "o_b": (None, "embed"),
+            },
+            **({"moe": {
+                "gate": (None, "embed", None),
+                "w1": (None, "expert", "embed", "mlp"),
+                "b1": (None, "expert", "mlp"),
+                "w2": (None, "expert", "mlp", "embed"),
+                "b2": (None, "expert", "embed"),
+            }} if cfg.n_experts else {"mlp": {
+                "fc_w": (None, "embed", "mlp"),
+                "fc_b": (None, "mlp"),
+                "proj_w": (None, "mlp", "embed"),
+                "proj_b": (None, "embed"),
+            }}),
+        },
+    }
 
 
 def gpt2_init(cfg: GPT2Config, generator: Optional[torch.Generator] = None,
@@ -315,8 +355,34 @@ def _mlp_half(x, p, cfg: GPT2Config):
                     p["mlp"], cfg)
 
 
-def _block(x, p, cfg: GPT2Config):
-    return _mlp_half(_attn_half(x, p, cfg), p, cfg)
+def _moe_cfg(cfg: GPT2Config):
+    from ray_tpu_torch.models.moe import MoEConfig
+
+    return MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                     n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                     capacity_factor=cfg.moe_capacity_factor,
+                     dtype=cfg.dtype, param_dtype=cfg.param_dtype)
+
+
+def _moe_half(x, p, cfg: GPT2Config, rules, mesh):
+    """The MoE feed-forward in place of the MLP: (x + y, aux loss)."""
+    from ray_tpu_torch.models.moe import moe_apply
+
+    y, aux = moe_apply(p["moe"], _layernorm(x, p["ln2"]["scale"],
+                                            p["ln2"]["bias"]),
+                       _moe_cfg(cfg), rules, mesh=mesh)
+    return x + y, aux
+
+
+def _block(x, p, cfg: GPT2Config, rules=DEFAULT_RULES, mesh=None):
+    """x after one block; (x, the MoE aux loss) with experts, whose
+    routing runs over ``mesh`` (an argument, not the active mesh, so a
+    recompute in the backward, maybe on autograd's device thread, sees
+    the same one)."""
+    x = _attn_half(x, p, cfg)
+    if cfg.n_experts:
+        return _moe_half(x, p, cfg, rules, mesh)
+    return _mlp_half(x, p, cfg)
 
 
 def _flash_active(cfg: GPT2Config, T: int, device) -> bool:
@@ -354,10 +420,12 @@ def _checkpoint(fn, *args, policy: Optional[str] = None):
                       preserve_rng_state=False, **kw)
 
 
-def gpt2_hidden(params, tokens, cfg: GPT2Config):
+def gpt2_hidden(params, tokens, cfg: GPT2Config, rules=DEFAULT_RULES,
+                return_aux: bool = False):
     """tokens (B, T) int → post-ln_f hidden states (B, T, d_model) in
-    the compute dtype.  (The JAX version's ``return_aux``, the MoE
-    load-balance loss, comes with the MoE blocks.)
+    the compute dtype.  ``return_aux=True`` also returns the summed MoE
+    load-balance loss (0.0 for dense configs).  ``rules`` are the
+    sharding rules the MoE block reads under a mesh.
 
     Remat, as the JAX ``gpt2_hidden``: ``remat=False`` saves every
     activation; ``remat_policy="mlp_only"`` with flash active
@@ -368,28 +436,34 @@ def gpt2_hidden(params, tokens, cfg: GPT2Config):
     checkpointing, see ``_saves``); ``"full"`` (and any other name, as
     in JAX), or ``"mlp_only"`` without flash, recomputes the whole
     block in the backward (``torch.utils.checkpoint``)."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE blocks (n_experts > 0) are not ported yet: ROADMAP.md "
-            "queue 1 item 7 (models/moe.py)")
     if cfg.seq_parallel:
         raise NotImplementedError(
             "sequence parallelism is not ported yet: ROADMAP.md queue 1 "
-            "item 7 (parallel/, ops/ring_attention.py)")
+            "item 7.7b (ops/ring_attention.py)")
     B, T = tokens.shape
     x = params["wte"].to(cfg.dtype)[tokens.long()]
     x = x + params["wpe"].to(cfg.dtype)[:T]
+    if cfg.remat and cfg.remat_policy == "mlp_only" and cfg.n_experts:
+        raise NotImplementedError(
+            "remat_policy='mlp_only' is a dense-MLP recipe; MoE blocks "
+            "use remat_policy='full' (or 'dots_nb')")
     mlp_only = (cfg.remat and cfg.remat_policy == "mlp_only"
                 and _flash_active(cfg, T, tokens.device))
     policy = cfg.remat_policy if cfg.remat_policy in _SELECTIVE else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    mesh = active_mesh() if cfg.n_experts else None
     for p in _layers(params["blocks"], cfg.n_layer):
         if mlp_only:
             x = _checkpoint(_mlp_half, _attn_half(x, p, cfg), p, cfg)
         elif cfg.remat:
-            x = _checkpoint(_block, x, p, cfg, policy=policy)
+            x = _checkpoint(_block, x, p, cfg, rules, mesh, policy=policy)
         else:
-            x = _block(x, p, cfg)
-    return _layernorm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
+            x = _block(x, p, cfg, rules, mesh)
+        if cfg.n_experts:
+            x, layer_aux = x
+            aux = aux + layer_aux
+    out = _layernorm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
+    return (out, aux) if return_aux else out
 
 
 class _LogitsMatmul(torch.autograd.Function):
@@ -430,10 +504,11 @@ def _tied_logits(hidden, wte, cfg: GPT2Config):
     return _logits(hidden, wte.to(cfg.dtype))
 
 
-def gpt2_forward(params, tokens, cfg: GPT2Config) -> torch.Tensor:
+def gpt2_forward(params, tokens, cfg: GPT2Config,
+                 rules=DEFAULT_RULES) -> torch.Tensor:
     """tokens (B, T) int → logits (B, T, padded_vocab) float32."""
-    return _tied_logits(gpt2_hidden(params, tokens, cfg), params["wte"],
-                        cfg)
+    return _tied_logits(gpt2_hidden(params, tokens, cfg, rules),
+                        params["wte"], cfg)
 
 
 def nll_from_logits(logits, targets, vocab_size: int, padded_vocab: int):
@@ -506,11 +581,13 @@ def lm_head_nll(hidden, w_vocab_major, targets, cfg) -> torch.Tensor:
     return nll.reshape(B, T)
 
 
-def gpt2_loss(params, batch, cfg: GPT2Config) -> torch.Tensor:
+def gpt2_loss(params, batch, cfg: GPT2Config,
+              rules=DEFAULT_RULES) -> torch.Tensor:
     """Next-token cross-entropy, a float32 scalar.  batch =
     {"tokens": (B, T+1) int} or {"inputs": (B, T), "targets": (B, T)},
     either with an optional "mask" (B, T); the padded-vocab tail is
-    masked out."""
+    masked out.  With experts, ``moe_aux_weight`` times the summed
+    load-balance loss is added."""
     if "tokens" in batch:
         inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
     else:
@@ -518,17 +595,23 @@ def gpt2_loss(params, batch, cfg: GPT2Config) -> torch.Tensor:
     mask = batch.get("mask")
     if mask is not None:
         mask = mask.to(torch.float32)
-    hidden = gpt2_hidden(params, inputs, cfg)
+    hidden, aux = gpt2_hidden(params, inputs, cfg, rules, return_aux=True)
+    loss = _ce(hidden, params["wte"], targets, mask, cfg)
+    return loss + cfg.moe_aux_weight * aux if cfg.n_experts else loss
+
+
+def _ce(hidden, wte, targets, mask, cfg: GPT2Config) -> torch.Tensor:
+    """The mean (masked) next-token nll of ``hidden`` through the tied
+    head, by ``cfg.ce_impl``."""
     if cfg.ce_impl != "dense":
-        nll = lm_head_nll(hidden, params["wte"], targets, cfg)
+        nll = lm_head_nll(hidden, wte, targets, cfg)
     elif cfg.loss_chunks > 1:
         if mask is None:
             mask = torch.ones(targets.shape, dtype=torch.float32,
                               device=targets.device)
-        return _chunked_ce(hidden, params["wte"], targets, mask, cfg)
+        return _chunked_ce(hidden, wte, targets, mask, cfg)
     else:
-        nll = _nll_from_logits(_tied_logits(hidden, params["wte"], cfg),
-                               targets, cfg)
+        nll = _nll_from_logits(_tied_logits(hidden, wte, cfg), targets, cfg)
     if mask is not None:
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
     return nll.mean()

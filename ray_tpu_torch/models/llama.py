@@ -14,9 +14,10 @@ The forward is eager PyTorch over the stacked layers, as in
 ``lm_head_nll`` and ``nll_from_logits`` it reuses (the JAX file imports
 the same from ``gpt2``).  Attention goes through the flash kernels on
 CUDA; the loss takes each ``ce_impl``, the non-dense ones against the
-transposed (V, D) view of the lm_head.  The logical sharding axes
-(``llama_logical_axes``, the ``rules`` argument) belong to sharding,
-ROADMAP.md queue 1 item 7.
+transposed (V, D) view of the lm_head.  ``llama_logical_axes`` names
+each parameter's logical axes for ``parallel.shard_params``; under the
+train step's mesh the forward runs on this rank's share of the batch
+with plain local tensors.
 """
 
 from __future__ import annotations
@@ -110,6 +111,31 @@ def llama_param_count(cfg: LlamaConfig) -> int:
     mlp = 3 * d * f
     per_layer = attn + mlp + 2 * d          # + two rmsnorm scales
     return 2 * cfg.vocab_size * d + L * per_layer + d
+
+
+def llama_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Tree (matching llama_init's) of logical-axis tuples; leading
+    None on block leaves is the stacked-layer axis."""
+    return {
+        "wte": ("vocab", "embed"),
+        "lm_head": ("embed", "vocab"),
+        "ln_f": {"scale": ("embed",)},
+        "blocks": {
+            "ln1": {"scale": (None, "embed")},
+            "ln2": {"scale": (None, "embed")},
+            "attn": {
+                "wq": (None, "embed", "heads", "head_dim"),
+                "wk": (None, "embed", "kv_heads", "head_dim"),
+                "wv": (None, "embed", "kv_heads", "head_dim"),
+                "wo": (None, "heads", "head_dim", "embed"),
+            },
+            "mlp": {
+                "w_gate": (None, "embed", "mlp"),
+                "w_up": (None, "embed", "mlp"),
+                "w_down": (None, "mlp", "embed"),
+            },
+        },
+    }
 
 
 def llama_init(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,

@@ -26,7 +26,7 @@ callbacks:
     programs' audited peak budget into a single ``headroom_bytes`` that
     an ``AdmissionPolicy(min_headroom_bytes=)`` gate can shed against.
     The budget (``serve_program_budget_bytes``) is 0 until the port has
-    a static program auditor (ROADMAP.md queue 1 item 7), so the ledger
+    a static program auditor (ROADMAP.md queue 1 item 7.12), so the ledger
     leans on the allocator view.
 
 Everything is perf_counter-clocked and kill-switched by ``RAYTPU_KVSCOPE=0``: a
@@ -377,7 +377,7 @@ def serve_program_budget_bytes() -> int:
     decode / verify) — the static 'what the programs may transiently
     need' term of the ledger.  The JAX package reads it from
     graftcheck's program catalog; the port has no such auditor yet
-    (ROADMAP.md queue 1 item 7), so this is 0, the JAX package's own
+    (ROADMAP.md queue 1 item 7.12), so this is 0, the JAX package's own
     best-effort value when graftcheck cannot be imported: the ledger
     then leans on the allocator view alone."""
     return 0

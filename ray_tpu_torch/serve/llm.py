@@ -52,7 +52,7 @@ reference's router does.
 validates them in its order: the combinations the reference rejects
 raise the same ValueError here.  Not ported yet, raising
 NotImplementedError that names its ROADMAP.md item: a ``mesh`` (queue
-1 item 7).  Under "batch" the keywords only the continuous scheduler
+1 item 7.7b).  Under "batch" the keywords only the continuous scheduler
 reads (``stop_sequences``, ``eos_id``, ``max_slots``,
 ``prefill_bucket``, ``kv_block_size``, ``kv_num_blocks``,
 ``admission_policy``) are validated and ignored, as in the reference.
@@ -142,7 +142,8 @@ class SpecConfig:
 
 
 _ROADMAP_ITEM = {
-    "mesh": "queue 1 item 7 (parallel/ and mesh-sharded serving)",
+    "mesh": "queue 1 item 7.7b (mesh-sharded serving: the continuous "
+            "scheduler's mesh and the cache shardings)",
 }
 
 

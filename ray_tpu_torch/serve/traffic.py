@@ -11,7 +11,7 @@ around a few hot system-prompt prefixes (what the paged KV cache's
 prefix reuse exists for), and lengths are ragged.  This module is the
 single source of that workload for the port's tests and
 ``chip_smoke.py``'s phase serve-fleet (the port's ``bench.py
---traffic`` is ROADMAP.md queue 1 item 7) — everything is derived from
+--traffic`` is ROADMAP.md queue 1 item 7.1) — everything is derived from
 one integer seed, so a run is reproducible down to the token.
 
 Pieces:
@@ -367,7 +367,7 @@ def run_traffic(spec: TrafficSpec, *, family: str = "gpt2",
 
     `device` is the engine's (None = the first CUDA device; "cpu" must
     be asked for); a `mesh` raises build_llm_deployment's
-    NotImplementedError (ROADMAP.md queue 1 item 7)."""
+    NotImplementedError (ROADMAP.md queue 1 item 7.7b)."""
     import asyncio
 
     from ray_tpu_torch.serve.llm import build_llm_deployment

@@ -1,14 +1,25 @@
-"""Checkpoints of a parameter tree in torch state, on one device.
-Counterpart of ``ray_tpu/train/checkpointing.py``.
+"""Checkpoints of a parameter tree in torch state.  Counterpart of
+``ray_tpu/train/checkpointing.py``.
 
 The JAX package writes orbax checkpoints in which every host writes
 its own shards and a restore can re-shard onto another mesh.  The port
-runs on one device, so a checkpoint is the same ``step_N/`` directory
-holding one ``torch.save`` file of the tree (tensors copied to the
-host).  Every save and restore is timed and booked into the trainer's
-trainwatch state as the JAX package books it.  Meshes wait for
-ROADMAP.md queue 1 item 7.7 (parallel/).  ``sharded_checkpoint_to_air``
-wraps a checkpoint directory as an AIR Checkpoint (``air/``).
+keeps the same ``step_N/`` directories in two forms:
+
+* a tree of plain tensors (one device): one ``torch.save`` file of the
+  tree, tensors copied to the host, written beside its final name and
+  renamed;
+* a tree of DTensors (a mesh, ``parallel.shard_params``):
+  ``torch.distributed.checkpoint``, every rank writing its own shards
+  (a replicated block once) and a ``.metadata`` file of the global
+  shapes.
+
+``restore_sharded`` reads either: with ``mesh`` and ``axes`` the leaves
+land as DTensors placed by the rules on that mesh, whatever mesh wrote
+them (each rank reads the blocks it holds); without, as whole tensors
+on one device.  Every save and restore is timed and booked into the
+trainer's trainwatch state as the JAX package books it.
+``sharded_checkpoint_to_air`` wraps a checkpoint directory as an AIR
+Checkpoint (``air/``).
 """
 
 from __future__ import annotations
@@ -21,18 +32,34 @@ import torch
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.train.optim import tree_leaves, tree_map
+from ray_tpu_torch.train.trainer import _is_dtensor
 
 __all__ = ["save_sharded", "restore_sharded", "latest_step",
            "sharded_checkpoint_to_air"]
 
-#: the one file of a checkpoint directory
+#: the one file of a checkpoint directory of plain tensors
 TREE_FILE = "tree.pt"
+#: the metadata file of a torch.distributed.checkpoint directory
+DCP_METADATA = ".metadata"
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 item 7.7 "
-        f"(parallel/); the port checkpoints one device")
+def _flat(tree, prefix: str = ""):
+    """[(dotted key, leaf)] of a nested dict, as
+    torch.distributed.checkpoint flattens it."""
+    if isinstance(tree, dict):
+        return [kv for k in tree for kv in _flat(tree[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        node = out
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return out
 
 
 def _step_dir(path: str, step: Optional[int]) -> str:
@@ -80,12 +107,18 @@ def save_sharded(params: Any, path: str, *,
     leaves the previous checkpoint whole."""
     target = os.path.abspath(_step_dir(path, step))
     os.makedirs(target, exist_ok=True)
-    final = os.path.join(target, TREE_FILE)
     t0 = time.perf_counter()
-    host = tree_map(_to_host, params)
-    with open(final + ".tmp", "wb") as f:
-        torch.save(host, f)
-    os.replace(final + ".tmp", final)
+    if any(_is_dtensor(t) for t in tree_leaves(params)):
+        # every rank of the mesh calls this, each writing its blocks
+        import torch.distributed.checkpoint as dcp
+
+        dcp.save(params, checkpoint_id=target)
+    else:
+        final = os.path.join(target, TREE_FILE)
+        host = tree_map(_to_host, params)
+        with open(final + ".tmp", "wb") as f:
+            torch.save(host, f)
+        os.replace(final + ".tmp", final)
     _record_ckpt("save", time.perf_counter() - t0,
                  _tree_bytes(params), target, step, trainer)
     return target
@@ -119,24 +152,92 @@ def restore_sharded(path: str, *, step: Optional[int] = None,
     layout, dtypes and devices; without one they land on
     ``resolve_device(device)``: the card unless the caller asks for
     the CPU.  The pause, from the read to the last leaf on its device,
-    is timed and journaled as ``save_sharded``'s.  ``mesh``/``axes``/
-    ``rules`` (re-sharding) raise NotImplementedError naming
-    ROADMAP.md queue 1 item 7.7."""
-    if mesh is not None or axes is not None or rules is not None:
-        raise _not_ported("restoring onto a mesh")
+    is timed and journaled as ``save_sharded``'s.
+
+    Re-sharding: with ``mesh`` (a DeviceMesh, every rank calling) and
+    ``axes`` (the model's logical-axis tree, e.g. ``gpt2_logical_axes``)
+    the leaves land as DTensors placed by ``rules`` (default
+    ``DEFAULT_RULES``) on that mesh, whichever mesh, or one device,
+    saved them."""
     target = os.path.abspath(_step_dir(path, step))
-    dev = None if template is not None else resolve_device(device)
+    sharded = os.path.exists(os.path.join(target, DCP_METADATA))
+    onto_mesh = mesh is not None and axes is not None
+    dev = None if (template is not None or onto_mesh) else \
+        resolve_device(device)
     t0 = time.perf_counter()
-    with open(os.path.join(target, TREE_FILE), "rb") as f:
-        host = torch.load(f, map_location="cpu", weights_only=True)
-    if template is not None:
-        restored = _place(template, host)
+    if sharded:
+        restored = _load_dcp(target, template, dev,
+                             (mesh, axes, rules) if onto_mesh else None)
     else:
-        restored = tree_map(lambda x: x.to(dev)
-                            if isinstance(x, torch.Tensor) else x, host)
+        with open(os.path.join(target, TREE_FILE), "rb") as f:
+            host = torch.load(f, map_location="cpu", weights_only=True)
+        if onto_mesh:
+            from ray_tpu_torch.parallel.sharding import (DEFAULT_RULES,
+                                                         shard_params)
+
+            restored = shard_params(host, axes, mesh, rules or DEFAULT_RULES)
+        elif template is not None:
+            restored = _place(template, host)
+        else:
+            restored = tree_map(lambda x: x.to(dev)
+                                if isinstance(x, torch.Tensor) else x, host)
     _record_ckpt("restore", time.perf_counter() - t0,
                  _tree_bytes(restored), target, step, trainer)
     return restored
+
+
+def _load_dcp(target: str, template: Any, dev, onto) -> Any:
+    """A torch.distributed.checkpoint directory read into DTensors on
+    ``onto`` = (mesh, axes, rules), into ``template``'s tensors, or
+    into whole tensors on ``dev``."""
+    import torch.distributed.checkpoint as dcp
+
+    meta = dcp.FileSystemReader(target).read_metadata().state_dict_metadata
+    if onto is not None:
+        from torch.distributed.tensor import DTensor
+
+        from ray_tpu_torch.parallel.sharding import (DEFAULT_RULES,
+                                                     NamedSharding,
+                                                     logical_to_mesh_axes,
+                                                     placements_for)
+
+        mesh, axes, rules = onto
+        axes_of = dict(_flat(axes))
+        dest = {}
+        for key, m in meta.items():
+            spec = logical_to_mesh_axes(axes_of[key] or (),
+                                        rules or DEFAULT_RULES)
+            sh = NamedSharding(mesh, spec)
+            local = torch.empty(sh.shard_shape(tuple(m.size)),
+                                dtype=m.properties.dtype,
+                                device=_mesh_device(mesh))
+            dest[key] = DTensor.from_local(
+                local, mesh, placements_for(spec, mesh), run_check=False,
+                shape=torch.Size(m.size), stride=_contiguous(m.size))
+        dest = _nest(dest)
+    elif template is not None:
+        dest = tree_map(lambda t: t.detach().clone() if isinstance(
+            t, torch.Tensor) else t, template)
+    else:
+        dest = _nest({k: torch.empty(tuple(m.size),
+                                     dtype=m.properties.dtype, device=dev)
+                      for k, m in meta.items()})
+    dcp.load(dest, checkpoint_id=target)
+    return dest
+
+
+def _mesh_device(mesh):
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _contiguous(size) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(size)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
 
 
 def latest_step(path: str) -> Optional[int]:

@@ -187,15 +187,39 @@ def test_decode_greedy_tokens_match_jax():
     assert stats["requests"]["finished"] == 3
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--chips", "2"], r"item 7\.7"),
-    (["--mesh", "fsdp"], r"item 7\.7"),
-    (["--decode", "--mesh", "tensor", "--chips", "4"], r"item 7\.7"),
-    (["--autopilot"], r"item 7\.12"),
+@pytest.mark.parametrize("argv,exc,match", [
+    # a mesh spans the process group's ranks: more chips than it has
+    # raise (this process has no group: one rank)
+    pytest.param(["--chips", "2"], ValueError,
+                 r"above the process group's world size 1",
+                 id="argv0-item 7\\.7"),
+    pytest.param(["--decode", "--mesh", "tensor", "--chips", "4"],
+                 NotImplementedError, r"item 7\.7b", id="argv2-item 7\\.7"),
+    pytest.param(["--autopilot"], NotImplementedError, r"item 7\.12",
+                 id="argv3-item 7\\.12"),
 ])
-def test_unported_options_raise_naming_their_item(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_options_raise_naming_their_item(argv, exc, match):
+    with pytest.raises(exc, match=match):
         tbench.main(tbench.parse_args(argv), device="cpu")
+
+
+@pytest.mark.parametrize("mesh", ["fsdp", "data_fsdp"])
+def test_train_meshes_run_on_one_rank(mesh):
+    """``--mesh fsdp`` / ``data_fsdp`` (once argv1 above, raising) run:
+    without a process group the mesh is one device, and the metric
+    line is the ``data`` run's but for its mesh field (the JAX
+    harness's layouts over more devices are held to on gloo ranks in
+    tests/test_torch_parallel.py)."""
+    argv = ["--steps", "1", "--no-ledger"]
+    base = _run(tbench, argv, device="cpu")
+    got = _run(tbench, [*argv, "--mesh", mesh], device="cpu")
+    assert [r["metric"] for r in got] == [r["metric"] for r in base]
+    d, bd = got[0]["detail"], base[0]["detail"]
+    assert d["mesh"] == ("data" if mesh == "data_fsdp" else mesh)
+    assert d["chips"] == bd["chips"] == 1
+    assert d["loss"] == bd["loss"] and d["model_flops"] == bd["model_flops"]
+    with pytest.raises(SystemExit, match="serve layout"):
+        tbench.main(tbench.parse_args(["--mesh", "tensor"]), device="cpu")
 
 
 def test_no_card_raises_instead_of_falling_back(monkeypatch):

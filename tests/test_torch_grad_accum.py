@@ -169,6 +169,15 @@ def test_indivisible_batch_raises_the_jax_error():
 @pytest.mark.parametrize("kw", [{"in_shardings": None},
                                 {"donate_argnums": (0,)}])
 def test_unported_jit_kwargs_raise(kw):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    """Shardings are ported (``in_shardings`` puts the step on their
+    mesh, held on gloo ranks in tests/test_torch_parallel.py;
+    ``in_shardings=None`` is the one-device step); partial donation
+    still raises."""
+    if "in_shardings" in kw:
+        assert callable(accumulated_train_step(
+            lambda p, b: 0.0, adamw(LR), num_microbatches=2, jit_kwargs=kw))
+        return
+    with pytest.raises(NotImplementedError,
+                       match=r"only donate_argnums=\(0, 1\)"):
         accumulated_train_step(lambda p, b: 0.0, adamw(LR),
                                num_microbatches=2, jit_kwargs=kw)

@@ -7,7 +7,8 @@ serve control plane (the HTTP proxy among it), the metrics publisher,
 the CLI and the rest of the runtime's front door leaves torch out too,
 and the object store is built from the port's own copy of its
 source.  The Data and AIR layers import neither torch, pyarrow nor
-pandas when imported, and a data task's worker holds none of them.
+pandas when imported, and a data task's worker holds none of them; the
+device plane (parallel/) imports no torch when imported.
 """
 
 import ast
@@ -136,7 +137,9 @@ def test_port_files_exist():
             "ray_tpu_torch/dashboard/frontend.py",
             "ray_tpu_torch/bench.py",
             # Data and AIR
-            *DATA_AIR_FILES} <= names
+            *DATA_AIR_FILES,
+            # the device plane and the mixture of experts
+            *PARALLEL_FILES, "ray_tpu_torch/models/moe.py"} <= names
 
 
 #: the Data and AIR layers: besides the rest, none of them imports
@@ -148,6 +151,12 @@ DATA_AIR_FILES = tuple(
     [f"ray_tpu_torch/air/{m}.py" for m in (
         "__init__", "batch_predictor", "checkpoint", "config", "result",
         "session")])
+
+
+#: the device plane: a copy of the JAX package's parallel/, torch
+#: imported only where a mesh or a tensor is used
+PARALLEL_FILES = tuple(f"ray_tpu_torch/parallel/{m}.py" for m in (
+    "__init__", "topology", "mesh", "sharding", "collective"))
 
 
 def _module_level_roots(path: Path):
@@ -173,6 +182,13 @@ def _module_level_roots(path: Path):
 def test_data_and_air_import_no_pyarrow_or_pandas_at_module_level(rel):
     bad = [(line, mod) for line, mod in _module_level_roots(ROOT / rel)
            if mod in ("pyarrow", "pandas", "torch")]
+    assert not bad, f"{rel} imports {bad} at module level"
+
+
+@pytest.mark.parametrize("rel", PARALLEL_FILES)
+def test_parallel_imports_no_torch_at_module_level(rel):
+    bad = [(line, mod) for line, mod in _module_level_roots(ROOT / rel)
+           if mod in ("torch", "jax", "ray_tpu")]
     assert not bad, f"{rel} imports {bad} at module level"
 
 

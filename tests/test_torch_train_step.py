@@ -125,17 +125,19 @@ def test_donate_false_leaves_inputs_untouched():
 
 
 def test_unported_step_options_raise():
-    """Meshes still raise; the step's telemetry is ported (the JAX
-    default, telemetry=True, returns the wrapped step) and only a
-    registry program over several devices raises, naming item 7."""
+    """Meshes are ported (held on gloo ranks in
+    tests/test_torch_parallel.py): what is no DeviceMesh is refused.
+    The step's telemetry is ported (the JAX default, telemetry=True,
+    returns the wrapped step) and only a registry program over several
+    devices raises, naming item 7.7b."""
     tx = adamw(3e-4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_train_step(lambda p, b: 0.0, tx, mesh=object())
     step = build_train_step(lambda p, b: 0.0, tx)
     assert step.goodput is not None and step._raw_step is not None
     from ray_tpu_torch._private.device_stats import get_registry
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 7\.7b"):
         get_registry().instrument("train.step", step._raw_step,
                                   n_devices=8)
 
@@ -152,8 +154,17 @@ def test_time_config_on_cpu():
     losses = cost["losses"]
     assert len(losses) == 3 and losses[-1] == loss
     assert np.all(np.isfinite(losses)) and losses[-1] < losses[0]
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        time_config(2, seq=64, preset="nano", device="cpu", mesh="fsdp")
+    # without a process group every layout is the one-device step
+    # (over gloo ranks: tests/test_torch_parallel.py)
+    for mesh in ("fsdp", "data_fsdp"):
+        _, _, _, chips, c = time_config(2, seq=64, n_steps=2, preset="nano",
+                                        device="cpu", dtype=torch.float32,
+                                        mesh=mesh)
+        assert chips == 1 and c["losses"] == losses
+    with pytest.raises(ValueError, match=r"item 7\.7b"):
+        time_config(2, seq=64, preset="nano", device="cpu", mesh="tensor")
+    with pytest.raises(ValueError, match="spans the whole group"):
+        time_config(2, seq=64, preset="nano", device="cpu", n_devices=2)
 
 
 def test_time_config_books_bench_train_step():
