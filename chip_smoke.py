@@ -168,9 +168,10 @@ Phases, each fatal on failure (any failure exits non-zero):
             + a chaos freeze of replica 0 with engine queues filled:
             replica 0 dead in the monitor's log, its queue requeued to
             replica 1, phase 10's replies held to the oracle; (e) bf16
-            two-tenant seeded traffic (48 requests) through 2 replicas
-            and through one engine in turns, all at once and as
-            Poisson arrivals at 6/s: served tokens/s, latency p50/p95
+            two-tenant seeded traffic (64 requests, +64 each) through 2
+            replicas and through one engine, each once all at once and
+            once as the spec's arrivals at 32/s, the side that goes
+            first alternating: served tokens/s, latency p50/p95
             overall and per tenant, TTFT attainment, prefix hit rate,
             the router's host share; the tracebus CLI's report on a
             fleet dump exits 0 and each request's critical path sums to
@@ -290,6 +291,35 @@ Phases, each fatal on failure (any failure exits non-zero):
             runtime actors, one granted the card: allreduce, allgather,
             broadcast and send/recv on a CUDA tensor against numpy, µs
             an op.
+12h. train-tune — Train and Tune on the port's runtime (init(num_gpus=1)),
+            GPT-2-124M (B=24, T=1024, remat mlp_only, ce_impl="pallas",
+            AdamW) from a seeded start over 12f's 1,536 seeded rows: (a)
+            JaxTrainer(...).fit() with ScalingConfig(num_workers=1,
+            use_gpu=True) and JaxConfig(distributed="jax"): the worker,
+            granted the card, joins an NCCL group (world 1), builds its
+            step with jax_utils.get_mesh() and jax_utils.build_train_step
+            (loss_fn, tx, mesh, gpt2_logical_axes(cfg)), runs 8 steps over
+            its dataset shard's iter_torch_batches and reports each (loss,
+            ms, 12/12/12/1/1/1 launches read in its process and booked in
+            the cluster KV), the last with an AIR checkpoint; the trial
+            actor holds neither the grant nor a CUDA context;
+            metrics_history's 8 rounds carry _round 0-7 and
+            training_iteration 1-8; every loss equals the driver's own
+            step's on the same batches from the same start (CE_LOSS_TOL),
+            the checkpoint's params the worker's bit for bit (sha256);
+            the worker's and the driver's step ms, fit() to the first
+            report (each process's start-up by part) and fit()'s wall;
+            (b) the same with FailureConfig(max_failures=1), its loop
+            raising once after reporting step 4 with a checkpoint (the
+            marker in the KV): a new worker process granted the card
+            resumes from it and steps 5-8 equal (a)'s; the restart's
+            wall; (c) a Tuner of a function trainable (the same steps at
+            B=8) over 4 learning rates, ASHAScheduler(max_t=8,
+            grace_period=2, reduction_factor=2), one trial at a time,
+            each granted the card: 12/12/12/1/1/1 launches in every step
+            of every trial, the trials ASHA stopped equal to a fresh
+            ASHAScheduler's on the replayed reports; the best lr, each
+            trial's wall and the gaps between trials.
 13. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
             whole block, ce_impl="pallas": a warm-up and 5 timed steps
             (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
@@ -331,9 +361,10 @@ Phases, each fatal on failure (any failure exits non-zero):
             H=32, T=2048, D=128), and one prefill, flash vs plain
             attention.
 
-The line before the last is a JSON object describing each kernel; the
-line before it is the card's name and power limit; the last line is
-{"ok": true, "device": {...}}.  There is no CPU path.
+After each phase a "[clock]" line gives its wall.  The line before
+the last is a JSON object describing each kernel; the line before it
+is the card's name and power limit; the last line is {"ok": true,
+"device": {...}}.  There is no CPU path.
 """
 
 from __future__ import annotations
@@ -4017,8 +4048,9 @@ def phase_serve_fleet(torch, np, fa, card: str, gate: dict,
     idle through a drain, the flight record rendered; (d) f32 health and
     a chaos freeze of replica 0, its queued requests requeued to replica
     1, P's replies held to the oracle; (e) bf16 timing of two-tenant
-    seeded traffic through two replicas and through one engine, in
-    turns, fired at once and as Poisson arrivals, with the router's host
+    seeded traffic through two replicas and through one engine, each
+    once fired at once and once as Poisson arrivals (the side that goes
+    first alternating), with the router's host
     share and a tracebus dump whose CLI report must run.  Frees each
     sub-phase's replicas before the next.  ``preset``, ``device``,
     ``widths``, ``timed_n`` and ``rate`` let it run cut down
@@ -4372,9 +4404,10 @@ def phase_serve_fleet(torch, np, fa, card: str, gate: dict,
                             dump_on_breach=False), device=dev)
     timed = {}
     with tempfile.TemporaryDirectory() as d:
-        for scale in (0.0, 1.0):
-            for i, mode in enumerate(("single", "fleet", "fleet",
-                                      "single")):
+        # each side once a time scale, the first side alternating
+        for scale, order in ((0.0, ("single", "fleet")),
+                             (1.0, ("fleet", "single"))):
+            for i, mode in enumerate(order):
                 dump = os.path.join(d, f"{mode}_{scale:g}_{i}.json")
                 spy = _RouterCostSpy(torch, guard=on_card)
                 try:
@@ -4484,9 +4517,13 @@ RUN_HOST_BYTES, RUN_CUDA_BYTES = 256 * 2**20, 64 * 2**20
 RUN_STORE_MAX = 2 * 2**30
 #: (f): the card's free memory back within this of its value before (d)
 RUN_MEM_TOL = 256 * 2**20
+#: how long (d) and (f) wait for it: a process that has exited may hand
+#: its memory back to the card a moment later
+RUN_MEM_WAIT_S = 30.0
 #: (e): replica, engine, engine, replica, RUN_TURNS times; per turn and
-#: side RUN_ONE_TOKEN sequential requests of a 1-token prompt
-RUN_TURNS, RUN_ONE_TOKEN = 2, 5
+#: side RUN_ONE_TOKEN sequential requests of a 1-token prompt (serve-http's
+#: (c) takes its turns too)
+RUN_TURNS, RUN_ONE_TOKEN = 1, 5
 #: (a): ray_perf's trials, scaled
 RUN_PERF_SCALE = 0.25
 
@@ -4700,6 +4737,29 @@ def phase_serve_run(torch, np, fa, card: str, preset="llama-1b",
         return free
 
     free_mem("at the phase's start (the driver's engines freed)")
+
+    def memory_back(free0, tag):
+        """The card's free memory once it is back within RUN_MEM_TOL of
+        ``free0``, read until RUN_MEM_WAIT_S have passed; past that, the
+        card's processes and the driver's own memory are printed and
+        the last reading returned."""
+        deadline = time.monotonic() + RUN_MEM_WAIT_S
+        while True:
+            free = free_mem(tag)
+            if not on_card or abs(free - free0) <= RUN_MEM_TOL or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(1.0)
+        if on_card and abs(free - free0) > RUN_MEM_TOL:
+            apps = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid,process_name,"
+                 "used_memory", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=60).stdout
+            print(f"[serve-run] {tag}: the card's processes {apps!r}; the "
+                  f"driver's allocated {torch.cuda.memory_allocated()} "
+                  f"bytes, reserved {torch.cuda.memory_reserved()}",
+                  flush=True)
+        return free
 
     # (a) the runtime, its store sized to /dev/shm
     df = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True,
@@ -4927,7 +4987,7 @@ def phase_serve_run(torch, np, fa, card: str, preset="llama-1b",
     rserve.delete("serve_run_f32")
     _run_wait_exit([f32_pid], "the f32 replica after serve.delete")
     out.update(first_reply_f32_s=first_f32, ties=ties, equal=equal)
-    free_d = free_mem("after (d)'s serve.delete")
+    free_d = memory_back(free0, "after (d)'s serve.delete")
     if on_card and abs(free_d - free0) > RUN_MEM_TOL:
         fail(f"[serve-run] (d) the card's free memory {free_d} is not back "
              f"within {RUN_MEM_TOL} of {free0} after the f32 replica")
@@ -4997,7 +5057,7 @@ def phase_serve_run(torch, np, fa, card: str, preset="llama-1b",
     bf16_pid = rt.get(h.method("counts").remote(), timeout=60)["pid"]
     rserve.delete("serve_run_bf16")
     _run_wait_exit([bf16_pid], "the bf16 replica after serve.delete")
-    free1 = free_mem("after (f)'s serve.delete")
+    free1 = memory_back(free0, "after (f)'s serve.delete")
     if on_card and abs(free1 - free0) > RUN_MEM_TOL:
         fail(f"[serve-run] (f) the card's free memory {free1} is not back "
              f"within {RUN_MEM_TOL} of {free0} (before (d))")
@@ -6764,6 +6824,601 @@ def phase_moe_mesh(torch, np, fa, card: str, preset: str = "gpt2",
     return out
 
 
+#: phase train-tune (12h): GPT-2 steps in a train worker (a) and (b) and
+#: in tune trials (c), each the pallas step of phase data-air; (a) and
+#: (b) read the dataset of 12f (DATA_ROWS seeded rows); (b) fails once
+#: after reporting step TT_FAIL_AFTER; (c) runs TT_STEPS steps at B =
+#: TT_TUNE_B for each learning rate under ASHA (max_t TT_STEPS)
+TT_STEPS, TT_FAIL_AFTER, TT_TUNE_B = 8, 4, 8
+TT_SEED = 29
+TT_LRS = (1e-4, 3e-4, 1e-3, 3e-3)
+TT_LR = 3e-4
+TT_ASHA = dict(metric="loss", mode="min", max_t=TT_STEPS, grace_period=2,
+               reduction_factor=2)
+#: where a worker or trial process books its launch counts and the
+#: trial actor its probes (the cluster KV)
+TT_KV = "chip_smoke:train_tune:"
+
+
+def _tt_kv():
+    from ray_tpu_torch._private import worker_context
+
+    return worker_context.core_worker()
+
+
+def _tt_cuda_state() -> dict:
+    """This process's grant and CUDA state, without touching CUDA:
+    CUDA_VISIBLE_DEVICES and whether torch has initialised CUDA."""
+    import os
+
+    torch = sys.modules.get("torch")
+    return {"pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "cuda_initialized": bool(torch is not None
+                                     and torch.cuda.is_initialized())}
+
+
+def _tt_probe(tag: str) -> None:
+    """Book this process's CUDA state under TT_KV + tag + its pid."""
+    state = _tt_cuda_state()
+    _tt_kv().kv_put(f"{TT_KV}{tag}:{state['pid']}",
+                    json.dumps(state).encode())
+
+
+def _proc_start() -> float:
+    """When this process started, on time.time()'s clock (from /proc)."""
+    import os
+
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        boot = next(int(line.split()[1]) for line in f
+                    if line.startswith("btime"))
+    return boot + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def _tt_marks(first: dict, t0: float) -> str:
+    """A process's start-up by part, from its first report: the driver's
+    ``t0`` to the process's start, to its loop, imports, device, mesh
+    and step, parameters, first batch, then the first step."""
+    m = first["marks"]
+    order = ["proc", "loop", "imports", "device", "mesh", "params", "batch"]
+    parts, prev = [], t0
+    for k in order:
+        parts.append(f"{k} +{m[k] - prev:.2f}")
+        prev = m[k]
+    return (", ".join(parts) + f", first step {first['step_ms'] / 1e3:.2f}"
+            f" s")
+
+
+def _tree_digest(torch, tree) -> str:
+    """sha256 over every leaf's bytes in tree_leaves order (on the
+    host; dtype and shape included)."""
+    import hashlib
+
+    from ray_tpu_torch.train.optim import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        t = t.detach().cpu().contiguous()
+        h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tt_train(config: dict, batches, start: int, tag: str) -> None:
+    """Phase train-tune's steps, in a train worker or a tune trial:
+    GPT-2 (``config``: preset, seq, device, lr) from the seeded start
+    (TT_SEED) or from the session's checkpoint, its step built with
+    ``jax_utils.get_mesh()`` and ``jax_utils.build_train_step(loss_fn,
+    tx, mesh, gpt2_logical_axes(cfg))``; runs steps ``start + 1`` ..
+    ``config["steps"]`` over ``batches`` (the rest of an iterator of
+    token batches), each reported with its loss, step ms and launches
+    (read in this process, booked in the KV under TT_KV + tag + pid).
+    A checkpoint (params and AdamW state, gathered) goes with the
+    report of step ``config["fail_after"]``, which then raises once
+    (its marker in the KV), and the last step's carries the params."""
+    import os
+    import time as _time
+
+    marks = {"proc": _proc_start(), "loop": _time.time()}
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.device import resolve_device
+    from ray_tpu_torch.models.gpt2 import (gpt2_config, gpt2_init,
+                                           gpt2_logical_axes, gpt2_loss)
+    from ray_tpu_torch.parallel.sharding import gather_params
+    from ray_tpu_torch.parallel.mesh import mesh_shape
+    from ray_tpu_torch.train import adamw, jax_utils
+    from ray_tpu_torch.train.optim import tree_leaves, tree_map
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    marks["imports"] = _time.time()
+    dev = resolve_device(config["device"])
+    on_card = dev.type == "cuda"
+    torch.empty(1, device=dev)  # the CUDA context, if not made yet
+    marks["device"] = _time.time()
+    if on_card and not os.environ.get("CUDA_VISIBLE_DEVICES"):
+        raise RuntimeError("phase train-tune: this process was not granted "
+                           "a card (CUDA_VISIBLE_DEVICES is empty)")
+    cfg = gpt2_config(config["preset"], max_seq=config["seq"],
+                      remat_policy="mlp_only", ce_impl="pallas")
+    tx = adamw(config["lr"], weight_decay=0.1)
+    mesh = jax_utils.get_mesh()
+    step = jax_utils.build_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx,
+                                      mesh, gpt2_logical_axes(cfg))
+    marks["mesh"] = _time.time()
+    ckpt = session.get_checkpoint()
+    if ckpt is not None:
+        state = ckpt.to_dict()
+        params = tree_map(lambda t: t.to(dev), state["params"])
+        opt = {"count": state["opt_state"]["count"].clone(),
+               "mu": tree_map(lambda t: t.to(dev), state["opt_state"]["mu"]),
+               "nu": tree_map(lambda t: t.to(dev), state["opt_state"]["nu"])}
+        if state["step"] != start:
+            raise RuntimeError(f"resumed from step {state['step']}, "
+                               f"expected {start}")
+    else:
+        params = gpt2_init(cfg, torch.Generator(device=dev).manual_seed(
+            TT_SEED), device=dev)
+        opt = tx.init(params)
+    fingerprint = sum(float(t.double().sum()) for t in tree_leaves(params))
+    marks["params"] = _time.time()
+    cw = _tt_kv()
+    first = {"pid": os.getpid(), "t_loop": marks["loop"], "marks": marks,
+             "fingerprint": fingerprint,
+             "backend": str(dist.get_backend()),
+             "world": dist.get_world_size(), "mesh": mesh_shape(mesh),
+             "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+             "device": (torch.cuda.get_device_name(dev) if on_card
+                        else "cpu")}
+    zero_counts(fa)
+    total = {}
+    for i in range(start, config["steps"]):
+        b = next(batches)
+        marks.setdefault("batch", _time.time())
+        before = read_counts(fa)
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        params, opt, loss = step(params, opt, b)
+        loss = float(loss)
+        if on_card:
+            torch.cuda.synchronize()
+        ms = (_time.perf_counter() - t0) * 1e3
+        after = read_counts(fa)
+        launches = {k: after.get(k, 0) - before.get(k, 0)
+                    for k in CE_OR_FLASH}
+        total = after
+        cw.kv_put(f"{TT_KV}{tag}:{os.getpid()}", json.dumps(
+            {"counts": total, "steps": i + 1 - start}).encode())
+        metrics = {"loss": loss, "step": i + 1, "step_ms": ms,
+                   "launches": launches, "pid": os.getpid(),
+                   "t": _time.time(),
+                   "batch_sum": int(b["tokens"].sum())}
+        if i == start:
+            metrics.update(first)
+        last = i + 1 == config["steps"]
+        fail_here = i + 1 == config.get("fail_after")
+        report_ckpt = None
+        if last or fail_here:
+            whole = gather_params(params)
+            report_ckpt = {"params": whole, "step": i + 1}
+            if fail_here:
+                report_ckpt["opt_state"] = {
+                    "count": opt["count"], "mu": gather_params(opt["mu"]),
+                    "nu": gather_params(opt["nu"])}
+            if last:
+                metrics["params_digest"] = _tree_digest(torch, whole)
+        session.report(metrics, checkpoint=report_ckpt)
+        if fail_here and cw.kv_get(f"{TT_KV}failed") is None:
+            cw.kv_put(f"{TT_KV}failed", json.dumps(
+                {"pid": os.getpid(), "t": _time.time()}).encode())
+            raise RuntimeError(f"phase train-tune (b): a planted failure "
+                               f"after step {i + 1}")
+
+
+def _tt_loop(config: dict) -> None:
+    """(a)/(b): the train worker's loop over its dataset shard."""
+    import itertools
+
+    start = 0
+    from ray_tpu_torch.air import session
+
+    ckpt = session.get_checkpoint()
+    if ckpt is not None:
+        start = ckpt.to_dict()["step"]
+    it = session.get_dataset_shard("train").iter_torch_batches(
+        batch_size=config["batch"], drop_last=True, device=config["device"])
+    _tt_train(config, itertools.islice(it, start, None), start, "worker")
+
+
+def _tt_trial(config: dict) -> None:
+    """(c): a tune trial's function trainable: the rows of 12f's dataset
+    (regenerated from DATA_SEED), ``config["batch"]`` a step."""
+    import numpy
+
+    import torch
+
+    from ray_tpu_torch.device import resolve_device
+    from ray_tpu_torch.models.gpt2 import gpt2_config
+
+    cfg = gpt2_config(config["preset"], max_seq=config["seq"])
+    dev = resolve_device(config["device"])
+    b, s = config["batch"], config["seq"]
+    rows = numpy.random.default_rng(DATA_SEED).integers(
+        0, cfg.vocab_size, (config["rows"], s + 1)).astype(numpy.int32)
+    batches = ({"tokens": torch.from_numpy(rows[i * b:(i + 1) * b]).to(dev)}
+               for i in range(config["steps"]))
+    _tt_train(config, batches, 0, "trial")
+
+
+def _tt_books(cw, tag: str) -> dict:
+    """{pid: book} of the processes that booked under TT_KV + tag."""
+    out = {}
+    for k in cw.kv_keys(f"{TT_KV}{tag}:"):
+        book = json.loads(cw.kv_get(k))
+        out[int(k.rsplit(":", 1)[1])] = book
+    return out
+
+
+def phase_train_tune(torch, np, fa, card: str, preset: str = "gpt2",
+                     device: str = "cuda", rows: int = DATA_ROWS,
+                     seq: int = TRAIN_T, batch: int = TRAIN_B,
+                     blocks: int = DATA_BLOCKS, steps: int = TT_STEPS,
+                     tune_batch: int = TT_TUNE_B) -> dict:
+    """12h: Train and Tune on the port's runtime (``init(num_gpus=1)``),
+    GPT-2 (``preset``, B=``batch``, T=``seq``, remat mlp_only,
+    ce_impl="pallas", AdamW) from TT_SEED over 12f's seeded rows in
+    ``blocks`` blocks.  (a) ``JaxTrainer(...).fit()`` on one worker
+    granted the card (``ScalingConfig(num_workers=1, use_gpu=True)``,
+    ``JaxConfig(distributed="jax")``): an NCCL group in the worker,
+    ``steps`` steps over its dataset shard, each reporting its loss, ms
+    and launches (12/12/12/1/1/1), the last an AIR checkpoint; the
+    worker holds the card, the trial actor neither the grant nor a CUDA
+    context; ``metrics_history`` ``steps`` rounds with ``_round`` and
+    ``training_iteration``; every loss the driver's own step's on the
+    same batches from the same start (CE_LOSS_TOL); the checkpoint's
+    params the worker's bit for bit (sha256).  (b) the same with
+    ``FailureConfig(max_failures=1)`` and a loop that raises once after
+    reporting step TT_FAIL_AFTER with a checkpoint: a new worker
+    process granted the card resumes from it, steps after it equal
+    (a)'s.  (c) ``Tuner`` of a function trainable (``steps`` steps at
+    B=``tune_batch``) over TT_LRS under ``ASHAScheduler(**TT_ASHA)``,
+    ``resources_per_trial={"CPU": 1, "GPU": 1}``,
+    ``max_concurrent_trials=1``: every step's launches, and the stops
+    equal to a fresh ASHAScheduler's on the replayed reports.
+    ``preset``/``device`` and the sizes let it run cut down on the CPU
+    (gloo, no grant, no launches)."""
+    import gc
+    import itertools
+    import os
+    import shutil
+    import tempfile
+    import types
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data, tune
+    from ray_tpu_torch.air.config import FailureConfig, RunConfig
+    from ray_tpu_torch.models.gpt2 import gpt2_config, gpt2_init, gpt2_loss
+    from ray_tpu_torch.train import (JaxConfig, JaxTrainer, ScalingConfig,
+                                     adamw, build_train_step)
+    from ray_tpu_torch.train.optim import tree_leaves
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    cfg = gpt2_config(preset, max_seq=seq, remat_policy="mlp_only",
+                      ce_impl="pallas")
+    L = cfg.n_layer
+    n = 1 if on_card else 0
+    per_step = {"flash_fwd": n * L, "flash_bwd_dq": n * L,
+                "flash_bwd_dkv": n * L, "fused_ce_fwd": n,
+                "fused_ce_bwd_dh": n, "fused_ce_bwd_dw": n}
+    loop_cfg = {"preset": preset, "seq": seq, "batch": batch,
+                "steps": steps, "lr": TT_LR,
+                "device": None if on_card else device}
+
+    class ProbedTrainer(JaxTrainer):
+        """JaxTrainer whose training_loop books the trial actor's CUDA
+        state before and after it (the actor that hosts the loop)."""
+
+        def training_loop(self):
+            _tt_probe("trial_actor_before")
+            try:
+                return super().training_loop()
+            finally:
+                _tt_probe("trial_actor_after")
+
+    def launches_ok(history, want):
+        return all(m["launches"] == want for m in history)
+
+    def trial_probes(cw) -> list:
+        """The trial actor's probes (before and after its loop), taken
+        out of the KV; fails if it held a card or a CUDA context."""
+        keys = cw.kv_keys(f"{TT_KV}trial_actor_")
+        got = [json.loads(cw.kv_get(k)) for k in keys]
+        for k in keys:
+            cw.kv_del(k)
+        if len(got) != 2 or len({g["pid"] for g in got}) != 1 or any(
+                g["visible"] or g["cuda_initialized"] for g in got):
+            fail(f"[train-tune] the trial actor's process holds a card or "
+                 f"a CUDA context: {got}")
+        return got
+
+    store = min(RUN_STORE_MAX, shutil.disk_usage("/dev/shm").free // 2) \
+        // 2**20 * 2**20
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_tune_")
+    results_env = os.environ.get("RAYTPU_RESULTS_DIR")
+    os.environ["RAYTPU_RESULTS_DIR"] = f"{tmp}/results"
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=1 if on_card else 0,
+            object_store_memory=store)
+    print(f"[train-tune] init(num_gpus={n}) in {time.perf_counter() - t0:.2f}"
+          f" s; cluster_resources {rt.cluster_resources()} [{card}]",
+          flush=True)
+    out = {}
+    try:
+        cw = _tt_kv()
+        for k in cw.kv_keys(TT_KV):
+            cw.kv_del(k)
+        tokens = np.random.default_rng(DATA_SEED).integers(
+            0, cfg.vocab_size, (rows, seq + 1)).astype(np.int32)
+        ds = data.from_numpy({"tokens": tokens}, parallelism=blocks)
+        want_batches = [b["tokens"] for b in itertools.islice(
+            ds.iter_batches(batch_size=batch, batch_format="numpy",
+                            drop_last=True), steps)]
+
+        # -- (a) fit() on one worker granted the card -------------------------
+        trainer = ProbedTrainer(
+            _tt_loop, train_loop_config=loop_cfg,
+            jax_config=JaxConfig(distributed="jax"),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=on_card),
+            datasets={"train": ds})
+        t_fit = time.time()
+        res = trainer.fit()
+        wall_a = time.time() - t_fit
+        if res.error is not None:
+            fail(f"[train-tune] (a) fit() failed: {res.error!r}")
+        hist = res.metrics_history
+        h0 = hist[0]
+        trial = trial_probes(cw)
+        print(f"[train-tune] (a) JaxTrainer.fit(): the worker (pid "
+              f"{h0['pid']}, CUDA_VISIBLE_DEVICES={h0['visible']!r}, "
+              f"{h0['device']}) in a process group of backend "
+              f"{h0['backend']}, world {h0['world']}, mesh {h0['mesh']}; the "
+              f"trial actor {trial} [{card}]", flush=True)
+        if on_card and h0["backend"] != "nccl":
+            fail(f"[train-tune] (a) the worker's process group is "
+                 f"{h0['backend']}, expected nccl")
+        if on_card and (not h0["visible"] or h0["device"] != card.split(
+                ",")[0].strip()):
+            fail(f"[train-tune] (a) the worker holds {h0['visible']!r} / "
+                 f"{h0['device']}, expected the card {card}")
+        if trial[0]["pid"] == h0["pid"]:
+            fail("[train-tune] (a) the loop ran in the trial actor")
+        rounds = [(m["_round"], m["training_iteration"], m["step"])
+                  for m in hist]
+        if rounds != [(i, i + 1, i + 1) for i in range(steps)]:
+            fail(f"[train-tune] (a) metrics_history rounds {rounds}")
+        if not launches_ok(hist, per_step):
+            fail(f"[train-tune] (a) launches by step "
+                 f"{[m['launches'] for m in hist]}, expected {per_step}")
+        bad = [i for i, m in enumerate(hist)
+               if m["batch_sum"] != int(want_batches[i].sum())]
+        if bad:
+            fail(f"[train-tune] (a) the worker's batches {bad} are not the "
+                 f"dataset's")
+
+        # the same steps in the driver, from the same start
+        params = gpt2_init(cfg, torch.Generator(device=dev).manual_seed(
+            TT_SEED), device=dev)
+        fp = sum(float(t.double().sum()) for t in tree_leaves(params))
+        tx = adamw(TT_LR, weight_decay=0.1)
+        opt = tx.init(params)
+        step = build_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx,
+                                telemetry=False)
+        driver_losses, driver_ms = [], []
+        for b in want_batches:
+            tb = {"tokens": torch.from_numpy(b.copy()).to(dev)}
+            if on_card:
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, opt, loss = uncounted(fa, lambda: step(params, opt, tb))
+            driver_losses.append(float(loss))
+            driver_ms.append((time.perf_counter() - t1) * 1e3)
+        worker_losses = [m["loss"] for m in hist]
+        diffs = [abs(a - b) for a, b in zip(worker_losses, driver_losses)]
+        ck = res.checkpoint.to_dict()
+        digest = _tree_digest(torch, ck["params"])
+        d_final = max(float((a.float() - b.float().to(a.device)).abs().max())
+                      for a, b in zip(tree_leaves(params),
+                                      tree_leaves(ck["params"])))
+        med_w = sorted(m["step_ms"] for m in hist[1:])[len(hist[1:]) // 2]
+        med_d = sorted(driver_ms[1:])[len(driver_ms[1:]) // 2]
+        print(f"[train-tune] (a) {steps} rounds, _round 0-{steps - 1}, "
+              f"training_iteration 1-{steps}; launches per step "
+              f"{hist[0]['launches']} (all {steps} equal); start fingerprint "
+              f"worker {h0['fingerprint']!r}, driver {fp!r}; losses "
+              f"{[round(x, 5) for x in worker_losses]}, the driver's "
+              f"{[round(x, 5) for x in driver_losses]}, max |diff| "
+              f"{max(diffs):.3e} (tol {CE_LOSS_TOL}); the checkpoint's params "
+              f"sha256 {digest[:16]} vs the worker's "
+              f"{hist[-1]['params_digest'][:16]} (bit for bit "
+              f"{digest == hist[-1]['params_digest']}), max |diff| from the "
+              f"driver's final params {d_final:.3e}; median step ms in the "
+              f"worker {med_w:.2f}, in the driver {med_d:.2f}; fit() to the "
+              f"first report {h0['t'] - t_fit:.2f} s ({_tt_marks(h0, t_fit)}"
+              f"), whole fit() {wall_a:.2f} s [{card}]", flush=True)
+        if h0["fingerprint"] != fp:
+            fail(f"[train-tune] (a) the worker started from other parameters "
+                 f"({h0['fingerprint']!r} vs {fp!r})")
+        if max(diffs) > CE_LOSS_TOL or not all(map(math.isfinite,
+                                                   worker_losses)):
+            fail(f"[train-tune] (a) the worker's losses {worker_losses} "
+                 f"against the driver's {driver_losses}")
+        if digest != hist[-1]["params_digest"] or ck["step"] != steps:
+            fail("[train-tune] (a) the checkpoint's parameters are not the "
+                 "worker's final ones")
+        out.update(a={"losses": worker_losses, "driver_losses": driver_losses,
+                      "step_ms": med_w, "driver_step_ms": med_d,
+                      "first_report_s": h0["t"] - t_fit, "fit_s": wall_a},
+                   per_step=hist[0]["launches"])
+        del params, opt, ck, res, trainer
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # -- (b) a failure after step TT_FAIL_AFTER, resumed on the card -
+        trainer = ProbedTrainer(
+            _tt_loop, train_loop_config={**loop_cfg,
+                                         "fail_after": TT_FAIL_AFTER},
+            jax_config=JaxConfig(distributed="jax"),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=on_card),
+            run_config=RunConfig(failure_config=FailureConfig(
+                max_failures=1)),
+            datasets={"train": ds})
+        t_fit = time.time()
+        res = trainer.fit()
+        wall_b = time.time() - t_fit
+        if res.error is not None:
+            fail(f"[train-tune] (b) fit() failed: {res.error!r}")
+        hist_b = res.metrics_history
+        trial_b = trial_probes(cw)
+        failed = json.loads(cw.kv_get(f"{TT_KV}failed"))
+        k = TT_FAIL_AFTER
+        pids = [m["pid"] for m in hist_b]
+        new = hist_b[k] if len(hist_b) > k else {}
+        diffs_b = [abs(a - b) for a, b in zip(
+            [m["loss"] for m in hist_b], worker_losses)]
+        print(f"[train-tune] (b) FailureConfig(max_failures=1), a failure "
+              f"after step {k} (pid {failed['pid']}): {len(hist_b)} rounds, "
+              f"steps {[m['step'] for m in hist_b]}, pids {pids}; the new "
+              f"worker CUDA_VISIBLE_DEVICES={new.get('visible')!r}, "
+              f"{new.get('device')}, backend {new.get('backend')}; losses vs "
+              f"(a)'s max |diff| {max(diffs_b):.3e}; restart: failure to "
+              f"the new loop's start {new.get('t_loop', 0) - failed['t']:.2f} "
+              f"s, to its first report {new.get('t', 0) - failed['t']:.2f} "
+              f"s ({_tt_marks(new, failed['t'])}); whole fit() {wall_b:.2f} "
+              f"s; the trial actor {trial_b} [{card}]", flush=True)
+        if [m["step"] for m in hist_b] != list(range(1, steps + 1)) or [
+                m["_round"] for m in hist_b] != list(range(steps)):
+            fail(f"[train-tune] (b) rounds {[m['step'] for m in hist_b]}")
+        if len(set(pids[:k])) != 1 or len(set(pids[k:])) != 1 or \
+                pids[0] == pids[k] or failed["pid"] != pids[0]:
+            fail(f"[train-tune] (b) the gang did not restart in a new "
+                 f"process: pids {pids}")
+        if on_card and (not new["visible"] or new["backend"] != "nccl"):
+            fail(f"[train-tune] (b) the new worker holds "
+                 f"{new['visible']!r}, backend {new['backend']}")
+        if max(diffs_b) > CE_LOSS_TOL or not launches_ok(hist_b, per_step):
+            fail(f"[train-tune] (b) losses {[m['loss'] for m in hist_b]} "
+                 f"against (a)'s {worker_losses}, or launches "
+                 f"{[m['launches'] for m in hist_b]}")
+        out["b"] = {"losses": [m["loss"] for m in hist_b], "fit_s": wall_b,
+                    "restart_s": new["t"] - failed["t"]}
+        del res, trainer
+        gc.collect()
+
+        # -- (c) a Tuner whose trials take the card in turn -----------------
+        clock = {}
+
+        class TrialClock(tune.Callback):
+            def on_trial_start(self, trial):
+                clock.setdefault(trial.trial_id, {})["start"] = time.time()
+
+            def on_trial_complete(self, trial):
+                clock.setdefault(trial.trial_id, {})["end"] = time.time()
+
+        t_tuner = time.time()
+        grid = tune.Tuner(
+            _tt_trial,
+            param_space={**loop_cfg, "batch": tune_batch, "rows": rows,
+                         "lr": tune.grid_search(list(TT_LRS))},
+            tune_config=tune.TuneConfig(
+                scheduler=tune.ASHAScheduler(**TT_ASHA),
+                max_concurrent_trials=1),
+            run_config=RunConfig(storage_path=f"{tmp}/tune", name="asha",
+                                 callbacks=[TrialClock()]),
+            resources_per_trial={"CPU": 1, "GPU": n}).fit()
+        if grid.errors:
+            fail(f"[train-tune] (c) trials failed: {grid.errors}")
+        order = sorted(grid.trials, key=lambda t: clock[t.trial_id]["start"])
+        replay = tune.ASHAScheduler(**TT_ASHA)
+        stops, replayed = {}, {}
+        for t in order:
+            stops[t.config["lr"]] = t.iteration if t.status == "STOPPED" \
+                else None
+            stub = types.SimpleNamespace(trial_id=t.trial_id, iteration=0)
+            for m in t.metrics_history:
+                stub.iteration += 1
+                if replay.on_trial_result(stub, m) == "STOP":
+                    replayed[t.config["lr"]] = stub.iteration
+                    break
+            else:
+                replayed[t.config["lr"]] = None
+        walls = [clock[t.trial_id]["end"] - clock[t.trial_id]["start"]
+                 for t in order]
+        gaps = [clock[b.trial_id]["start"] - clock[a.trial_id]["end"]
+                for a, b in zip(order, order[1:])]
+        best = min(order, key=lambda t: t.best_metric("loss", "min"))
+        trial_launches = [m["launches"] for t in order
+                          for m in t.metrics_history]
+        launch_ok = all(c == per_step for c in trial_launches)
+        trial_pids = [t.metrics_history[0]["pid"] for t in order]
+        ends = [t_tuner] + [clock[t.trial_id]["end"] for t in order]
+        for t, t0 in zip(order, ends):
+            print(f"[train-tune] (c) lr {t.config['lr']}: from the previous "
+                  f"trial's end, {_tt_marks(t.metrics_history[0], t0)} "
+                  f"[{card}]", flush=True)
+        print(f"[train-tune] (c) Tuner over lr {list(TT_LRS)}, ASHA "
+              f"{TT_ASHA}, B={tune_batch}, one trial at a time: stopped at "
+              f"iteration {stops} (a fresh ASHAScheduler on the replayed "
+              f"reports: {replayed}); launches in every step of every trial "
+              f"{per_step}: {launch_ok}; trial pids {trial_pids}, "
+              f"CUDA_VISIBLE_DEVICES "
+              f"{[t.metrics_history[0]['visible'] for t in order]}; best lr "
+              f"{best.config['lr']} (loss "
+              f"{best.best_metric('loss', 'min'):.5f}); trial walls "
+              f"{[round(w, 2) for w in walls]} s, gaps between trials "
+              f"{[round(g, 2) for g in gaps]} s [{card}]",
+              flush=True)
+        if stops != replayed:
+            fail(f"[train-tune] (c) the stops {stops} differ from the "
+                 f"replayed decisions {replayed}")
+        if not launch_ok:
+            fail(f"[train-tune] (c) launches by step {trial_launches}, "
+                 f"expected {per_step} each")
+        if on_card and not all(t.metrics_history[0]["visible"]
+                               for t in order):
+            fail("[train-tune] (c) a trial held no card")
+        out["c"] = {"stops": stops, "best_lr": best.config["lr"],
+                    "trial_s": walls, "gap_s": gaps}
+
+        books = {**_tt_books(cw, "worker"), **_tt_books(cw, "trial")}
+        total = {key: sum(b["counts"].get(key, 0) for b in books.values())
+                 for key in per_step}
+        print(f"[train-tune] launches booked by {len(books)} processes "
+              f"(3 workers, {len(order)} trials): {total} [{card}]",
+              flush=True)
+        out["counts"] = total
+    finally:
+        rt.shutdown()
+        if results_env is None:
+            os.environ.pop("RAYTPU_RESULTS_DIR", None)
+        else:
+            os.environ["RAYTPU_RESULTS_DIR"] = results_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
 def _free_tcp_ports(n: int) -> int:
     """The first of ``n`` consecutive free ports."""
     import socket
@@ -6782,7 +7437,43 @@ def _free_tcp_ports(n: int) -> int:
 
 
 
+class _PhaseClock:
+    """``tick(name)`` prints the wall since the last tick (the phase
+    just run) and since the script's first phase."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        print(f"[clock] {name}: {now - self.last:.1f} s (script at "
+              f"{now - self.start:.1f} s)", flush=True)
+        self.last = now
+
+
+def keep_bytecode() -> None:
+    """Where the interpreter runs with bytecode writing off
+    (PYTHONDONTWRITEBYTECODE), every process this script starts (the
+    runtime's workers, the CLI's nodes, the bench's subprocesses)
+    compiles torch's Python sources anew, seconds a process: turn it on
+    for this process and the ones it starts, with the bytecode under
+    __pycache__/bytecode beside this script.  Call before torch is
+    imported."""
+    import os
+
+    if not (sys.dont_write_bytecode or os.environ.get(
+            "PYTHONDONTWRITEBYTECODE")):
+        return
+    prefix = str(Path(__file__).resolve().parent / "__pycache__" /
+                 "bytecode")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
+
+
 def main() -> int:
+    keep_bytecode()
     import numpy as np
     import torch
 
@@ -6795,31 +7486,54 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    tick = _PhaseClock()
     ptxas = phase_build(kernels)
+    tick("build")
     with torch.inference_mode():
         headline = phase_kernel(torch, fa, card)
     headline["ptxas"] = ptxas["flash_fwd"].get("flash_fwd_bf16_kernel<64>",
                                                [])
+    tick("kernel")
     bwd = phase_kernel_bwd(torch, fa, card, ptxas["flash_bwd"])
+    tick("kernel-bwd")
     ce = phase_kernel_ce(torch, fc, card, ptxas["fused_ce"])
+    tick("kernel-ce")
     serve_counts = phase_serve(torch, np, fa, card)["counts"]
+    tick("serve")
     train = phase_train(torch, fa, card)
+    tick("train")
     train_ce = phase_train_ce(torch, fa, card)
+    tick("train-ce")
     serve_llama = phase_serve(torch, np, fa, card, "llama", "serve-llama")
+    tick("serve-llama")
     with torch.inference_mode():
         serve_cont = phase_serve_continuous(torch, np, fa, card)
         gate = serve_cont.pop("gate")
+        tick("serve-continuous")
         serve_spec = phase_serve_spec_disagg(torch, np, fa, card, gate)
+        tick("serve-spec-disagg")
         serve_tele = phase_serve_telemetry(torch, np, fa, card, gate)
+        tick("serve-telemetry")
         serve_fleet = phase_serve_fleet(torch, np, fa, card, gate)
+        tick("serve-fleet")
         serve_run = phase_serve_run(torch, np, fa, card)
+        tick("serve-run")
         serve_http = phase_serve_http(torch, np, fa, card)
+        tick("serve-http")
     bench_cli = phase_bench_cli(torch, card)
+    tick("bench-cli")
     data_air = phase_data_air(torch, np, fa, card)
+    tick("data-air")
     moe_mesh = phase_moe_mesh(torch, np, fa, card)
+    tick("moe-mesh")
+    train_tune = phase_train_tune(torch, np, fa, card)
+    tick("train-tune")
     train_llama = phase_train_llama(torch, fa, fc, card)
+    tick("train-llama")
     train_tele = phase_train_telemetry(torch, np, fa, card)
+    tick("train-telemetry")
     llama_7b = phase_llama_7b(torch, fa, fc, card)
+    tick("llama-7b")
 
     def launches(name):
         by_path = {"serve": serve_counts.get(name, 0),
@@ -6839,6 +7553,7 @@ def main() -> int:
                    "data_train": data_air["counts_train"].get(name, 0),
                    "data_predict": data_air["counts_predict"].get(name, 0),
                    "moe_mesh": moe_mesh["counts"].get(name, 0),
+                   "train_tune": train_tune["counts"][name],
                    "train_llama": train_llama["counts"][name],
                    "train_telemetry": train_tele["counts"][name]}
         return {"launches": sum(by_path.values()),
@@ -6847,7 +7562,8 @@ def main() -> int:
                     train_ce["counts"][name] / train_ce["steps_run"],
                 "launches_per_llama_train_step":
                     train_llama["counts"][name] / train_llama["steps_run"],
-                "launches_per_moe_train_step": moe_mesh["per_step"][name]}
+                "launches_per_moe_train_step": moe_mesh["per_step"][name],
+                "launches_per_trainer_step": train_tune["per_step"][name]}
 
     # each kernel at llama-1b's shapes (phase train-llama)
     at_llama = {"flash_fwd": train_llama["kernels"]["flash"]["fwd"],

@@ -8,8 +8,9 @@ session is process-global, installed by the train worker before running
 the user loop.
 
 A copy of ``ray_tpu/air/session.py``: with no session set every call
-raises the reference's RuntimeError.  The train session that installs
-one comes with ROADMAP.md queue 1 item 7.8 (``train/``).
+raises the reference's RuntimeError.  ``train/_internal/session.py``'s
+``_TrainSession`` installs one in a train worker (and a tune trial's
+actor) while the user loop runs.
 """
 
 from __future__ import annotations

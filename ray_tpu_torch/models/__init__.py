@@ -1,11 +1,13 @@
 """Model zoo of the port: the GPT-2 and llama families (config, init,
-training forward and loss, decode, logical sharding axes) and the
-mixture-of-experts block."""
+training forward and loss, decode, logical sharding axes), the
+mixture-of-experts block and the MLP classifier."""
 
 from ray_tpu_torch.models.convert import (gpt2_params_from_numpy,
                                           gpt2_params_to_numpy,
                                           llama_params_from_numpy,
-                                          llama_params_to_numpy)
+                                          llama_params_to_numpy,
+                                          mlp_params_from_numpy,
+                                          mlp_params_to_numpy)
 from ray_tpu_torch.models.gpt2 import (GPT2Config, gpt2_config, gpt2_init,
                                        gpt2_logical_axes, gpt2_loss,
                                        gpt2_param_count)
@@ -13,6 +15,8 @@ from ray_tpu_torch.models.llama import (LlamaConfig, llama_config,
                                         llama_forward, llama_init,
                                         llama_logical_axes, llama_loss,
                                         llama_param_count)
+from ray_tpu_torch.models.mlp import (MLPConfig, mlp_forward, mlp_init,
+                                      mlp_logical_axes, mlp_loss)
 from ray_tpu_torch.models.moe import (MoEConfig, moe_apply, moe_init,
                                       moe_logical_axes)
 from ray_tpu_torch.models.llama_decode import (llama_decode_step,
@@ -27,4 +31,7 @@ __all__ = ["GPT2Config", "gpt2_config", "gpt2_init", "gpt2_param_count",
            "LlamaConfig", "llama_config", "llama_init", "llama_forward",
            "llama_loss", "llama_param_count", "llama_init_cache",
            "llama_decode_step", "llama_generate", "llama_prefill",
-           "llama_params_from_numpy", "llama_params_to_numpy"]
+           "llama_params_from_numpy", "llama_params_to_numpy",
+           "MLPConfig", "mlp_init", "mlp_forward", "mlp_loss",
+           "mlp_logical_axes", "mlp_params_from_numpy",
+           "mlp_params_to_numpy"]

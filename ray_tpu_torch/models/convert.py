@@ -1,9 +1,9 @@
 """Parameter trees between numpy and the port's tensors.
 
-The layout is the JAX package's (``gpt2_init``, ``llama_init``); only
-the leaves change type.  This is how weights cross from JAX to the
-port in the tests, and how ``checkpoint_path`` pickles load in
-``serve/llm.py``.
+The layout is the JAX package's (``gpt2_init``, ``llama_init``,
+``mlp_init``); only the leaves change type.  This is how weights cross
+from JAX to the port in the tests, and how ``checkpoint_path`` pickles
+load in ``serve/llm.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models.gpt2 import GPT2Config
 from ray_tpu_torch.models.llama import LlamaConfig
+from ray_tpu_torch.models.mlp import MLPConfig, mlp_dims
 
 
 def _gpt2_shapes(cfg: GPT2Config) -> Dict[str, Any]:
@@ -58,6 +59,11 @@ def _llama_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
     }
 
 
+def _mlp_shapes(cfg: MLPConfig) -> Dict[str, Any]:
+    return {"layers": [{"w": (d_in, d_out), "b": (d_out,)}
+                       for d_in, d_out in mlp_dims(cfg)]}
+
+
 def _leaf_to_tensor(leaf, device: torch.device) -> torch.Tensor:
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":
@@ -85,6 +91,15 @@ def _from_numpy(tree, want, family: str, device: DeviceLike):
                                  f"{got}")
             return {k: walk(node[k], want[k], f"{path}/{k}")
                     for k in want}
+        if isinstance(want, list):
+            if not isinstance(node, (list, tuple)) or len(node) != len(
+                    want):
+                got = len(node) if isinstance(node, (list, tuple)) else node
+                raise ValueError(f"{family} params at {path or 'root'}: "
+                                 f"expected a list of {len(want)}, got "
+                                 f"{got}")
+            return [walk(n, w, f"{path}/{i}")
+                    for i, (n, w) in enumerate(zip(node, want))]
         t = _leaf_to_tensor(node, dev)
         if tuple(t.shape) != want:
             raise ValueError(f"{family} param {path}: expected shape "
@@ -108,12 +123,21 @@ def llama_params_from_numpy(tree, cfg: LlamaConfig,
     return _from_numpy(tree, _llama_shapes(cfg), "llama", device)
 
 
+def mlp_params_from_numpy(tree, cfg: MLPConfig,
+                          device: DeviceLike = None) -> Dict[str, Any]:
+    """The same for an MLP parameter tree (``mlp_init``'s layout: a
+    list of layers)."""
+    return _from_numpy(tree, _mlp_shapes(cfg), "MLP", device)
+
+
 def gpt2_params_to_numpy(params) -> Dict[str, Any]:
-    """The inverse, for either family: a tree of tensors → a tree of
+    """The inverse, for every family: a tree of tensors → a tree of
     numpy arrays on the host.  bfloat16 leaves come back as float32
     (exact), since numpy has no bfloat16."""
     if isinstance(params, dict):
         return {k: gpt2_params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [gpt2_params_to_numpy(v) for v in params]
     t = params.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -121,3 +145,4 @@ def gpt2_params_to_numpy(params) -> Dict[str, Any]:
 
 
 llama_params_to_numpy = gpt2_params_to_numpy
+mlp_params_to_numpy = gpt2_params_to_numpy

@@ -188,16 +188,20 @@ def _is_axes(x) -> bool:
 
 
 def _map(fn: Callable, tree, axes):
-    """``fn(leaf, axes leaf)`` over a nested dict and its matching
-    logical-axes tree (leaves: tuples of logical names)."""
+    """``fn(leaf, axes leaf)`` over nested dicts and lists and the
+    matching logical-axes tree (leaves: tuples of logical names)."""
     if isinstance(tree, dict):
         return {k: _map(fn, tree[k], axes[k]) for k in tree}
+    if isinstance(tree, list):
+        return [_map(fn, t, a) for t, a in zip(tree, axes)]
     return fn(tree, axes)
 
 
 def _map_axes(fn: Callable, axes):
     if _is_axes(axes):
         return fn(axes)
+    if isinstance(axes, list):
+        return [_map_axes(fn, v) for v in axes]
     return {k: _map_axes(fn, v) for k, v in axes.items()}
 
 
@@ -307,6 +311,8 @@ def gather_params(tree, keep: Sequence[str] = ()):
 
     if isinstance(tree, dict):
         return {k: gather_params(v, keep) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gather_params(v, keep) for v in tree]
     if not isinstance(tree, DTensor):
         return tree
     return gather_block(tree.to_local(), tree.placements, tree.device_mesh,

@@ -8,12 +8,13 @@ weight_decay of 1e-4 (torch's AdamW defaults to 0.01, so the port does
 not use it).  Every leaf decays, biases and LayerNorm included, as
 optax does without a mask.
 
-Parameters are a nested dict of tensors (the JAX pytree's layout); the
-state holds first and second moments in the same layout and the step
-count, a 0-d int32 tensor on the host as optax's ``count`` is an int32
-array (so a program registry keys it by shape and dtype, not by value,
-and reading it needs no device sync).  ``update_`` changes parameters
-and moments in place, which is what JAX's buffer donation amounts to.
+Parameters are nested dicts (and lists) of tensors (the JAX pytree's
+layout); the state holds first and second moments in the same layout
+and the step count, a 0-d int32 tensor on the host as optax's
+``count`` is an int32 array (so a program registry keys it by shape
+and dtype, not by value, and reading it needs no device sync).
+``update_`` changes parameters and moments in place, which is what
+JAX's buffer donation amounts to.
 """
 
 from __future__ import annotations
@@ -27,16 +28,20 @@ Tree = Any
 
 
 def tree_leaves(tree: Tree) -> List[torch.Tensor]:
-    """Leaves of a nested dict in sorted-key order (jax.tree_util's
-    order for dicts)."""
+    """Leaves of nested dicts and lists, dicts in sorted-key order and
+    lists in order (jax.tree_util's order)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for node in tree for leaf in tree_leaves(node)]
     return [tree]
 
 
 def tree_map(fn: Callable, tree: Tree) -> Tree:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -48,6 +53,8 @@ def tree_unflatten(like: Tree, leaves: List[torch.Tensor]) -> Tree:
     def build(node):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(v) for v in node]
         return next(it)
 
     return build(like)

@@ -112,6 +112,9 @@ class MeshPlan:
             if isinstance(node, dict):
                 return {k: walk(node[k], sh[k] if isinstance(sh, dict)
                                 else None) for k in node}
+            if isinstance(node, list):
+                return [walk(v, sh[i] if isinstance(sh, list) else None)
+                        for i, v in enumerate(node)]
             return one(node, sh)
 
         return walk(tree, self.shardings)

@@ -8,7 +8,8 @@ the CLI and the rest of the runtime's front door leaves torch out too,
 and the object store is built from the port's own copy of its
 source.  The Data and AIR layers import neither torch, pyarrow nor
 pandas when imported, and a data task's worker holds none of them; the
-device plane (parallel/) imports no torch when imported.
+device plane (parallel/), Train's orchestration and Tune import no
+torch when imported.
 """
 
 import ast
@@ -139,7 +140,9 @@ def test_port_files_exist():
             # Data and AIR
             *DATA_AIR_FILES,
             # the device plane and the mixture of experts
-            *PARALLEL_FILES, "ray_tpu_torch/models/moe.py"} <= names
+            *PARALLEL_FILES, "ray_tpu_torch/models/moe.py",
+            # Train and Tune, and the MLP their tests train
+            *TRAIN_TUNE_FILES, "ray_tpu_torch/models/mlp.py"} <= names
 
 
 #: the Data and AIR layers: besides the rest, none of them imports
@@ -157,6 +160,20 @@ DATA_AIR_FILES = tuple(
 #: imported only where a mesh or a tensor is used
 PARALLEL_FILES = tuple(f"ray_tpu_torch/parallel/{m}.py" for m in (
     "__init__", "topology", "mesh", "sharding", "collective"))
+
+
+#: Train's orchestration and Tune: copies of the JAX package's, torch
+#: imported only where a step or a tensor is used (a trial actor that
+#: hosts a trainer loads none)
+TRAIN_TUNE_FILES = tuple(
+    [f"ray_tpu_torch/train/{m}.py" for m in (
+        "__init__", "_internal/__init__", "_internal/session",
+        "_internal/worker_group", "backend", "backend_executor",
+        "base_trainer", "data_parallel_trainer", "jax_backend",
+        "jax_trainer", "torch_backend")] +
+    [f"ray_tpu_torch/tune/{m}.py" for m in (
+        "__init__", "callback", "logger", "schedulers", "search", "syncer",
+        "trainable_adapter", "trial", "trial_runner", "tuner")])
 
 
 def _module_level_roots(path: Path):
@@ -187,6 +204,13 @@ def test_data_and_air_import_no_pyarrow_or_pandas_at_module_level(rel):
 
 @pytest.mark.parametrize("rel", PARALLEL_FILES)
 def test_parallel_imports_no_torch_at_module_level(rel):
+    bad = [(line, mod) for line, mod in _module_level_roots(ROOT / rel)
+           if mod in ("torch", "jax", "ray_tpu")]
+    assert not bad, f"{rel} imports {bad} at module level"
+
+
+@pytest.mark.parametrize("rel", TRAIN_TUNE_FILES)
+def test_train_and_tune_import_no_torch_at_module_level(rel):
     bad = [(line, mod) for line, mod in _module_level_roots(ROOT / rel)
            if mod in ("torch", "jax", "ray_tpu")]
     assert not bad, f"{rel} imports {bad} at module level"
@@ -263,6 +287,20 @@ def test_worker_entry_module_imports_no_torch_jax_or_reference():
         "metrics.Counter('isolation_probe_total').inc()")
     assert not roots & {"torch", "jax", "jaxlib", "ray_tpu", "aiohttp",
                         "yaml", "pydantic"}
+
+
+def test_train_and_tune_import_no_torch():
+    """What a trial actor imports to host a trainer (the worker class,
+    the trainers, the Tuner) loads no torch: the names of the step's
+    modules load at first use."""
+    roots = _fresh_imports(
+        "import ray_tpu_torch.train, ray_tpu_torch.tune; "
+        "from ray_tpu_torch.train._internal import worker_group; "
+        "from ray_tpu_torch.train import JaxTrainer, TorchTrainer, jax_utils")
+    assert "ray_tpu_torch" in roots
+    assert not roots & {"torch", "jax", "jaxlib", "ray_tpu"}
+    roots = _fresh_imports("from ray_tpu_torch.train import adamw")
+    assert "torch" in roots and not roots & {"jax", "ray_tpu"}
 
 
 def test_data_and_air_import_no_torch_pyarrow_or_pandas():
