@@ -6824,6 +6824,363 @@ def phase_moe_mesh(torch, np, fa, card: str, preset: str = "gpt2",
     return out
 
 
+#: phase seq-pipe-tp (12i): attention over the seq axis at the serve
+#: shape B, H, D with T = TRAIN_T; the seq-parallel step at SP_B rows;
+#: the one-stage pipeline at PP_M microbatches of PP_MB rows; the
+#: world-1 tensor-parallel engine (f32, paged) on TP_N requests
+SP_B, SP_STEPS = 8, 3
+PP_M, PP_MB = 4, 2
+TP_N, TP_SLOTS, TP_MAX_NEW, TP_SEED = 8, 4, 16, 31
+SPT_SEED = 37
+#: the one-stage pipeline against gpt2_hidden in bf16 (other microbatch
+#: shapes: the products may take other cuBLAS algorithms): the hidden
+#: states at the logits' bf16 tolerance, the loss and the global
+#: gradient norm relative, each block leaf's gradient by the relative
+#: norm of its difference (the train phase's qkv bound)
+PP_HIDDEN_TOL = LOGIT_TOL
+PP_LOSS_RTOL = 1e-3
+PP_GRAD_NORM_RTOL = 1e-3
+PP_LEAF_RTOL = TRAIN_QKV_GRAD_RTOL
+
+
+def seq_pipe_counts(cfg, m: int = PP_M) -> dict:
+    """Launches predicted for phase 12i's counted paths: Ulysses once
+    (1, 1, 1); a seq-parallel step with whole-block remat, each sp_mode
+    (2 L forward: the forward and its recompute, L dQ, L dK/dV); the
+    one-stage pipeline, M ticks each rematted whole (2 M L forward,
+    M L dQ, M L dK/dV)."""
+    L = cfg.n_layer
+    return {"ulysses": {"flash_fwd": 1, "flash_bwd_dq": 1,
+                        "flash_bwd_dkv": 1},
+            "sp_step": {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                        "flash_bwd_dkv": L},
+            "pipeline": {"flash_fwd": 2 * m * L, "flash_bwd_dq": m * L,
+                         "flash_bwd_dkv": m * L}}
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after.get(k, 0) - before.get(k, 0)
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def phase_seq_pipe_tp(torch, np, fa, card: str, preset: str = "gpt2",
+                      device: str = "cuda", seq: int = TRAIN_T,
+                      heads: int = H, head_dim: int = D,
+                      attn_batch: int = B, sp_batch: int = SP_B,
+                      sp_steps: int = SP_STEPS, mb_rows: int = PP_MB,
+                      n_req: int = TP_N) -> dict:
+    """12i: sequence, pipeline and tensor parallelism on a world-1 NCCL
+    mesh, at GPT-2-124M's widths.  (a) ring and Ulysses attention
+    (ops/ring_attention.py) at B x T x H x D, forward and backward: in
+    f32 both held against reference_attention (output and q/k/v
+    gradients at the f32 kernel tolerance); in bf16 Ulysses' one flash
+    forward, dQ and dK/dV read from the counters, and Ulysses bit for
+    bit the direct flash call (its all-to-alls are the identity at
+    world 1); each one's bf16 error against the f32 reference printed
+    and each timed beside the direct flash call; (b) a seq_parallel GPT-2 step
+    (dense CE, both sp_modes) through build_train_step on the mesh,
+    ``sp_steps`` steps against the same config's meshless step; (c)
+    pipeline_apply with one stage, GPT-2-124M's 12 blocks, PP_M
+    microbatches, remat, forward and backward of a loss of the hidden
+    states, held against gpt2_hidden on the same parameters; (d) a
+    continuous GPT-2 engine (f32, paged) with mesh= the world-1 mesh
+    and with none: the same replies, JAX's engine_stats()["mesh"] keys,
+    the programs under serve.sharded_*; then one bench time_decode
+    (mesh=) call beside the meshless one.  ``device`` and the sizes let
+    it run cut down on the CPU (gloo, no launches)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.bench import time_decode
+    from ray_tpu_torch.models import gpt2 as tg
+    from ray_tpu_torch.ops import (causal_attention, pipeline_apply,
+                                   reference_attention, ring_attention,
+                                   ulysses_attention)
+    from ray_tpu_torch.parallel import MeshSpec, make_mesh
+    from ray_tpu_torch.parallel.mesh import mesh_context, mesh_shape
+    from ray_tpu_torch.serve.llm import build_llm_deployment
+    from ray_tpu_torch.train import adamw, build_train_step
+    from ray_tpu_torch.train.optim import tree_leaves, tree_map
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        return time_ms(torch, fn, iters=5) if on_card else None
+
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    cfg = tg.gpt2_config(preset, max_seq=seq)
+    want = seq_pipe_counts(cfg) if on_card else {
+        k: {n: 0 for n in v} for k, v in seq_pipe_counts(cfg).items()}
+    gen = torch.Generator(device=dev).manual_seed(SPT_SEED)
+    out = {"predicted": want}
+    backend = "nccl" if on_card else "gloo"
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{_free_tcp_ports(1)}",
+        rank=0, world_size=1)
+    try:
+        mesh = make_mesh(MeshSpec())
+        print(f"[seq-pipe-tp] world-1 {dist.get_backend()} mesh "
+              f"{mesh_shape(mesh)} on {mesh.device_type} [{card}]",
+              flush=True)
+        zero_counts(fa)
+
+        # -- (a) ring and Ulysses attention -------------------------------
+        shape = (attn_batch, seq, heads, head_dim)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       for _ in range(4))
+
+        def fwd_bwd(fn, dtype):
+            qs, ks, vs = (t.detach().to(dtype).requires_grad_(True)
+                          for t in (q, k, v))
+            o = fn(qs, ks, vs)
+            o.backward(do.to(dtype))
+            return o.detach(), qs.grad, ks.grad, vs.grad
+
+        fns = {"ulysses": lambda a, b, c: ulysses_attention(a, b, c,
+                                                            mesh=mesh),
+               "ring": lambda a, b, c: ring_attention(a, b, c, mesh=mesh),
+               "flash": lambda a, b, c: causal_attention(a, b, c)}
+        # f32: each against reference_attention at the kernel phases' f32
+        # tolerance (the f32 kernels; outside the counted path)
+        ref = uncounted(fa, lambda: fwd_bwd(
+            lambda a, b, c: reference_attention(a, b, c, causal=True),
+            torch.float32))
+        got, ms = {}, {}
+        for name in ("ulysses", "ring"):
+            res = uncounted(fa, lambda: fwd_bwd(fns[name], torch.float32))
+            o_err = (res[0] - ref[0]).abs().max().item()
+            grads = [bwd_compare(g, w, "f32")
+                     for g, w in zip(res[1:], ref[1:])]
+            got[name] = {"f32_o_max": o_err, "f32_grads": grads}
+            print(f"[seq-pipe-tp] (a) {name}, f32 B={attn_batch} T={seq} "
+                  f"H={heads} D={head_dim}, forward and backward vs "
+                  f"reference_attention: O max|d| {o_err:.3e}, "
+                  f"{bwd_report(grads)} [{card}]", flush=True)
+            if o_err > TOL[("f32", "o")] or not all(c["ok"] for c in grads):
+                fail(f"[seq-pipe-tp] (a) {name} in f32 disagrees with "
+                     f"reference_attention: O {o_err}, {grads}")
+        # bf16, the counted path: Ulysses' one flash forward, dQ and
+        # dK/dV; at world 1 its all-to-alls are the identity, so it is
+        # the direct flash call bit for bit.  Each one's error against
+        # the f32 reference and its fwd+bwd ms (CUDA events) beside it
+        before = read_counts(fa)
+        uly = fwd_bwd(fns["ulysses"], torch.bfloat16)
+        sync()
+        launched = _delta(before, read_counts(fa))
+        direct = uncounted(fa, lambda: fwd_bwd(fns["flash"], torch.bfloat16))
+        same = all(torch.equal(a, b) for a, b in zip(uly, direct))
+        for name in ("ulysses", "ring", "flash"):
+            res = {"ulysses": uly, "flash": direct}.get(name) or uncounted(
+                fa, lambda: fwd_bwd(fns[name], torch.bfloat16))
+            errs = [(r.float() - w).abs().max().item()
+                    for r, w in zip(res, ref)]
+            ms[name] = uncounted(fa, lambda: timed(
+                lambda: fwd_bwd(fns[name], torch.bfloat16)))
+            got.setdefault(name, {}).update(bf16_max_vs_f32=errs)
+            print(f"[seq-pipe-tp] (a) {name}, bf16: max|d| vs the f32 "
+                  f"reference (o, dq, dk, dv) "
+                  f"{[f'{e:.3e}' for e in errs]}; forward and backward "
+                  f"{ms[name]} ms [{card}]", flush=True)
+        print(f"[seq-pipe-tp] (a) Ulysses bf16 launches {launched} "
+              f"(predicted {want['ulysses']}); equal to the direct flash "
+              f"call bit for bit: {same} [{card}]", flush=True)
+        if launched != want["ulysses"] or not same:
+            fail(f"[seq-pipe-tp] (a) Ulysses launched {launched}, bit for "
+                 f"bit the direct call: {same}")
+        got["ulysses"]["launches"] = launched
+        out["attention"] = got
+        out["attention_ms"] = ms
+        del q, k, v, do, ref, uly, direct
+
+        # -- (b) the seq-parallel GPT-2 step on the mesh ------------------
+        params0 = tg.gpt2_init(cfg, gen, device=dev)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                         (sp_batch, seq + 1),
+                                         generator=gen, device=dev)}
+        tx = adamw(3e-4, weight_decay=0.1)
+        out["sp"] = {}
+        for mode in ("ring", "ulysses"):
+            scfg = dataclasses.replace(cfg, seq_parallel=True, sp_mode=mode,
+                                       ce_impl="dense")
+            loss_fn = (lambda c: lambda p, b: tg.gpt2_loss(p, b, c))(scfg)
+            losses = {}
+            for with_mesh in (True, False):
+                step = build_train_step(loss_fn, tx,
+                                        mesh=mesh if with_mesh else None,
+                                        telemetry=False)
+                p = tree_map(torch.clone, params0)
+                o = tx.init(p)
+                before = read_counts(fa)
+                run = []
+                for _ in range(sp_steps):
+                    if with_mesh:
+                        p, o, loss = step(p, o, batch)
+                    else:
+                        p, o, loss = uncounted(fa, lambda: step(p, o, batch))
+                    run.append(float(loss))
+                sync()
+                losses[with_mesh] = run
+                if with_mesh:
+                    per_step = {k: v // sp_steps for k, v in
+                                _delta(before, read_counts(fa)).items()}
+                del p, o
+            diff = max(abs(a - b) for a, b in zip(losses[True],
+                                                  losses[False]))
+            print(f"[seq-pipe-tp] (b) seq_parallel sp_mode={mode}, dense "
+                  f"CE, B={sp_batch} T={seq}: {sp_steps} steps on the "
+                  f"world-1 mesh, losses {[round(x, 6) for x in losses[True]]}"
+                  f" vs meshless {[round(x, 6) for x in losses[False]]}, "
+                  f"max |diff| {diff:.3e}; launches a step {per_step} "
+                  f"(predicted {want['sp_step']}) [{card}]", flush=True)
+            if diff > CE_LOSS_TOL or per_step != want["sp_step"] or not \
+                    all(map(math.isfinite, losses[True])):
+                fail(f"[seq-pipe-tp] (b) sp_mode={mode}: loss |diff| "
+                     f"{diff}, launches {per_step}")
+            out["sp"][mode] = {"losses": losses[True], "max_diff": diff,
+                               "per_step": per_step}
+
+        # -- (c) the one-stage pipeline of the 12 blocks -------------------
+        rows = PP_M * mb_rows
+        tokens = torch.randint(0, cfg.vocab_size, (rows, seq),
+                               generator=gen, device=dev)
+        r = torch.randn((rows, seq, cfg.d_model), generator=gen, device=dev)
+        stage = {"blocks": tree_map(lambda t: t[None], params0["blocks"])}
+
+        def stage_fn(sp, act):
+            for lp in tg._layers(sp["blocks"], cfg.n_layer):
+                act = tg._block(act, lp, cfg)
+            return act
+
+        def pipe_loss(blocks):
+            x = (params0["wte"].to(cfg.dtype)[tokens]
+                 + params0["wpe"].to(cfg.dtype)[:seq])
+            y = pipeline_apply(stage_fn, {"blocks": blocks}, x,
+                               microbatches=PP_M, mesh=mesh, remat=True)
+            h = tg._layernorm(y, params0["ln_f"]["scale"],
+                              params0["ln_f"]["bias"])
+            return h, (h.float() * r).mean()
+
+        def hidden_loss(blocks):
+            p = dict(params0, blocks=blocks)
+            h = tg.gpt2_hidden(p, tokens, cfg)
+            return h, (h.float() * r).mean()
+
+        def value_and_grads(fn, blocks):
+            live = tree_map(lambda t: t.detach().requires_grad_(True),
+                            blocks)
+            h, loss = fn(live)
+            grads = torch.autograd.grad(loss, tree_leaves(live))
+            return h.detach(), float(loss.detach()), grads
+
+        before = read_counts(fa)
+        h_p, l_p, g_p = value_and_grads(pipe_loss, stage["blocks"])
+        sync()
+        pipe_counts = _delta(before, read_counts(fa))
+        h_r, l_r, g_r = uncounted(fa, lambda: value_and_grads(
+            hidden_loss, params0["blocks"]))
+        h_err = (h_p.float() - h_r.float()).abs().max().item()
+        norm_p = torch.stack([g.float().norm() for g in g_p]).norm().item()
+        norm_r = torch.stack([g.float().norm() for g in g_r]).norm().item()
+        leaf_rel = max(((a[0].float() - b.float()).norm()
+                        / b.float().norm().clamp_min(1e-30)).item()
+                       for a, b in zip(g_p, g_r))
+        l_rel = abs(l_p - l_r) / max(abs(l_r), 1e-30)
+        n_rel = abs(norm_p - norm_r) / max(norm_r, 1e-30)
+        print(f"[seq-pipe-tp] (c) pipeline_apply, one stage of "
+              f"{cfg.n_layer} blocks, {PP_M} microbatches of {mb_rows}x"
+              f"{seq}, remat: hidden max|d| vs gpt2_hidden {h_err:.3e}, "
+              f"loss {l_p:.6e} vs {l_r:.6e} (rel {l_rel:.2e}), grad norm "
+              f"{norm_p:.6e} vs {norm_r:.6e} (rel {n_rel:.2e}), worst "
+              f"leaf's relative difference {leaf_rel:.3e}; launches "
+              f"{pipe_counts} (predicted {want['pipeline']}) [{card}]",
+              flush=True)
+        if (h_err > PP_HIDDEN_TOL or l_rel > PP_LOSS_RTOL
+                or n_rel > PP_GRAD_NORM_RTOL or leaf_rel > PP_LEAF_RTOL
+                or pipe_counts != want["pipeline"]):
+            fail(f"[seq-pipe-tp] (c) the pipeline differs from gpt2_hidden:"
+                 f" hidden {h_err}, loss {l_rel}, norm {n_rel}, leaf "
+                 f"{leaf_rel}, launches {pipe_counts}")
+        out["pipeline"] = {"hidden_max": h_err, "loss_rel": l_rel,
+                           "grad_norm_rel": n_rel, "leaf_rel": leaf_rel,
+                           "launches": pipe_counts}
+        del params0, stage, g_p, g_r, h_p, h_r
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # -- (d) the engine on the world-1 mesh, and the bench ------------
+        prompts = continuous_prompts(np, cfg.vocab_size, n_req, TP_SEED)
+        kw = dict(max_new_tokens=TP_MAX_NEW, temperature=0.0,
+                  scheduler="continuous", kv_layout="paged",
+                  kv_block_size=CONT_BLOCK, prefill_bucket=CONT_BUCKET,
+                  max_slots=TP_SLOTS, seed=TP_SEED,
+                  config_overrides={"dtype": torch.float32,
+                                    "max_seq": CONT_MAX_SEQ}, device=dev)
+        replies, stats = {}, {}
+        for with_mesh in (True, False):
+            eng = build_llm_deployment(
+                "gpt2", preset, mesh=mesh if with_mesh else None,
+                **kw).func_or_class()
+            run = lambda: asyncio.run(_serve_waves(eng, prompts, n_req))
+            with torch.inference_mode():
+                replies[with_mesh] = (run() if with_mesh
+                                      else uncounted(fa, run))[0]
+            stats[with_mesh] = eng.engine_stats()
+            del eng
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(replies[True], replies[False]))
+        block = stats[True]["mesh"]
+        programs = sorted(stats[True]["programs"])
+        sharded = [p for p in programs if p.startswith("serve.sharded_")]
+        check_replies(np, prompts, replies[True], TP_MAX_NEW,
+                      cfg.vocab_size, "seq-pipe-tp")
+        print(f"[seq-pipe-tp] (d) continuous GPT-2 engine, f32 paged, "
+              f"{TP_SLOTS} slots, {n_req} requests: mesh=world-1 replies "
+              f"equal to mesh=None's: {same}; engine_stats()['mesh'] "
+              f"{ {k: v for k, v in block.items() if k != 'devices'} } "
+              f"with {len(block['devices'])} device row(s); sharded "
+              f"programs {sharded}; meshless engine has a mesh block: "
+              f"{'mesh' in stats[False]} [{card}]", flush=True)
+        if (not same or set(block) != {"axes", "n_devices", "kv_shards",
+                                       "devices"}
+                or block["n_devices"] != 1 or block["kv_shards"] != 1
+                or not sharded or "serve.sharded_decode" not in sharded):
+            fail(f"[seq-pipe-tp] (d) the mesh engine: replies equal "
+                 f"{same}, mesh block {block}, programs {programs}")
+        dkw = dict(prompt_len=min(128, seq // 2), new_tokens=16,
+                   preset=preset, device=dev, max_seq=seq)
+        t_mesh = time_decode(B, mesh=mesh, **dkw)
+        t_plain = uncounted(fa, lambda: time_decode(B, **dkw))
+        equal = torch.equal(t_mesh[4], t_plain[4])
+        print(f"[seq-pipe-tp] (d) bench time_decode(mesh=world-1), B={B}, "
+              f"prompt {dkw['prompt_len']}, 16 new: n_chips {t_mesh[3]}, TTFT "
+              f"{t_mesh[0]:.2f} ms, {t_mesh[1]:.1f} tokens/s (meshless "
+              f"{t_plain[0]:.2f} ms, {t_plain[1]:.1f} tokens/s); greedy "
+              f"tokens equal: {equal} [{card}]", flush=True)
+        if t_mesh[3] != 1 or not equal:
+            fail(f"[seq-pipe-tp] (d) time_decode(mesh=) n_chips "
+                 f"{t_mesh[3]}, tokens equal {equal}")
+        out["engine"] = {"same": same, "mesh": block, "sharded": sharded}
+        out["bench"] = {"ttft_ms": t_mesh[0], "tok_s": t_mesh[1],
+                        "plain_ttft_ms": t_plain[0],
+                        "plain_tok_s": t_plain[1]}
+        out["counts"] = read_counts(fa)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
 #: phase train-tune (12h): GPT-2 steps in a train worker (a) and (b) and
 #: in tune trials (c), each the pallas step of phase data-air; (a) and
 #: (b) read the dataset of 12f (DATA_ROWS seeded rows); (b) fails once
@@ -7526,6 +7883,8 @@ def main() -> int:
     tick("data-air")
     moe_mesh = phase_moe_mesh(torch, np, fa, card)
     tick("moe-mesh")
+    seq_pipe = phase_seq_pipe_tp(torch, np, fa, card)
+    tick("seq-pipe-tp")
     train_tune = phase_train_tune(torch, np, fa, card)
     tick("train-tune")
     train_llama = phase_train_llama(torch, fa, fc, card)
@@ -7553,6 +7912,7 @@ def main() -> int:
                    "data_train": data_air["counts_train"].get(name, 0),
                    "data_predict": data_air["counts_predict"].get(name, 0),
                    "moe_mesh": moe_mesh["counts"].get(name, 0),
+                   "seq_pipe_tp": seq_pipe["counts"].get(name, 0),
                    "train_tune": train_tune["counts"][name],
                    "train_llama": train_llama["counts"][name],
                    "train_telemetry": train_tele["counts"][name]}

@@ -210,6 +210,8 @@ class ProgramRegistry:
         self._lock = threading.Lock()
         self._m = _device_metrics()
         self._programs: Dict[str, Dict[str, Any]] = {}
+        #: program -> the n_devices it was instrumented with
+        self._devices: Dict[str, int] = {}
         self._subscribers: List[Any] = []
         self._storm_subscribers: List[Any] = []
 
@@ -352,14 +354,12 @@ class ProgramRegistry:
                    n_devices: int = 1) -> Callable:
         """Wrap `fn` with compile detection and invoke timing under
         `program`.  The wrapper executes `fn` itself.  ``n_devices`` is
-        the JAX registry's keyword (the devices a sharded program runs
-        on); only 1 is ported: more raise NotImplementedError naming
-        ROADMAP.md queue 1 item 7.7b."""
-        if n_devices > 1:
-            raise NotImplementedError(
-                f"a program over n_devices={n_devices} is not ported yet: "
-                f"ROADMAP.md queue 1 item 7.7b; the port's "
-                f"programs run on one device")
+        the number of cards a sharded program runs on (a mesh's size),
+        recorded per program (``devices_of``); the JAX registry divides
+        its live MFU by it, which stays None here until a cost model
+        exists (module docstring)."""
+        with self._lock:
+            self._devices[program] = int(n_devices)
         registry = self
         seen: set = set()
         seen_lock = threading.Lock()
@@ -391,14 +391,24 @@ class ProgramRegistry:
 
     # -- sinks -------------------------------------------------------------
 
-    def snapshot(self, prefix: Optional[str] = None
+    def devices_of(self, program: str) -> int:
+        """The ``n_devices`` `program` was instrumented with (1 for a
+        program never instrumented)."""
+        with self._lock:
+            return self._devices.get(program, 1)
+
+    def snapshot(self, prefix: Optional[str] = None, n_devices: int = 1,
+                 peak_flops: Optional[float] = None
                  ) -> Dict[str, Dict[str, Any]]:
         """Per-program observability block with the JAX key set:
         ``{compile_events, compile_seconds, invokes, invoke_ms,
         xla_flops, bytes_accessed, arithmetic_intensity,
         peak_hbm_bytes, recompile_storm, recompile_storms_total,
         mfu}``; the cost-model keys and ``mfu`` are None (module
-        docstring)."""
+        docstring).  ``n_devices`` and ``peak_flops`` are the JAX
+        keywords of the MFU's denominator (``n_devices`` cards of
+        ``peak_flops`` each), unused while ``mfu`` is None."""
+        del n_devices, peak_flops
         with self._lock:
             items = [(name, dict(rec), list(rec["invoke_s"]))
                      for name, rec in self._programs.items()]
@@ -429,6 +439,7 @@ class ProgramRegistry:
     def reset(self) -> None:
         with self._lock:
             self._programs.clear()
+            self._devices.clear()
             self._subscribers.clear()
 
 

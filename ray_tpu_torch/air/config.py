@@ -7,9 +7,11 @@ A copy of ``ray_tpu/air/config.py`` for the port.  ``ScalingConfig``
 asks for cards: ``use_gpu`` and ``num_gpus_per_worker`` (the runtime's
 ``"GPU"`` resource) where the reference asks for ``use_tpu`` and
 ``num_tpus_per_worker``; given the TPU names it raises the ValueError
-that ``remote(num_tpus=...)`` raises.  ``topology`` and ``mesh`` (a
-slice-aware mesh) raise NotImplementedError naming ROADMAP.md queue 1
-item 7.7b.  FailureConfig, CheckpointConfig and
+that ``remote(num_tpus=...)`` raises.  ``topology`` (a slice name) and
+``mesh`` (a ``parallel.MeshSpec``) are stored as the reference stores
+them; ``JaxTrainer`` lays its workers' mesh by ``mesh``
+(``jax_utils.get_mesh``), and nothing reads ``topology``: a TPU slice
+name means nothing to a card.  FailureConfig, CheckpointConfig and
 RunConfig are the reference's.
 """
 
@@ -18,14 +20,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Union
 
-#: the ROADMAP item a mesh waits for
-MESH_ITEM = ("ROADMAP.md queue 1 item 7.7b (ScalingConfig's topology "
-             "and mesh)")
-
-
 @dataclasses.dataclass(init=False)
 class ScalingConfig:
-    """How many workers and what each gets."""
+    """How many workers, what each gets, and how they form a mesh."""
 
     num_workers: int = 1
     use_gpu: bool = False
@@ -53,19 +50,14 @@ class ScalingConfig:
         if kwargs:
             raise TypeError(f"ScalingConfig got unexpected keyword "
                             f"arguments {sorted(kwargs)}")
-        for name, value in (("topology", topology), ("mesh", mesh)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"ScalingConfig({name}=...) is not ported yet: "
-                    f"{MESH_ITEM}")
         self.num_workers = num_workers
         self.use_gpu = use_gpu
         self.num_cpus_per_worker = num_cpus_per_worker
         self.num_gpus_per_worker = num_gpus_per_worker
         self.resources_per_worker = resources_per_worker
         self.placement_strategy = placement_strategy
-        self.topology = None
-        self.mesh = None
+        self.topology = topology
+        self.mesh = mesh
         if self.use_gpu and not self.num_gpus_per_worker:
             self.num_gpus_per_worker = 1.0
 

@@ -26,10 +26,12 @@ TFLOP/s (NVIDIA's data sheet, at 700 W); a run off the card reports no
 MFU.  The training modes run over the ranks of torch.distributed's
 default process group when one is initialized (``--mesh`` data, fsdp
 or data_fsdp: ``parallel.make_mesh``), else on one device; ``--chips``
-above the group's world size raises ValueError.  ``--mesh tensor`` (a
-tensor-parallel decode mesh) raises NotImplementedError naming
-ROADMAP.md queue 1 item 7.7b, and ``--autopilot`` and the perf
-ledger's append item 7.12.  The JAX
+above the group's world size raises ValueError.  ``--mesh tensor``
+with ``--decode`` or ``--traffic`` shards the serve path over a
+``tensor`` mesh of ``--chips`` ranks (the whole group;
+``decode_mesh``), the decode tensor-parallel on each rank's blocks
+(models/decode_common.py).  ``--autopilot`` and the perf ledger's
+append raise naming ROADMAP.md queue 1 item 7.12.  The JAX
 harness's TPU probes (``_probe_tpu``, ``_pin_cpu``, ``ensure_backend``)
 and its TPU result record have no counterpart.
 
@@ -68,9 +70,6 @@ H100_BF16_PEAK_FLOPS = H100_SXM["bf16_flops"]
 #: vs_baseline = MFU / this, as ``bench.py``'s BASELINE_MFU
 BASELINE_MFU = 0.40
 
-#: what a tensor-parallel decode mesh waits for
-MESH_ITEM = ("ROADMAP.md queue 1 item 7.7b (tensor-parallel decode and "
-             "its cache shardings)")
 #: time_config's layouts (bench.py:335-349)
 TRAIN_MESHES = ("data", "fsdp", "data_fsdp")
 #: what --autopilot and the perf ledger's append wait for
@@ -127,7 +126,7 @@ def time_config(batch: int, seq: int = 1024, n_steps: int = 20,
     if mesh not in TRAIN_MESHES:
         raise ValueError(f"mesh must be one of {TRAIN_MESHES} (got "
                          f"{mesh!r}); a tensor-parallel mesh is a decode "
-                         f"layout: {MESH_ITEM}")
+                         f"layout (time_decode, decode_mesh)")
     grouped = dist.is_available() and dist.is_initialized()
     n_chips = dist.get_world_size() if grouped else 1
     if n_devices and n_devices != n_chips:
@@ -277,8 +276,9 @@ def parse_args(argv=None):
     ap.add_argument("--mesh", default="data",
                     choices=["data", "fsdp", "data_fsdp", "tensor"],
                     help="parallelism layout over the process group's "
-                         "ranks; 'tensor' (decode) waits for "
-                         f"{MESH_ITEM}")
+                         "ranks: data, fsdp, data_fsdp (train), or "
+                         "tensor (serve: --decode/--traffic shard the "
+                         "engine over tensor = --chips ranks)")
     ap.add_argument("--preset", default="",
                     help="model preset override; default gpt2 on the "
                          "card, tiny on the CPU")
@@ -420,6 +420,23 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def decode_mesh(tensor_degree: int):
+    """(mesh, n_chips) of a tensor-parallel serve bench
+    (``bench.py:447``): (None, 1) at degree 1, the single-device path
+    unchanged; else a tensor=degree mesh over torch.distributed's
+    default process group, whose ranks it must span (ValueError
+    otherwise)."""
+    if tensor_degree <= 1:
+        return None, 1
+    from ray_tpu_torch.parallel import MeshSpec, make_mesh
+
+    if _world_size() != tensor_degree:
+        raise ValueError(f"tensor degree {tensor_degree} needs a process "
+                         f"group of {tensor_degree} ranks, have "
+                         f"{_world_size()}")
+    return make_mesh(MeshSpec(tensor=tensor_degree)), tensor_degree
+
+
 def time_decode(batch, prompt_len=128, new_tokens=64, preset="gpt2",
                 mesh=None, device: DeviceLike = None, params=None,
                 **overrides):
@@ -434,16 +451,20 @@ def time_decode(batch, prompt_len=128, new_tokens=64, preset="gpt2",
     reference's four and the greedy tokens: the prefill's and each
     decode step's, a (1 + new_tokens, batch) CPU tensor read after the
     timing.  ``params`` replaces the seeded weights.  The prompt is
-    drawn from a CPU generator seeded 1.  A mesh raises naming
-    ROADMAP.md queue 1 item 7.7b."""
+    drawn from a CPU generator seeded 1.  ``mesh`` (every rank calls
+    it) tensor-parallelises the whole path, as the reference's: the
+    parameters are this rank's blocks under DECODE_RULES
+    (``decode_common.tensor_parallel_params``) and the prefill's cache
+    is born partitioned; n_chips is the mesh's size.  ``device`` is
+    then this rank's (its card, or the CPU for a gloo mesh)."""
     from ray_tpu_torch.models.decode_common import (make_vocab_tail_mask,
-                                                    sample_token)
+                                                    sample_token,
+                                                    tensor_parallel_params)
+    from ray_tpu_torch.models.gpt2 import gpt2_logical_axes
     from ray_tpu_torch.models.gpt2_decode import decode_step, prefill
+    from ray_tpu_torch.parallel.mesh import mesh_context
     from ray_tpu_torch.serve.telemetry import EngineTelemetry
 
-    if mesh is not None:
-        raise NotImplementedError(
-            f"a tensor-parallel decode mesh is not ported yet: {MESH_ITEM}")
     dev = resolve_device(device)
     cfg = gpt2_config(preset, **overrides)
     if prompt_len + new_tokens > cfg.max_seq:
@@ -452,6 +473,11 @@ def time_decode(batch, prompt_len=128, new_tokens=64, preset="gpt2",
     if params is None:
         params = gpt2_init(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
+    n_chips = 1
+    if mesh is not None:
+        params = tensor_parallel_params(params, gpt2_logical_axes(cfg),
+                                        mesh)
+        n_chips = mesh.size()
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                          generator=torch.Generator().manual_seed(1)).to(dev)
     tail = make_vocab_tail_mask(cfg, dev)
@@ -465,7 +491,8 @@ def time_decode(batch, prompt_len=128, new_tokens=64, preset="gpt2",
         logits, cache = decode_step(params, cache, t, cfg)
         return sample_token(logits, None, 0.0, tail), cache
 
-    with torch.inference_mode():
+    with torch.inference_mode(), (mesh_context(mesh) if mesh is not None
+                                  else contextlib.nullcontext()):
         # warm-up: both programs' first calls
         tok, cache = run_prefill(toks)
         run_step(cache, tok)
@@ -497,7 +524,7 @@ def time_decode(batch, prompt_len=128, new_tokens=64, preset="gpt2",
         dt = time.perf_counter() - t0
     tok_s = batch * new_tokens / dt
     telemetry.record_finish(rec, n_tokens=new_tokens)
-    return ttft_ms, tok_s, telemetry.engine_stats(), 1, \
+    return ttft_ms, tok_s, telemetry.engine_stats(), n_chips, \
         torch.stack(steps).cpu()
 
 
@@ -520,10 +547,14 @@ def main_decode(args, dev: torch.device) -> None:
     cfg_kw = {}
     if args.flash_resident:
         cfg_kw["flash_resident"] = args.flash_resident
+    mesh, n_chips = (decode_mesh(args.chips or 1)
+                     if args.mesh == "tensor" else (None, 1))
+    if mesh is not None:
+        base += "_sharded"
     with _maybe_profile(args.profile):
         ttft_best_ms, tok_s, stats, n_chips, _ = time_decode(
             batch, prompt_len=prompt_len, new_tokens=new_tokens,
-            preset=preset, device=dev, **cfg_kw)
+            preset=preset, mesh=mesh, device=dev, **cfg_kw)
     # the headline TTFT is engine_stats()' p50; the best of 3 stays in
     # detail as ttft_best_ms
     ttft_ms = stats["ttft_ms"]["p50"]
@@ -534,7 +565,8 @@ def main_decode(args, dev: torch.device) -> None:
               "tokens_per_sec": stats["tokens_per_sec"]}
     detail = {"chips": n_chips, "batch": batch,
               "prompt_len": prompt_len,
-              "new_tokens": new_tokens, "preset": preset, "mesh": {},
+              "new_tokens": new_tokens, "preset": preset,
+              "mesh": ({"tensor": n_chips} if mesh is not None else {}),
               "flash_resident": args.flash_resident or "auto",
               "backend": dev.type, "tpu_error": None,
               "ttft_best_ms": round(ttft_best_ms, 2), "engine": engine}
@@ -566,7 +598,9 @@ def time_decode_spec(batch, prompt_len=128, new_tokens=64,
 
     Returns (tok_s, stats, dispatches_per_token, n_chips): one target
     prefill per request plus one verify per slot-round, over all
-    emitted tokens."""
+    emitted tokens.  Under a ``mesh`` of several ranks every rank calls
+    it: the first drives the requests, the others follow its engine
+    and return None."""
     import numpy as np
 
     from ray_tpu_torch.serve.llm import SpecConfig, build_llm_deployment
@@ -581,6 +615,9 @@ def time_decode_spec(batch, prompt_len=128, new_tokens=64,
         spec_decode=SpecConfig(draft=draft, k=spec_k),
         config_overrides=config_overrides, device=device)
     inst = dep.func_or_class()
+    if not inst.is_leader:
+        inst.follow()
+        return None
     rng = np.random.default_rng(1)
     vocab = int(inst.cfg.vocab_size)
     prompts = [rng.integers(0, vocab, size=prompt_len).astype(np.int32)
@@ -598,7 +635,8 @@ def time_decode_spec(batch, prompt_len=128, new_tokens=64,
     stats = inst.engine_stats()
     n_tokens = sum(len(o) - prompt_len for o in outs)
     dispatches = batch + stats["spec"]["rounds"]
-    return n_tokens / dt, stats, dispatches / max(1, n_tokens), 1
+    n_chips = mesh.size() if mesh is not None else 1
+    return n_tokens / dt, stats, dispatches / max(1, n_tokens), n_chips
 
 
 def main_decode_spec(args, dev: torch.device) -> None:
@@ -620,19 +658,27 @@ def main_decode_spec(args, dev: torch.device) -> None:
         base = "gpt2_decode_cpu_smoke"
         overrides = {"dtype": torch.float32, "use_flash": False,
                      "remat": False}
+    mesh, n_chips = (decode_mesh(args.chips or 1)
+                     if args.mesh == "tensor" else (None, 1))
     spec_base = base.replace("_decode", "_decode_spec")
+    if mesh is not None:
+        spec_base += "_sharded"
     with _maybe_profile(args.profile):
-        tok_s, stats, dpt, n_chips = time_decode_spec(
+        res = time_decode_spec(
             batch, prompt_len=prompt_len, new_tokens=new_tokens,
             preset=preset, spec_k=args.spec_k,
             spec_draft=args.spec_draft, kv_layout=args.kv_layout,
-            config_overrides=overrides, device=dev)
+            mesh=mesh, config_overrides=overrides, device=dev)
+    if res is None:     # a follower rank: its leader reports
+        return
+    tok_s, stats, dpt, n_chips = res
     spec = stats["spec"]
     detail = {"chips": n_chips, "batch": batch,
               "prompt_len": prompt_len, "new_tokens": new_tokens,
               "preset": preset, "spec_k": args.spec_k,
               "spec_draft": args.spec_draft,
-              "kv_layout": args.kv_layout, "mesh": {},
+              "kv_layout": args.kv_layout,
+              "mesh": ({"tensor": n_chips} if mesh is not None else {}),
               "backend": dev.type, "tpu_error": None,
               "target_dispatches_per_token": round(dpt, 4),
               "spec": spec}
@@ -701,6 +747,10 @@ def main_traffic(args, dev: torch.device) -> None:
     if args.kv_host_tier_bytes:
         base += "_tier"
         kw["kv_host_tier_bytes"] = args.kv_host_tier_bytes
+    mesh, n_chips = (decode_mesh(args.chips or 1)
+                     if args.mesh == "tensor" else (None, 1))
+    if mesh is not None:
+        base += "_sharded"
     # engine-side SLO targets from the client latency bound: TTFT gets
     # half the e2e budget
     slo_cfg = SLOConfig(ttft_ms=kw["latency_slo_ms"] / 2,
@@ -716,11 +766,14 @@ def main_traffic(args, dev: torch.device) -> None:
             spec, family="gpt2", preset=preset,
             kv_layout=args.kv_layout,
             admission_policy=AdmissionPolicy(max_queue_depth=4 * n),
-            slo=slo_cfg, spec_decode=spec_cfg, device=dev, **kw)
+            slo=slo_cfg, spec_decode=spec_cfg, mesh=mesh, device=dev,
+            **kw)
+    if rep is None:     # a follower rank: its leader reports
+        return
     eng = rep["engine"]
     mesh_axes = eng.get("mesh", {}).get("axes", {})
     tok_s = eng["tokens_per_sec"]
-    detail = {"chips": 1, "requests": rep["offered"],
+    detail = {"chips": n_chips, "requests": rep["offered"],
               "completed": rep["completed"], "shed": rep["shed"],
               "kv_layout": args.kv_layout, "preset": preset,
               "mesh_axes": mesh_axes,
@@ -728,8 +781,8 @@ def main_traffic(args, dev: torch.device) -> None:
               "latency_ms": rep["latency_ms"],
               "tokens_per_sec": tok_s,
               "tokens_per_sec_per_chip":
-                  (round(tok_s, 1) if isinstance(tok_s, (int, float))
-                   else tok_s),
+                  (round(tok_s / max(1, n_chips), 1)
+                   if isinstance(tok_s, (int, float)) else tok_s),
               "ttft_ms": eng["ttft_ms"],
               "kv_cache": eng.get("kv_cache"),
               "rejections_by_reason": eng["rejections_by_reason"]}
@@ -1034,10 +1087,6 @@ def main(args=None, device: DeviceLike = None) -> None:
     stdout.  ``device`` (or ``--device``) picks the device; None is the
     card."""
     args = args or parse_args()
-    if args.mesh == "tensor" and (args.decode or args.traffic):
-        raise NotImplementedError(
-            f"--mesh tensor (a tensor-parallel decode mesh over "
-            f"--chips {args.chips}) is not ported yet: {MESH_ITEM}")
     if args.chips > _world_size():
         raise ValueError(
             f"--chips {args.chips} is above the process group's world "

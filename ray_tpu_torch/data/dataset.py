@@ -462,15 +462,22 @@ class Dataset:
         copied into pinned memory and sent without a host sync, so the
         copy queues behind the step that is still running (as
         ``jax.device_put`` does).  ``dtypes``: per-column torch dtypes,
-        cast on the device after the copy.  A batch sharded over
-        a mesh (``sharding``) waits for ROADMAP.md queue 1 item 7.7b
-        and raises NotImplementedError."""
+        cast on the device after the copy.
+
+        ``sharding`` (a ``parallel.sharding.NamedSharding``, e.g. over
+        the mesh's batch axes) places every column as a DTensor: each
+        rank of the mesh, iterating the same dataset, keeps its own
+        block of the global batch (its rows), on the mesh's device (its
+        card; the CPU for a gloo mesh; ``device`` is then unused), and
+        nothing is sent.  The mesh train step takes such a batch as it
+        is (``MeshPlan.local_batch`` reads the local block).  As a
+        sharded ``jax.device_put``, a batch whose rows do not divide
+        the shard count raises ValueError (a ragged last batch: pass
+        ``drop_last=True``)."""
         if sharding is not None:
-            raise NotImplementedError(
-                "a batch sharded over a mesh is not ported yet: ROADMAP.md "
-                "queue 1 item 7.7b (sharded Data batches); "
-                "iter_torch_batches places "
-                "each batch on one device")
+            yield from self._iter_sharded(batch_size, drop_last, dtypes,
+                                          sharding)
+            return
         import warnings
 
         import torch
@@ -499,6 +506,36 @@ class Dataset:
                 if dtypes and k in dtypes:
                     t = t.to(dtypes[k])
                 out[k] = t
+            yield out
+
+    def _iter_sharded(self, batch_size, drop_last, dtypes, sharding):
+        """``iter_torch_batches(sharding=...)``: each column a DTensor
+        of this rank's block (see there)."""
+        import torch
+
+        from ray_tpu_torch.parallel.mesh import mesh_shape
+        from ray_tpu_torch.parallel.sharding import distribute
+
+        sizes = mesh_shape(sharding.mesh)
+        for batch in self.iter_batches(batch_size=batch_size,
+                                       batch_format="numpy",
+                                       drop_last=drop_last):
+            out = {}
+            for k, v in batch.items():
+                for dim, ax in enumerate(sharding.spec):
+                    n = 1
+                    for a in ((ax,) if isinstance(ax, str) else ax or ()):
+                        n *= sizes[a]
+                    if v.shape[dim] % n:
+                        raise ValueError(
+                            f"column {k!r} of shape {tuple(v.shape)} does "
+                            f"not split evenly under {sharding.spec}: dim "
+                            f"{dim} over {n} shards (a ragged last batch: "
+                            f"pass drop_last=True)")
+                t = torch.from_numpy(np.array(v))
+                if dtypes and k in dtypes:
+                    t = t.to(dtypes[k])
+                out[k] = distribute(t, sharding)
             yield out
 
     def iter_rows(self) -> Iterator[Dict[str, Any]]:

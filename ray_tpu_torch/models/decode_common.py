@@ -46,6 +46,23 @@ JAX threads ``jax.random`` keys; the port draws from a
 ``torch.Generator``.  The two give different numbers from one seed, so
 sampled outputs are compared by distribution, greedy ones token for
 token.
+
+Tensor parallelism: JAX gets it from GSPMD once the parameters and the
+pool are committed under ``DECODE_RULES``; the port writes it out,
+Megatron-style, on the local blocks.  Under an active mesh
+(``parallel.mesh_context``) whose ``tensor`` axis is above 1, the
+family functions take this rank's blocks (``tensor_parallel_params``,
+``partitioned_cache_init``): its attention heads and KV-pool heads, its
+columns of the MLP, its rows of the vocabulary.  ``tp_embed`` looks the
+tokens up in the vocab block and all-reduces; ``tp_sum`` all-reduces a
+row-parallel product (the output projection, the MLP's down
+projection), the replicated biases added once after it; ``tp_logits``
+all-gathers the vocab-sharded logits, so the tail mask and sampling see
+them whole.  A dim the tensor degree does not divide stays whole
+(``shardings_by_shape``'s guard: llama GQA's KV heads), and the
+functions read which is which from the local shapes.  With ``tensor``
+at 1, or no mesh, every helper is the identity and the path is the
+meshless one.
 """
 
 from __future__ import annotations
@@ -190,6 +207,157 @@ def paged_update_and_view(layer, block_tables, pos, new):
     b, nb = block_tables.shape
     view = layer[block_tables.long()]          # (B, max_blk, bs, H, hd)
     return layer, view.reshape(b, nb * bs, *layer.shape[2:])
+
+
+def cache_logical_axes(cache):
+    """Logical-axis tree of a decode cache, dense or paged.  The heads
+    dim is at index 3 in both layouts (dense K/V (L, B, S, H, hd), the
+    paged pool (L, num_blocks, bs, H, hd)), so one annotation serves
+    both, and under DECODE_RULES only that dim splits (over
+    ``tensor``).  pos, start and block_tables stay replicated: they are
+    the host scheduler's view of the pool."""
+    axes = {"k": (None, None, None, "heads", "head_dim"),
+            "v": (None, None, None, "heads", "head_dim"),
+            "pos": (None,), "start": (None,)}
+    if "block_tables" in cache:
+        axes["block_tables"] = (None, None)
+    return axes
+
+
+def cache_shardings(cache, mesh, rules=None):
+    """NamedSharding tree of a cache on ``mesh`` (shape-guarded: a head
+    count the tensor degree does not divide replicates, as llama GQA's
+    one KV head does)."""
+    from ray_tpu_torch.parallel.sharding import (DECODE_RULES,
+                                                 shardings_by_shape)
+
+    return shardings_by_shape(cache, cache_logical_axes(cache), mesh,
+                              rules if rules is not None else DECODE_RULES)
+
+
+def _local_block(t, sharding):
+    """This rank's block of ``t`` (the whole tensor on every rank)
+    under ``sharding``: each dim sliced by its mesh axes' coordinates,
+    outer axis first.  A copy, no communication."""
+    from ray_tpu_torch.parallel.collective import axis_index
+    from ray_tpu_torch.parallel.mesh import mesh_shape
+
+    sizes = mesh_shape(sharding.mesh)
+    for dim, ax in enumerate(sharding.spec):
+        for a in ((ax,) if isinstance(ax, str) else ax or ()):
+            n = t.shape[dim] // sizes[a]
+            i = axis_index(a, sharding.mesh)
+            t = t.narrow(dim, i * n, n)
+    return t.contiguous()
+
+
+def shard_cache(cache, mesh, rules=None):
+    """An existing cache re-laid onto ``mesh``: this rank's block of
+    every leaf (``cache_shardings``), as plain tensors the family
+    functions compute on.  Fresh caches go through
+    ``partitioned_cache_init``, so the whole pool never exists on one
+    rank."""
+    shardings = cache_shardings(cache, mesh, rules)
+    return {k: _local_block(v, shardings[k]) for k, v in cache.items()}
+
+
+def partitioned_cache_init(build_fn, mesh, rules=None, device=None):
+    """A zeros cache born partitioned: ``build_fn(device)`` (a family's
+    zeros cache builder) is traced on the meta device for its shapes,
+    and each leaf is allocated at this rank's block shape on
+    ``device``, so each rank holds only its share of the pool."""
+    meta = build_fn(torch.device("meta"))
+    shardings = cache_shardings(meta, mesh, rules)
+    return {k: torch.zeros(shardings[k].shard_shape(tuple(v.shape)),
+                           dtype=v.dtype, device=device)
+            for k, v in meta.items()}
+
+
+def tensor_parallel_params(params, logical_axes, mesh, rules=None):
+    """A parameter tree placed by ``shard_by_shape`` under DECODE_RULES
+    (the JAX engine's commit), as this rank's local blocks: plain
+    tensors the family functions compute on."""
+    from ray_tpu_torch.parallel.sharding import (DECODE_RULES,
+                                                 shardings_by_shape)
+
+    def walk(node, sh):
+        if isinstance(node, dict):
+            return {k: walk(node[k], sh[k]) for k in node}
+        return _local_block(node, sh)
+
+    return walk(params, shardings_by_shape(
+        params, logical_axes, mesh,
+        rules if rules is not None else DECODE_RULES))
+
+
+def tensor_parallel():
+    """(mesh, tensor size, this rank's index) of the active mesh's
+    ``tensor`` axis, or None without a mesh or with ``tensor`` at 1:
+    the gate of every tensor-parallel helper."""
+    from ray_tpu_torch.parallel.mesh import AXIS_TENSOR, active_mesh
+
+    mesh = active_mesh()
+    if mesh is None:
+        return None
+    names = list(mesh.mesh_dim_names)
+    t = mesh.size(names.index(AXIS_TENSOR))
+    if t == 1:
+        return None
+    return mesh, t, int(mesh.get_local_rank(AXIS_TENSOR))
+
+
+def tp_sum(x, tp, split: bool = True):
+    """A row-parallel product's partial sum all-reduced over
+    ``tensor`` (``split``: its contraction dim is this rank's block;
+    a whole one is the full sum already)."""
+    if tp is None or not split:
+        return x
+    from ray_tpu_torch.parallel.collective import xla_allreduce
+
+    return xla_allreduce(x, "tensor", mesh=tp[0])
+
+
+def tp_embed(table, ids, padded_vocab: int, tp):
+    """Token embeddings from a (V, d) table, or from this rank's block
+    of its rows (V / t, d): a masked lookup, all-reduced."""
+    ids = ids.long()
+    rows = table.shape[0]
+    if tp is None or rows == padded_vocab:
+        return table[ids]
+    local = ids - tp[2] * rows
+    mine = (local >= 0) & (local < rows)
+    out = table[local.clamp(0, rows - 1)] * mine[..., None].to(table.dtype)
+    return tp_sum(out, tp)
+
+
+def tp_logits(logits, padded_vocab: int, tp):
+    """Logits (..., V) from this rank's vocab block (..., V / t): the
+    blocks all-gathered in rank order along the last dim."""
+    if tp is None or logits.shape[-1] == padded_vocab:
+        return logits
+    from ray_tpu_torch.parallel.collective import xla_allgather
+
+    return xla_allgather(logits, "tensor", gather_axis=logits.dim() - 1,
+                         mesh=tp[0])
+
+
+def gather_kv_heads(rows, dim: int, n_heads: int):
+    """Whole K or V rows from this rank's KV heads: all-gathered over
+    ``tensor`` along ``dim`` where the pool's heads are split."""
+    tp = tensor_parallel()
+    if tp is None or rows.shape[dim] == n_heads:
+        return rows
+    from ray_tpu_torch.parallel.collective import xla_allgather
+
+    return xla_allgather(rows, "tensor", gather_axis=dim, mesh=tp[0])
+
+
+def local_kv_heads(rows, dim: int, n_local: int):
+    """This rank's ``n_local`` KV heads of whole rows (dim ``dim``)."""
+    tp = tensor_parallel()
+    if tp is None or rows.shape[dim] == n_local:
+        return rows
+    return rows.narrow(dim, tp[2] * n_local, n_local)
 
 
 def dense_to_paged(cache, block_size: int):

@@ -17,8 +17,14 @@ the JAX package ("full", "mlp_only", "dots", "dots_nb", "attn_out").
 (models/moe.py), whose load-balance loss ``gpt2_loss`` adds.  Under a
 mesh (the train step's, ``parallel/``) the functions run on this
 rank's share of the batch with plain local tensors, so the kernels see
-what they see on one device.  Sequence parallelism is not ported yet
-and raises NotImplementedError naming ROADMAP.md queue 1 item 7.7b.
+what they see on one device.  ``seq_parallel=True`` under a mesh
+whose ``seq`` axis is above 1 is context parallelism: each rank of the
+axis takes its slice of the sequence (``gpt2_hidden`` and ``gpt2_loss``
+split the global (B, T) tokens themselves; position embeddings at the
+slice's global offset), and attention runs over the axis by ring or
+Ulysses (``sp_mode``, ops/ring_attention.py).  Without a mesh, or with
+``seq`` of 1, the model takes ``causal_attention``, as the JAX one
+does.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import causal_attention, flash_auto_dispatch
 from ray_tpu_torch.ops.fused_ce import fused_lm_ce
 from ray_tpu_torch.ops.vocab_ce import streaming_ce
-from ray_tpu_torch.parallel.mesh import active_mesh
+from ray_tpu_torch.parallel.mesh import AXIS_SEQ, active_mesh, mesh_shape
 from ray_tpu_torch.parallel.sharding import DEFAULT_RULES
 
 #: The three lm-head + cross-entropy implementations (GPT2Config.ce_impl),
@@ -323,16 +329,63 @@ def _saves(policy: str):
 _SELECTIVE = ("dots", "dots_nb", "attn_out")
 
 
-def _attention(x, p, cfg: GPT2Config):
-    """Flattened-qkv attention sublayer (the JAX ``_attention`` without
-    its Megatron einsum, which belongs to tensor parallelism)."""
+def _seq_shard(cfg: GPT2Config, mesh):
+    """(axis size n, this rank's index) of the ``seq`` axis when the
+    config is sequence-parallel under ``mesh`` and the axis is above 1,
+    else None."""
+    if not cfg.seq_parallel or mesh is None:
+        return None
+    n = mesh_shape(mesh).get(AXIS_SEQ, 1)
+    if n == 1:
+        return None
+    from ray_tpu_torch.parallel.collective import axis_index
+
+    return n, axis_index(AXIS_SEQ, mesh)
+
+
+def _local_seq(x, shard):
+    """This rank's slice of dim 1 (the sequence) of a global (B, T, ...)
+    tensor: columns [i * T / n, (i + 1) * T / n)."""
+    if shard is None or x is None:
+        return x
+    n, i = shard
+    T = x.shape[1]
+    if T % n:
+        raise ValueError(f"sequence length {T} not divisible by the "
+                         f"{n} ranks of the seq axis")
+    return x[:, i * (T // n):(i + 1) * (T // n)]
+
+
+def _ring_attention_sharded(q, k, v, cfg: GPT2Config, mesh):
+    """Context parallelism: attention over the ``seq`` axis of ``mesh``
+    on this rank's sequence slice, by ring or Ulysses (``sp_mode``).
+    None when the config is not sequence-parallel, no mesh is given or
+    its ``seq`` axis is 1."""
+    if _seq_shard(cfg, mesh) is None:
+        return None
+    from ray_tpu_torch.ops.ring_attention import (ring_attention,
+                                                  ulysses_attention)
+
+    fn = ulysses_attention if cfg.sp_mode == "ulysses" else ring_attention
+    return fn(q, k, v, axis_name=AXIS_SEQ, causal=True, mesh=mesh)
+
+
+def _attention(x, p, cfg: GPT2Config, mesh=None):
+    """The attention sublayer: one flattened (d, 3*h*hd) qkv product,
+    then ring/Ulysses attention under sequence parallelism, else
+    ``causal_attention``.  The JAX version keeps a 5-D einsum where the
+    mesh shards the heads (``_heads_axis_sharded``, a layout hint for
+    GSPMD); the port's mesh step gathers every weight before the loss
+    (train/trainer.py), so the product always sees whole weights."""
     B, T, d = x.shape
     h, hd = cfg.n_head, cfg.head_dim
     w = p["qkv_w"].to(cfg.dtype).reshape(d, 3 * h * hd)
     qkv = (x @ w).reshape(B, T, 3, h, hd) + p["qkv_b"].to(cfg.dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, T, H, hd)
-    o = causal_attention(q, k, v, use_flash=cfg.use_flash,
-                         resident=cfg.flash_resident)
+    o = _ring_attention_sharded(q, k, v, cfg, mesh)
+    if o is None:
+        o = causal_attention(q, k, v, use_flash=cfg.use_flash,
+                             resident=cfg.flash_resident)
     if cfg.remat and cfg.remat_policy == "attn_out":
         o = checkpoint_name(o, "attn_out")
     wo = p["o_w"].to(cfg.dtype).reshape(h * hd, d)
@@ -345,9 +398,10 @@ def _mlp(x, p, cfg: GPT2Config):
     return h @ p["proj_w"].to(cfg.dtype) + p["proj_b"].to(cfg.dtype)
 
 
-def _attn_half(x, p, cfg: GPT2Config):
+def _attn_half(x, p, cfg: GPT2Config, mesh=None):
     return x + _attention(_layernorm(x, p["ln1"]["scale"],
-                                     p["ln1"]["bias"]), p["attn"], cfg)
+                                     p["ln1"]["bias"]), p["attn"], cfg,
+                          mesh)
 
 
 def _mlp_half(x, p, cfg: GPT2Config):
@@ -375,11 +429,11 @@ def _moe_half(x, p, cfg: GPT2Config, rules, mesh):
 
 
 def _block(x, p, cfg: GPT2Config, rules=DEFAULT_RULES, mesh=None):
-    """x after one block; (x, the MoE aux loss) with experts, whose
-    routing runs over ``mesh`` (an argument, not the active mesh, so a
-    recompute in the backward, maybe on autograd's device thread, sees
-    the same one)."""
-    x = _attn_half(x, p, cfg)
+    """x after one block; (x, the MoE aux loss) with experts.  The MoE
+    routing and sequence-parallel attention run over ``mesh`` (an
+    argument, not the active mesh, so a recompute in the backward,
+    maybe on autograd's device thread, sees the same one)."""
+    x = _attn_half(x, p, cfg, mesh)
     if cfg.n_experts:
         return _moe_half(x, p, cfg, rules, mesh)
     return _mlp_half(x, p, cfg)
@@ -423,8 +477,10 @@ def _checkpoint(fn, *args, policy: Optional[str] = None):
 def gpt2_hidden(params, tokens, cfg: GPT2Config, rules=DEFAULT_RULES,
                 return_aux: bool = False):
     """tokens (B, T) int → post-ln_f hidden states (B, T, d_model) in
-    the compute dtype.  ``return_aux=True`` also returns the summed MoE
-    load-balance loss (0.0 for dense configs).  ``rules`` are the
+    the compute dtype; under sequence parallelism (module docstring)
+    ``tokens`` are the global ones and the result is this rank's
+    (B, T / n, d_model) slice.  ``return_aux=True`` also returns the
+    summed MoE load-balance loss (0.0 for dense configs).  ``rules`` are the
     sharding rules the MoE block reads under a mesh.
 
     Remat, as the JAX ``gpt2_hidden``: ``remat=False`` saves every
@@ -436,13 +492,13 @@ def gpt2_hidden(params, tokens, cfg: GPT2Config, rules=DEFAULT_RULES,
     checkpointing, see ``_saves``); ``"full"`` (and any other name, as
     in JAX), or ``"mlp_only"`` without flash, recomputes the whole
     block in the backward (``torch.utils.checkpoint``)."""
-    if cfg.seq_parallel:
-        raise NotImplementedError(
-            "sequence parallelism is not ported yet: ROADMAP.md queue 1 "
-            "item 7.7b (ops/ring_attention.py)")
+    mesh = active_mesh() if (cfg.n_experts or cfg.seq_parallel) else None
+    shard = _seq_shard(cfg, mesh)
+    tokens = _local_seq(tokens, shard)
     B, T = tokens.shape
+    off = shard[1] * T if shard is not None else 0
     x = params["wte"].to(cfg.dtype)[tokens.long()]
-    x = x + params["wpe"].to(cfg.dtype)[:T]
+    x = x + params["wpe"].to(cfg.dtype)[off:off + T]
     if cfg.remat and cfg.remat_policy == "mlp_only" and cfg.n_experts:
         raise NotImplementedError(
             "remat_policy='mlp_only' is a dense-MLP recipe; MoE blocks "
@@ -451,10 +507,9 @@ def gpt2_hidden(params, tokens, cfg: GPT2Config, rules=DEFAULT_RULES,
                 and _flash_active(cfg, T, tokens.device))
     policy = cfg.remat_policy if cfg.remat_policy in _SELECTIVE else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    mesh = active_mesh() if cfg.n_experts else None
     for p in _layers(params["blocks"], cfg.n_layer):
         if mlp_only:
-            x = _checkpoint(_mlp_half, _attn_half(x, p, cfg), p, cfg)
+            x = _checkpoint(_mlp_half, _attn_half(x, p, cfg, mesh), p, cfg)
         elif cfg.remat:
             x = _checkpoint(_block, x, p, cfg, rules, mesh, policy=policy)
         else:
@@ -587,7 +642,11 @@ def gpt2_loss(params, batch, cfg: GPT2Config,
     {"tokens": (B, T+1) int} or {"inputs": (B, T), "targets": (B, T)},
     either with an optional "mask" (B, T); the padded-vocab tail is
     masked out.  With experts, ``moe_aux_weight`` times the summed
-    load-balance loss is added."""
+    load-balance loss is added.  Under sequence parallelism (module
+    docstring) the batch is the global one, split after the shift, and
+    the loss is the mean over this rank's slice: the mesh train step's
+    mean over the ranks is then the global mean (exactly so without a
+    mask; with one, the mean of the slices' masked means)."""
     if "tokens" in batch:
         inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
     else:
@@ -595,6 +654,8 @@ def gpt2_loss(params, batch, cfg: GPT2Config,
     mask = batch.get("mask")
     if mask is not None:
         mask = mask.to(torch.float32)
+    shard = _seq_shard(cfg, active_mesh())
+    targets, mask = _local_seq(targets, shard), _local_seq(mask, shard)
     hidden, aux = gpt2_hidden(params, inputs, cfg, rules, return_aux=True)
     loss = _ce(hidden, params["wte"], targets, mask, cfg)
     return loss + cfg.moe_aux_weight * aux if cfg.n_experts else loss

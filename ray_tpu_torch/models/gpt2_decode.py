@@ -11,6 +11,12 @@ with K/V written into the preallocated cache in place (one cache
 allocation per generation, instead of the new cache per step that a
 functional update would make).  ``verify_step`` ingests a (B, k+1)
 block of speculative-decoding tokens in one forward.
+
+Under an active mesh whose ``tensor`` axis is above 1 every function
+is tensor-parallel on this rank's blocks (decode_common's module
+docstring): the local heads (``qkv_w``'s), the local MLP columns, the
+vocab block of ``wte``; ``init_cache``/``init_paged_cache`` with
+``mesh=`` build this rank's share of the pool.
 """
 
 from __future__ import annotations
@@ -23,10 +29,13 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models.decode_common import (generate_with, init_pool,
+                                                partitioned_cache_init,
                                                 prompt_positions,
                                                 scan_prefill,
                                                 set_pool_row, slot_mask,
                                                 tail_attention, tail_plan,
+                                                tensor_parallel, tp_embed,
+                                                tp_logits, tp_sum,
                                                 update_kv, verify_plan,
                                                 verify_update_kv)
 from ray_tpu_torch.models.gpt2 import GPT2Config, _layernorm
@@ -45,29 +54,45 @@ def _check_dense_ffn(cfg: GPT2Config) -> None:
             "only (n_experts=0); MoE decode needs per-step routing")
 
 
-def init_cache(cfg: GPT2Config, batch: int,
-               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+def init_cache(cfg: GPT2Config, batch: int, device: DeviceLike = None,
+               mesh=None) -> Dict[str, torch.Tensor]:
     """Preallocated (L, B, S, H, hd) key/value cache + per-sequence
-    position vectors (decode_common cache contract)."""
+    position vectors (decode_common cache contract).  With ``mesh``,
+    born partitioned: this rank's heads only (heads over ``tensor``)."""
     _check_dense_ffn(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layer, batch, cfg.max_seq, cfg.n_head, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "start": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+    def build(d):
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=d),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=d),
+                "pos": torch.zeros((batch,), dtype=torch.int32, device=d),
+                "start": torch.zeros((batch,), dtype=torch.int32,
+                                     device=d)}
+
+    if mesh is None:
+        return build(dev)
+    return partitioned_cache_init(build, mesh, device=dev)
 
 
 def init_paged_cache(cfg: GPT2Config, batch: int, *, num_blocks: int,
-                     block_size: int,
-                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+                     block_size: int, device: DeviceLike = None,
+                     mesh=None) -> Dict[str, torch.Tensor]:
     """Block-pool cache (decode_common paged contract): K/V pools of
     (L, num_blocks, block_size, H, hd) shared by all rows, per-row
     block tables at the reserved null block 0 (a row holds no storage
-    until blocks are assigned to it)."""
+    until blocks are assigned to it).  With ``mesh``, born partitioned:
+    the pool's heads over ``tensor``, block tables, pos and start
+    whole, so the host pager reads them as it does without one."""
     _check_dense_ffn(cfg)
-    return init_pool(cfg, cfg.n_head, batch, num_blocks, block_size,
-                     resolve_device(device))
+    dev = resolve_device(device)
+
+    def build(d):
+        return init_pool(cfg, cfg.n_head, batch, num_blocks, block_size, d)
+
+    if mesh is None:
+        return build(dev)
+    return partitioned_cache_init(build, mesh, device=dev)
 
 
 def _layer(blocks, i: int):
@@ -76,19 +101,48 @@ def _layer(blocks, i: int):
             for name, sub in blocks.items()}
 
 
-def _mlp(x, p, cfg: GPT2Config):
+def _mlp(x, p, cfg: GPT2Config, tp=None):
     xm = _layernorm(x, p["ln2"]["scale"], p["ln2"]["bias"])
     # jax.nn.gelu defaults to the tanh approximation
-    hmid = F.gelu(xm @ p["mlp"]["fc_w"].to(cfg.dtype)
+    fc_w = p["mlp"]["fc_w"]
+    hmid = F.gelu(xm @ fc_w.to(cfg.dtype)
                   + p["mlp"]["fc_b"].to(cfg.dtype), approximate="tanh")
-    return x + (hmid @ p["mlp"]["proj_w"].to(cfg.dtype)
-                + p["mlp"]["proj_b"].to(cfg.dtype))
+    down = tp_sum(hmid @ p["mlp"]["proj_w"].to(cfg.dtype), tp,
+                  fc_w.shape[-1] != cfg.d_ff)
+    return x + (down + p["mlp"]["proj_b"].to(cfg.dtype))
 
 
-def _logits(params, x, cfg: GPT2Config):
-    """Final LayerNorm and the tied lm head: compute dtype, then f32."""
+def _attn_out(x, o, p, cfg: GPT2Config, tp):
+    """x plus the output projection of the local heads' o (..., h, hd),
+    all-reduced over ``tensor`` where the heads are split, and o_b."""
+    h, hd = o.shape[-2], o.shape[-1]
+    wo = p["attn"]["o_w"].to(cfg.dtype).reshape(h * hd, cfg.d_model)
+    proj = tp_sum(o.reshape(*o.shape[:-2], h * hd) @ wo, tp,
+                  h != cfg.n_head)
+    return x + (proj + p["attn"]["o_b"].to(cfg.dtype))
+
+
+def _qkv(xa, p, cfg: GPT2Config, lead):
+    """q, k, v (*lead, h, hd) of this rank's heads (h: the local
+    ``qkv_w``'s)."""
+    w = p["attn"]["qkv_w"]
+    d, h, hd = cfg.d_model, w.shape[-2], cfg.head_dim
+    qkv = (xa @ w.to(cfg.dtype).reshape(d, 3 * h * hd)).reshape(
+        *lead, 3, h, hd) + p["attn"]["qkv_b"].to(cfg.dtype)
+    return qkv.unbind(-3)
+
+
+def _embed(params, tokens, cfg: GPT2Config, tp):
+    return tp_embed(params["wte"].to(cfg.dtype), tokens, cfg.padded_vocab,
+                    tp)
+
+
+def _logits(params, x, cfg: GPT2Config, tp=None):
+    """Final LayerNorm and the tied lm head: compute dtype, then f32
+    (this rank's vocab block all-gathered under tensor parallelism)."""
     x = _layernorm(x, params["ln_f"]["scale"], params["ln_f"]["bias"])
-    return (x @ params["wte"].to(cfg.dtype).T).float()
+    return tp_logits((x @ params["wte"].to(cfg.dtype).T).float(),
+                     cfg.padded_vocab, tp)
 
 
 def prefill(params, tokens: torch.Tensor, cfg: GPT2Config, *,
@@ -104,33 +158,32 @@ def prefill(params, tokens: torch.Tensor, cfg: GPT2Config, *,
     token is column T0-1 for every row; logits come from that one
     column, never the full (B, T0, V) tensor."""
     B, T0 = tokens.shape
-    d, h, hd = cfg.d_model, cfg.n_head, cfg.head_dim
     dev = tokens.device
-    cache = init_cache(cfg, B, device=dev)
+    tp = tensor_parallel()
+    # the cache holds the heads the parameters do (a replicated draft
+    # under a mesh holds them all)
+    split = params["blocks"]["attn"]["qkv_w"].shape[-2] != cfg.n_head
+    cache = init_cache(cfg, B, device=dev,
+                       mesh=tp[0] if tp is not None and split else None)
     start, pos_ids = prompt_positions(lengths, B, T0, dev)
-    x = params["wte"].to(cfg.dtype)[tokens.long()]       # (B, T0, d)
+    x = _embed(params, tokens, cfg, tp)                  # (B, T0, d)
     x = x + params["wpe"].to(cfg.dtype)[pos_ids]
     attn_start = None if lengths is None else start
     blocks = params["blocks"]
     for i in range(cfg.n_layer):
         p = _layer(blocks, i)
         xa = _layernorm(x, p["ln1"]["scale"], p["ln1"]["bias"])
-        w = p["attn"]["qkv_w"].to(cfg.dtype).reshape(d, 3 * h * hd)
-        qkv = (xa @ w).reshape(B, T0, 3, h, hd) \
-            + p["attn"]["qkv_b"].to(cfg.dtype)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q, k, v = _qkv(xa, p, cfg, (B, T0))
         o = prefill_attention(q, k, v, start=attn_start,
                               use_flash=cfg.use_flash,
                               resident=cfg.flash_resident)
-        wo = p["attn"]["o_w"].to(cfg.dtype).reshape(h * hd, d)
-        x = x + (o.reshape(B, T0, h * hd) @ wo
-                 + p["attn"]["o_b"].to(cfg.dtype))
-        x = _mlp(x, p, cfg)
+        x = _mlp(_attn_out(x, o, p, cfg, tp), p, cfg, tp)
         cache["k"][i, :, :T0] = k       # in place: the cache is
         cache["v"][i, :, :T0] = v       # allocated once above
     cache["pos"].fill_(T0)
     cache["start"] = start
-    return _logits(params, x[:, -1], cfg), cache  # left pad ⇒ last real
+    # left pad ⇒ last real
+    return _logits(params, x[:, -1], cfg, tp), cache
 
 
 def paged_prefill(params, cache, tokens: torch.Tensor, cfg: GPT2Config, *,
@@ -149,31 +202,27 @@ def paged_prefill(params, cache, tokens: torch.Tensor, cfg: GPT2Config, *,
     start are set.  Returns (last-token logits (padded_vocab,) float32,
     the same cache dict)."""
     _, Tt = tokens.shape
-    d, h, hd = cfg.d_model, cfg.n_head, cfg.head_dim
+    tp = tensor_parallel()
     plan = tail_plan(cfg, cache["k"].shape[2], Tt, row_bt, prefix_len,
                      n_tail, tokens.device)
-    x = params["wte"].to(cfg.dtype)[tokens[0].long()]     # (Tt, d)
+    x = _embed(params, tokens[0], cfg, tp)                # (Tt, d)
     x = x + params["wpe"].to(cfg.dtype)[plan["pos_ids"]]
     blocks = params["blocks"]
     for i in range(cfg.n_layer):
         p = _layer(blocks, i)
-        lk, lv = cache["k"][i], cache["v"][i]             # (nb, bs, H, hd)
+        lk, lv = cache["k"][i], cache["v"][i]             # (nb, bs, h, hd)
         xa = _layernorm(x, p["ln1"]["scale"], p["ln1"]["bias"])
-        w = p["attn"]["qkv_w"].to(cfg.dtype).reshape(d, 3 * h * hd)
-        qkv = (xa @ w).reshape(Tt, 3, h, hd) \
-            + p["attn"]["qkv_b"].to(cfg.dtype)
-        q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]         # (Tt, h, hd)
+        q, k, v = _qkv(xa, p, cfg, (Tt,))                 # (Tt, h, hd)
         lk[plan["blk"], plan["off"]] = k
         lv[plan["blk"], plan["off"]] = v
-        o = tail_attention(
-            q, lk[plan["row_bt"]].reshape(cfg.max_seq, h, hd),
-            lv[plan["row_bt"]].reshape(cfg.max_seq, h, hd), plan["mask"],
-            cfg.dtype)
-        wo = p["attn"]["o_w"].to(cfg.dtype).reshape(h * hd, d)
-        x = x + (o.reshape(Tt, h * hd) @ wo + p["attn"]["o_b"].to(cfg.dtype))
-        x = _mlp(x, p, cfg)
+        view = (cfg.max_seq,) + tuple(k.shape[1:])
+        o = tail_attention(q, lk[plan["row_bt"]].reshape(view),
+                           lv[plan["row_bt"]].reshape(view), plan["mask"],
+                           cfg.dtype)
+        x = _mlp(_attn_out(x, o, p, cfg, tp), p, cfg, tp)
     set_pool_row(cache, slot, row_bt, int(prefix_len) + int(n_tail))
-    return _logits(params, x[-1], cfg), cache     # right-aligned ⇒ last
+    # right-aligned ⇒ last
+    return _logits(params, x[-1], cfg, tp), cache
 
 
 def decode_step(params, cache, tokens, cfg: GPT2Config
@@ -188,11 +237,12 @@ def decode_step(params, cache, tokens, cfg: GPT2Config
     place and advances ``pos``; returns (logits (B, padded_vocab)
     float32, the same cache dict)."""
     B = tokens.shape[0]
-    d, h, hd = cfg.d_model, cfg.n_head, cfg.head_dim
+    hd = cfg.head_dim
+    tp = tensor_parallel()
     pos = cache["pos"]                                   # (B,)
     start = cache["start"]                               # (B,)
     rows = torch.arange(B, device=tokens.device)
-    x = params["wte"].to(cfg.dtype)[tokens.long()]       # (B, d)
+    x = _embed(params, tokens, cfg, tp)                  # (B, d)
     x = x + params["wpe"].to(cfg.dtype)[(pos - start).long()]
     # per-slot mask: start[b] <= s <= pos[b] (current token included)
     attn_mask = slot_mask(start, pos + 1, cfg.max_seq)   # (B, S)
@@ -201,22 +251,16 @@ def decode_step(params, cache, tokens, cfg: GPT2Config
     for i in range(cfg.n_layer):
         p = _layer(blocks, i)
         xa = _layernorm(x, p["ln1"]["scale"], p["ln1"]["bias"])
-        w = p["attn"]["qkv_w"].to(cfg.dtype).reshape(d, 3 * h * hd)
-        qkv = (xa @ w).reshape(B, 3, h, hd) \
-            + p["attn"]["qkv_b"].to(cfg.dtype)
-        q, k_new, v_new = qkv[:, 0], qkv[:, 1], qkv[:, 2]  # (B,h,hd)
+        q, k_new, v_new = _qkv(xa, p, cfg, (B,))          # (B, h, hd)
         ck, cv = update_kv(cache, i, rows, pos_l, k_new, v_new)
         scores = torch.einsum("bhd,bshd->bhs", q, ck).float()
         scores = scores / math.sqrt(hd)
         scores = torch.where(attn_mask[:, None, :], scores, _NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
-        o = torch.einsum("bhs,bshd->bhd", probs, cv)     # (B,h,hd)
-        wo = p["attn"]["o_w"].to(cfg.dtype).reshape(h * hd, d)
-        x = x + (o.reshape(B, h * hd) @ wo
-                 + p["attn"]["o_b"].to(cfg.dtype))
-        x = _mlp(x, p, cfg)
+        o = torch.einsum("bhs,bshd->bhd", probs, cv)     # (B, h, hd)
+        x = _mlp(_attn_out(x, o, p, cfg, tp), p, cfg, tp)
     cache["pos"] = pos + 1
-    return _logits(params, x, cfg), cache
+    return _logits(params, x, cfg, tp), cache
 
 
 def verify_step(params, cache, block, cfg: GPT2Config
@@ -234,29 +278,24 @@ def verify_step(params, cache, block, cfg: GPT2Config
     Returns (logits (B, T, padded_vocab) float32, the same cache
     dict)."""
     B, T = block.shape
-    d, h, hd = cfg.d_model, cfg.n_head, cfg.head_dim
+    hd = cfg.head_dim
+    tp = tensor_parallel()
     plan = verify_plan(cache, T, cfg.max_seq)
-    x = params["wte"].to(cfg.dtype)[block.long()]        # (B, T, d)
+    x = _embed(params, block, cfg, tp)                   # (B, T, d)
     x = x + params["wpe"].to(cfg.dtype)[plan["pos_ids"]]
     blocks = params["blocks"]
     for i in range(cfg.n_layer):
         p = _layer(blocks, i)
         xa = _layernorm(x, p["ln1"]["scale"], p["ln1"]["bias"])
-        w = p["attn"]["qkv_w"].to(cfg.dtype).reshape(d, 3 * h * hd)
-        qkv = (xa @ w).reshape(B, T, 3, h, hd) \
-            + p["attn"]["qkv_b"].to(cfg.dtype)
-        q, k_new, v_new = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        q, k_new, v_new = _qkv(xa, p, cfg, (B, T))
         ck, cv = verify_update_kv(cache, i, plan, k_new, v_new)
         scores = torch.einsum("bthd,bshd->bhts", q, ck).float()
         scores = scores / math.sqrt(hd)
         scores = torch.where(plan["mask"][:, None], scores, _NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
         o = torch.einsum("bhts,bshd->bthd", probs, cv)   # (B, T, h, hd)
-        wo = p["attn"]["o_w"].to(cfg.dtype).reshape(h * hd, d)
-        x = x + (o.reshape(B, T, h * hd) @ wo
-                 + p["attn"]["o_b"].to(cfg.dtype))
-        x = _mlp(x, p, cfg)
-    return _logits(params, x, cfg), cache
+        x = _mlp(_attn_out(x, o, p, cfg, tp), p, cfg, tp)
+    return _logits(params, x, cfg, tp), cache
 
 
 def _scan_prefill(params, tokens, cfg, *, lengths=None):

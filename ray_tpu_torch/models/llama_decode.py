@@ -10,6 +10,13 @@ KV heads only, post-RoPE and before the head repeat, so its bytes
 scale with n_kv_head), SwiGLU, the untied lm_head.
 ``llama_verify_step`` ingests a (B, k+1) block of speculative-decoding
 tokens in one forward.
+
+Under an active mesh whose ``tensor`` axis is above 1 every function
+is tensor-parallel on this rank's blocks (decode_common's module
+docstring): the local query heads, the local KV heads (or all of them
+where the tensor degree does not divide n_kv_head, the GQA guard: each
+local query head then reads its own KV head of the whole pool), the
+local MLP columns and the vocab blocks of ``wte`` and ``lm_head``.
 """
 
 from __future__ import annotations
@@ -21,11 +28,13 @@ import torch
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models.decode_common import (generate_with, init_pool,
+                                                partitioned_cache_init,
                                                 prompt_positions,
                                                 scan_prefill, set_pool_row,
                                                 slot_mask, tail_attention,
-                                                tail_plan, update_kv,
-                                                verify_plan,
+                                                tail_plan, tensor_parallel,
+                                                tp_embed, tp_logits, tp_sum,
+                                                update_kv, verify_plan,
                                                 verify_update_kv)
 from ray_tpu_torch.models.gpt2_decode import _layer
 from ray_tpu_torch.models.llama import (LlamaConfig, _mlp, _rmsnorm,
@@ -41,26 +50,44 @@ _NEG_INF = -1e30
 
 
 def llama_init_cache(cfg: LlamaConfig, batch: int,
-                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+                     device: DeviceLike = None, mesh=None
+                     ) -> Dict[str, torch.Tensor]:
     """(L, B, S, n_kv_head, hd) key/value cache + per-sequence position
-    vectors (decode_common cache contract)."""
+    vectors (decode_common cache contract).  With ``mesh``, born
+    partitioned: this rank's KV heads (all of them where the tensor
+    degree does not divide n_kv_head)."""
     dev = resolve_device(device)
     shape = (cfg.n_layer, batch, cfg.max_seq, cfg.n_kv_head, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "start": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+    def build(d):
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=d),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=d),
+                "pos": torch.zeros((batch,), dtype=torch.int32, device=d),
+                "start": torch.zeros((batch,), dtype=torch.int32,
+                                     device=d)}
+
+    if mesh is None:
+        return build(dev)
+    return partitioned_cache_init(build, mesh, device=dev)
 
 
 def llama_init_paged_cache(cfg: LlamaConfig, batch: int, *,
                            num_blocks: int, block_size: int,
-                           device: DeviceLike = None
+                           device: DeviceLike = None, mesh=None
                            ) -> Dict[str, torch.Tensor]:
     """Block-pool cache (decode_common paged contract): K/V pools of
     (L, num_blocks, block_size, n_kv_head, hd) shared by all rows,
-    per-row block tables at the reserved null block 0."""
-    return init_pool(cfg, cfg.n_kv_head, batch, num_blocks, block_size,
-                     resolve_device(device))
+    per-row block tables at the reserved null block 0.  With ``mesh``,
+    born partitioned as ``llama_init_cache``."""
+    dev = resolve_device(device)
+
+    def build(d):
+        return init_pool(cfg, cfg.n_kv_head, batch, num_blocks, block_size,
+                         d)
+
+    if mesh is None:
+        return build(dev)
+    return partitioned_cache_init(build, mesh, device=dev)
 
 
 def _rope_at(x, cos_t, sin_t):
@@ -76,9 +103,11 @@ def _rope_bt(x, cos_bt, sin_bt):
 
 
 def _qkv(xa, p, cfg: LlamaConfig, lead):
-    """q (*lead, n_head, hd), k and v (*lead, n_kv_head, hd) from the
-    normed input in the compute dtype."""
-    d, h, kv, hd = cfg.d_model, cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    """q (*lead, h, hd), k and v (*lead, kv, hd) from the normed input
+    in the compute dtype: h and kv this rank's query and KV heads (the
+    local ``wq``'s and ``wk``'s)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    h, kv = p["wq"].shape[-2], p["wk"].shape[-2]
     xa = xa.to(cfg.dtype)
     q = (xa @ p["wq"].to(cfg.dtype).reshape(d, h * hd)).reshape(*lead, h,
                                                                 hd)
@@ -89,20 +118,62 @@ def _qkv(xa, p, cfg: LlamaConfig, lead):
     return q, k, v
 
 
-def _out_and_mlp(x, o, p, cfg: LlamaConfig):
+def _out_and_mlp(x, o, p, cfg: LlamaConfig, tp=None):
     """The block after attention: the output projection of o (..., h,
-    hd) into the residual stream, then the SwiGLU half."""
-    h, hd = cfg.n_head, cfg.head_dim
+    hd) into the residual stream, then the SwiGLU half; each
+    all-reduced over ``tensor`` where its contraction dim is split."""
+    h, hd = o.shape[-2], o.shape[-1]
     wo = p["attn"]["wo"].to(cfg.dtype).reshape(h * hd, cfg.d_model)
-    x = x + (o.reshape(*o.shape[:-2], h * hd) @ wo).to(x.dtype)
-    return x + _mlp(_rmsnorm(x, p["ln2"]["scale"], cfg.rms_eps), p["mlp"],
-                    cfg)
+    x = x + tp_sum((o.reshape(*o.shape[:-2], h * hd) @ wo).to(x.dtype), tp,
+                   h != cfg.n_head)
+    return x + tp_sum(_mlp(_rmsnorm(x, p["ln2"]["scale"], cfg.rms_eps),
+                           p["mlp"], cfg), tp,
+                      p["mlp"]["w_gate"].shape[-1] != cfg.d_ff)
 
 
-def _lm_logits(params, x, cfg: LlamaConfig):
-    """Final RMSNorm and the untied lm_head: compute dtype, then f32."""
+def _kv_for_heads(cfg: LlamaConfig, h: int, kv: int, tp):
+    """Where this rank's h query heads find their KV heads among the kv
+    it holds: None when they are its own block of the groups (kv a
+    whole number of groups: the meshless pairing, head j reads KV head
+    j // (h // kv)); else, under the GQA guard (all KV heads on every
+    rank), the (h,) index of each local query head's KV head."""
+    if h == cfg.n_head or kv != cfg.n_kv_head:
+        return None          # no split, or both split: whole groups
+    g = cfg.n_head // cfg.n_kv_head
+    first = tp[2] * h
+    return torch.arange(first, first + h) // g
+
+
+def _expand_kv(x, sel, h: int):
+    """(..., kv, hd) K or V → (..., h, hd) for the local query heads:
+    the group repeat, or the guard's per-head index ``sel``."""
+    if sel is None:
+        return repeat_kv(x, h)
+    return x[..., sel.to(x.device), :]
+
+
+def _grouped(cfg: LlamaConfig, q, ck, cv, tp):
+    """(K, V, kv, g) for the grouped attention of q (..., h, hd) over
+    the (B, S, kv, hd) cache views: the local groups as they are, or
+    under the GQA guard each local query head's own KV head (g = 1)."""
+    h, kv = q.shape[-2], ck.shape[-2]
+    sel = _kv_for_heads(cfg, h, kv, tp)
+    if sel is None:
+        return ck, cv, kv, h // kv
+    return _expand_kv(ck, sel, h), _expand_kv(cv, sel, h), h, 1
+
+
+def _embed(params, tokens, cfg: LlamaConfig, tp):
+    return tp_embed(params["wte"].to(cfg.dtype), tokens, cfg.padded_vocab,
+                    tp)
+
+
+def _lm_logits(params, x, cfg: LlamaConfig, tp=None):
+    """Final RMSNorm and the untied lm_head: compute dtype, then f32
+    (this rank's vocab block all-gathered under tensor parallelism)."""
     x = _rmsnorm(x, params["ln_f"]["scale"], cfg.rms_eps)
-    return (x.to(cfg.dtype) @ params["lm_head"].to(cfg.dtype)).float()
+    return tp_logits((x.to(cfg.dtype) @ params["lm_head"].to(cfg.dtype))
+                     .float(), cfg.padded_vocab, tp)
 
 
 def llama_prefill(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
@@ -119,11 +190,17 @@ def llama_prefill(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     positions (pads clip to position 0), so pads never shift a real
     token's rotation."""
     B, T0 = tokens.shape
-    h, hd = cfg.n_head, cfg.head_dim
+    hd = cfg.head_dim
     dev = tokens.device
-    cache = llama_init_cache(cfg, B, device=dev)
+    tp = tensor_parallel()
+    # the cache holds the KV heads the parameters do (a replicated
+    # draft under a mesh holds them all)
+    split = params["blocks"]["attn"]["wk"].shape[-2] != cfg.n_kv_head
+    cache = llama_init_cache(cfg, B, device=dev,
+                             mesh=tp[0] if tp is not None and split
+                             else None)
     start, pos_ids = prompt_positions(lengths, B, T0, dev)
-    x = params["wte"].to(cfg.dtype)[tokens.long()]       # (B, T0, d)
+    x = _embed(params, tokens, cfg, tp)                  # (B, T0, d)
     cos, sin = rope_frequencies(cfg.max_seq, hd, cfg.rope_theta, dev)
     cos_p, sin_p = cos[pos_ids], sin[pos_ids]            # (B, T0, hd/2)
     attn_start = None if lengths is None else start
@@ -132,17 +209,21 @@ def llama_prefill(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
         p = _layer(blocks, i)
         q, k, v = _qkv(_rmsnorm(x, p["ln1"]["scale"], cfg.rms_eps),
                        p["attn"], cfg, (B, T0))
+        h = q.shape[-2]
+        sel = _kv_for_heads(cfg, h, k.shape[-2], tp)
         q = _rope_bt(q, cos_p, sin_p)
         k = _rope_bt(k, cos_p, sin_p)
-        o = prefill_attention(q, repeat_kv(k, h), repeat_kv(v, h),
-                              start=attn_start, use_flash=cfg.use_flash,
+        o = prefill_attention(q, _expand_kv(k, sel, h),
+                              _expand_kv(v, sel, h), start=attn_start,
+                              use_flash=cfg.use_flash,
                               resident=cfg.flash_resident)
-        x = _out_and_mlp(x, o, p, cfg)
+        x = _out_and_mlp(x, o, p, cfg, tp)
         cache["k"][i, :, :T0] = k       # in place: the cache is
         cache["v"][i, :, :T0] = v       # allocated once above
     cache["pos"].fill_(T0)
     cache["start"] = start
-    return _lm_logits(params, x[:, -1], cfg), cache  # left pad ⇒ last real
+    # left pad ⇒ last real
+    return _lm_logits(params, x[:, -1], cfg, tp), cache
 
 
 def llama_paged_prefill(params, cache, tokens: torch.Tensor,
@@ -158,11 +239,12 @@ def llama_paged_prefill(params, cache, tokens: torch.Tensor,
     attention as in llama_prefill.  Returns (last-token logits
     (padded_vocab,) float32, the same cache dict)."""
     _, Tt = tokens.shape
-    h, kv, hd = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    hd = cfg.head_dim
     dev = tokens.device
+    tp = tensor_parallel()
     plan = tail_plan(cfg, cache["k"].shape[2], Tt, row_bt, prefix_len,
                      n_tail, dev)
-    x = params["wte"].to(cfg.dtype)[tokens[0].long()]    # (Tt, d)
+    x = _embed(params, tokens[0], cfg, tp)               # (Tt, d)
     cos, sin = rope_frequencies(cfg.max_seq, hd, cfg.rope_theta, dev)
     cos_p, sin_p = cos[plan["pos_ids"]], sin[plan["pos_ids"]]
     blocks = params["blocks"]
@@ -171,17 +253,20 @@ def llama_paged_prefill(params, cache, tokens: torch.Tensor,
         lk, lv = cache["k"][i], cache["v"][i]            # (nb, bs, kv, hd)
         q, k, v = _qkv(_rmsnorm(x, p["ln1"]["scale"], cfg.rms_eps),
                        p["attn"], cfg, (Tt,))
+        h, kv = q.shape[-2], k.shape[-2]
+        sel = _kv_for_heads(cfg, h, kv, tp)
         q = _rope_at(q, cos_p, sin_p)
         k = _rope_at(k, cos_p, sin_p)
         lk[plan["blk"], plan["off"]] = k
         lv[plan["blk"], plan["off"]] = v
-        views = [repeat_kv(pool[plan["row_bt"]].reshape(cfg.max_seq, kv,
-                                                         hd), h)
+        views = [_expand_kv(pool[plan["row_bt"]].reshape(cfg.max_seq, kv,
+                                                          hd), sel, h)
                  for pool in (lk, lv)]
         o = tail_attention(q, *views, plan["mask"], cfg.dtype)
-        x = _out_and_mlp(x, o, p, cfg)
+        x = _out_and_mlp(x, o, p, cfg, tp)
     set_pool_row(cache, slot, row_bt, int(prefix_len) + int(n_tail))
-    return _lm_logits(params, x[-1], cfg), cache  # right-aligned ⇒ last
+    # right-aligned ⇒ last
+    return _lm_logits(params, x[-1], cfg, tp), cache
 
 
 def llama_decode_step(params, cache, tokens, cfg: LlamaConfig
@@ -196,13 +281,13 @@ def llama_decode_step(params, cache, tokens, cfg: LlamaConfig
     prefill's head repeat.  Writes K/V in place and advances ``pos``;
     returns (logits (B, padded_vocab) float32, the same cache dict)."""
     B = tokens.shape[0]
-    kv, hd = cfg.n_kv_head, cfg.head_dim
-    g = cfg.n_head // kv
+    hd = cfg.head_dim
+    tp = tensor_parallel()
     pos = cache["pos"]                                   # (B,)
     start = cache["start"]                               # (B,)
     dev = tokens.device
     rows = torch.arange(B, device=dev)
-    x = params["wte"].to(cfg.dtype)[tokens.long()]       # (B, d)
+    x = _embed(params, tokens, cfg, tp)                  # (B, d)
     cos, sin = rope_frequencies(cfg.max_seq, hd, cfg.rope_theta, dev)
     logical = (pos - start).long()
     cos_t, sin_t = cos[logical], sin[logical]            # (B, hd/2)
@@ -216,15 +301,16 @@ def llama_decode_step(params, cache, tokens, cfg: LlamaConfig
         q = _rope_at(q, cos_t, sin_t)
         k_new = _rope_at(k_new, cos_t, sin_t)
         ck, cv = update_kv(cache, i, rows, pos_l, k_new, v_new)
+        ck, cv, kv, g = _grouped(cfg, q, ck, cv, tp)
         qg = q.reshape(B, kv, g, hd)
         scores = torch.einsum("bkgd,bskd->bkgs", qg, ck).float()
         scores = scores / math.sqrt(hd)
         scores = torch.where(attn_mask[:, None, None, :], scores, _NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
         o = torch.einsum("bkgs,bskd->bkgd", probs, cv)   # (B, kv, g, hd)
-        x = _out_and_mlp(x, o.reshape(B, kv * g, hd), p, cfg)
+        x = _out_and_mlp(x, o.reshape(B, kv * g, hd), p, cfg, tp)
     cache["pos"] = pos + 1
-    return _lm_logits(params, x, cfg), cache
+    return _lm_logits(params, x, cfg, tp), cache
 
 
 def llama_verify_step(params, cache, block, cfg: LlamaConfig
@@ -237,10 +323,10 @@ def llama_verify_step(params, cache, block, cfg: LlamaConfig
     with the (kv, group) query reshape.  Writes past max_seq go to the
     null block (paged) or are dropped (dense); pos is NOT advanced."""
     B, T = block.shape
-    kv, hd = cfg.n_kv_head, cfg.head_dim
-    g = cfg.n_head // kv
+    hd = cfg.head_dim
+    tp = tensor_parallel()
     plan = verify_plan(cache, T, cfg.max_seq)
-    x = params["wte"].to(cfg.dtype)[block.long()]        # (B, T, d)
+    x = _embed(params, block, cfg, tp)                   # (B, T, d)
     cos, sin = rope_frequencies(cfg.max_seq, hd, cfg.rope_theta,
                                 block.device)
     cos_p, sin_p = cos[plan["pos_ids"]], sin[plan["pos_ids"]]
@@ -252,14 +338,15 @@ def llama_verify_step(params, cache, block, cfg: LlamaConfig
         q = _rope_bt(q, cos_p, sin_p)
         k_new = _rope_bt(k_new, cos_p, sin_p)
         ck, cv = verify_update_kv(cache, i, plan, k_new, v_new)
+        ck, cv, kv, g = _grouped(cfg, q, ck, cv, tp)
         qg = q.reshape(B, T, kv, g, hd)
         scores = torch.einsum("btkgd,bskd->bkgts", qg, ck).float()
         scores = scores / math.sqrt(hd)
         scores = torch.where(plan["mask"][:, None, None], scores, _NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
         o = torch.einsum("bkgts,bskd->btkgd", probs, cv)
-        x = _out_and_mlp(x, o.reshape(B, T, kv * g, hd), p, cfg)
-    return _lm_logits(params, x, cfg), cache
+        x = _out_and_mlp(x, o.reshape(B, T, kv * g, hd), p, cfg, tp)
+    return _lm_logits(params, x, cfg, tp), cache
 
 
 def _scan_prefill(params, tokens, cfg, *, lengths=None):

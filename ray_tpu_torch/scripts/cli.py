@@ -230,7 +230,7 @@ def main(argv=None) -> int:
 
 
 #: what the rllib subcommands wait for
-RLLIB_ITEM = "ROADMAP.md queue 1 item 7 (rllib/)"
+RLLIB_ITEM = "ROADMAP.md queue 1 item 7.13 (rllib/)"
 
 
 def _rllib_not_ported(args) -> int:

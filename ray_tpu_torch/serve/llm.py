@@ -50,9 +50,8 @@ reference's router does.
 
 ``build_llm_deployment`` takes every keyword of the reference's and
 validates them in its order: the combinations the reference rejects
-raise the same ValueError here.  Not ported yet, raising
-NotImplementedError that names its ROADMAP.md item: a ``mesh`` (queue
-1 item 7.7b).  Under "batch" the keywords only the continuous scheduler
+raise the same ValueError here.  Under "batch" the keywords only the
+continuous scheduler
 reads (``stop_sequences``, ``eos_id``, ``max_slots``,
 ``prefill_bucket``, ``kv_block_size``, ``kv_num_blocks``,
 ``admission_policy``) are validated and ignored, as in the reference.
@@ -67,6 +66,33 @@ the record as replica actors on the core runtime (``serve/api.py``);
 the device is resolved in the caller and again in the engine's
 ``__init__``, so ``cuda:0`` in a replica is its granted card and a
 replica without a grant fails at construction.
+
+Mesh-sharded serving (``mesh=``, the continuous scheduler only) is
+tensor parallelism over the mesh's ``tensor`` axis.  The reference's
+mesh is one controller driving every chip; the port's is a process
+group, one process a card, so the engine runs SPMD, as the train step
+does:
+
+* every rank of the mesh calls ``build_llm_deployment(..., mesh=mesh)``
+  with the same arguments and builds the engine, whose parameters and
+  KV pool are this rank's blocks under ``DECODE_RULES``
+  (models/decode_common.py: Megatron-style on the local blocks, the
+  logits all-gathered, so every rank holds them whole);
+* the mesh's first rank (the leader) takes every request and
+  schedules; each engine program it runs (``_engine_fns``, registered
+  as ``serve.sharded_*``) is first broadcast over the default process
+  group as its name and host arguments (``_Lockstep``): tensors by
+  value, the engine's own parameters, pools and generator by name (the
+  generator with its state, so a program that samples draws the same
+  numbers on every rank);
+* every other rank (a follower) calls ``engine.follow()``, which runs
+  each program it is sent on its own blocks until the leader's
+  ``shutdown_engine()`` sends the stop message; the leader samples
+  from the gathered logits and the next step carries the tokens.
+
+A request sent to a follower raises ValueError.  With ``tensor`` at 1
+every collective is the identity and the programs are the meshless
+ones.
 """
 
 from __future__ import annotations
@@ -76,7 +102,8 @@ import dataclasses
 import pickle
 import time
 import types
-from typing import Any, Dict, Optional
+import weakref
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -94,8 +121,13 @@ from ray_tpu_torch.models.decode_common import (SamplingParams,
                                                 make_vocab_tail_mask,
                                                 ngram_propose,
                                                 sample_token, set_pool_row)
-from ray_tpu_torch.models.gpt2 import gpt2_config, gpt2_init
-from ray_tpu_torch.models.llama import llama_config, llama_init
+from ray_tpu_torch.models.decode_common import (gather_kv_heads,
+                                                local_kv_heads,
+                                                tensor_parallel_params)
+from ray_tpu_torch.models.gpt2 import (gpt2_config, gpt2_init,
+                                       gpt2_logical_axes)
+from ray_tpu_torch.models.llama import (llama_config, llama_init,
+                                        llama_logical_axes)
 from ray_tpu_torch.serve.api import deployment
 from ray_tpu_torch.serve.batching import (ChunkCursor, HandoffCursor,
                                           OverloadedError, RequestQueue)
@@ -141,18 +173,6 @@ class SpecConfig:
                 f"ngram_order must be >= 1, got {self.ngram_order}")
 
 
-_ROADMAP_ITEM = {
-    "mesh": "queue 1 item 7.7b (mesh-sharded serving: the continuous "
-            "scheduler's mesh and the cache shardings)",
-}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to ray_tpu_torch yet: ROADMAP.md "
-        f"{_ROADMAP_ITEM[item]}")
-
-
 def _family_fns(family: str) -> types.SimpleNamespace:
     """The functions of a decoder family that the engine uses (the
     reference's ``_family_fns``)."""
@@ -163,14 +183,22 @@ def _family_fns(family: str) -> types.SimpleNamespace:
             from_numpy=gpt2_params_from_numpy, prefill=m.prefill,
             step=m.decode_step, init_cache=m.init_cache,
             init_paged_cache=m.init_paged_cache,
-            paged_prefill=m.paged_prefill, verify=m.verify_step)
+            paged_prefill=m.paged_prefill, verify=m.verify_step,
+            logical_axes=gpt2_logical_axes)
     m = llama_decode
     return types.SimpleNamespace(
         config=llama_config, init=llama_init, generate=m.llama_generate,
         from_numpy=llama_params_from_numpy, prefill=m.llama_prefill,
         step=m.llama_decode_step, init_cache=m.llama_init_cache,
         init_paged_cache=m.llama_init_paged_cache,
-        paged_prefill=m.llama_paged_prefill, verify=m.llama_verify_step)
+        paged_prefill=m.llama_paged_prefill, verify=m.llama_verify_step,
+        logical_axes=llama_logical_axes)
+
+
+def _kv_heads(cfg) -> int:
+    """The heads a pool slot holds: llama GQA caches n_kv_head, gpt2
+    n_head."""
+    return getattr(cfg, "n_kv_head", None) or cfg.n_head
 
 
 def _engine_fns(fam, cfg, sp: Optional[SamplingParams] = None,
@@ -184,8 +212,8 @@ def _engine_fns(fam, cfg, sp: Optional[SamplingParams] = None,
       prefill_raw / paged_prefill_raw / pool_logits — logits (1 or B,
           padded_vocab) of a dense B=1 prefill, a paged tail prefill,
           a pool decode step
-      admit / clear_row / copy_block / install_blocks / save_block —
-          pool bookkeeping and the host tier's copies
+      admit / clear_row / park_rows / copy_block / install_blocks /
+          save_block — pool bookkeeping and the host tier's copies
       kv_handoff_export / kv_handoff_install — the prefill/decode
           handoff: a copy of a prefill's filled block rows, and their
           splice (with the row's table, pos and start) into a decode
@@ -203,7 +231,20 @@ def _engine_fns(fam, cfg, sp: Optional[SamplingParams] = None,
     sampler (``_sampler_for``).  The engine hands the scalar arguments
     of paged_prefill_raw and kv_handoff_install over as numpy int32,
     as the reference does, so that the program registry keys them by
-    type and not by value (``_instrumented``)."""
+    type and not by value (``_instrumented``).
+
+    Under tensor parallelism the pool holds this rank's KV heads; the
+    rows that leave it (save_block, kv_handoff_export) are gathered
+    whole over ``tensor``, and the rows that come in (install_blocks,
+    kv_handoff_install) are cut to this rank's heads, so the host tier
+    and a handoff carry whole rows, as the reference's do."""
+    kv_heads = _kv_heads(cfg)
+
+    def whole(rows, dim):
+        return gather_kv_heads(rows, dim, kv_heads)
+
+    def mine(rows, dim, pool):
+        return local_kv_heads(rows, dim, pool.shape[3])
 
     def prefill_raw(p, toks, lens):
         return fam.prefill(p, toks, cfg, lengths=lens)
@@ -236,26 +277,38 @@ def _engine_fns(fam, cfg, sp: Optional[SamplingParams] = None,
         cache["pos"][slot] = 0
         return cache
 
+    def park_rows(cache, draft_cache, idx):
+        # idle rows (LLM._park_idle_rows): pos and start 0, a paged
+        # row's table at the null block; the draft pool's rows too
+        for pool in (cache, draft_cache):
+            if pool is not None:
+                pool["pos"][idx] = 0
+                pool["start"][idx] = 0
+        if "block_tables" in cache:
+            cache["block_tables"][idx] = 0
+        return cache
+
     def install_blocks(cache, blk_ids, k_stack, v_stack):
         # the host tier's restore: blk_ids (N,), stacks (N, L, bs, H,
         # hd) → pool blocks (L, N, bs, H, hd)
-        cache["k"][:, blk_ids] = k_stack.transpose(0, 1)
-        cache["v"][:, blk_ids] = v_stack.transpose(0, 1)
+        for name, stack in (("k", k_stack), ("v", v_stack)):
+            cache[name][:, blk_ids] = mine(stack, 3,
+                                           cache[name]).transpose(0, 1)
         return cache
 
     def save_block(cache, blk):
         # the host tier's spill: host COPIES of one block's K and V
         # rows (L, bs, H, hd), so a later write into the block can
         # never change a spilled row
-        return (cache["k"][:, blk].to("cpu", copy=True),
-                cache["v"][:, blk].to("cpu", copy=True))
+        return (whole(cache["k"][:, blk], 2).to("cpu", copy=True),
+                whole(cache["v"][:, blk], 2).to("cpu", copy=True))
 
     def kv_handoff_export(cache, blk_ids):
         # the filled block rows of a finished prefill, (N, L, bs, H,
         # hd): advanced indexing COPIES them out of the pool, so the
         # prefill engine may free and reuse the blocks at once
-        return (cache["k"][:, blk_ids].transpose(0, 1),
-                cache["v"][:, blk_ids].transpose(0, 1))
+        return (whole(cache["k"][:, blk_ids].transpose(0, 1), 3),
+                whole(cache["v"][:, blk_ids].transpose(0, 1), 3))
 
     def kv_handoff_install(cache, blk_ids, k_stack, v_stack, slot,
                            row_bt, pos):
@@ -263,8 +316,9 @@ def _engine_fns(fam, cfg, sp: Optional[SamplingParams] = None,
         # point row `slot` at them at pos = the prompt length, start 0,
         # exactly the state paged_prefill leaves
         dev = cache["k"].device
-        cache["k"][:, blk_ids] = k_stack.to(dev).transpose(0, 1)
-        cache["v"][:, blk_ids] = v_stack.to(dev).transpose(0, 1)
+        for name, stack in (("k", k_stack), ("v", v_stack)):
+            cache[name][:, blk_ids] = mine(stack.to(dev), 3,
+                                           cache[name]).transpose(0, 1)
         set_pool_row(cache, int(slot), row_bt, int(pos))
         return cache
 
@@ -285,7 +339,7 @@ def _engine_fns(fam, cfg, sp: Optional[SamplingParams] = None,
     return types.SimpleNamespace(
         prefill_raw=prefill_raw, paged_prefill_raw=paged_prefill_raw,
         pool_logits=pool_logits, admit=admit,
-        clear_row=clear_row, copy_block=copy_block,
+        clear_row=clear_row, park_rows=park_rows, copy_block=copy_block,
         install_blocks=install_blocks, save_block=save_block,
         kv_handoff_export=kv_handoff_export,
         kv_handoff_install=kv_handoff_install, spec_verify=spec_verify,
@@ -293,7 +347,8 @@ def _engine_fns(fam, cfg, sp: Optional[SamplingParams] = None,
 
 
 #: the engine programs the registry watches, under the reference's
-#: names (``ray_tpu/serve/llm.py:291-345``)
+#: names (``ray_tpu/serve/llm.py:291-345``); a mesh engine's are
+#: ``serve.sharded_*``
 _PROGRAMS = (("prefill_raw", "serve.prefill"),
              ("paged_prefill_raw", "serve.paged_prefill"),
              ("pool_logits", "serve.decode"),
@@ -312,15 +367,20 @@ _PROGRAMS = (("prefill_raw", "serve.prefill"),
 _PROGRAM_CACHE: Dict[Any, Dict[str, Any]] = {}
 
 
-def _instrumented(fns: types.SimpleNamespace,
-                  key) -> types.SimpleNamespace:
+def _instrumented(fns: types.SimpleNamespace, key,
+                  n_devices: Optional[int] = None) -> types.SimpleNamespace:
     """Swap ``fns``' engine programs for the registry-instrumented
-    ones of identity ``key`` (made from these on first sight)."""
+    ones of identity ``key`` (made from these on first sight).
+    ``n_devices``: a mesh engine's size; its programs are registered
+    as ``serve.sharded_*`` over that many devices."""
     progs = _PROGRAM_CACHE.get(key)
     if progs is None:
         registry = get_registry()
+        prefix = "serve." if n_devices is None else "serve.sharded_"
         progs = _PROGRAM_CACHE[key] = {
-            attr: registry.instrument(name, getattr(fns, attr))
+            attr: registry.instrument(prefix + name[len("serve."):],
+                                      getattr(fns, attr),
+                                      n_devices=n_devices or 1)
             for attr, name in _PROGRAMS if getattr(fns, attr) is not None}
     for attr, fn in progs.items():
         setattr(fns, attr, fn)
@@ -342,6 +402,154 @@ def _tier_saver(save_block, cache, tier):
         return rows
 
     return save
+
+
+#: the message that asks every rank for its card's allocator stats
+_DEVICE_STATS = "__device_stats__"
+
+#: the engine's own objects a program may take, sent by name
+_REFS = {"params": "params", "cache": "_cache",
+         "draft_params": "_draft_params", "draft_cache": "_draft_cache"}
+
+
+#: every mesh engine's lockstep in this process, in construction order:
+#: the ranks build their engines alike, so an index names one engine on
+#: each rank (a prefill/decode pair shares the followers' loop)
+_LOCKSTEPS: List["weakref.ref"] = []
+#: the leader's view of its followers: following, until a stop message
+_FOLLOWERS = {"following": True}
+
+
+class _Lockstep:
+    """A mesh engine's programs (module docstring): on the leader each
+    call is broadcast, then run; a follower's ``follow`` runs what it is
+    sent, for any mesh engine of its process.  Every program runs under
+    the mesh (``mesh_context``), and the last result of each is kept,
+    so a later call can name it (the row of a prefill that ``admit``
+    copies into the pool).  The engine is held weakly: an engine and
+    its programs make no reference cycle."""
+
+    def __init__(self, engine, fns: types.SimpleNamespace, mesh):
+        import torch.distributed as dist
+
+        self._engine_ref = weakref.ref(engine)
+        self._fns, self._mesh = fns, mesh
+        self._last: Dict[str, Any] = {}
+        self.leader = int(mesh.mesh.flatten()[0])
+        self.is_leader = dist.get_rank() == self.leader
+        #: a mesh of one rank has no follower: nothing is sent
+        self._solo = dist.get_world_size() == 1
+        self._device = (torch.device("cuda", torch.cuda.current_device())
+                        if mesh.device_type == "cuda" else None)
+        self.index = len(_LOCKSTEPS)
+        _LOCKSTEPS.append(weakref.ref(self))
+
+    @property
+    def _engine(self):
+        return self._engine_ref()
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        fn = getattr(self._fns, name)
+        if fn is None:
+            return None
+
+        def call(*args):
+            if not self._solo:
+                _FOLLOWERS["following"] = True
+                self._send((self.index, name,
+                            [self._encode(a) for a in args]))
+            return self._run(name, fn, args)
+
+        return call
+
+    def _send(self, msg):
+        import torch.distributed as dist
+
+        objs = [msg]
+        dist.broadcast_object_list(objs, src=self.leader,
+                                   device=self._device)
+        return objs[0]
+
+    def _run(self, name, fn, args):
+        from ray_tpu_torch.parallel.mesh import mesh_context
+
+        with mesh_context(self._mesh):
+            out = fn(*args)
+        self._last[name] = out
+        return out
+
+    def _encode(self, a):
+        for key, attr in _REFS.items():
+            if a is not None and a is getattr(self._engine, attr, None):
+                return ("ref", key)
+        if isinstance(a, torch.Generator):
+            return ("gen", a.get_state())
+        for name, res in self._last.items():
+            for i, r in enumerate(res if isinstance(res, tuple) else ()):
+                if a is r:
+                    return ("res", name, i)
+        if isinstance(a, torch.Tensor):
+            return ("t", a.detach().cpu())
+        return ("v", a)
+
+    def _decode(self, a):
+        kind = a[0]
+        if kind == "ref":
+            return getattr(self._engine, _REFS[a[1]])
+        if kind == "gen":
+            gen = self._engine._generator
+            gen.set_state(a[1])
+            return gen
+        if kind == "res":
+            return self._last[a[1]][a[2]]
+        if kind == "t":
+            return a[1].to(self._engine.device)
+        return a[1]
+
+    def follow(self) -> int:
+        """A follower's loop: run each program the leader sends, on the
+        engine it names (or join its ``device_stats``), until its stop
+        message.  Returns the number of programs run."""
+        n = 0
+        while True:
+            msg = self._send(None)
+            if msg is None:
+                return n
+            index, name, args = msg
+            step = _LOCKSTEPS[index]()
+            if name == _DEVICE_STATS:
+                step._all_device_stats()
+                continue
+            step._run(name, getattr(step._fns, name),
+                      [step._decode(a) for a in args])
+            n += 1
+
+    def device_stats(self) -> list:
+        """Every rank's card's allocator stats, in rank order (the
+        reference's per-chip list); the leader's own alone once the
+        followers have stopped."""
+        if self._solo or not (self.is_leader and _FOLLOWERS["following"]):
+            return device_memory_stats([self._engine.device])
+        self._send((self.index, _DEVICE_STATS, None))
+        return self._all_device_stats()
+
+    def _all_device_stats(self) -> list:
+        import torch.distributed as dist
+
+        rows = [None] * dist.get_world_size()
+        dist.all_gather_object(rows,
+                               device_memory_stats([self._engine.device]))
+        return [row for rank_rows in rows for row in rank_rows]
+
+    def stop(self) -> None:
+        """The leader's stop message, sent once after the programs of a
+        round of following, whichever engine's shutdown sends it (a
+        follower calls ``follow`` once a round)."""
+        if _FOLLOWERS["following"] and not self._solo:
+            _FOLLOWERS["following"] = False
+            self._send(None)
 
 
 def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
@@ -507,8 +715,6 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
     if not isinstance(num_replicas, int) or num_replicas < 1:
         raise ValueError(f"num_replicas must be a positive int, got "
                          f"{num_replicas!r}")
-    if scheduler == "continuous" and mesh is not None:
-        raise _not_ported("mesh-sharded serving", "mesh")
     dev = resolve_device(device)
     fam = _family_fns(family)
 
@@ -532,6 +738,16 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 self.params = fam.init(
                     self.cfg, torch.Generator(device=dev).manual_seed(seed),
                     dev)
+            self.mesh = mesh
+            self._lockstep = None
+            #: whether this engine takes requests: False on a mesh's
+            #: follower ranks (module docstring)
+            self.is_leader = True
+            if mesh is not None:
+                # this rank's blocks under DECODE_RULES, as the
+                # reference commits its params to the mesh
+                self.params = tensor_parallel_params(
+                    self.params, fam.logical_axes(self.cfg), mesh)
             # per-engine sampling stream: without it every sampled
             # request would draw the same "random" continuation
             self._generator = torch.Generator(device=dev).manual_seed(
@@ -639,8 +855,7 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 # COW forks survive a fully-occupied pool
                 n_blocks = (kv_num_blocks if kv_num_blocks is not None
                             else 1 + (max_slots + 1) * max_blk)
-                # llama GQA caches n_kv_head; gpt2 caches n_head
-                kv_heads = getattr(cfg, "n_kv_head", None) or cfg.n_head
+                kv_heads = _kv_heads(cfg)
                 bytes_per_block = (2 * cfg.n_layer * kv_block_size
                                    * kv_heads * cfg.head_dim
                                    * cfg.dtype.itemsize)
@@ -649,20 +864,26 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 self._pager = BlockPager(
                     n_blocks, kv_block_size, max_seq,
                     bytes_per_block=bytes_per_block,
+                    tensor_shards=self._kv_shards(),
                     recorder=self._telemetry.flightrec,
                     host_tier=host_tier)
                 self._cache = fam.init_paged_cache(
                     cfg, max_slots, num_blocks=n_blocks,
-                    block_size=kv_block_size, device=dev)
+                    block_size=kv_block_size, device=dev, mesh=self.mesh)
                 if host_tier is not None:
                     self._pager.set_block_saver(_tier_saver(
                         self._fns.save_block, self._cache, host_tier))
-                    # persistent host staging for the restore path
+                    # persistent host staging for the restore path,
+                    # whole rows (L, bs, kv_heads, hd) as the tier keeps
+                    # them under a mesh too
+                    rows = (cfg.n_layer, kv_block_size, kv_heads,
+                            cfg.head_dim)
                     self._tier_stage = staging_buffers(
-                        max_blk, (max_blk,) + self._cache["k"][:, 0].shape,
-                        cfg.dtype, pin=dev.type == "cuda")
+                        max_blk, (max_blk,) + rows, cfg.dtype,
+                        pin=dev.type == "cuda")
             else:
-                self._cache = fam.init_cache(cfg, max_slots, device=dev)
+                self._cache = fam.init_cache(cfg, max_slots, device=dev,
+                                             mesh=self.mesh)
             self._cur = np.zeros((max_slots,), np.int32)
             self._slots = [None] * max_slots
             self._queue = RequestQueue()
@@ -735,7 +956,40 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             # from spec_decode and the target's)
             self._fns = _instrumented(
                 _engine_fns(fam, cfg, default_sp, spec_decode, draft),
-                (family, cfg, default_sp, kv_layout, spec_decode))
+                (family, cfg, default_sp, kv_layout, spec_decode, mesh),
+                n_devices=mesh.size() if mesh is not None else None)
+            if mesh is not None:
+                self._fns = self._lockstep = _Lockstep(self, self._fns,
+                                                       mesh)
+                self.is_leader = self._lockstep.is_leader
+
+        def _kv_shards(self) -> int:
+            """How many ways the KV pool's head dim splits on the mesh
+            (1 without one, or when the head count does not divide the
+            tensor degree: the GQA guard)."""
+            if self.mesh is None:
+                return 1
+            from ray_tpu_torch.parallel.mesh import AXIS_TENSOR, mesh_shape
+
+            t = mesh_shape(self.mesh)[AXIS_TENSOR]
+            return t if t > 1 and _kv_heads(self.cfg) % t == 0 else 1
+
+        def follow(self) -> int:
+            """A follower rank's part of mesh-sharded serving (module
+            docstring): run the leader's programs on this rank's blocks
+            until its shutdown_engine(); returns how many ran."""
+            if self._lockstep is None or self._lockstep.is_leader:
+                raise ValueError(
+                    "follow() is for a follower rank of a mesh engine "
+                    "(the mesh's first rank takes the requests)")
+            with torch.no_grad():
+                return self._lockstep.follow()
+
+        def _check_leader(self) -> None:
+            if self._lockstep is not None and not self._lockstep.is_leader:
+                raise ValueError(
+                    "this rank follows the mesh's first rank, which takes "
+                    "every request: call follow() here")
 
         def _fence(self) -> None:
             if dev.type == "cuda":
@@ -1218,15 +1472,8 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             idle = [i for i in range(max_slots) if i not in decoding]
             if not idle:
                 return
-            idx = torch.tensor(idle, device=dev)
-            caches = [self._cache]
-            if self._draft_cache is not None:
-                caches.append(self._draft_cache)
-            for cache in caches:
-                cache["pos"][idx] = 0
-                cache["start"][idx] = 0
-            if self._pager is not None:
-                self._cache["block_tables"][idx] = 0
+            self._fns.park_rows(self._cache, self._draft_cache,
+                                torch.tensor(idle, device=dev))
             if spec_decode is not None:
                 self._spec_rej[idle] = 0
 
@@ -1436,6 +1683,7 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             the tracebus TraceContext born at router submit (a fresh
             engine-origin one is minted when absent).  Direct callers
             omit both."""
+            self._check_leader()
             sp = None
             if sampling is not None:
                 if not isinstance(sampling, SamplingParams):
@@ -1497,6 +1745,7 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             token.  The fleet router (serve/router.py) forwards each
             package here; a caller driving two engines by hand hands
             the prefill engine's reply over itself."""
+            self._check_leader()
             if role == "prefill":
                 raise ValueError(
                     "admit_prefilled needs a decode-capable engine "
@@ -1530,6 +1779,10 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             self._engine_task = None
             if task is not None and not task.done():
                 task.cancel()
+            lockstep = getattr(self, "_lockstep", None)
+            if lockstep is not None and lockstep.is_leader:
+                # the followers' stop message
+                lockstep.stop()
 
         def kv_stats(self) -> Dict[str, Any]:
             """The continuous engine's KV blocks: ``kv_cache`` (the
@@ -1559,7 +1812,7 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             block = pager.kv_scope_stats()
             block["hbm_ledger"] = hbm_ledger(
                 pool_bytes_per_chip=pager.bytes_per_block
-                * pager.num_blocks,
+                * pager.num_blocks // pager.tensor_shards,
                 device_stats=device_memory_stats(
                     [self.device], largest_alloc=largest_alloc),
                 program_budget_bytes=serve_program_budget_bytes())
@@ -1585,7 +1838,21 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
             if admission_policy is not None:
                 stats["admission_policy"] = admission_policy.describe()
             # the process-wide registry, filtered to the serve programs
-            stats["programs"] = get_registry().snapshot(prefix="serve.")
+            mesh = getattr(self, "mesh", None)
+            n_dev = mesh.size() if mesh is not None else 1
+            stats["programs"] = get_registry().snapshot(prefix="serve.",
+                                                        n_devices=n_dev)
+            if mesh is not None:
+                from ray_tpu_torch.parallel.mesh import mesh_shape
+
+                stats["mesh"] = {
+                    "axes": {a: int(n) for a, n in mesh_shape(mesh).items()
+                             if int(n) > 1},
+                    "n_devices": n_dev,
+                    "kv_shards": self._kv_shards(),
+                    # per-card allocator stats, every rank's
+                    "devices": self._lockstep.device_stats(),
+                }
             return stats
 
         def export_timeline(self, path=None):

@@ -366,8 +366,10 @@ def run_traffic(spec: TrafficSpec, *, family: str = "gpt2",
     ``reprefill_waste_frac`` on churn traffic.
 
     `device` is the engine's (None = the first CUDA device; "cpu" must
-    be asked for); a `mesh` raises build_llm_deployment's
-    NotImplementedError (ROADMAP.md queue 1 item 7.7b)."""
+    be asked for).  Under a mesh of several ranks every rank calls it
+    with the same arguments: the mesh's first rank drives the traffic
+    and returns the report, the others follow its engine and return
+    None (build_llm_deployment's mesh contract)."""
     import asyncio
 
     from ray_tpu_torch.serve.llm import build_llm_deployment
@@ -383,9 +385,12 @@ def run_traffic(spec: TrafficSpec, *, family: str = "gpt2",
         spec_decode=spec_decode, mesh=mesh,
         config_overrides=config_overrides, device=device)
     requests = TrafficGenerator(spec).requests()
+    inst = dep.func_or_class()
+    if not inst.is_leader:
+        inst.follow()
+        return None
 
     async def main():
-        inst = dep.func_or_class()
         try:
             report = await drive(inst, requests,
                                  time_scale=time_scale,
@@ -562,11 +567,19 @@ def run_traffic_fleet(spec: TrafficSpec, *, num_replicas: int = 2,
     ``requests_requeued_on_death`` so sweeps can track detection
     latency as a first-class metric (Podracer treats it as one).
 
-    `device` is every replica's (None = the first CUDA device); a
-    `mesh` raises build_llm_deployment's NotImplementedError."""
+    `device` is every replica's (None = the first CUDA device).  A
+    `mesh` is every replica's; it must be of one rank, else ValueError:
+    a mesh's follower ranks run the programs of engines built alike on
+    every rank, and a fleet adds and drops replicas on the leader
+    alone."""
     import asyncio
 
     from ray_tpu_torch.serve.router import build_llm_fleet
+
+    if mesh is not None and mesh.size() > 1:
+        raise ValueError(
+            "run_traffic_fleet takes a mesh of one rank: a fleet adds "
+            "and drops replicas on the mesh's first rank alone")
 
     fleet = build_llm_fleet(
         family, preset, num_replicas=num_replicas,

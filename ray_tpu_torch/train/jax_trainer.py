@@ -17,12 +17,15 @@ which ``JaxConfig(distributed="jax")`` forms over the workers.  Where
 there is none (modes "store" and "none", or a process outside a
 trainer) it first forms a world-1 group over this process alone, NCCL
 when it holds a card and gloo otherwise: the counterpart of the
-reference's mesh over a worker's local devices.  ``build_train_step``
-is ``train/trainer.py``'s, the counterpart of the reference's.
+reference's mesh over a worker's local devices.  A
+``ScalingConfig(mesh=MeshSpec(...))`` is the spec ``get_mesh()`` lays
+when its caller gives none.  ``build_train_step`` is
+``train/trainer.py``'s, the counterpart of the reference's.
 """
 
 from __future__ import annotations
 
+import contextvars
 from typing import Any, Callable, Dict, Optional
 
 from ray_tpu_torch.air.config import RunConfig, ScalingConfig
@@ -47,6 +50,30 @@ class JaxTrainer(DataParallelTrainer):
             scaling_config=scaling_config, run_config=run_config,
             datasets=datasets,
             resume_from_checkpoint=resume_from_checkpoint)
+        if self.scaling_config.mesh is not None:
+            self.train_loop_per_worker = _WithMeshSpec(
+                self.train_loop_per_worker, self.scaling_config.mesh)
+
+
+#: the ScalingConfig's MeshSpec in a worker's train loop
+_MESH_SPEC: contextvars.ContextVar = contextvars.ContextVar(
+    "ray_tpu_torch_trainer_mesh_spec", default=None)
+
+
+class _WithMeshSpec:
+    """A train loop run with the trainer's MeshSpec as ``get_mesh``'s
+    default (set in the loop's own thread)."""
+
+    def __init__(self, loop: Callable, spec):
+        from ray_tpu_torch.train._internal.worker_group import (
+            _fn_wants_config)
+
+        self.loop, self.spec = loop, spec
+        self.wants_config = _fn_wants_config(loop)
+
+    def __call__(self, config):
+        _MESH_SPEC.set(self.spec)
+        return self.loop(config) if self.wants_config else self.loop()
 
 
 def _local_group() -> None:
@@ -69,11 +96,12 @@ class jax_utils:
     @staticmethod
     def get_mesh(spec=None):
         """Mesh over the worker group's process group ("jax" mode), or
-        over this process alone (see the module's docstring)."""
+        over this process alone (see the module's docstring); ``spec``
+        defaults to the trainer's ``ScalingConfig(mesh=...)``."""
         from ray_tpu_torch.parallel import make_mesh
 
         _local_group()
-        return make_mesh(spec)
+        return make_mesh(spec if spec is not None else _MESH_SPEC.get())
 
     @staticmethod
     def shard_pytree(tree, logical_axes, mesh, rules=None):

@@ -129,15 +129,19 @@ class MeshPlan:
 
     def local_batch(self, batch):
         """This rank's rows of the global batch: dim 0 split evenly over
-        the batch axes, in mesh order."""
+        the batch axes, in mesh order.  A DTensor leaf (a sharded Data
+        batch, ``iter_torch_batches(sharding=...)``) is this rank's
+        block already: its local tensor."""
         from ray_tpu_torch.parallel.collective import axis_size, flat_index
 
-        if not self.batch_axes:
-            return batch
         n = axis_size(self.batch_axes, self.mesh)
         i = flat_index(self.batch_axes, self.mesh)
 
         def rows(v):
+            if _is_dtensor(v):
+                return v.to_local()
+            if n == 1:
+                return v
             b = v.shape[0]
             if b % n:
                 raise ValueError(f"batch axis {b} not divisible by the "
@@ -218,13 +222,14 @@ def _copies(params, opt_state: Dict[str, Any]) -> tuple:
              "nu": tree_map(_clone, opt_state["nu"])})
 
 
-def instrument_step(step: Callable, name: str, health: bool = False
-                    ) -> Callable:
+def instrument_step(step: Callable, name: str, health: bool = False,
+                    n_devices: int = 1) -> Callable:
     """``step`` wrapped as ``jax_trainer.py:126-150`` stacks its
     observers: the program registry under ``train.step`` first, the
     step-time telemetry next, the trainwatch anatomy (with the health
     watchdog when ``health``) outside; the telemetry and trainwatch
-    state are the trainer ``name``'s.  Only health mode adds a
+    state are the trainer ``name``'s; the registry records the step's
+    ``n_devices`` (a mesh's size).  Only health mode adds a
     (deliberate) sync."""
     from ray_tpu_torch._private.device_stats import get_registry
     from ray_tpu_torch.train.goodput import (get_goodput_tracker,
@@ -233,7 +238,8 @@ def instrument_step(step: Callable, name: str, health: bool = False
     from ray_tpu_torch.train.telemetry import (get_train_telemetry,
                                                instrument_train_step)
 
-    wrapped = get_registry().instrument("train.step", step)
+    wrapped = get_registry().instrument("train.step", step,
+                                        n_devices=n_devices)
     wrapped = instrument_train_step(
         wrapped, telemetry=get_train_telemetry(name))
     wrapped = instrument_trainwatch(
@@ -304,7 +310,8 @@ def build_train_step(loss_fn: Callable, tx: AdamW, mesh=None,
 
     if not telemetry:
         return step
-    return instrument_step(step, telemetry_name, health=health)
+    return instrument_step(step, telemetry_name, health=health,
+                           n_devices=plan.world if plan is not None else 1)
 
 
 def train_stats(name: str = "jax_trainer") -> Dict[str, Any]:

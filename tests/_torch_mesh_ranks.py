@@ -31,6 +31,17 @@ def free_port() -> int:
     raise RuntimeError("no free port in 100 tries")
 
 
+def _program(name: str):
+    """A program of this module by name, or "module:function" of
+    another module of rank programs (which must import no JAX)."""
+    if ":" in name:
+        import importlib
+
+        mod, fn = name.split(":")
+        return getattr(importlib.import_module(mod), fn)
+    return globals()[name]
+
+
 def _entry(rank, world, port, name, args, queue):
     import faulthandler
 
@@ -45,7 +56,7 @@ def _entry(rank, world, port, name, args, queue):
         dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                                 rank=rank, world_size=world)
         try:
-            out = globals()[name](rank, world, *args)
+            out = _program(name)(rank, world, *args)
         finally:
             dist.destroy_process_group()
         queue.put((rank, "ok", out))
@@ -59,8 +70,9 @@ def _entry(rank, world, port, name, args, queue):
 
 
 def launch(name: str, world: int, *args) -> list:
-    """Run program ``name`` on ``world`` gloo ranks; its return values
-    in rank order.  Raises with a rank's traceback if one failed."""
+    """Run program ``name`` (``_program``) on ``world`` gloo ranks; its
+    return values in rank order.  Raises with a rank's traceback if one
+    failed."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")

@@ -215,9 +215,18 @@ def test_scaling_config_asks_for_cards_where_the_reference_asks_for_tpus():
         with pytest.raises(ValueError, match="the port's accelerator "
                                              "resource is num_gpus"):
             tair.ScalingConfig(**kw)
-    for kw in ({"topology": "v5e-8"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7.7"):
-            tair.ScalingConfig(**kw)
+    # topology and mesh are stored as the reference stores them (the
+    # trainer's use of the mesh: tests/test_torch_train.py)
+    from ray_tpu import parallel as jpar
+    from ray_tpu_torch import parallel as tpar
+
+    got = tair.ScalingConfig(topology="v5e-8", mesh=tpar.MeshSpec(seq=2))
+    want = jair.ScalingConfig(topology="v5e-8", mesh=jpar.MeshSpec(seq=2))
+    assert (got.topology, got.mesh.axis_sizes()) == \
+        (want.topology, want.mesh.axis_sizes())
+    assert got._trainer_resources == want._trainer_resources
+    assert (tair.ScalingConfig().topology, tair.ScalingConfig().mesh) == \
+        (None, None)
     with pytest.raises(TypeError, match="unexpected"):
         tair.ScalingConfig(num_chips=1)
 

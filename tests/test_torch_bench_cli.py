@@ -112,6 +112,15 @@ MODES = {
     "traffic": (["--traffic", "--requests", "6"],
                 ["chips", "requests", "completed", "shed", "kv_layout",
                  "preset", "backend"]),
+    # --mesh tensor at one rank: the single-device path, as the
+    # reference's decode_mesh(1) gives (2 gloo ranks shard it:
+    # tests/test_torch_sharded_decode.py)
+    "decode-tensor": (["--decode", "--mesh", "tensor", "--new-tokens", "4"],
+                      ["chips", "batch", "prompt_len", "new_tokens",
+                       "preset", "mesh", "flash_resident", "backend"]),
+    "traffic-tensor": (["--traffic", "--mesh", "tensor", "--requests", "6"],
+                       ["chips", "requests", "completed", "shed",
+                        "kv_layout", "preset", "mesh_axes", "backend"]),
     "traffic-fleet": (["--traffic", "--replicas", "2", "--requests", "6"],
                       ["replicas", "requests", "completed", "shed",
                        "preset", "routing", "wfq", "backend"]),
@@ -193,8 +202,11 @@ def test_decode_greedy_tokens_match_jax():
     pytest.param(["--chips", "2"], ValueError,
                  r"above the process group's world size 1",
                  id="argv0-item 7\\.7"),
+    # --mesh tensor shards the decode over the group's ranks: more
+    # than it has raise as any --chips does
     pytest.param(["--decode", "--mesh", "tensor", "--chips", "4"],
-                 NotImplementedError, r"item 7\.7b", id="argv2-item 7\\.7"),
+                 ValueError, r"above the process group's world size 1",
+                 id="argv2-item 7\\.7"),
     pytest.param(["--autopilot"], NotImplementedError, r"item 7\.12",
                  id="argv3-item 7\\.12"),
 ])

@@ -347,9 +347,17 @@ def test_iter_torch_batches_defaults_to_the_card(runtimes):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             next(ds.iter_torch_batches(batch_size=4))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7.7"):
-        next(ds.iter_torch_batches(batch_size=4, device="cpu",
-                                   sharding=object()))
+    # a sharded batch whose rows do not divide the shards raises, as a
+    # sharded jax.device_put does (each rank's rows on 2 gloo ranks:
+    # tests/test_torch_sharded_decode.py)
+    from ray_tpu_torch.parallel import MeshSpec, fake_mesh
+    from ray_tpu_torch.parallel.sharding import NamedSharding, PartitionSpec
+
+    rows = NamedSharding(fake_mesh(2, MeshSpec(data=2)),
+                         PartitionSpec("data"))
+    with pytest.raises(ValueError, match="ragged last batch"):
+        next(tdata.from_numpy({"x": np.arange(3, dtype=np.float32)})
+             .iter_torch_batches(batch_size=4, sharding=rows))
     assert not hasattr(ds, "iter_jax_batches")
 
 

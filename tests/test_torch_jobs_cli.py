@@ -356,7 +356,7 @@ def test_cli_memory_and_unported_subcommands(cli_tmp):
         ray_tpu_torch.shutdown()
     r = _cli(cli_tmp, "rllib", "algorithms")
     assert r.returncode != 0
-    assert "queue 1 item 7 (rllib/)" in r.stderr
+    assert "queue 1 item 7.13 (rllib/)" in r.stderr
 
 
 # ---- the client builder ------------------------------------------------

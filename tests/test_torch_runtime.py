@@ -288,7 +288,7 @@ def test_init_names_num_gpus_and_unported_parts(runtimes):
     for sub in (["algorithms"], ["train", "--run", "PPO", "--env", "x"],
                 ["evaluate", "ckpt", "--run", "PPO", "--env", "x"]):
         with pytest.raises(NotImplementedError,
-                           match=r"queue 1 item 7 \(rllib/\)"):
+                           match=r"queue 1 item 7\.13 \(rllib/\)"):
             cli.main(["rllib", *sub])
     url = start_dashboard(port=0)
     try:

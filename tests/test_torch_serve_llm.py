@@ -159,20 +159,17 @@ def test_unknown_family_raises():
     {"scheduler": "continuous", "mesh": object()},
     {"num_replicas": 2}])
 def test_options_not_ported_yet_name_their_roadmap_item(kw):
-    """What the reference accepts and the port has not yet: a mesh
-    (item 7) raises naming its item.  ``num_replicas=2`` is accepted and
-    recorded on the returned Deployment, as the reference does: its name
-    and replica count equal the reference's."""
+    """What the reference accepts the port accepts: a mesh (its serving
+    is held on gloo ranks in tests/test_torch_sharded_decode.py) and
+    ``num_replicas=2``, recorded on the returned Deployment, as the
+    reference does: its name and replica count equal the reference's.
+    The engine reads the mesh when it is built, as the reference's
+    does."""
     kw = {"family": "gpt2", **kw}
-    if "mesh" in kw:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 7"):
-            build_llm_deployment(preset="nano", device="cpu", **kw)
-        return
     dep = build_llm_deployment(preset="nano", device="cpu", **kw)
     ref = jllm.build_llm_deployment(preset="nano", **kw)
     assert (dep.name, dep.num_replicas) == (ref.name, ref.num_replicas) \
-        == ("llm_gpt2_nano", 2)
+        == ("llm_gpt2_nano", kw.get("num_replicas", 1))
     assert isinstance(dep.func_or_class, type)
 
 
@@ -321,17 +318,15 @@ def test_batch_scheduler_slo_matches_the_reference_message():
 
 
 def test_roadmap_message_names_what_is_left_of_telemetry():
-    """Both halves of the telemetry are ported: no message names item 4
-    any more, and build_train_step(telemetry=True) builds the wrapped
-    step."""
-    from ray_tpu_torch.serve.llm import _ROADMAP_ITEM, _not_ported
+    """Both halves of the telemetry are ported, and so are the fleet
+    (item 5) and the mesh (item 7.7b): no serving option is left to
+    raise naming a ROADMAP item, and build_train_step(telemetry=True)
+    builds the wrapped step."""
+    import ray_tpu_torch.serve.llm as tllm
     from ray_tpu_torch.train import build_train_step
 
-    assert "telemetry" not in _ROADMAP_ITEM
-    assert not any("item 4" in v for v in _ROADMAP_ITEM.values())
-    # the fleet (item 5) is ported: only the mesh (item 7) still raises
-    assert set(_ROADMAP_ITEM) == {"mesh"}
-    assert "queue 1 item 7" in str(_not_ported("a mesh", "mesh"))
+    assert not hasattr(tllm, "_ROADMAP_ITEM")
+    assert not hasattr(tllm, "_not_ported")
     step = build_train_step(lambda p, b: p, None, telemetry=True)
     assert step.goodput.name == "jax_trainer"
 

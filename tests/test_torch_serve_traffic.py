@@ -145,6 +145,12 @@ def test_run_traffic_fleet_report_keys_equal_jax(tmp_path):
 
 
 def test_a_mesh_raises_the_ports_item_7_error():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    """run_traffic hands its mesh to the engine (served on 2 gloo ranks
+    in tests/test_torch_sharded_decode.py): what is no mesh fails at
+    the engine's construction, as in the reference."""
+    with pytest.raises(AttributeError):
+        jtraffic.run_traffic(_traffic(jtraffic), mesh=object(), **_KW,
+                             **_JAX)
+    with pytest.raises(AttributeError):
         ttraffic.run_traffic(_traffic(ttraffic), mesh=object(), **_KW,
                              **_TORCH)

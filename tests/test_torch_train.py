@@ -160,6 +160,33 @@ def test_two_worker_mlp_in_store_mode_matches_jax(runtimes):
                                    atol=TOL)
 
 
+def _mesh_loop(config):
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.parallel.mesh import mesh_shape
+    from ray_tpu_torch.train import jax_utils
+
+    session.report({"shape": mesh_shape(jax_utils.get_mesh()),
+                    "rank": session.get_world_rank()})
+
+
+def test_scaling_config_mesh_lays_the_workers_mesh(runtimes):
+    """ScalingConfig(mesh=) is the spec jax_utils.get_mesh() lays over
+    the workers' process group ("jax" mode, gloo on the CPU): seq=2
+    where the default would be data=2.  topology is stored only."""
+    from ray_tpu_torch.parallel import MeshSpec
+
+    train = runtimes["torch"]
+    sc = train.ScalingConfig(num_workers=2, topology="v5e-8",
+                             mesh=MeshSpec(seq=2))
+    got = train.JaxTrainer(_mesh_loop,
+                           jax_config=train.JaxConfig(distributed="jax"),
+                           scaling_config=sc).fit()
+    assert got.error is None, got.error
+    assert got.metrics["shape"] == {"pipeline": 1, "data": 1, "fsdp": 1,
+                                    "expert": 1, "seq": 2, "tensor": 1}
+    assert sc.topology == "v5e-8"
+
+
 def _shards(pkg, kind, data):
     execs = {"jax": jexec, "torch": texec}
     if kind == "dict":

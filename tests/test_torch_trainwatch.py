@@ -455,11 +455,21 @@ def test_fetch_health_is_one_copy_of_exact_values():
 
 
 def test_registry_instrument_takes_n_devices():
+    """Any device count is taken and recorded per program; the
+    snapshot keeps the JAX key set, its mfu None without a cost model
+    whatever the count."""
     reg = tds.ProgramRegistry()
     wrapped = reg.instrument("t.prog", lambda x: x + 1, n_devices=1)
     assert wrapped(1) == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        reg.instrument("t.prog", lambda x: x, n_devices=4)
+    four = reg.instrument("t.sharded", lambda x: x * 2, n_devices=4)
+    assert four(3) == 6 and four(3) == 6   # a compile, an invoke
+    assert (reg.devices_of("t.prog"), reg.devices_of("t.sharded")) == (1, 4)
+    assert reg.devices_of("t.never") == 1
+    snap = reg.snapshot(prefix="t.", n_devices=4)
+    assert snap["t.sharded"]["invokes"] == 1
+    assert snap["t.sharded"]["compile_events"] == 1
+    assert snap["t.sharded"]["mfu"] is None
+    assert set(snap["t.sharded"]) == set(snap["t.prog"])
 
 
 # ---------------------------------------------------------------------------
