@@ -248,7 +248,8 @@ Phases, each fatal on failure (any failure exits non-zero):
             bear the JAX harness's names (bench.py's on a TPU); per step
             12 launches of each flash kernel and 1 of each fused-CE
             kernel, per prefill 12 flash forwards, read in the
-            subprocess; tokens/s, MFU and TTFT printed.
+            subprocess; tokens/s, MFU and TTFT printed; their lines
+            appended to a temporary perf ledger (RAYTPU_BENCH_HISTORY).
 12f. data-air — Data and AIR on the port's runtime (init(num_gpus=1));
             first, whether pyarrow and pandas import here: (a) 1,536 seeded
             rows of 1,025 int32 tokens in 16 blocks, data.from_numpy ->
@@ -320,6 +321,27 @@ Phases, each fatal on failure (any failure exits non-zero):
             of every trial, the trials ASHA stopped equal to a fresh
             ASHAScheduler's on the replayed reports; the best lr, each
             trial's wall and the gaps between trials.
+12j. vision — ViT-B/16 (224 px: T = 197, 12 heads of 64, 86.6M
+            parameters) and ResNet-50 at full width and depth: (a) one f32
+            ViT loss and gradient at B=4 through the non-causal flash
+            kernels, remat on and off, against use_flash=False (a seeded
+            non-zero head; every leaf), 24/12/12 and 12/12/12 launches; (b)
+            bf16 ViT AdamW steps (f32 master weights) at B=128 through
+            build_train_step, 2 warm-up and 5 timed: 24/12/12 launches a
+            step (the kernels line's "vision" path), a finite falling
+            loss, step ms, images/s, MFU, peak memory, a profile; (c) the
+            flash kernels alone at (b)'s attention (B*H = 1536, T = 197,
+            D = 64, non-causal, bf16) against their plain versions, timed
+            beside their bounds and SDPA in turns; (d) one ResNet-50 loss at
+            B=2 on the card against the port on the CPU (f32: logits,
+            loss, batch-norm state; f64: those and every gradient leaf),
+            then bf16 AdamW steps at B=128 carrying the batch-norm state:
+            step ms, images/s, peak memory, a profile; (e) the perf
+            ledger's check and report on phase 12e's ledger (entries
+            stamped with this card), kvscope report/timeline/export on
+            phase 12's engine_stats() snapshot, incidents report on
+            phase 12a (d)'s chaos dump, naming the frozen replica with
+            fleet_stats' time_to_detect_ms and transition count.
 13. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
             whole block, ce_impl="pallas": a warm-up and 5 timed steps
             (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
@@ -477,6 +499,8 @@ CE_HEAD_GRAD_RTOL = {"dense": 1e-2, "f32": 1e-4}
 
 # kinds of device work in the training-step profile, by kernel name
 PROFILE_KINDS = (("flash kernels", ("flash_",)),
+                 ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad",
+                                           "convolve", "cudnn")),
                  ("fused CE kernels", ("fused_ce_",)),
                  ("matmuls (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("copies and casts", ("Memcpy", "Memset", "copy_kernel")),
@@ -968,7 +992,8 @@ def phase_serve(torch, np, fa, card: str, family: str = "gpt2",
 
 def check_train_shape(torch, fa, seed: int = 2, b: int = TRAIN_B,
                       h: int = H, T: int = TRAIN_T, d: int = D,
-                      tag: str = "training shape") -> dict:
+                      tag: str = "training shape",
+                      causal: bool = True) -> dict:
     """Hold the forward kernel (o, lse) and the backward kernels (dq,
     dk, dv) against their plain versions at a training shape (default
     GPT-2-124M's: B=24, H=12, T=1024, D=64; causal, bf16); fail if any
@@ -976,7 +1001,8 @@ def check_train_shape(torch, fa, seed: int = 2, b: int = TRAIN_B,
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(seed)
     bh = b * h
-    kw = dict(scale=1.0 / math.sqrt(d), causal=True)
+    kw = dict(scale=1.0 / math.sqrt(d), causal=causal)
+    mask = "causal" if causal else "non-causal"
     t = dict(zip(("q4", "k4", "v4", "do4"), (
         torch.randn((b, T, h, d), generator=gen, device=dev)
         .to(torch.bfloat16) for _ in range(4))))
@@ -991,7 +1017,7 @@ def check_train_shape(torch, fa, seed: int = 2, b: int = TRAIN_B,
         err_lse = (lse - lse_ref).abs().max().item()
         del o_ref, lse_ref
         print(f"[kernel-bwd] {tag} B={b} T={T} H={h} D={d} "
-              f"causal bf16: forward max|o-plain| {err_o:.3e} (tol "
+              f"{mask} bf16: forward max|o-plain| {err_o:.3e} (tol "
               f"{TOL[('bf16', 'o')]:.0e}), max|lse-plain| {err_lse:.3e} "
               f"(tol {TOL[('bf16', 'lse')]:.0e})", flush=True)
         if err_o > TOL[("bf16", "o")] or err_lse > TOL[("bf16", "lse")]:
@@ -1485,11 +1511,21 @@ def profile_step(torch, state: dict, name: str, step_ms: float,
     with torch.profiler (CUPTI) and print its device time by kind and
     its largest kernels; returns {kind: ms}."""
     step, p, s = state[name]
+
+    def run():
+        state[name][1:] = step(p, s, state["batch"])[:2]
+
+    return profile_call(torch, run, name, step_ms, card, tag)
+
+
+def profile_call(torch, run, name: str, step_ms: float, card: str,
+                 tag: str) -> dict:
+    """profile_step's body for any step ``run()`` (named ``name``)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        state[name][1:] = step(p, s, state["batch"])[:2]
+        run()
         torch.cuda.synchronize()
     # kernels and copies themselves, not the host ops that launch them
     events = [e for e in prof.key_averages()
@@ -2068,14 +2104,24 @@ def time_llama_flash(torch, fa, card: str, cfg) -> dict:
     against their plain versions (check_train_shape), timed beside them
     and their bounds, the forward and the whole backward against
     scaled_dot_product_attention's in turns."""
+    return time_flash_shape(torch, fa, card, LLAMA_B, cfg.n_head, LLAMA_T,
+                            cfg.head_dim, causal=True, seed=8,
+                            shape_tag="llama-1b shape", tag="train-llama")
+
+
+def time_flash_shape(torch, fa, card: str, b: int, h: int, T: int, d: int,
+                     *, causal: bool, seed: int, shape_tag: str,
+                     tag: str) -> dict:
+    """time_llama_flash's work at any (B, H, T, D), causal or not:
+    records of fwd, dq, dkv and the whole backward (ms, plain_ms,
+    bound_ms, bound_by, bound_share, library_ms, max_abs_err)."""
     F = torch.nn.functional
-    b, h, T, d = LLAMA_B, cfg.n_head, LLAMA_T, cfg.head_dim
-    t = check_train_shape(torch, fa, seed=8, b=b, h=h, T=T, d=d,
-                          tag="llama-1b shape")
+    t = check_train_shape(torch, fa, seed=seed, b=b, h=h, T=T, d=d,
+                          tag=shape_tag, causal=causal)
     q4, k4, v4, do4, q3, k3, v3, do3, o3, lse, delta = (
         t[n] for n in ("q4", "k4", "v4", "do4", "q3", "k3", "v3", "do3",
                        "o3", "lse", "delta"))
-    kw = dict(scale=1.0 / math.sqrt(d), causal=True)
+    kw = dict(scale=1.0 / math.sqrt(d), causal=causal)
     with torch.no_grad():
         ms = {"dq": time_ms(torch, lambda: fa.flash_bwd_dq(
                   q3, k3, v3, o3, do3, lse, **kw)),
@@ -2094,9 +2140,9 @@ def time_llama_flash(torch, fa, card: str, cfg) -> dict:
         fwd_med, fwd_turns = in_turns(torch, {
             "port": lambda: fa.flash_attention_fwd(q3, k3, v3, **kw),
             "sdpa": lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True)})
+                qh, kh, vh, is_causal=causal)})
     qh, kh, vh = (x.requires_grad_(True) for x in (qh, kh, vh))
-    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
     med, turns = in_turns(torch, {
         "port": lambda: fa.flash_attention_bwd(q3, k3, v3, o3, lse, do3,
                                                **kw),
@@ -2104,8 +2150,8 @@ def time_llama_flash(torch, fa, card: str, cfg) -> dict:
                                             retain_graph=True)})
     ms.update(fwd=fwd_med["port"], whole=med["port"])
     bh = b * h
-    bounds = dict(bwd_bounds_ms(bh, T, d, True, "bf16"),
-                  fwd=attention_bound_ms(T, True, "bf16", bh=bh, d=d))
+    bounds = dict(bwd_bounds_ms(bh, T, d, causal, "bf16"),
+                  fwd=attention_bound_ms(T, causal, "bf16", bh=bh, d=d))
     library = {"fwd": fwd_med["sdpa"], "whole": med["sdpa"]}
     recs = {}
     for k in ("fwd", "dq", "dkv", "whole"):
@@ -2119,7 +2165,7 @@ def time_llama_flash(torch, fa, card: str, cfg) -> dict:
                f"({ms[k] / library[k]:.3f}x, medians of {BWD_TURNS} "
                f"rounds in turns)" if k in library else "")
         pl = f", plain {plain[k]:.4f} ms" if k in plain else ""
-        print(f"[train-llama]   flash {k:5s} at B={b} H={h} T={T} D={d}: "
+        print(f"[{tag}]   flash {k:5s} at B={b} H={h} T={T} D={d}: "
               f"kernel {ms[k]:.4f} ms{pl}, bound {bounds[k][0]:.4f} ms "
               f"({bounds[k][1]}, {100 * bounds[k][0] / ms[k]:.1f}% of it "
               f"reached){lib} [{card}]", flush=True)
@@ -3657,7 +3703,13 @@ def phase_serve_telemetry(torch, np, fa, card: str, gate: dict,
           f"events; {engine_clock_line(st)} [{card}]", flush=True)
     if bad:
         fail(f"[serve-telemetry] (a) failed: {bad}")
+    # the snapshot tools/kvscope.py reads in phase vision (e)
+    snapshot = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_kv_"),
+                            "engine_stats.json")
+    with open(snapshot, "w") as f:
+        json.dump(st, f, default=str)
     out["a"] = {"wall_s": wall, "requests": req, "ledger": ledger,
+                "snapshot": snapshot,
                 "program_calls": calls,
                 "engine": engine_clock(st), "programs": {
                     n: b["compile_events"] for n, b in st["programs"].items()}}
@@ -4377,9 +4429,14 @@ def phase_serve_fleet(torch, np, fa, card: str, gate: dict,
         fail("[serve-fleet] (d) replica 0 did not go dead in the monitor's "
              "log, or nothing of its queue was requeued")
     blocks_free(st, "(d)")
+    # the dump tools/incidents.py reads in phase vision (e)
+    dump = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_chaos_"),
+                        "chaos_dump.json")
+    tracebus.write_dump(tracebus.collect(fleet), dump)
     out["d"] = {"transitions": log, "requeued_on_death":
                 hb["requeued_on_death"], "time_to_detect_ms":
-                hb["time_to_detect_ms"], "pings": len(pings), "wall_s": wall}
+                hb["time_to_detect_ms"], "pings": len(pings), "wall_s": wall,
+                "dump": dump, "frozen": rep0.name}
     del fleet, rep0, params
     freed("(d)")
 
@@ -5919,18 +5976,25 @@ print("BENCH_COUNTS " + json.dumps({
 def phase_bench_cli(torch, card: str) -> dict:
     """12e: ``python -m ray_tpu_torch.bench`` on the card, train (pallas
     CE, 5 timed steps + 1 warm-up) and --decode (1 warm-up + 3 TTFT
-    prefills), each in a subprocess whose launch counters start at 0."""
+    prefills), each in a subprocess whose launch counters start at 0,
+    each appending its metric lines to a temporary perf ledger
+    (RAYTPU_BENCH_HISTORY; phase vision (e) reads it)."""
     import gc
+    import os
+    import tempfile
 
     gc.collect()
     torch.cuda.empty_cache()
     root = Path(__file__).resolve().parent
-    out = {}
+    ledger = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ledger_"),
+                          "history.jsonl")
+    env = dict(os.environ, RAYTPU_BENCH_HISTORY=ledger)
+    out = {"ledger": ledger}
     for mode, (args, names) in BENCH_RUNS.items():
         t0 = time.perf_counter()
         r = subprocess.run([sys.executable, "-c", BENCH_WRAPPER, *args],
                            cwd=root, capture_output=True, text=True,
-                           timeout=600)
+                           timeout=600, env=env)
         secs = time.perf_counter() - t0
         if r.returncode != 0:
             fail(f"[bench-cli] python -m ray_tpu_torch.bench {' '.join(args)}"
@@ -7776,6 +7840,545 @@ def phase_train_tune(torch, np, fa, card: str, preset: str = "gpt2",
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase vision (12j): ViT-B/16 and ResNet-50
+# ---------------------------------------------------------------------------
+
+#: ViT-B/16 at 224 px (T = 197 = 196 patches + CLS, 12 heads of 64,
+#: 86.6M parameters): (a) one f32 loss and gradient at VIT_CHECK_B, the
+#: flash kernels against use_flash=False; (b) bf16 AdamW steps (f32
+#: master weights) at VIT_B, VIT_WARMUP then VIT_TIMED; (c) the flash
+#: kernels alone at (b)'s attention, B*H = 1536, non-causal
+VIT_PRESET, VIT_IMAGE, VIT_CHECK_B, VIT_B = "vit-b16", 224, 4, 128
+VIT_WARMUP, VIT_TIMED = 2, 5
+#: ResNet-50 at 224 px: (d) one loss and gradient at RESNET_CHECK_B on
+#: the card held against the port on the CPU, then bf16 AdamW steps at
+#: RESNET_B (19.6 GiB at its peak of the card's 80: no cut)
+RESNET_PRESET, RESNET_CHECK_B, RESNET_B = "resnet50", 2, 128
+#: (a) f32 flash kernels vs the plain attention through 12 layers: the
+#: loss |diff| and, per gradient leaf, ||flash - plain|| / ||plain||.
+#: Both sum the same f32 products in other orders (the kernel's O is
+#: within 2e-5 of the plain version's at phase 3): 4.8e-7 on the loss
+#: and 1.86e-6 on the worst leaf (cls) on an H100; a kernel that
+#: dropped the ragged last key tile (5 of T = 197 keys) would move
+#: every backbone gradient by percents
+VIT_LOSS_TOL = 1e-5
+VIT_GRAD_RTOL = 2e-5
+#: (d) ResNet-50 on the card (cuDNN, TF32 off) vs the CPU, ||card -
+#: cpu|| / ||cpu||.  In float32 the logits, the loss and each new
+#: batch-norm statistic within RESNET_RTOL (the convolutions sum in
+#: other orders, the batch norms renormalise every layer: 1.3e-5 on an
+#: H100; a wrong padding or statistic moves them by percents).  The
+#: gradient at init in training mode is too ill-conditioned for float32
+#: (back through 53 batch norms over two images the CPU's own gradient
+#: moves 1.4e-2 when the batch is merely reversed), so those and every
+#: gradient leaf are held in float64, whose 2^29 times finer rounding
+#: scales that to ~3e-11, within RESNET_F64_RTOL
+RESNET_RTOL = 1e-3
+RESNET_F64_RTOL = 1e-6
+
+
+def vit_step_counts(cfg, on_card: bool = True) -> dict:
+    """Flash launches of one ViT loss and gradient: the forward once a
+    layer and again in the backward's recompute under remat, dQ and
+    dK/dV once a layer; none with plain attention or off the card; no
+    fused CE (ViT's head is a (d, classes) product)."""
+    L = cfg.n_layer if (cfg.use_flash is not False and on_card) else 0
+    return {"flash_fwd": (2 if cfg.remat else 1) * L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L}
+
+
+def _leaf_names(tree, prefix=""):
+    """Paths of a tree's leaves in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _rel_diffs(got, want, names) -> dict:
+    """{name: (||got - want|| / ||want||, max |got - want|)} over
+    matching tensor lists (``want`` on any device), in float64."""
+    out = {}
+    for n, g, w in zip(names, got, want):
+        g, w = g.detach().double().cpu(), w.detach().double().cpu()
+        d = g - w
+        out[n] = ((d.norm() / w.norm().clamp_min(1e-30)).item(),
+                  d.abs().max().item())
+    return out
+
+
+def _worst(rel: dict) -> tuple:
+    name = max(rel, key=lambda n: rel[n][0])
+    return name, rel[name][0], max(v[1] for v in rel.values())
+
+
+def check_vit_flash(torch, fa, dev, on_card: bool, preset: str, image: int,
+                    b: int, card: str) -> dict:
+    """(a) One f32 ViT loss and gradient of every leaf through the flash
+    kernels (remat on, then off) against use_flash=False, on seeded
+    weights with a seeded non-zero head (vit_init's zero head leaves
+    every backbone gradient at exactly 0); the launches of each."""
+    from ray_tpu_torch.models.vit import vit_config, vit_init, vit_loss
+    from ray_tpu_torch.train.optim import tree_leaves, tree_unflatten
+
+    cfg = vit_config(preset, dtype=torch.float32, image_size=image)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params = vit_init(gen, cfg, device=dev)
+    for k in ("head_w", "head_b"):
+        params[k] = 0.02 * torch.randn(params[k].shape, generator=gen,
+                                       device=dev)
+    batch = {"images": torch.randn((b, image, image, 3), generator=gen,
+                                   device=dev),
+             "labels": torch.randint(0, cfg.n_classes, (b,), generator=gen,
+                                     device=dev)}
+    names = _leaf_names(params)
+    runs = {}
+    for name, kw in (("plain", dict(use_flash=False)),
+                     ("flash", dict(use_flash=True)),
+                     ("flash_no_remat", dict(use_flash=True, remat=False))):
+        c = dataclasses.replace(cfg, **kw)
+        zero_counts(fa)
+        leaves = [x.detach().requires_grad_(True)
+                  for x in tree_leaves(params)]
+        loss = vit_loss(tree_unflatten(params, leaves), batch, c)
+        grads = torch.autograd.grad(loss, leaves)
+        if on_card:
+            torch.cuda.synchronize()
+        runs[name] = {"loss": loss.item(), "grads": grads,
+                      "counts": read_counts(fa),
+                      "want": vit_step_counts(c, on_card)}
+    base = runs.pop("plain")
+    out, bad = {"tol": {"loss": VIT_LOSS_TOL, "grad_rel": VIT_GRAD_RTOL}}, []
+    for name, r in runs.items():
+        rel = _rel_diffs(r["grads"], base["grads"], names)
+        worst, worst_rel, max_abs = _worst(rel)
+        dl = abs(r["loss"] - base["loss"])
+        nonfinite = sum(int((~g.isfinite()).sum()) for g in r["grads"])
+        zero = [n for n, g in zip(names, base["grads"])
+                if not bool(g.abs().sum() > 0)]
+        out[name] = {"loss": r["loss"], "loss_diff": dl,
+                     "worst_leaf": worst, "worst_rel": worst_rel,
+                     "max_abs_diff": max_abs, "counts": r["counts"]}
+        print(f"[vision] (a) {preset} f32 B={b} at {image} px (T = "
+              f"{cfg.n_patches + 1}), {name} vs plain attention: loss "
+              f"{r['loss']:.6f} vs {base['loss']:.6f} (|diff| {dl:.3e}, tol "
+              f"{VIT_LOSS_TOL:.0e}); {len(names)} gradient leaves, largest "
+              f"||flash - plain|| / ||plain|| {worst_rel:.3e} ({worst}; tol "
+              f"{VIT_GRAD_RTOL:.0e}), largest |diff| {max_abs:.3e}; "
+              f"launches {r['counts']} (expected {r['want']}) [{card}]",
+              flush=True)
+        if dl > VIT_LOSS_TOL or worst_rel > VIT_GRAD_RTOL or nonfinite:
+            bad.append(f"{name}: loss diff {dl}, worst leaf {worst} "
+                       f"{worst_rel}, {nonfinite} nonfinite")
+        if r["counts"] != r["want"]:
+            bad.append(f"{name}: launches {r['counts']}, expected "
+                       f"{r['want']}")
+        if zero:
+            bad.append(f"gradient leaves of exactly 0: {zero}")
+    if bad:
+        fail("[vision] (a) " + "; ".join(bad))
+    return out
+
+
+def time_vit_steps(torch, fa, dev, on_card: bool, preset: str, image: int,
+                   b: int, card: str) -> dict:
+    """(b) ViT AdamW steps (``adamw(3e-4, weight_decay=0.1)``) in bf16
+    with f32 master weights through build_train_step: VIT_WARMUP then
+    VIT_TIMED steps on one seeded batch (host clock around synchronised
+    steps), the launch counters zeroed just before and read just after,
+    the loss finite and falling, images/s, MFU, the peak memory and a
+    profile of one more step."""
+    from ray_tpu_torch.bench import H100_BF16_PEAK_FLOPS
+    from ray_tpu_torch.models.vit import (vit_config, vit_init, vit_loss,
+                                          vit_param_count)
+    from ray_tpu_torch.train import adamw, build_train_step
+
+    cfg = vit_config(preset, image_size=image)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    params = vit_init(gen, cfg, device=dev)
+    tx = adamw(3e-4, weight_decay=0.1)
+    opt_state = tx.init(params)
+    step = build_train_step(lambda p, bt: vit_loss(p, bt, cfg), tx,
+                            telemetry=False)
+    batch = {"images": torch.randn((b, image, image, 3), generator=gen,
+                                   device=dev),
+             "labels": torch.randint(0, cfg.n_classes, (b,), generator=gen,
+                                     device=dev)}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    zero_counts(fa)
+    losses = []
+    for _ in range(VIT_WARMUP):
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(loss)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(VIT_TIMED):
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(loss)
+    sync()
+    dt = time.perf_counter() - t0
+    counts = read_counts(fa)
+    runs = VIT_WARMUP + VIT_TIMED
+    per_step = vit_step_counts(cfg, on_card)
+    want = {k: n * runs for k, n in per_step.items()}
+    losses = [float(x) for x in losses]
+    peak_gib = (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+                else None)
+    n_params = vit_param_count(cfg)
+    T = cfg.n_patches + 1
+    img_s = b * VIT_TIMED / dt
+    step_ms = dt / VIT_TIMED * 1e3
+    mfu = 6 * n_params * img_s * T / H100_BF16_PEAK_FLOPS if on_card \
+        else None
+    print(f"[vision] (b) {preset} bf16 (f32 master weights) B={b} at "
+          f"{image} px (T = {T}), remat: {runs} steps launched {counts} "
+          f"(expected {per_step} a step); losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    if counts != want:
+        fail(f"[vision] (b) kernel launches {counts} over {runs} steps, "
+             f"expected {want}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"[vision] (b) the loss is not finite and falling: {losses}")
+    mfu_text = (f"MFU {mfu:.4f} (6 N images/s T against 989 TFLOP/s, N = "
+                f"{n_params}, ignoring attention's own products)"
+                if mfu is not None else "MFU not measured off the card")
+    print(f"[vision] (b) {VIT_TIMED} timed steps: {step_ms:.2f} ms/step, "
+          f"{img_s:.1f} images/s, {mfu_text}; peak memory "
+          f"{peak_gib if peak_gib is None else round(peak_gib, 2)} GiB "
+          f"(max_memory_allocated) [{card}]", flush=True)
+    out = {"steps_run": runs, "counts": counts, "per_step": per_step,
+           "step_ms": step_ms, "images_per_s": img_s, "mfu": mfu,
+           "peak_gib": peak_gib, "losses": losses, "n_params": n_params,
+           "batch": b, "T": T}
+    if on_card:
+        out["profile"] = profile_call(
+            torch, lambda: step(params, opt_state, batch), "ViT-B/16",
+            step_ms, card, "vision")
+    return out
+
+
+def _resnet_run(torch, params, state, batch, cfg, grads: bool) -> dict:
+    """One ResNet training-mode loss: {"logits", "loss", "state"} and,
+    with ``grads``, "grads", the gradient of every parameter leaf."""
+    from ray_tpu_torch.models.resnet import resnet_forward, resnet_loss
+    from ray_tpu_torch.train.optim import tree_leaves, tree_unflatten
+
+    with torch.no_grad():
+        logits, _ = resnet_forward(params, state, batch["x"], cfg,
+                                   training=True)
+    leaves = [x.detach().requires_grad_(grads) for x in tree_leaves(params)]
+    with torch.set_grad_enabled(grads):
+        loss, new_state = resnet_loss(tree_unflatten(params, leaves), state,
+                                      batch, cfg)
+    out = {"logits": logits, "loss": loss.detach(), "state": new_state}
+    if grads:
+        out["grads"] = torch.autograd.grad(loss, leaves)
+    return out
+
+
+def check_resnet_card(torch, dev, preset: str, image: int, b: int,
+                      card: str) -> dict:
+    """(d1) One ResNet training-mode loss on ``dev`` against the port on
+    the CPU from the same seeded weights, state and batch: in float32
+    the logits, the loss and every new batch-norm statistic within
+    RESNET_RTOL; in float64 those and every gradient leaf within
+    RESNET_F64_RTOL (relative norms)."""
+    from ray_tpu_torch.models.resnet import resnet_config, resnet_init
+    from ray_tpu_torch.train.optim import tree_leaves, tree_map
+
+    cfg = resnet_config(preset, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(31)
+    params, state = resnet_init(gen, cfg, device="cpu")
+    batch = {"x": torch.randn((b, image, image, 3), generator=gen),
+             "y": torch.randint(0, cfg.n_classes, (b,), generator=gen)}
+    out, bad = {}, []
+    for dt, tol in ((torch.float32, RESNET_RTOL),
+                    (torch.float64, RESNET_F64_RTOL)):
+        c = dataclasses.replace(cfg, dtype=dt, param_dtype=dt)
+        grads = dt == torch.float64
+        def cast(t, dt=dt):
+            return t.to(dt) if t.is_floating_point() else t
+
+        p, st, bt = (tree_map(cast, x) for x in (params, state, batch))
+        t0 = time.perf_counter()
+        cpu = _resnet_run(torch, p, st, bt, c, grads)
+        cpu_s = time.perf_counter() - t0
+        to = lambda t: t.to(dev)  # noqa: E731
+        t0 = time.perf_counter()
+        got = _resnet_run(torch, tree_map(to, p), tree_map(to, st),
+                          tree_map(to, bt), c, grads)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        parts = {"logits": ([got["logits"]], [cpu["logits"]], ["logits"]),
+                 "loss": ([got["loss"]], [cpu["loss"]], ["loss"]),
+                 "state": (tree_leaves(got["state"]),
+                           tree_leaves(cpu["state"]),
+                           _leaf_names(cpu["state"]))}
+        if grads:
+            parts["grads"] = (list(got["grads"]), list(cpu["grads"]),
+                              _leaf_names(params))
+        rec = {}
+        for part, (g, w, names) in parts.items():
+            rel = _rel_diffs(g, w, names)
+            worst, worst_rel, max_abs = _worst(rel)
+            rec[part] = {"n": len(names), "worst": worst,
+                         "worst_rel": worst_rel, "max_abs_diff": max_abs}
+            if worst_rel > tol or not all(bool(t.isfinite().all())
+                                          for t in g):
+                bad.append(f"{dt} {part}: {worst} {worst_rel:.3e} (tol "
+                           f"{tol:.0e})")
+        name = str(dt).split(".")[-1]
+        out[name] = dict(rec, tol=tol, cpu_s=cpu_s, dev_s=dev_s)
+        print(f"[vision] (d) {preset} {name} B={b} at {image} px, training "
+              f"mode{', with every gradient' if grads else ''}, {dev.type} "
+              f"({dev_s:.1f} s) against the CPU ({cpu_s:.1f} s): loss "
+              f"{float(cpu['loss']):.6f}; largest ||{dev.type} - cpu|| / "
+              f"||cpu|| (tol {tol:.0e}): " +
+              "; ".join(f"{q} {o['worst_rel']:.3e} over {o['n']} "
+                        f"({o['worst']}, max |diff| "
+                        f"{o['max_abs_diff']:.3e})" for q, o in rec.items())
+              + f" [{card}]", flush=True)
+    if bad:
+        fail("[vision] (d) the card's ResNet disagrees with the CPU's: " +
+             "; ".join(bad))
+    return out
+
+
+def time_resnet_steps(torch, dev, on_card: bool, preset: str, image: int,
+                      b: int, card: str) -> dict:
+    """(d2) ResNet AdamW steps (``adamw(3e-4, weight_decay=0.1)``) in
+    bf16 with f32 master weights and the batch-norm state carried, a
+    step written here (the JAX package trains it through its trainer's
+    jit): autograd over the parameter leaves, the port's AdamW in
+    place.  VIT_WARMUP then VIT_TIMED steps on one seeded batch, the
+    loss finite and falling, images/s, the peak memory and a profile of
+    one more step."""
+    from ray_tpu_torch.models.resnet import (resnet_config, resnet_init,
+                                             resnet_loss)
+    from ray_tpu_torch.train import adamw
+    from ray_tpu_torch.train.optim import tree_leaves, tree_unflatten
+
+    cfg = resnet_config(preset)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(32)
+    params, bn_state = resnet_init(gen, cfg, device=dev)
+    tx = adamw(3e-4, weight_decay=0.1)
+    opt_state = tx.init(params)
+    batch = {"x": torch.randn((b, image, image, 3), generator=gen,
+                              device=dev),
+             "y": torch.randint(0, cfg.n_classes, (b,), generator=gen,
+                                device=dev)}
+    carried = [bn_state]
+
+    def step():
+        leaves = [x.detach().requires_grad_(True)
+                  for x in tree_leaves(params)]
+        loss, carried[0] = resnet_loss(tree_unflatten(params, leaves),
+                                       carried[0], batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        tx.update_(params, list(grads), opt_state)
+        return loss.detach()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    losses = [step() for _ in range(VIT_WARMUP)]
+    sync()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(VIT_TIMED)]
+    sync()
+    dt = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    step_ms = dt / VIT_TIMED * 1e3
+    img_s = b * VIT_TIMED / dt
+    peak_gib = (torch.cuda.max_memory_allocated() / 2 ** 30 if on_card
+                else None)
+    moved = float((carried[0]["stem"]["mean"] - bn_state["stem"]["mean"])
+                  .abs().max())
+    print(f"[vision] (d) {preset} bf16 (f32 master weights, batch norm in "
+          f"f32) B={b} at {image} px: {VIT_WARMUP} + {VIT_TIMED} steps, "
+          f"losses {[round(x, 4) for x in losses]}; {step_ms:.2f} ms/step, "
+          f"{img_s:.1f} images/s; peak memory "
+          f"{peak_gib if peak_gib is None else round(peak_gib, 2)} GiB; the "
+          f"stem's running mean moved {moved:.3e} [{card}]", flush=True)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0] or not moved > 0:
+        fail(f"[vision] (d) the loss is not finite and falling ({losses}) "
+             f"or the batch-norm state stood still")
+    out = {"batch": b, "step_ms": step_ms, "images_per_s": img_s,
+           "peak_gib": peak_gib, "losses": losses}
+    if on_card:
+        out["profile"] = profile_call(torch, step, "ResNet-50", step_ms,
+                                      card, "vision")
+    return out
+
+
+def _run_tool(*args) -> subprocess.CompletedProcess:
+    """``python -m <args>`` from the repo's root, its output captured."""
+    root = Path(__file__).resolve().parent
+    return subprocess.run([sys.executable, "-m", *args], cwd=root,
+                          capture_output=True, text=True, timeout=120)
+
+
+def check_tools(tools: dict, card: str, device_kind) -> dict:
+    """(e) The operator CLIs on this run's own files: perfledger check
+    and report on phase bench-cli's ledger (its entries stamped with
+    this card), kvscope report, timeline and export on phase
+    serve-telemetry's engine_stats() snapshot, and incidents report on
+    phase serve-fleet's chaos dump, which must name the frozen replica
+    with fleet_stats' detection latency and count its transitions as
+    fleet_stats' log does (each journaled twice, to the fleet's lane
+    and the replica's)."""
+    import os
+
+    t0 = time.perf_counter()
+    bad, out = [], {}
+    ledger = tools["ledger"]
+    with open(ledger) as f:
+        entries = [json.loads(ln) for ln in f if ln.strip()]
+    metrics = [e["record"]["metric"] for e in entries]
+    kinds = {e["provenance"].get("device_kind") for e in entries}
+    chk = _run_tool("ray_tpu_torch.tools.perfledger", "--history", ledger,
+                    "check")
+    rep = _run_tool("ray_tpu_torch.tools.perfledger", "--history", ledger,
+                    "report")
+    verdicts = (json.loads(chk.stdout)["verdicts"] if chk.returncode in (0, 1)
+                else {})
+    out["perfledger"] = {"entries": len(entries), "check_rc": chk.returncode,
+                         "report_rc": rep.returncode,
+                         "verdicts": {k: v["verdict"]
+                                      for k, v in verdicts.items()}}
+    print(f"[vision] (e) perfledger on phase bench-cli's ledger: "
+          f"{len(entries)} entries {metrics}, device kinds {kinds}; check "
+          f"exit {chk.returncode}, verdicts "
+          f"{out['perfledger']['verdicts']}; report exit {rep.returncode}, "
+          f"{len(rep.stdout.splitlines())} lines", flush=True)
+    if chk.returncode != 0 or rep.returncode != 0 or \
+            sorted(verdicts) != sorted(metrics) or \
+            not all(m in rep.stdout for m in metrics) or \
+            kinds != {device_kind}:
+        bad.append(f"perfledger: check {chk.returncode} {chk.stderr[-500:]}"
+                   f", report {rep.returncode}, kinds {kinds}")
+
+    snap = tools["snapshot"]
+    with open(snap) as f:
+        scope = json.load(f)["kv_scope"]
+    ring = scope["occupancy"]["ring"]
+    r_rep = _run_tool("ray_tpu_torch.tools.kvscope", "report", snap)
+    r_tl = _run_tool("ray_tpu_torch.tools.kvscope", "timeline", snap)
+    trace = os.path.join(os.path.dirname(snap), "kv_trace.json")
+    r_ex = _run_tool("ray_tpu_torch.tools.kvscope", "export", snap, "-o",
+                     trace)
+    counters, pool = [], set()
+    if r_ex.returncode == 0:
+        with open(trace) as f:
+            counters = [e for e in json.load(f) if e.get("ph") == "C"]
+        pool = {sum(e["args"].values()) for e in counters
+                if e["name"] == "kv blocks"}
+    rows = [ln for ln in r_tl.stdout.splitlines() if "use=" in ln]
+    out["kvscope"] = {"rcs": [r_rep.returncode, r_tl.returncode,
+                              r_ex.returncode], "ring": len(ring),
+                      "timeline_rows": len(rows),
+                      "counter_events": len(counters)}
+    print(f"[vision] (e) kvscope on phase serve-telemetry's engine_stats(): "
+          f"report/timeline/export exit {out['kvscope']['rcs']}; "
+          f"{r_rep.stdout.splitlines()[:2]}; {len(rows)} timeline rows for "
+          f"{len(ring)} ring samples; {len(counters)} counter events, pool "
+          f"sizes {pool}", flush=True)
+    if out["kvscope"]["rcs"] != [0, 0, 0] or len(rows) != len(ring) or \
+            not ring or len(pool) != 1 or \
+            "kvscope enabled" not in r_rep.stdout:
+        bad.append(f"kvscope: {out['kvscope']} {r_rep.stderr[-500:]}")
+
+    inc = _run_tool("ray_tpu_torch.tools.incidents", "report", tools["dump"])
+    frozen, ttd = tools["frozen"], tools["time_to_detect_ms"]
+    lines = inc.stdout.splitlines()
+    named = f"replica {frozen}:" in lines
+    said = [float(m) for m in re.findall(r"time_to_detect_ms=([0-9.]+)",
+                                         inc.stdout)]
+    # the first count after the frozen replica's heading is its own
+    own = re.search(r"transitions=(\d+)",
+                    inc.stdout.split(f"replica {frozen}:", 1)[-1])
+    counted = int(own.group(1)) if named and own else None
+    out["incidents"] = {"rc": inc.returncode, "names_frozen": named,
+                        "time_to_detect_ms": said,
+                        "fleet_time_to_detect_ms": ttd,
+                        "transitions": counted,
+                        "fleet_transitions": tools["transitions"]}
+    print(f"[vision] (e) incidents report on phase serve-fleet's chaos dump: "
+          f"exit {inc.returncode}; names {frozen}: {named}; "
+          f"time_to_detect_ms {said} against fleet_stats' {ttd}; "
+          f"transitions {counted} against fleet_stats' "
+          f"{tools['transitions']}; {len(lines)} lines", flush=True)
+    if inc.returncode != 0 or not named or said != [ttd] or \
+            counted != tools["transitions"]:
+        bad.append(f"incidents: {out['incidents']} {inc.stderr[-500:]}")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[vision] (e) the three tools in {out['wall_s']:.2f} s [{card}]",
+          flush=True)
+    if bad:
+        fail("[vision] (e) " + "; ".join(bad))
+    return out
+
+
+def phase_vision(torch, fa, card: str, tools, device: str = "cuda",
+                 vit_preset: str = VIT_PRESET, image: int = VIT_IMAGE,
+                 vit_check_b: int = VIT_CHECK_B, vit_b: int = VIT_B,
+                 resnet_preset: str = RESNET_PRESET,
+                 resnet_check_b: int = RESNET_CHECK_B,
+                 resnet_b: int = RESNET_B) -> dict:
+    """12j: ViT-B/16 and ResNet-50 at full width: (a) ViT f32 flash vs
+    plain, (b) ViT bf16 training (the main path: its launches are the
+    kernels line's), (c) the non-causal flash kernels at ViT's
+    attention, (d) ResNet-50 card vs CPU and bf16 training, (e) the
+    perf ledger, kvscope and incidents CLIs on this run's files.
+    ``device``, the presets and the sizes let it run cut down
+    elsewhere (no timing of kernels, no profile, no tools off the
+    card when ``tools`` is None)."""
+    from ray_tpu_torch.models.vit import vit_config
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    out = {"a": check_vit_flash(torch, fa, dev, on_card, vit_preset, image,
+                                vit_check_b, card)}
+    out["b"] = time_vit_steps(torch, fa, dev, on_card, vit_preset, image,
+                              vit_b, card)
+    out["counts"], out["per_step"] = out["b"]["counts"], out["b"]["per_step"]
+    if on_card:
+        cfg = vit_config(vit_preset, image_size=image)
+        out["kernels"] = time_flash_shape(
+            torch, fa, card, vit_b, cfg.n_head, cfg.n_patches + 1,
+            cfg.head_dim, causal=False, seed=23, shape_tag="ViT-B/16 shape",
+            tag="vision")
+        torch.cuda.empty_cache()
+    out["d_check"] = check_resnet_card(torch, dev, resnet_preset, image,
+                                       resnet_check_b, card)
+    out["d_train"] = time_resnet_steps(torch, dev, on_card, resnet_preset,
+                                       image, resnet_b, card)
+    if tools is not None:
+        out["e"] = check_tools(tools, card, torch.cuda.get_device_name(dev)
+                               if on_card else None)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def _free_tcp_ports(n: int) -> int:
     """The first of ``n`` consecutive free ports."""
     import socket
@@ -7887,6 +8490,14 @@ def main() -> int:
     tick("seq-pipe-tp")
     train_tune = phase_train_tune(torch, np, fa, card)
     tick("train-tune")
+    vision = phase_vision(torch, fa, card, {
+        "ledger": bench_cli["ledger"],
+        "snapshot": serve_tele["a"]["snapshot"],
+        "dump": serve_fleet["d"]["dump"],
+        "frozen": serve_fleet["d"]["frozen"],
+        "time_to_detect_ms": serve_fleet["d"]["time_to_detect_ms"],
+        "transitions": len(serve_fleet["d"]["transitions"])})
+    tick("vision")
     train_llama = phase_train_llama(torch, fa, fc, card)
     tick("train-llama")
     train_tele = phase_train_telemetry(torch, np, fa, card)
@@ -7914,6 +8525,7 @@ def main() -> int:
                    "moe_mesh": moe_mesh["counts"].get(name, 0),
                    "seq_pipe_tp": seq_pipe["counts"].get(name, 0),
                    "train_tune": train_tune["counts"][name],
+                   "vision": vision["counts"].get(name, 0),
                    "train_llama": train_llama["counts"][name],
                    "train_telemetry": train_tele["counts"][name]}
         return {"launches": sum(by_path.values()),
@@ -7923,7 +8535,9 @@ def main() -> int:
                 "launches_per_llama_train_step":
                     train_llama["counts"][name] / train_llama["steps_run"],
                 "launches_per_moe_train_step": moe_mesh["per_step"][name],
-                "launches_per_trainer_step": train_tune["per_step"][name]}
+                "launches_per_trainer_step": train_tune["per_step"][name],
+                "launches_per_vit_train_step":
+                    vision["counts"].get(name, 0) / vision["b"]["steps_run"]}
 
     # each kernel at llama-1b's shapes (phase train-llama)
     at_llama = {"flash_fwd": train_llama["kernels"]["flash"]["fwd"],
@@ -7971,6 +8585,11 @@ def main() -> int:
             f"{plan.sc}>", [])
     records[1]["llama_1b_shape"]["whole_backward"] = \
         train_llama["kernels"]["flash"]["whole"]
+    # each flash kernel at ViT-B/16's attention (phase vision (c):
+    # B*H = 1536, T = 197, D = 64, non-causal)
+    for rec, k in zip(records[:3], ("fwd", "dq", "dkv")):
+        rec["vit_shape"] = vision["kernels"][k]
+    records[1]["vit_shape"]["whole_backward"] = vision["kernels"]["whole"]
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -30,9 +30,10 @@ above the group's world size raises ValueError.  ``--mesh tensor``
 with ``--decode`` or ``--traffic`` shards the serve path over a
 ``tensor`` mesh of ``--chips`` ranks (the whole group;
 ``decode_mesh``), the decode tensor-parallel on each rank's blocks
-(models/decode_common.py).  ``--autopilot`` and the perf ledger's
-append raise naming ROADMAP.md queue 1 item 7.12.  The JAX
-harness's TPU probes (``_probe_tpu``, ``_pin_cpu``, ``ensure_backend``)
+(models/decode_common.py).  Each run's metric lines are appended to
+the port's perf ledger (tools/perfledger.py; ``--no-ledger`` opts
+out); ``--autopilot`` raises naming ROADMAP.md queue 1 item 7.12.
+The JAX harness's TPU probes (``_probe_tpu``, ``_pin_cpu``, ``ensure_backend``)
 and its TPU result record have no counterpart.
 
     from ray_tpu_torch.bench import time_config, train_watch
@@ -72,9 +73,8 @@ BASELINE_MFU = 0.40
 
 #: time_config's layouts (bench.py:335-349)
 TRAIN_MESHES = ("data", "fsdp", "data_fsdp")
-#: what --autopilot and the perf ledger's append wait for
-AUTOPILOT_ITEM = ("ROADMAP.md queue 1 item 7.12 (tools/autopilot; the "
-                  "perf ledger, tools/perfledger.py, comes with it)")
+#: what --autopilot waits for
+AUTOPILOT_ITEM = "ROADMAP.md queue 1 item 7.12 (tools/autopilot)"
 
 
 def _world_size() -> int:
@@ -372,8 +372,7 @@ def parse_args(argv=None):
                          "(util/state.py profile_device, torch.profiler)")
     ap.add_argument("--no-ledger", action="store_true",
                     help="do not append this run's metric lines to the "
-                         f"perf ledger (the append waits for "
-                         f"{AUTOPILOT_ITEM})")
+                         "perf ledger (tools/perfledger.py)")
     ap.add_argument("--autopilot", action="store_true",
                     help="append a roofline-attribution JSON line; "
                          f"raises: it waits for {AUTOPILOT_ITEM}")
@@ -394,15 +393,22 @@ def emit(record) -> None:
 
 
 def _ledger_append(args) -> None:
-    """The JAX harness appends this run's lines to its perf ledger,
-    best-effort: a failed append is reported on stderr and never stops
-    the run.  The port's ledger waits for ROADMAP.md queue 1 item 7.12:
-    every append fails so."""
+    """Persist this run's JSON lines into the port's perf ledger
+    (tools/perfledger.py ``history_path``: BENCH_HISTORY_TORCH.jsonl,
+    or RAYTPU_BENCH_HISTORY) so the bench trajectory survives the
+    terminal, as ``bench.py:195 _ledger_append`` does for the JAX
+    package.  Best-effort: a ledger failure never breaks the bench
+    contract of always printing its lines."""
     if args.no_ledger or not _EMITTED:
         return
-    err = NotImplementedError(
-        f"the perf ledger is not ported yet: {AUTOPILOT_ITEM}")
-    sys.stderr.write(f"bench: perf ledger append failed: {err!r}\n")
+    try:
+        from ray_tpu_torch.tools import perfledger
+
+        n = perfledger.append_records(_EMITTED, source="bench")
+        sys.stderr.write(f"bench: {n} record(s) appended to "
+                         f"{perfledger.history_path()}\n")
+    except Exception as e:  # noqa: BLE001 - ledger is best-effort
+        sys.stderr.write(f"bench: perf ledger append failed: {e!r}\n")
 
 
 def _maybe_profile(logdir: str):

@@ -1,7 +1,8 @@
 """Parameter trees between numpy and the port's tensors.
 
 The layout is the JAX package's (``gpt2_init``, ``llama_init``,
-``mlp_init``); only the leaves change type.  This is how weights cross
+``mlp_init``, ``vit_init``, ``resnet_init`` and its batch-norm state);
+only the leaves change type.  This is how weights cross
 from JAX to the port in the tests, and how ``checkpoint_path`` pickles
 load in ``serve/llm.py``.
 """
@@ -17,6 +18,9 @@ from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models.gpt2 import GPT2Config
 from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.models.mlp import MLPConfig, mlp_dims
+from ray_tpu_torch.models.resnet import (ResNetConfig, _block_channels,
+                                         _block_kernels)
+from ray_tpu_torch.models.vit import ViTConfig
 
 
 def _gpt2_shapes(cfg: GPT2Config) -> Dict[str, Any]:
@@ -62,6 +66,51 @@ def _llama_shapes(cfg: LlamaConfig) -> Dict[str, Any]:
 def _mlp_shapes(cfg: MLPConfig) -> Dict[str, Any]:
     return {"layers": [{"w": (d_in, d_out), "b": (d_out,)}
                        for d_in, d_out in mlp_dims(cfg)]}
+
+
+def _vit_shapes(cfg: ViTConfig) -> Dict[str, Any]:
+    L, d, f, h, hd = (cfg.n_layer, cfg.d_model, cfg.d_ff, cfg.n_head,
+                      cfg.head_dim)
+    return {
+        "patch_w": (cfg.patch_size ** 2 * 3, d), "patch_b": (d,),
+        "pos": (cfg.n_patches + 1, d), "cls": (1, d),
+        "ln_f": {"scale": (d,), "bias": (d,)},
+        "head_w": (d, cfg.n_classes), "head_b": (cfg.n_classes,),
+        "blocks": {
+            "ln1": {"scale": (L, d), "bias": (L, d)},
+            "ln2": {"scale": (L, d), "bias": (L, d)},
+            "attn": {"qkv_w": (L, d, 3, h, hd), "qkv_b": (L, 3, h, hd),
+                     "o_w": (L, h, hd, d), "o_b": (L, d)},
+            "mlp": {"fc_w": (L, d, f), "fc_b": (L, f),
+                    "proj_w": (L, f, d), "proj_b": (L, d)},
+        },
+    }
+
+
+def _resnet_shapes(cfg: ResNetConfig, state: bool = False):
+    """The parameter tree's shapes, or with ``state`` the batch-norm
+    state's."""
+    def bn(c):
+        return ({"mean": (c,), "var": (c,)} if state
+                else {"scale": (c,), "bias": (c,)})
+
+    blocks = []
+    for cin, cmid, cout in _block_channels(cfg):
+        kernels = _block_kernels(cfg, cin, cmid, cout)
+        blk: Dict[str, Any] = {"bns": [bn(c) for _, _, c in kernels]}
+        if not state:
+            blk["convs"] = [(k, k, ci, co) for k, ci, co in kernels]
+        if cin != cout:
+            blk["proj_bn"] = bn(cout)
+            if not state:
+                blk["proj"] = (1, 1, cin, cout)
+        blocks.append(blk)
+    if state:
+        return {"stem": bn(cfg.width), "blocks": blocks}
+    chead = _block_channels(cfg)[-1][2]
+    return {"stem": {"conv": (7, 7, 3, cfg.width), "bn": bn(cfg.width)},
+            "blocks": blocks,
+            "head": {"w": (chead, cfg.n_classes), "b": (cfg.n_classes,)}}
 
 
 def _leaf_to_tensor(leaf, device: torch.device) -> torch.Tensor:
@@ -130,6 +179,27 @@ def mlp_params_from_numpy(tree, cfg: MLPConfig,
     return _from_numpy(tree, _mlp_shapes(cfg), "MLP", device)
 
 
+def vit_params_from_numpy(tree, cfg: ViTConfig,
+                          device: DeviceLike = None) -> Dict[str, Any]:
+    """The same for a ViT parameter tree (``vit_init``'s layout)."""
+    return _from_numpy(tree, _vit_shapes(cfg), "ViT", device)
+
+
+def resnet_params_from_numpy(tree, cfg: ResNetConfig,
+                             device: DeviceLike = None) -> Dict[str, Any]:
+    """The same for a ResNet parameter tree (``resnet_init``'s params:
+    lists of blocks)."""
+    return _from_numpy(tree, _resnet_shapes(cfg), "ResNet", device)
+
+
+def resnet_state_from_numpy(tree, cfg: ResNetConfig,
+                            device: DeviceLike = None) -> Dict[str, Any]:
+    """The same for ResNet's batch-norm state (``resnet_init``'s
+    second tree)."""
+    return _from_numpy(tree, _resnet_shapes(cfg, state=True),
+                       "ResNet state", device)
+
+
 def gpt2_params_to_numpy(params) -> Dict[str, Any]:
     """The inverse, for every family: a tree of tensors → a tree of
     numpy arrays on the host.  bfloat16 leaves come back as float32
@@ -146,3 +216,5 @@ def gpt2_params_to_numpy(params) -> Dict[str, Any]:
 
 llama_params_to_numpy = gpt2_params_to_numpy
 mlp_params_to_numpy = gpt2_params_to_numpy
+vit_params_to_numpy = gpt2_params_to_numpy
+resnet_params_to_numpy = gpt2_params_to_numpy

@@ -1,2 +1,3 @@
-"""Developer tooling of the port (the postmortem CLI).  Nothing here
-runs on the hot path."""
+"""Developer tooling of the port: the postmortem and tracing CLIs
+(flightrec, tracebus, kvscope, incidents) and the perf ledger.
+Nothing here runs on the hot path."""

@@ -25,8 +25,8 @@ format is the JAX package's, so either package's dumps read here):
   ``export_timeline()`` JSON), so decisions
   land on the same Perfetto canvas as the engine spans.
 * ``sweepjson`` — summarize the dump into the SWEEPJSON metric-record
-  shape the JAX package's ``tools/perfledger.py ingest`` consumes, so
-  postmortems can join the ledger's trend series.
+  shape ``tools/perfledger.py ingest`` consumes, so postmortems can
+  join the ledger's trend series.
 
 Pure stdlib + the chrome-trace builders: it needs nothing but the
 dump file, and no card.

@@ -142,10 +142,11 @@ def _gpt2(preset_kw):
 
 # -- programs ---------------------------------------------------------------
 
-def prog_device_plane(rank, world, shard_cases, moe_inputs):
+def prog_device_plane(rank, world, shard_cases, moe_inputs, vit_inputs):
     """4 ranks: (a) shard_params of each case on its mesh, this rank's
     block; (b) the xla_* collectives; (c) moe_apply with the experts
-    split over expert=4."""
+    split over expert=4; (e) one AdamW step of ViT tiny on fsdp=2 x
+    tensor=2."""
     import torch
 
     from ray_tpu_torch.models import moe as tm
@@ -223,7 +224,36 @@ def prog_device_plane(rank, world, shard_cases, moe_inputs):
         tm.moe_route = real
     out.update(split_data=d, split_position=got["position"].numpy(),
                split_y=y.numpy(), split_aux=float(aux))
+    out["vit"] = _vit_mesh_step(*vit_inputs)
     return out
+
+
+def _vit_mesh_step(np_params, images, labels, lr):
+    """(e) One AdamW step of ViT tiny (f32) through build_train_step on
+    a fsdp=2 x tensor=2 mesh, the parameters placed by shard_params
+    over vit_logical_axes: the loss, and the updated parameters
+    gathered whole."""
+    import torch
+
+    from ray_tpu_torch.models import vit as tv
+    from ray_tpu_torch.parallel import MeshSpec, make_mesh, shard_params
+    from ray_tpu_torch.parallel.sharding import gather_params
+    from ray_tpu_torch.train import adamw, build_train_step
+
+    cfg = tv.vit_config("tiny", dtype=torch.float32)
+    mesh = make_mesh(MeshSpec(fsdp=2, tensor=2))
+    axes = tv.vit_logical_axes(cfg)
+    tx = adamw(lr, weight_decay=0.1)
+    params = shard_params(_tree(np_params), axes, mesh)
+    step = build_train_step(lambda p, b: tv.vit_loss(p, b, cfg), tx,
+                            mesh=mesh, logical_axes=axes, telemetry=False)
+    batch = {"images": torch.from_numpy(images),
+             "labels": torch.from_numpy(labels)}
+    params, _, loss = step(params, tx.init(params), batch)
+    return {"loss": float(loss),
+            "qkv_placements": str(params["blocks"]["attn"]["qkv_w"]
+                                  .placements),
+            "params": _locals(gather_params(params))}
 
 
 def prog_fsdp_step(rank, world, np_params, tokens, lr):

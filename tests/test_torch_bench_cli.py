@@ -15,8 +15,9 @@ must print the same metric-line names, units and detail keys with equal
 deterministic fields (shapes, counts, layouts; not times).  GPT-2 tiny's
 greedy ``--decode`` tokens are held to the JAX package's on the same
 weights (``models/convert.py``).  The options that wait for a ROADMAP.md
-item raise naming it, and without a card the bench raises instead of
-falling back to the CPU.
+item raise naming it, the module's run appends its lines to the perf
+ledger its environment names, and without a card the bench raises
+instead of falling back to the CPU.
 """
 
 import contextlib
@@ -240,13 +241,15 @@ def test_no_card_raises_instead_of_falling_back(monkeypatch):
         tbench.main(tbench.parse_args(["--decode"]))
 
 
-def test_module_entry_point_prints_its_lines():
+def test_module_entry_point_prints_its_lines(tmp_path):
     """``python -m ray_tpu_torch.bench --decode --device cpu``: the
-    metric lines on stdout, exit 0, and the perf ledger's append (item
-    7.12) reported on stderr as the JAX harness reports a failed
-    append."""
+    metric lines on stdout, exit 0, and the lines appended to the perf
+    ledger that RAYTPU_BENCH_HISTORY names (tools/perfledger.py),
+    reported on stderr as the JAX harness reports its append."""
+    hist = tmp_path / "hist.jsonl"
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["RAYTPU_BENCH_HISTORY"] = str(hist)
     r = subprocess.run(
         [sys.executable, "-m", "ray_tpu_torch.bench", "--decode",
          "--device", "cpu", "--new-tokens", "2"], cwd=ROOT, env=env,
@@ -256,5 +259,6 @@ def test_module_entry_point_prints_its_lines():
     assert names == ["gpt2_decode_cpu_smoke_prefill_ttft_ms",
                      "gpt2_decode_cpu_smoke_tokens_per_sec",
                      "gpt2_decode_cpu_smoke_tokens_per_sec_per_chip"]
-    assert "perf ledger append failed" in r.stderr
-    assert "item 7.12" in r.stderr
+    assert f"bench: 3 record(s) appended to {hist}" in r.stderr
+    assert [json.loads(ln)["record"]["metric"]
+            for ln in hist.read_text().splitlines()] == names

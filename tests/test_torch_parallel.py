@@ -13,7 +13,8 @@ here on the same numpy inputs, or to the port on one rank:
   array's addressable shard on the device of the same mesh position;
   the ``xla_*`` collectives equal JAX's under ``shard_map``; the MoE
   block with its experts split over expert=4 equals the block on one
-  rank (tests/test_moe.py:62's check);
+  rank (tests/test_moe.py:62's check); one AdamW step of ViT tiny on
+  fsdp=2 x tensor=2 equals the unsharded step;
 * 2 ranks, fsdp=2: one AdamW step of GPT-2 nano, an accumulated step
   and ``time_config(mesh="fsdp")`` equal the unsharded ones;
 * 4 ranks, data=2 x expert=2: AdamW steps of GPT-2 nano with 4 experts
@@ -50,7 +51,7 @@ from ray_tpu_torch.models.convert import gpt2_params_from_numpy
 from ray_tpu_torch.parallel import sharding as tsh
 from ray_tpu_torch.train import (accumulated_train_step, adamw,
                                  build_train_step, restore_sharded)
-from ray_tpu_torch.train.optim import tree_leaves
+from ray_tpu_torch.train.optim import tree_leaves, tree_unflatten
 from tests import _torch_mesh_ranks as ranks
 from tests.test_torch_jax_teardown import settle_jax_loops  # noqa: F401
 from tests.test_torch_trainwatch import assert_params_close, eps_bound_mask
@@ -244,7 +245,26 @@ def device_plane():
     cases = [(kw, a, axes) for (kw, _, axes), a in zip(SHARD_CASES, arrays)]
     _, params, x = _moe_inputs()
     return ranks.launch("prog_device_plane", 4, cases,
-                        (MOE_KW, params, x))
+                        (MOE_KW, params, x), _vit_inputs())
+
+
+VIT_LR = 1e-3
+
+
+def _vit_inputs():
+    """ViT tiny's JAX-initialised parameters with a seeded non-zero head
+    (the zero head would stop every backbone gradient), 4 images and
+    labels."""
+    from ray_tpu.models import vit as jv
+
+    params = _np(jv.vit_init(jax.random.PRNGKey(0), jv.vit_config("tiny")))
+    rng = np.random.default_rng(5)
+    for k in ("head_w", "head_b"):
+        params[k] = (0.1 * rng.standard_normal(params[k].shape)).astype(
+            np.float32)
+    images = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, 4).astype(np.int32)
+    return params, images, labels, VIT_LR
 
 
 @pytest.mark.parametrize("i", range(len(SHARD_CASES)))
@@ -352,6 +372,40 @@ def test_split_batch_routing_is_one_ranks_exactly(device_plane,
     for out in device_plane:
         np.testing.assert_allclose(out["split_aux"], float(one_aux),
                                    rtol=1e-4)
+
+
+def test_vit_step_on_fsdp_tensor_mesh_equals_the_unsharded_step(
+        device_plane):
+    """ViT tiny's AdamW step through build_train_step(mesh=...) on
+    fsdp=2 x tensor=2 (qkv_w's "embed" over fsdp, its "heads" over
+    tensor): the loss and the updated parameters of the unsharded
+    port step (PARAM_TOL, one update where AdamW's denominator sat near
+    eps, and on the key bias: softmax is invariant to adding q . b_k to
+    a whole row of scores, so its gradient is 0 but for rounding, and
+    the sign of its first AdamW update is the rounding's)."""
+    from ray_tpu_torch.models import vit as tv
+    from ray_tpu_torch.models.convert import vit_params_from_numpy
+
+    np_params, images, labels, lr = _vit_inputs()
+    cfg = tv.vit_config("tiny", dtype=torch.float32)
+    params = vit_params_from_numpy(np_params, cfg, device="cpu")
+    tx = adamw(lr, weight_decay=0.1)
+    step = build_train_step(lambda p, b: tv.vit_loss(p, b, cfg), tx,
+                            telemetry=False)
+    params, state, loss = step(params, tx.init(params), {
+        "images": torch.from_numpy(images),
+        "labels": torch.from_numpy(labels)})
+    mask = tree_unflatten(params, eps_bound_mask(
+        None, [t.numpy() for t in tree_leaves(state["nu"])], 1))
+    mask["blocks"]["attn"]["qkv_b"][:, 1] = True
+    mask = tree_leaves(mask)
+    for out in device_plane:
+        got = out["vit"]
+        np.testing.assert_allclose(got["loss"], float(loss), rtol=LOSS_TOL)
+        assert got["qkv_placements"].count("Shard") == 2
+        want = [t.numpy() for t in tree_leaves(params)]
+        assert_params_close([torch.from_numpy(a) for a in
+                             tree_leaves(got["params"])], want, mask, 1, lr)
 
 
 def test_expert_parallel_moe_equals_one_rank(device_plane):

@@ -222,9 +222,19 @@ def test_auto_mode_picks_store_for_two_cpu_workers_and_none_for_one(
 
 
 def _dying_loop(config):
-    """Reports step i with its checkpoint; rank 1's process exits after
-    step 1 the first time (its marker in the cluster KV)."""
+    """Reports step i with its checkpoint; rank 1's process exits
+    before step 2 the first time (its marker in the cluster KV).
+
+    It exits only once the executor has collected round 1: ``report``
+    returns when the worker's ``next_result`` releases it, before that
+    call's reply has left the process, so an exit right after
+    ``report(i=1)`` can lose round 1's reply, and the executor then
+    rightly restarts from round 0.  Rank 1 waits instead (in the KV,
+    with a limit) for rank 0's mark, written after its own
+    ``report(i=2)`` returned: the executor asks for round 2 only after
+    it holds round 1 from every rank."""
     import os
+    import time
 
     from ray_tpu_torch._private import worker_context
     from ray_tpu_torch.air import session
@@ -232,14 +242,21 @@ def _dying_loop(config):
     cw = worker_context.core_worker()
     ck = session.get_checkpoint()
     start = ck.to_dict()["i"] + 1 if ck is not None else 0
+    rank = session.get_world_rank()
     for i in range(start, 4):
-        session.report({"i": i, "pid": os.getpid(),
-                        "rank": session.get_world_rank()},
-                       checkpoint={"i": i})
-        if i == 1 and session.get_world_rank() == 1 and \
+        if i == 2 and rank == 1 and \
                 cw.kv_get(f"{config['kv']}died") is None:
+            deadline = time.monotonic() + WAIT_S
+            while cw.kv_get(f"{config['kv']}round2") is None:
+                if time.monotonic() > deadline:
+                    raise TimeoutError("rank 0 never reported round 2")
+                time.sleep(0.01)
             cw.kv_put(f"{config['kv']}died", str(os.getpid()).encode())
             os._exit(1)
+        session.report({"i": i, "pid": os.getpid(), "rank": rank},
+                       checkpoint={"i": i})
+        if i == 2 and rank == 0:
+            cw.kv_put(f"{config['kv']}round2", b"1")
 
 
 def test_a_dead_worker_restarts_the_gang_from_the_latest_checkpoint(
