@@ -236,14 +236,15 @@ Phases, each fatal on failure (any failure exits non-zero):
 12d. dashboard — on serve-http's cluster before its teardown (e):
             start_dashboard (a detached actor, port 0) and GET
             /api/nodes, /api/actors, /api/serve/applications,
-            /api/serve/stats, /metrics and /: /api/nodes lists
+            /api/serve/stats, /api/perf/autopilot, /metrics and /:
+            /api/nodes lists
             util.state.list_nodes()' nodes, /metrics carries raytpu_nodes,
             the worker node's raytpu_resource_total{...resource="gpu"} 1.0
             and the replica's published serve_* lines, /api/serve/stats
             the replica's finished requests of (c) and (d2); each route's
             p50 over 20 GETs.
 12e. bench-cli — `python -m ray_tpu_torch.bench --ce-impl pallas --steps
-            5` and `python -m ray_tpu_torch.bench --decode` as
+            5 --autopilot` and `python -m ray_tpu_torch.bench --decode` as
             subprocesses (GPT-2-124M on the card): their metric lines
             bear the JAX harness's names (bench.py's on a TPU); per step
             12 launches of each flash kernel and 1 of each fused-CE
@@ -342,6 +343,29 @@ Phases, each fatal on failure (any failure exits non-zero):
             phase 12's engine_stats() snapshot, incidents report on
             phase 12a (d)'s chaos dump, naming the frozen replica with
             fleet_stats' time_to_detect_ms and transition count.
+12k. observatory — the cost model, the autopilot and graftcheck: (a)
+            bench.py's GPT-2-124M pallas step (B=24, T=1024,
+            remat mlp_only) through time_config, 3 timed steps: the
+            registry's bench.train_step xla_flops equal to the
+            written-out step formula (gpt2_step_flops: forward,
+            backward, the mlp_only recompute, the flash kernels'
+            visible pairs, the fused-CE kernels), its ratio to
+            6*N*tokens; the step built again, timed by CUDA events: its
+            FLOPs at most 1.05 of 989 TFLOP/s, beside the registry's
+            mfu; bytes_accessed's share of 3.35 TB/s, peak_hbm_bytes
+            beside max_memory_allocated, a harvested warm step's wall
+            against a plain one's in turns; (b) GPT-2's widths at 2
+            layers, B=1, T=512: the harvest on the card (the kernels)
+            equal to the harvest on the CPU (their plain versions); (c)
+            the programs blocks of phases 10 and 11's engine_stats():
+            every serve program that ran carries a cost; (d) phase
+            12e's --autopilot line names bench.train_step with a class
+            and a headroom; (e) the autopilot CLI's attribute on phase
+            12's engine_stats() dump, plan and verdict on phase 12e's
+            ledger (reports into a temporary directory); (f) python -m
+            ray_tpu_torch.tools.graftcheck --format json reports ok, 12
+            programs audited (the tensor-parallel one skipped below its
+            two ranks); (g) /api/perf/autopilot answered 200 in 12d.
 13. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
             whole block, ce_impl="pallas": a warm-up and 5 timed steps
             (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
@@ -550,18 +574,50 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple:
                                  else "operations")
 
 
+def gpt2_step_flops(n_layer: int, batch: int, seq: int, d: int, d_ff: int,
+                    n_head: int, valid: int, mlp_only: bool = True) -> int:
+    """The cost model's FLOPs of one GPT-2 AdamW step through the flash
+    kernels (causal) and the fused CE kernels, written out: each
+    layer's four projections (qkv, attention out, fc, proj) forward
+    2*N*d*out each and backward twice that (dX and dW); the flash
+    kernels' visible pairs (forward 4*D, dQ 6*D plus 2*D a row for
+    delta, dK/dV 8*D, each per (batch*head)); under ``mlp_only`` remat
+    the MLP half is recomputed in the backward up to the last tensor it
+    saves, the fc product (its proj output is not needed again); the
+    fused CE forward 2*N*valid*D and dH and dW 4*N*valid*D each.  The
+    layer norms, GELU, softmax pieces and AdamW are elementwise: 0."""
+    n = batch * seq
+    hd, bh = d // n_head, batch * n_head
+    pairs = visible_pairs(seq, True)
+    proj = 2 * n * d * (3 * d) + 2 * n * d * d + 2 * n * d * d_ff * 2
+    fwd = proj + 4 * bh * hd * pairs
+    bwd = 2 * proj + 14 * bh * hd * pairs + 2 * bh * seq * hd
+    recompute = 2 * n * d * d_ff if mlp_only else 0
+    return n_layer * (fwd + bwd + recompute) + 10 * n * valid * d
+
+
+def _work_fns(name: str):
+    """The port's per-kernel (operations, bytes) reckonings: the one
+    count both these bounds and the cost model use."""
+    mod = importlib.import_module(
+        "ray_tpu_torch.ops.flash_attention" if name.startswith("flash")
+        else "ray_tpu_torch.ops.fused_ce")
+    return getattr(mod, f"{name}_work")
+
+
 def visible_pairs(T: int, causal: bool) -> int:
-    return T * (T + 1) // 2 if causal else T * T
+    return importlib.import_module(
+        "ray_tpu_torch.ops.flash_attention").visible_pairs(T, causal)
 
 
 def attention_bound_ms(T: int, causal: bool, dtype: str,
                        bh: int = B * H, d: int = D) -> tuple:
     """Least time for one (BH, T, D) attention forward on this card:
     q, k, v read once, o and lse written once; 4*D operations per
-    visible (query, key) pair."""
+    visible (query, key) pair (``flash_fwd_work``)."""
     elem = 2 if dtype == "bf16" else 4
-    nbytes = 4 * bh * T * d * elem + bh * T * 4
-    return bound_ms(nbytes, 4 * bh * d * visible_pairs(T, causal), dtype)
+    flops, nbytes = _work_fns("flash_fwd")(bh, T, d, causal, elem)
+    return bound_ms(nbytes, flops, dtype)
 
 
 def bwd_bounds_ms(bh: int, T: int, d: int, causal: bool,
@@ -571,16 +627,15 @@ def bwd_bounds_ms(bh: int, T: int, d: int, causal: bool,
     (S, dP, dS.K) and 2*D per row for delta (reads q, k, v, o, dO, lse;
     writes dq, delta), dK/dV kernel 8*D (S, dP, P^T.dO, dS^T.Q; reads
     q, k, v, dO, lse, delta; writes dk, dv), the whole backward 10*D
-    and delta (reads q, k, v, o, dO, lse; writes dq, dk, dv)."""
+    and delta (reads q, k, v, o, dO, lse; writes dq, dk, dv): the
+    ``flash_bwd_*_work`` reckonings."""
     elem = 2 if dtype == "bf16" else 4
-    mat, row = bh * T * d * elem, bh * T * 4
-    flops = bh * d * visible_pairs(T, causal)
-    delta_flops = 2 * bh * T * d
-    return {"dq": bound_ms(6 * mat + 2 * row, 6 * flops + delta_flops,
-                           dtype),
-            "dkv": bound_ms(6 * mat + 2 * row, 8 * flops, dtype),
-            "whole": bound_ms(8 * mat + row, 10 * flops + delta_flops,
-                              dtype)}
+    out = {}
+    for key, name in (("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv"),
+                      ("whole", "flash_bwd")):
+        flops, nbytes = _work_fns(name)(bh, T, d, causal, elem)
+        out[key] = bound_ms(nbytes, flops, dtype)
+    return out
 
 
 def bwd_compare(got, want, dtype: str) -> dict:
@@ -1292,12 +1347,13 @@ def ce_bounds_ms(n: int, v: int, valid: int, d: int) -> dict:
     (backward) lse and g once and writes its outputs once (nll and lse;
     dh (N, D) f32; dw (V, D) f32); the forward does 2*N*valid*D
     operations, dH and dW each 4*N*valid*D (the logits again and their
-    own product)."""
-    hw = (n + valid) * d * 2
-    ops = 2 * n * valid * d
-    return {"fwd": bound_ms(hw + n * 4 + 2 * n * 4, ops, "bf16"),
-            "dh": bound_ms(hw + 3 * n * 4 + n * d * 4, 2 * ops, "bf16"),
-            "dw": bound_ms(hw + 3 * n * 4 + v * d * 4, 2 * ops, "bf16")}
+    own product): the ``fused_ce_*_work`` reckonings."""
+    out = {}
+    for key, name in (("fwd", "fused_ce_fwd"), ("dh", "fused_ce_bwd_dh"),
+                      ("dw", "fused_ce_bwd_dw")):
+        flops, nbytes = _work_fns(name)(n, v, valid, d, 2)
+        out[key] = bound_ms(nbytes, flops, "bf16")
+    return out
 
 
 def time_wide_ce(torch, fc, card: str) -> dict:
@@ -2927,10 +2983,11 @@ def phase_serve_continuous(torch, np, fa, card: str, preset="llama-1b",
         ties += gate_against_oracle(torch, np, params, cfg, prompts, outs,
                                     oracle, tag)
         kv[tag] = stats = engine.kv_stats()
+        est = engine.engine_stats()
+        programs = est["programs"]           # phase observatory (c)
         line = (f"[serve-continuous] f32 engine ({tag}): {CONT_N} "
                 f"requests in {wall:.2f} s, all equal to the oracle or "
-                f"parted at a near-tie; "
-                f"{engine_clock_line(engine.engine_stats())}")
+                f"parted at a near-tie; {engine_clock_line(est)}")
         if stats["kv_cache"] is not None:
             c, t = stats["kv_cache"], stats["kv_tier"]
             line += (f"; blocks in use after {c['blocks_in_use']}, prefix "
@@ -2971,6 +3028,7 @@ def phase_serve_continuous(torch, np, fa, card: str, preset="llama-1b",
     return {"counts": launches, "near_ties": ties,
             "kv": {k: {"kv_cache": v["kv_cache"], "requeues": v["requeues"],
                        "kv_tier": v["kv_tier"]} for k, v in kv.items()},
+            "programs": programs,
             "gate": {"prompts": prompts, "oracle": oracle}, **timing}
 
 
@@ -3263,7 +3321,9 @@ def phase_serve_spec_disagg(torch, np, fa, card: str, gate: dict,
             line += (f"; spec rounds {acc.rounds}, accepted {acc.accepted} "
                      f"of {acc.proposed} drafts (rate {acc.rate:.4f}; "
                      f"engine_stats spec equal)")
-        line += f"; {engine_clock_line(target.engine_stats())}"
+        est = target.engine_stats()
+        programs = est["programs"]           # phase observatory (c)
+        line += f"; {engine_clock_line(est)}"
         pagers = []
         if isinstance(engine, _Pair):
             engine.check_engines(tag)
@@ -3312,7 +3372,7 @@ def phase_serve_spec_disagg(torch, np, fa, card: str, gate: dict,
              "kernel; their verify, draft and handoff are plain PyTorch")
     return {"counts": launches, "near_ties": ties, "acceptance": rates,
             "handoffs": handoffs, "direct_prefix_hits": direct_hits,
-            **timing}
+            "programs": programs, **timing}
 
 
 def _direct_prefix_hits(np, dec, prompts, oracle, drive, tag, cfg) -> int:
@@ -5865,7 +5925,7 @@ CE_OR_FLASH = {"flash_fwd": "FLASH_FWD_LAUNCHES",
 DASH_GETS = 20
 #: the dashboard routes phase dashboard reads
 DASH_ROUTES = ("/api/nodes", "/api/actors", "/api/serve/applications",
-               "/api/serve/stats", "/metrics", "/")
+               "/api/serve/stats", "/api/perf/autopilot", "/metrics", "/")
 
 
 def _http_get(url: str, timeout: float = 60.0):
@@ -5947,14 +6007,18 @@ def phase_dashboard(rt, state, card: str, dep_name: str, finished: int,
               + f" [{card}]", flush=True)
     finally:
         rt.kill(rt.get_actor(DASHBOARD_NAME))
-    return {"start_s": start_s, "get_p50_ms": p50}
+    doc = json.loads(got["/api/perf/autopilot"][2])
+    return {"start_s": start_s, "get_p50_ms": p50, "autopilot": {
+        "status": got["/api/perf/autopilot"][0],
+        "deployments": doc.get("deployments"),
+        "summary": (doc.get("attribution") or {}).get("summary")}}
 
 
 #: what `python -m ray_tpu_torch.bench` runs in phase bench-cli, and the
 #: metric names the JAX harness gives the same modes on a TPU (bench.py
 #: :1297 the train line, :571 and :608-624 the decode lines)
 BENCH_RUNS = {
-    "train": (["--ce-impl", "pallas", "--steps", "5"],
+    "train": (["--ce-impl", "pallas", "--steps", "5", "--autopilot"],
               ["gpt2_124m_train_tokens_per_sec_per_chip"]),
     "decode": (["--decode"],
                ["gpt2_decode_prefill_ttft_ms", "gpt2_decode_tokens_per_sec",
@@ -6001,6 +6065,9 @@ def phase_bench_cli(torch, card: str) -> dict:
                  f" exited {r.returncode}: {r.stderr[-3000:]}")
         lines = [json.loads(ln) for ln in r.stdout.splitlines()
                  if ln.startswith("{")]
+        # --autopilot's attribution line (phase observatory (d) reads it)
+        autopilot = [rec for rec in lines if "autopilot" in rec]
+        lines = [rec for rec in lines if "metric" in rec]
         counts = json.loads(next(ln for ln in r.stdout.splitlines()
                                  if ln.startswith("BENCH_COUNTS "))
                             .split(" ", 1)[1])
@@ -6046,7 +6113,10 @@ def phase_bench_cli(torch, card: str) -> dict:
                 fail(f"[bench-cli] decode: {counts} launches for "
                      f"{prefills} prefills, expected 12 flash forwards "
                      f"each and nothing else")
-        out[mode] = {"records": lines, "counts": counts, "s": secs}
+        out[mode] = {"records": lines, "counts": counts, "s": secs,
+                     "autopilot": autopilot[-1] if autopilot else None}
+        if ("--autopilot" in args) != bool(autopilot):
+            fail(f"[bench-cli] {mode}: {len(autopilot)} --autopilot lines")
     return out
 
 
@@ -8252,7 +8322,9 @@ def check_tools(tools: dict, card: str, device_kind) -> dict:
     ledger = tools["ledger"]
     with open(ledger) as f:
         entries = [json.loads(ln) for ln in f if ln.strip()]
-    metrics = [e["record"]["metric"] for e in entries]
+    # (the train run's --autopilot line is a record without a metric)
+    metrics = [e["record"]["metric"] for e in entries
+               if "metric" in e["record"]]
     kinds = {e["provenance"].get("device_kind") for e in entries}
     chk = _run_tool("ray_tpu_torch.tools.perfledger", "--history", ledger,
                     "check")
@@ -8397,6 +8469,306 @@ def _free_tcp_ports(n: int) -> int:
 
 
 
+#: phase observatory (12k): the GPT-2-124M pallas step the cost model
+#: counts (bench.py's train step: B=24, T=1024, remat mlp_only) and its
+#: timed steps; the program held on the card and on the CPU (b): GPT-2's
+#: widths at 2 layers, B=1, T=512
+OBS_STEPS, OBS_EVENT_STEPS = 3, 3
+OBS_CPU_LAYERS, OBS_CPU_B, OBS_CPU_T = 2, 1, 512
+#: a share of the peak above this means the FLOP count is wrong: no step
+#: beats the card's dense bf16 rate
+OBS_MAX_SHARE = 1.05
+#: the serving programs (c) that must carry a cost once they ran
+OBS_SERVE = ("serve.prefill", "serve.paged_prefill", "serve.decode",
+             "serve.spec_verify", "serve.kv_handoff_export",
+             "serve.kv_handoff_install")
+
+
+def _obs_step(torch, cfg, batch, seq, dev, seed=0):
+    """(step, params, opt_state, data) of bench.py's train step (AdamW
+    3e-4, weight decay 0.1, telemetry off) on seeded tokens."""
+    from ray_tpu_torch.models.gpt2 import gpt2_init, gpt2_loss
+    from ray_tpu_torch.train import adamw, build_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = gpt2_init(cfg, gen, device=dev)
+    tx = adamw(3e-4, weight_decay=0.1)
+    step = build_train_step(lambda p, b: gpt2_loss(p, b, cfg), tx,
+                            telemetry=False)
+    data = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                                    generator=gen, device=dev)}
+    return step, params, tx.init(params), data
+
+
+def phase_observatory(torch, fa, fc, card: str, inputs, device="cuda",
+                      preset="gpt2", batch=TRAIN_B, seq=TRAIN_T,
+                      cpu_layers=OBS_CPU_LAYERS, cpu_batch=OBS_CPU_B,
+                      cpu_seq=OBS_CPU_T) -> dict:
+    """12k: the cost model, the autopilot and graftcheck.  (a) bench.py's
+    GPT-2-124M pallas step through ``time_config``: the registry's
+    ``bench.train_step`` block's FLOPs equal the written-out formula
+    (``gpt2_step_flops``) exactly; the same step built again and timed
+    by CUDA events, its FLOPs at most OBS_MAX_SHARE of the peak's rate
+    (a harvest that lost the backward or a kernel would read far lower,
+    one that double counts higher), a harvest of a warm step beside a
+    plain one; (b) the same 2-layer program harvested on the card and
+    on the CPU books equal FLOPs; (c) the serving programs of phases 10
+    and 11 carry costs; (d) the bench's ``--autopilot`` line of phase
+    12e names bench.train_step; (e) the autopilot CLI on phase 12's
+    engine_stats() dump and phase 12e's ledger; (f) ``python -m
+    ray_tpu_torch.tools.graftcheck --format json`` (started first, in
+    the background, on the CPU); (g) ``/api/perf/autopilot`` of phase
+    12d.  ``inputs``: {"programs": {phase: engine_stats()["programs"]},
+    "autopilot_line", "snapshot", "ledger", "dashboard_autopilot"};
+    None for one skips its part (a CPU dry run)."""
+    import os
+    import tempfile
+
+    from ray_tpu_torch._private import device_stats as ds
+    from ray_tpu_torch.bench import time_config
+    from ray_tpu_torch.models.gpt2 import gpt2_config, gpt2_param_count
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    on_card = device == "cuda"
+    peak = ds.H100_SXM["bf16_flops"]
+    # (f) first: it runs on the CPU while the card works
+    gc_proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.tools.graftcheck", "--format",
+         "json"], cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    out, bad = {}, []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # (a) -------------------------------------------------------------
+    kw = dict(ce_impl="pallas", remat_policy="mlp_only")
+    if not on_card:
+        kw["use_flash"] = True
+    cfg = gpt2_config(preset, max_seq=seq, **kw)
+    formula = gpt2_step_flops(cfg.n_layer, batch, seq, cfg.d_model,
+                              cfg.d_ff, cfg.n_head, cfg.vocab_size)
+    tokens = batch * seq
+    six_n = 6 * gpt2_param_count(cfg) * tokens
+    # the process registry, reset so that its bench.train_step block
+    # holds this step's cost and invokes alone (the training phases'
+    # time_config runs booked other configurations; (c) reads the serve
+    # phases' blocks as they printed them)
+    ds.reset_registry()
+    reg = ds.get_registry()
+    _, mfu_6n, _, _, tc_cost = time_config(batch, seq=seq, n_steps=OBS_STEPS,
+                                           preset=preset, device=device, **kw)
+    blk = reg.snapshot(n_devices=1)["bench.train_step"]
+    if on_card:
+        torch.cuda.empty_cache()
+    step, params, opt, data = _obs_step(torch, cfg, batch, seq, device)
+    params, opt, _ = step(params, opt, data)                  # warm-up
+    sync()
+    walls = {}
+    for kind in ("plain", "harvest", "harvest", "plain"):
+        t0 = time.perf_counter()
+        if kind == "plain":
+            params, opt, _ = step(params, opt, data)
+        else:
+            (params, opt, _), warm = ds.harvest_cost(step, params, opt, data)
+        sync()
+        walls.setdefault(kind, []).append(time.perf_counter() - t0)
+    ms = []
+    for _ in range(OBS_EVENT_STEPS if on_card else 0):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        params, opt, _ = step(params, opt, data)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    step_ms = sorted(ms)[len(ms) // 2] if ms else tc_cost["step_ms"]
+    share = formula / (step_ms / 1e3 * peak)
+    bw_share = (blk["bytes_accessed"] or 0) / (
+        step_ms / 1e3 * ds.H100_SXM["hbm_bytes_per_s"])
+    max_alloc = torch.cuda.max_memory_allocated() if on_card else None
+    del step, params, opt, data
+    if on_card:
+        torch.cuda.empty_cache()
+    harvest_ms = [w * 1e3 for w in walls["harvest"]]
+    plain_ms = [w * 1e3 for w in walls["plain"]]
+    out["a"] = {"xla_flops": blk["xla_flops"], "formula": formula,
+                "ratio_to_6n": formula / six_n, "step_ms": step_ms,
+                "event_ms": ms, "share_of_peak": share,
+                "registry_mfu": blk["mfu"], "mfu_6n": mfu_6n,
+                "mfu_xla": tc_cost.get("mfu_xla"),
+                "bytes_accessed": blk["bytes_accessed"],
+                "bytes_share": bw_share,
+                "peak_hbm_bytes": blk["peak_hbm_bytes"],
+                "max_memory_allocated": max_alloc,
+                "warm_harvest_flops": (warm or {}).get("xla_flops"),
+                "harvest_ms": harvest_ms, "plain_ms": plain_ms,
+                "first_call_s": blk["compile_seconds"]}
+    print(f"[observatory] (a) {preset} pallas step B={batch} T={seq} remat "
+          f"mlp_only through time_config: bench.train_step xla_flops "
+          f"{blk['xla_flops']}, the formula {formula} (equal: "
+          f"{blk['xla_flops'] == formula}; a warm step's harvest "
+          f"{(warm or {}).get('xla_flops')}), {formula / six_n:.4f} x "
+          f"6*N*tokens; step {step_ms:.3f} ms by CUDA events {ms}: "
+          f"{share:.4f} of {peak / 1e12:g} TFLOP/s (registry mfu "
+          f"{blk['mfu']}, mfu_xla {tc_cost.get('mfu_xla')}, 6N mfu "
+          f"{mfu_6n}); bytes_accessed {blk['bytes_accessed']} = "
+          f"{bw_share:.4f} of 3.35 TB/s; peak_hbm_bytes "
+          f"{blk['peak_hbm_bytes']} beside the process's "
+          f"max_memory_allocated {max_alloc}; walls in turns (plain, "
+          f"harvest, harvest, plain) plain {plain_ms} ms, harvest "
+          f"{harvest_ms} ms; the first (harvested) call "
+          f"{blk['compile_seconds']} s [{card}]", flush=True)
+    if blk["xla_flops"] != formula or \
+            (warm or {}).get("xla_flops") != formula:
+        bad.append(f"(a) xla_flops {blk['xla_flops']} (warm "
+                   f"{(warm or {}).get('xla_flops')}) != formula {formula}")
+    if on_card and not 0 < share <= OBS_MAX_SHARE:
+        bad.append(f"(a) {share:.4f} of the peak by CUDA events: the "
+                   f"count is wrong")
+    if blk["peak_hbm_bytes"] is None or blk["bytes_accessed"] is None:
+        bad.append("(a) the bench.train_step block lacks a cost")
+
+    # (b) -------------------------------------------------------------
+    small = gpt2_config(preset, n_layer=cpu_layers, max_seq=cpu_seq,
+                        **dict(kw, use_flash=True))
+    got = {}
+    for dev in dict.fromkeys((device, "cpu")):
+        step, params, opt, data = _obs_step(torch, small, cpu_batch,
+                                            cpu_seq, dev)
+        t0 = time.perf_counter()
+        _, cost = ds.harvest_cost(step, params, opt, data)
+        got[dev] = dict(cost or {}, wall_s=time.perf_counter() - t0)
+        del step, params, opt, data
+    want = gpt2_step_flops(cpu_layers, cpu_batch, cpu_seq, small.d_model,
+                           small.d_ff, small.n_head, small.vocab_size)
+    out["b"] = got
+    print(f"[observatory] (b) {preset} widths, {cpu_layers} layers, "
+          f"B={cpu_batch} T={cpu_seq}: xla_flops on {device} "
+          f"{got[device].get('xla_flops')}, on the cpu "
+          f"{got['cpu'].get('xla_flops')} (the formula {want}); "
+          f"bytes_accessed {got[device].get('bytes_accessed')} / "
+          f"{got['cpu'].get('bytes_accessed')}; harvest walls "
+          f"{got[device]['wall_s']:.2f} s / {got['cpu']['wall_s']:.2f} s "
+          f"[{card}]", flush=True)
+    if not got[device].get("xla_flops") or \
+            got[device].get("xla_flops") != got["cpu"].get("xla_flops") \
+            or got["cpu"]["xla_flops"] != want:
+        bad.append(f"(b) card {got[device].get('xla_flops')} != cpu "
+                   f"{got['cpu'].get('xla_flops')} (formula {want})")
+
+    # (c) -------------------------------------------------------------
+    for phase, progs in (inputs.get("programs") or {}).items():
+        ran = {n: b for n, b in progs.items() if b["compile_events"]}
+        for name, b in sorted(ran.items()):
+            print(f"[observatory] (c) {phase}: {name}: compile events "
+                  f"{b['compile_events']}, invokes {b['invokes']}; the "
+                  f"harvested first fresh call of its wrapper: xla_flops "
+                  f"{b['xla_flops']}, bytes {b['bytes_accessed']}, AI "
+                  f"{b['arithmetic_intensity']}, peak_hbm_bytes "
+                  f"{b['peak_hbm_bytes']}, mfu {b['mfu']} [{card}]",
+                  flush=True)
+            if any(b[k] is None for k in ("xla_flops", "bytes_accessed",
+                                          "peak_hbm_bytes")):
+                bad.append(f"(c) {phase} {name} carries no cost")
+            # every program but the handoff's gather and splice runs
+            # products
+            elif not b["xla_flops"] and "handoff" not in name:
+                bad.append(f"(c) {phase} {name}: xla_flops 0")
+        missing = [n for n in OBS_SERVE if n not in ran]
+        out.setdefault("c", {})[phase] = sorted(ran)
+        if phase == "serve-spec-disagg" and missing:
+            bad.append(f"(c) no block for {missing}")
+
+    # (d) -------------------------------------------------------------
+    line = inputs.get("autopilot_line")
+    if line is not None:
+        att = line["autopilot"]
+        b = att["programs"].get("bench.train_step") or {}
+        print(f"[observatory] (d) python -m ray_tpu_torch.bench --autopilot"
+              f" (phase 12e): bench.train_step {b.get('class')}, AI "
+              f"{b.get('arithmetic_intensity')}, mfu {b.get('mfu')}, "
+              f"headroom {b.get('headroom')}; {att['summary']} [{card}]",
+              flush=True)
+        out["d"] = b
+        if b.get("class") not in ("compute-bound", "hbm-bound") or \
+                b.get("headroom") is None:
+            bad.append(f"(d) the attribution line names {b}")
+
+    # (e) -------------------------------------------------------------
+    if inputs.get("snapshot") and inputs.get("ledger"):
+        import contextlib
+        import io
+
+        from ray_tpu_torch.tools.autopilot.__main__ import main as ap
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_autopilot_")
+        base = os.path.join(tmp, "no_baseline.json")
+        rcs, texts = {}, {}
+        for name, argv in (
+                ("attribute", ["attribute", "--snapshot",
+                               inputs["snapshot"], "--format", "json"]),
+                ("plan", ["--history", inputs["ledger"], "--baseline",
+                          base, "plan", "--format", "full"]),
+                ("verdict", ["--history", inputs["ledger"], "--baseline",
+                             base, "verdict", "--out-dir", tmp,
+                             "--format", "json"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                rcs[name] = ap(argv)
+            texts[name] = json.loads(buf.getvalue())
+        v = texts["verdict"]
+        filed = sorted(f for f in os.listdir(tmp) if f.startswith("AUTO"))
+        print(f"[observatory] (e) autopilot CLI: attribute exit "
+              f"{rcs['attribute']} ({texts['attribute']['summary']}); plan "
+              f"exit {rcs['plan']}, {len(texts['plan']['grid'])} variants "
+              f"(bottleneck {texts['plan']['bottleneck']}); verdict exit "
+              f"{rcs['verdict']}, ok {v['ok']}, {v['entries']} entries, "
+              f"new {v['new']}, regressed {v['regressed']}, filed {filed} "
+              f"[{card}]", flush=True)
+        out["e"] = {"rcs": rcs, "filed": filed}
+        if rcs != {"attribute": 0, "plan": 0, "verdict": 0} or \
+                filed != ["AUTOPILOT.json", "AUTOPILOT.md"] or \
+                not texts["plan"]["grid"] or v["regressed"]:
+            bad.append(f"(e) exits {rcs}, filed {filed}")
+
+    # (g) -------------------------------------------------------------
+    dash = inputs.get("dashboard_autopilot")
+    if dash is not None:
+        print(f"[observatory] (g) /api/perf/autopilot (phase 12d): status "
+              f"{dash['status']}, deployments {dash.get('deployments')}, "
+              f"{dash.get('summary')} [{card}]", flush=True)
+        out["g"] = dash
+        if dash["status"] != 200:
+            bad.append(f"(g) /api/perf/autopilot answered {dash['status']}")
+
+    # (f) -------------------------------------------------------------
+    stdout, stderr = gc_proc.communicate(timeout=600)
+    rep = json.loads(stdout) if stdout.strip().startswith("{") else {}
+    audited = sorted(n for n, i in rep.get("programs", {}).items()
+                     if "skipped" not in i)
+    print(f"[observatory] (f) python -m ray_tpu_torch.tools.graftcheck "
+          f"--format json: exit {gc_proc.returncode}, ok {rep.get('ok')}, "
+          f"{rep.get('summary')}, {len(audited)} programs audited "
+          f"{audited}, skipped "
+          f"{[n for n, i in rep.get('programs', {}).items() if 'skipped' in i]}"
+          f" [{card}]", flush=True)
+    out["f"] = {"rc": gc_proc.returncode, "ok": rep.get("ok"),
+                "audited": audited}
+    if gc_proc.returncode != 0 or rep.get("ok") is not True or \
+            len(audited) != 12:
+        bad.append(f"(f) graftcheck exit {gc_proc.returncode}: "
+                   f"{(rep.get('violations') or stderr[-1500:])}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[observatory] phase wall {out['wall_s']:.1f} s [{card}]",
+          flush=True)
+    if bad:
+        fail("[observatory] " + "; ".join(bad))
+    return out
+
+
 class _PhaseClock:
     """``tick(name)`` prints the wall since the last tick (the phase
     just run) and since the script's first phase."""
@@ -8498,6 +8870,14 @@ def main() -> int:
         "time_to_detect_ms": serve_fleet["d"]["time_to_detect_ms"],
         "transitions": len(serve_fleet["d"]["transitions"])})
     tick("vision")
+    phase_observatory(torch, fa, fc, card, {
+        "programs": {"serve-continuous": serve_cont["programs"],
+                     "serve-spec-disagg": serve_spec["programs"]},
+        "autopilot_line": bench_cli["train"]["autopilot"],
+        "snapshot": serve_tele["a"]["snapshot"],
+        "ledger": bench_cli["ledger"],
+        "dashboard_autopilot": serve_http["dashboard"]["autopilot"]})
+    tick("observatory")
     train_llama = phase_train_llama(torch, fa, fc, card)
     tick("train-llama")
     train_tele = phase_train_telemetry(torch, np, fa, card)

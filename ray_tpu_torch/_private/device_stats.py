@@ -1,8 +1,8 @@
 """Device-side perf observatory: the program registry, the card's
 peak rates and its allocator view.
 
-The parts of ``ray_tpu/_private/device_stats.py`` that the serve
-engine reads, for PyTorch on CUDA:
+The counterpart of ``ray_tpu/_private/device_stats.py``, for PyTorch
+on CUDA:
 
 * **program registry** — one process-wide :class:`ProgramRegistry` of
   named engine programs (``serve.prefill``, ``serve.decode``, ...).
@@ -19,19 +19,29 @@ engine reads, for PyTorch on CUDA:
   not know.
 * **allocator view** — ``device_memory_stats()`` with the JAX key set,
   read from ``torch.cuda.memory_stats`` and ``torch.cuda.mem_get_info``.
+* **cost model** — the counterpart of XLA's ``cost_analysis()`` and
+  ``memory_analysis()``: the first call with a fresh signature (the
+  compile event) runs once under a counting dispatch mode
+  (:func:`harvest_cost`), which books the program's ``xla_flops``,
+  ``bytes_accessed``, ``arithmetic_intensity``, ``peak_hbm_bytes`` and
+  ``argument_bytes``/``output_bytes``/``temp_bytes`` (the JAX key names;
+  what each holds in the port is set out at ``harvest_cost``).  The
+  kernel entry points report their own analytic work
+  (:func:`kernel_work`), so a program counts the same whether its
+  kernels or their plain versions ran.  ``snapshot`` turns the FLOPs
+  into a live ``mfu`` over the mean invoke wall, as the JAX registry
+  does.  ``RAYTPU_DEVICE_STATS_COST=0`` turns the harvest off.
 
-XLA's cost harvest (``compiled.cost_analysis()`` FLOPs and bytes,
-``memory_analysis()`` peak HBM) has no counterpart in eager PyTorch, so
-a program's ``xla_flops``, ``bytes_accessed``, ``arithmetic_intensity``,
-``peak_hbm_bytes`` and ``mfu`` stay in its block as None (a cost model
-is ROADMAP.md queue 1 item 7.12).  The rest of the JAX module waits for
-the same item.
+``KNOWN_PROGRAMS`` and ``STATIC_PROGRAM_MAP`` tie graftcheck's program
+catalog (``tools/graftcheck/programs.py``) to the runtime names.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
+import os
 import threading
 import time
 import weakref
@@ -56,6 +66,43 @@ _PEAK_FLOPS_TABLE = {
 _PEAK_HBM_BW_TABLE = {
     "h100 80gb hbm3": H100_SXM["hbm_bytes_per_s"],
     "cpu": 100e9,
+}
+
+#: runtime program names the observatory hooks register under (the JAX
+#: set); graftcheck's ``observatory-mapping`` rule checks
+#: STATIC_PROGRAM_MAP's values against it
+KNOWN_PROGRAMS = frozenset({
+    "serve.prefill", "serve.paged_prefill", "serve.decode",
+    "serve.spec_verify", "serve.spec_draft",
+    "serve.kv_handoff_export", "serve.kv_handoff_install",
+    "serve.sharded_prefill", "serve.sharded_paged_prefill",
+    "serve.sharded_decode",
+    "serve.sharded_spec_verify", "serve.sharded_spec_draft",
+    "serve.sharded_kv_handoff_export",
+    "serve.sharded_kv_handoff_install",
+    "train.step",
+    "bench.train_step",
+})
+
+#: graftcheck ProgramSpec name -> runtime registry program name (the JAX
+#: map); every spec of tools/graftcheck/programs.py appears here
+#: (``observatory-mapping``).  Chunked prefill runs the paged_prefill
+#: program once a chunk; the handoff specs are the export gather on a
+#: prefill engine and the install splice on a decode engine.
+STATIC_PROGRAM_MAP: Dict[str, str] = {
+    "gpt2_train_step": "train.step",
+    "llama_train_step": "train.step",
+    "fused_ce_fwd": "train.step",
+    "fused_ce_bwd": "train.step",
+    "gpt2_prefill_ragged": "serve.prefill",
+    "llama_prefill_ragged": "serve.prefill",
+    "gpt2_decode_step": "serve.decode",
+    "gpt2_paged_decode_step": "serve.decode",
+    "gpt2_sharded_decode_step": "serve.sharded_decode",
+    "gpt2_spec_verify_step": "serve.spec_verify",
+    "gpt2_chunked_prefill": "serve.paged_prefill",
+    "gpt2_kv_handoff_export": "serve.kv_handoff_export",
+    "gpt2_kv_handoff_install": "serve.kv_handoff_install",
 }
 
 _metrics_lock = threading.Lock()
@@ -84,6 +131,19 @@ def _device_metrics() -> Dict[str, Any]:
                     "device_recompile_storms_total",
                     "recompile-storm watchdog trips (compile churn over "
                     "the sliding window)", tag_keys=tags),
+                "xla_flops": Gauge(
+                    "device_program_xla_flops",
+                    "cost-model FLOPs per invocation (products and "
+                    "convolutions, kernels by their own count)",
+                    tag_keys=tags),
+                "peak_hbm": Gauge(
+                    "device_program_peak_hbm_bytes",
+                    "cost-model peak device bytes per program",
+                    tag_keys=tags),
+                "mfu": Gauge(
+                    "device_program_mfu",
+                    "live roofline MFU from cost-model FLOPs over recent "
+                    "invoke walltime", tag_keys=tags),
                 "hbm_in_use": Gauge(
                     "device_hbm_bytes_in_use",
                     "allocator bytes_in_use per card (None-reporting "
@@ -151,6 +211,382 @@ def device_roofline(device: Any = None) -> Dict[str, Any]:
         "ridge_flops_per_byte": (round(flops / bw, 1)
                                  if flops and bw else None),
     }
+
+
+# ---------------------------------------------------------------------------
+# The cost model
+# ---------------------------------------------------------------------------
+
+def cost_capture_enabled() -> bool:
+    """The harvest runs one program call under a counting dispatch mode;
+    ``RAYTPU_DEVICE_STATS_COST=0`` turns it off process-wide (the JAX
+    switch, which there spares a second compile)."""
+    return os.environ.get("RAYTPU_DEVICE_STATS_COST", "1") != "0"
+
+
+#: the product ops: aten name -> (M, N, K, batch) of its operands
+_PRODUCTS = {
+    "mm": lambda a, b: (a[0], b[1], a[1], 1),
+    "addmm": lambda c, a, b: (a[0], b[1], a[1], 1),
+    "bmm": lambda a, b: (a[1], b[2], a[2], a[0]),
+    "baddbmm": lambda c, a, b: (a[1], b[2], a[2], a[0]),
+    "mv": lambda a, b: (a[0], 1, a[1], 1),
+    "addmv": lambda c, a, b: (a[0], 1, a[1], 1),
+    "dot": lambda a, b: (1, 1, a[0], 1),
+    "vdot": lambda a, b: (1, 1, a[0], 1),
+}
+
+
+def _prod(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+def _conv_flops(x_shape, w_shape, out_shape, transposed: bool) -> int:
+    """2 * (each output element's multiply-adds): a convolution's
+    output element sums C_in/groups * prod(kernel) products (w's shape
+    past its first dim); a transposed one scatters each input element
+    over the same count."""
+    return 2 * _prod(x_shape if transposed else out_shape) * _prod(
+        w_shape[1:])
+
+
+def _matmul_flops(a, b) -> int:
+    """torch.matmul's products: 2*batch*M*N*K with 1-D operands
+    promoted and the batch dims broadcast."""
+    a, b = tuple(a), tuple(b)
+    if len(a) == 1 and len(b) == 1:
+        return 2 * a[0]
+    if len(a) == 1:
+        a = (1,) + a
+    if len(b) == 1:
+        b = b + (1,)
+    lead_a, lead_b = a[:-2], b[:-2]
+    n = max(len(lead_a), len(lead_b))
+    lead_a = (1,) * (n - len(lead_a)) + lead_a
+    lead_b = (1,) * (n - len(lead_b)) + lead_b
+    batch = _prod(max(x, y) for x, y in zip(lead_a, lead_b))
+    return 2 * batch * a[-2] * b[-1] * a[-1]
+
+
+def _einsum_flops(equation: str, operands) -> int:
+    """2 * the product of every index's size for a contraction of two
+    operands (each output element sums over the contracted indices);
+    0 for one operand (a transpose or a reduction)."""
+    if len(operands) < 2:
+        return 0
+    lhs = equation.replace(" ", "").split("->")[0].split(",")
+    sizes: Dict[str, int] = {}
+    for subs, t in zip(lhs, operands):
+        shape = tuple(t.shape)
+        if "..." in subs:
+            head, tail = subs.split("...")
+            n_ell = len(shape) - len(head) - len(tail)
+            subs = head + "".join(chr(0x100 + i) for i in range(n_ell)) \
+                + tail
+        for ch, d in zip(subs, shape):
+            sizes[ch] = max(sizes.get(ch, 1), int(d))
+    return 2 * _prod(sizes.values())
+
+
+def op_flops(name: str, args, out) -> int:
+    """FLOPs the cost model books for one aten op (its overload packet's
+    name): 2*M*N*K for each product (mm, addmm, bmm, baddbmm, mv,
+    addmv, dot), the convolutions forward and backward; 0 for
+    everything else (XLA also counts elementwise work; the port does
+    not).  Under ``torch.inference_mode`` the composite ops reach the
+    mode whole (matmul, linear, einsum, conv*d): they are counted at
+    that level, their decomposition then running unseen, so a program
+    counts the same with and without autograd."""
+    if name in _PRODUCTS:
+        shapes = [tuple(a.shape) for a in args[:3]
+                  if hasattr(a, "shape")]
+        m, n, k, b = _PRODUCTS[name](*shapes)
+        return 2 * b * m * n * k
+    if name == "matmul":
+        return _matmul_flops(args[0].shape, args[1].shape)
+    if name == "linear":
+        x, w = args[0].shape, args[1].shape
+        return 2 * _prod(x[:-1]) * w[-1] * w[0]
+    if name == "einsum":
+        return _einsum_flops(args[0], args[1])
+    if name in ("conv1d", "conv2d", "conv3d"):
+        return _conv_flops(args[0].shape, args[1].shape, out.shape, False)
+    if name in ("conv_transpose1d", "conv_transpose2d",
+                "conv_transpose3d"):
+        return _conv_flops(args[0].shape, args[1].shape, out.shape, True)
+    if name == "convolution":
+        return _conv_flops(args[0].shape, args[1].shape, out.shape,
+                           bool(args[6]))
+    if name == "convolution_backward":
+        # (grad_out, input, weight, ..., transposed at 7, output_mask)
+        mask = args[-1]
+        per = _conv_flops(args[1].shape, args[2].shape, args[0].shape,
+                          bool(args[7]))
+        return per * (int(bool(mask[0])) + int(bool(mask[1])))
+    return 0
+
+
+def _tensors(tree) -> list:
+    import torch
+    from torch.utils._pytree import tree_flatten
+
+    return [x for x in tree_flatten(tree)[0]
+            if isinstance(x, torch.Tensor)]
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _storage(t):
+    """t's untyped storage, or None (a tensor without one)."""
+    try:
+        st = t.untyped_storage()
+        st.data_ptr()
+        return st
+    except Exception:  # noqa: BLE001 - wrapper subclasses, sparse
+        return None
+
+
+def _ptr(t) -> Optional[int]:
+    st = _storage(t)
+    return None if st is None else st.data_ptr()
+
+
+class _CostCounter:
+    """What one harvest counts; the counting dispatch mode
+    (``_mode_class``) feeds it.  Thread-safe: autograd runs a CUDA backward on its device thread,
+    where the mode is in force too (autograd carries the thread's
+    dispatch modes over)."""
+
+    def __init__(self):
+        # reentrant: a storage freed while this thread holds the lock
+        # (a collection inside a booking) runs _freed on this thread
+        self.lock = threading.RLock()
+        self.flops = 0
+        self.bytes = 0
+        self.ops = 0
+        self.kernel_depth = 0
+        self.failed: Optional[BaseException] = None
+        # storage id -> bytes of every storage alive at the start (the
+        # arguments) or made during the call
+        self.args: Dict[int, int] = {}
+        self.made: Dict[int, int] = {}
+        # storages made inside a kernel entry: booked at its exit if
+        # still alive (the kernel's outputs; the plain route's internals
+        # never exist on the card)
+        self.pending: Dict[int, int] = {}
+        self.live = 0
+        self.peak = 0
+        # called as observer(func, args, kwargs, out, in_kernel) for
+        # each op (the graftcheck auditor's recorder)
+        self.observer: Optional[Callable] = None
+
+    def add_arguments(self, tree) -> None:
+        for t in _tensors(tree):
+            st = _storage(t)
+            if st is not None and id(st) not in self.args:
+                self.args[id(st)] = st.nbytes()
+
+    def _freed(self, key: int) -> None:
+        with self.lock:
+            self.pending.pop(key, None)
+            self.live -= self.made.pop(key, 0)
+
+    def _book(self, key: int, n: int) -> None:
+        self.made[key] = n
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def track(self, out) -> None:
+        """Book the storages first seen in ``out`` as allocations of
+        the call, each until the garbage collector frees it."""
+        for t in _tensors(out):
+            st = _storage(t)
+            if st is None:
+                continue
+            key = id(st)
+            with self.lock:
+                if key in self.args or key in self.made \
+                        or key in self.pending:
+                    continue
+                n = st.nbytes()
+                if self.kernel_depth:
+                    self.pending[key] = n
+                else:
+                    self._book(key, n)
+            weakref.finalize(st, self._freed, key)
+
+    def count(self, func, args, kwargs, out) -> None:
+        packet = func.overloadpacket.__name__
+        flops = op_flops(packet, args, out)
+        nbytes = 0
+        ins, outs = _tensors((args, kwargs)), _tensors(out)
+        allocation = packet.startswith(("empty", "new_empty"))
+        in_ptrs = {_ptr(i) for i in ins} - {None}
+        aliased = (not func._schema.is_mutable and outs
+                   and all(_ptr(o) in in_ptrs for o in outs))
+        if not (func.is_view or allocation or aliased):
+            nbytes = sum(_nbytes(t) for t in ins + outs)
+        with self.lock:
+            self.ops += 1
+            if self.kernel_depth == 0:
+                self.flops += flops
+                self.bytes += nbytes
+
+    @contextlib.contextmanager
+    def kernel(self, flops: int, nbytes: int):
+        """A kernel entry's own count in place of its ops'."""
+        with self.lock:
+            outer = self.kernel_depth == 0
+            if outer:
+                self.flops += int(flops)
+                self.bytes += int(nbytes)
+                self.ops += 1
+            self.kernel_depth += 1
+        try:
+            yield
+        finally:
+            with self.lock:
+                self.kernel_depth -= 1
+                if outer:
+                    for key, n in self.pending.items():
+                        self._book(key, n)
+                    self.pending.clear()
+
+    def summary(self, out) -> Optional[Dict[str, Any]]:
+        if self.failed is not None or not self.ops:
+            return None
+        seen: set = set()
+        out_b = 0
+        for t in _tensors(out):
+            st = _storage(t)
+            if st is not None and id(st) in self.made \
+                    and id(st) not in seen:
+                seen.add(id(st))
+                out_b += self.made[id(st)]
+        arg_b = sum(self.args.values())
+        cost = {"xla_flops": float(self.flops),
+                "bytes_accessed": float(self.bytes),
+                "argument_bytes": int(arg_b),
+                "output_bytes": int(out_b),
+                "temp_bytes": int(max(0, self.peak - out_b)),
+                "peak_hbm_bytes": int(arg_b + self.peak)}
+        if cost["xla_flops"] and cost["bytes_accessed"]:
+            cost["arithmetic_intensity"] = round(
+                cost["xla_flops"] / cost["bytes_accessed"], 3)
+        return cost
+
+
+@functools.lru_cache(maxsize=None)
+def _mode_class():
+    """The counting dispatch mode (made at first use: importing this
+    module imports no torch)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CostMode(TorchDispatchMode):
+        def __init__(self, counter: _CostCounter):
+            super().__init__()
+            self.counter = counter
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            c = self.counter
+            if c.observer is not None:
+                c.observer(func, args, kwargs, out, c.kernel_depth > 0)
+            if c.failed is None:
+                try:
+                    c.count(func, args, kwargs, out)
+                    c.track(out)
+                except Exception as e:  # noqa: BLE001 - no cost, not no run
+                    c.failed = e
+            return out
+
+    return CostMode
+
+
+def active_cost_counter() -> Optional[_CostCounter]:
+    """The counter of a harvest in force in this thread, else None.
+    It is read from the thread's dispatch-mode stack, which autograd
+    carries over to its device thread, where a harvested step's
+    backward and its kernel entries run on the card (not from a
+    thread-local of this module)."""
+    from torch.utils._python_dispatch import \
+        _get_current_dispatch_mode_stack
+
+    cls = _mode_class()
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(mode, cls):
+            return mode.counter
+    return None
+
+
+def kernel_work(flops: int, nbytes: int):
+    """Context manager for a kernel entry point: inside a harvest it
+    books the kernel's analytic (operations, bytes) — the figures its
+    bound is computed from — and keeps the ops of its body (the launch,
+    or the plain version on the CPU) out of the count, so both routes
+    count the same work; outside one it does nothing."""
+    counter = active_cost_counter()
+    if counter is None:
+        return contextlib.nullcontext()
+    return counter.kernel(flops, nbytes)
+
+
+def harvest_cost(fn: Callable, *args, **kwargs):
+    """Run ``fn(*args, **kwargs)`` ONCE under the counting mode and
+    return (its result, the cost dict or None).  The program runs
+    exactly as it would without the harvest (programs update
+    parameters, optimizer state and KV caches in place: it is never
+    run twice).  The cost dict holds what the JAX keys hold in the port:
+
+    * ``xla_flops`` — 2*M*N*K for every product the program dispatches
+      (mm/addmm/bmm/baddbmm/mv/dot: what linear, matmul and einsum
+      decompose to, or those composites whole under inference mode),
+      the convolutions forward and backward, and each
+      kernel entry's own analytic count (:func:`kernel_work`).
+      Elementwise work counts 0 FLOPs (XLA counts it).  Every layer of
+      a stack is counted (XLA counts a scanned stack's body once), and
+      a backward run inside the program is counted too.
+    * ``bytes_accessed`` — the bytes of every tensor input and output of
+      every op that moves data (views, allocations and ops returning
+      their input's storage count 0), kernels by their own count.
+    * ``argument_bytes`` — the storages of the arguments;
+      ``peak_hbm_bytes`` — those plus the peak of the bytes allocated
+      during the call and still alive (storages tracked by weak
+      reference; the allocator's own peak counters are not reset; a
+      kernel entry's allocations count from its exit, and only those
+      it returns, as the card's kernel allocates nothing else);
+      ``output_bytes`` — the result's storages allocated during the
+      call; ``temp_bytes`` — the peak less those.
+    * ``arithmetic_intensity`` — FLOPs over bytes.
+
+    The cost is None when the program dispatched no tensor op, or when
+    counting failed; an exception of ``fn`` itself propagates."""
+    return _harvest(fn, args, kwargs)
+
+
+def _harvest(fn: Callable, args: tuple, kwargs: dict,
+             observer: Optional[Callable] = None):
+    """harvest_cost, with ``observer(func, args, kwargs, out,
+    in_kernel)`` called for every op (graftcheck's program auditor)."""
+    counter = _CostCounter()
+    counter.observer = observer
+    try:
+        counter.add_arguments((args, kwargs))
+    except Exception as e:  # noqa: BLE001
+        counter.failed = e
+    with _mode_class()(counter):
+        out = fn(*args, **kwargs)
+    try:
+        cost = counter.summary(out)
+    except Exception:  # noqa: BLE001 - observability never breaks a run
+        cost = None
+    return out, cost
 
 
 def _leaves(obj, out: list) -> list:
@@ -232,20 +668,25 @@ class ProgramRegistry:
                 # the same timeline as request spans
                 "invoke_events": collections.deque(
                     maxlen=self._invoke_history),
+                "cost": {},
                 "storms": 0,
                 "storm_active": False,
             }
         return rec
 
     def record_compile(self, program: str, seconds: float,
+                       cost: Optional[Dict[str, Any]] = None,
                        now: Optional[float] = None) -> None:
-        """One compile event of `program` taking `seconds` walltime."""
+        """One compile event of `program` taking `seconds` walltime;
+        `cost` is a :func:`harvest_cost` dict when the harvest ran."""
         ts = self._now() if now is None else now
         with self._lock:
             rec = self._rec(program)
             rec["compile_events"] += 1
             rec["compile_seconds"] += float(seconds)
             rec["compile_times"].append(ts)
+            if cost:
+                rec["cost"] = dict(cost)
             recent = [t for t in rec["compile_times"]
                       if ts - t <= self.storm_window_s]
             storm = len(recent) >= self.storm_threshold
@@ -256,6 +697,13 @@ class ProgramRegistry:
         self._m["compile_events"].inc(tags={"program": program})
         self._m["compile_seconds"].inc(max(0.0, float(seconds)),
                                        tags={"program": program})
+        if cost:
+            if cost.get("xla_flops") is not None:
+                self._m["xla_flops"].set(cost["xla_flops"],
+                                         tags={"program": program})
+            if cost.get("peak_hbm_bytes") is not None:
+                self._m["peak_hbm"].set(cost["peak_hbm_bytes"],
+                                        tags={"program": program})
         if fresh_storm:
             self._m["storms"].inc(tags={"program": program})
             self._notify_storms(program)
@@ -352,17 +800,22 @@ class ProgramRegistry:
 
     def instrument(self, program: str, fn: Callable,
                    n_devices: int = 1) -> Callable:
-        """Wrap `fn` with compile detection and invoke timing under
-        `program`.  The wrapper executes `fn` itself.  ``n_devices`` is
-        the number of cards a sharded program runs on (a mesh's size),
-        recorded per program (``devices_of``); the JAX registry divides
-        its live MFU by it, which stays None here until a cost model
-        exists (module docstring)."""
+        """Wrap `fn` with compile detection, the cost harvest and invoke
+        timing under `program`.  The wrapper executes `fn` itself.  The
+        first fresh signature's call runs under :func:`harvest_cost`
+        (once a wrapper, as JAX harvests its first signature's side
+        compile; off with ``RAYTPU_DEVICE_STATS_COST=0``): that call is
+        the compile event, so its walltime, the harvest's bookkeeping
+        included, lands in ``compile_seconds``.  ``n_devices`` is the
+        number of cards a sharded program runs on (a mesh's size),
+        recorded per program (``devices_of``); the live MFU gauge
+        divides by it."""
         with self._lock:
             self._devices[program] = int(n_devices)
         registry = self
         seen: set = set()
         seen_lock = threading.Lock()
+        harvested = [False]
 
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
@@ -370,24 +823,45 @@ class ProgramRegistry:
                 sig = _signature(args, kwargs)
             except Exception:  # noqa: BLE001
                 sig = None
-            fresh = False
+            fresh = do_harvest = False
             if sig is not None:
                 with seen_lock:
                     fresh = sig not in seen
                     if fresh:
                         seen.add(sig)
+                    # claim the one-shot harvest under the same lock
+                    if fresh and not harvested[0] \
+                            and cost_capture_enabled():
+                        harvested[0] = do_harvest = True
             t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
             if fresh:
+                cost = None
+                if do_harvest:
+                    out, cost = harvest_cost(fn, *args, **kwargs)
+                else:
+                    out = fn(*args, **kwargs)
                 # the first call with a fresh signature is the compile
                 # event: its walltime stays out of the invoke window
-                registry.record_compile(program, time.perf_counter() - t0)
-            else:
-                registry.record_invoke(program, time.perf_counter() - t0)
+                registry.record_compile(
+                    program, time.perf_counter() - t0, cost=cost)
+                return out
+            out = fn(*args, **kwargs)
+            registry.record_invoke(program, time.perf_counter() - t0)
+            registry._maybe_update_mfu(program, n_devices)
             return out
 
         wrapped.__wrapped__ = fn
         return wrapped
+
+    def _maybe_update_mfu(self, program: str, n_devices: int) -> None:
+        """Refresh the per-program MFU gauge every 64 invokes."""
+        with self._lock:
+            rec = self._programs.get(program)
+            if rec is None or rec["invokes"] % 64:
+                return
+        snap = self.snapshot(n_devices=n_devices).get(program)
+        if snap and snap.get("mfu") is not None:
+            self._m["mfu"].set(snap["mfu"], tags={"program": program})
 
     # -- sinks -------------------------------------------------------------
 
@@ -404,11 +878,17 @@ class ProgramRegistry:
         ``{compile_events, compile_seconds, invokes, invoke_ms,
         xla_flops, bytes_accessed, arithmetic_intensity,
         peak_hbm_bytes, recompile_storm, recompile_storms_total,
-        mfu}``; the cost-model keys and ``mfu`` are None (module
-        docstring).  ``n_devices`` and ``peak_flops`` are the JAX
-        keywords of the MFU's denominator (``n_devices`` cards of
-        ``peak_flops`` each), unused while ``mfu`` is None."""
-        del n_devices, peak_flops
+        mfu}``.  The cost keys are the harvest's (:func:`harvest_cost`;
+        None until one landed).  ``mfu`` is the live roofline as JAX
+        computes it: FLOPs per invocation over the mean recent invoke
+        walltime, against ``n_devices`` cards of ``peak_flops`` each
+        (default: this process's device, :func:`peak_flops_per_chip`);
+        None until both a harvest and an invoke landed, or with no
+        known peak.  The invoke wall is the host's, without a sync: on
+        the card a call that returns before its work is done reads
+        fast."""
+        if peak_flops is None:
+            peak_flops = peak_flops_per_chip()
         with self._lock:
             items = [(name, dict(rec), list(rec["invoke_s"]))
                      for name, rec in self._programs.items()]
@@ -416,20 +896,30 @@ class ProgramRegistry:
         for name, rec, invoke_s in items:
             if prefix and not name.startswith(prefix):
                 continue
-            out[name] = {
+            cost = rec["cost"]
+            block: Dict[str, Any] = {
                 "compile_events": rec["compile_events"],
                 "compile_seconds": round(rec["compile_seconds"], 3),
                 "invokes": rec["invokes"],
                 "invoke_ms": _core.summarize(
                     [s * 1e3 for s in invoke_s]),
-                "xla_flops": None,
-                "bytes_accessed": None,
-                "arithmetic_intensity": None,
-                "peak_hbm_bytes": None,
+                "xla_flops": cost.get("xla_flops"),
+                "bytes_accessed": cost.get("bytes_accessed"),
+                "arithmetic_intensity": cost.get(
+                    "arithmetic_intensity"),
+                "peak_hbm_bytes": cost.get("peak_hbm_bytes"),
                 "recompile_storm": rec["storm_active"],
                 "recompile_storms_total": rec["storms"],
                 "mfu": None,
             }
+            flops = cost.get("xla_flops")
+            if flops and invoke_s and peak_flops:
+                mean_s = sum(invoke_s) / len(invoke_s)
+                if mean_s > 0:
+                    block["mfu"] = round(
+                        flops / mean_s /
+                        (max(1, n_devices) * peak_flops), 6)
+            out[name] = block
         return out
 
     def programs(self) -> List[str]:

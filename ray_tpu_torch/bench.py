@@ -32,7 +32,8 @@ with ``--decode`` or ``--traffic`` shards the serve path over a
 ``decode_mesh``), the decode tensor-parallel on each rank's blocks
 (models/decode_common.py).  Each run's metric lines are appended to
 the port's perf ledger (tools/perfledger.py; ``--no-ledger`` opts
-out); ``--autopilot`` raises naming ROADMAP.md queue 1 item 7.12.
+out); ``--autopilot`` first emits one line attributing the programs the
+run registered (``tools/autopilot``).
 The JAX harness's TPU probes (``_probe_tpu``, ``_pin_cpu``, ``ensure_backend``)
 and its TPU result record have no counterpart.
 
@@ -55,7 +56,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ray_tpu_torch._private.device_stats import H100_SXM, get_registry
+from ray_tpu_torch._private.device_stats import (H100_SXM,
+                                                cost_capture_enabled,
+                                                get_registry, harvest_cost)
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.models.gpt2 import (gpt2_config, gpt2_init, gpt2_loss,
                                        gpt2_param_count)
@@ -73,8 +76,6 @@ BASELINE_MFU = 0.40
 
 #: time_config's layouts (bench.py:335-349)
 TRAIN_MESHES = ("data", "fsdp", "data_fsdp")
-#: what --autopilot waits for
-AUTOPILOT_ITEM = "ROADMAP.md queue 1 item 7.12 (tools/autopilot)"
 
 
 def _world_size() -> int:
@@ -107,8 +108,13 @@ def time_config(batch: int, seq: int = 1024, n_steps: int = 20,
     The step is the raw one (``telemetry=False``), as the JAX version
     times a raw jit; it books ``bench.train_step`` into the program
     registry as ``bench.py:392`` and ``:425-426`` do: one compile event
-    for the warm-up step, then one invoke of dt / n_steps per timed
-    step.
+    for the warm-up step, which runs under the cost harvest
+    (``device_stats.harvest_cost``, the counterpart of the JAX side
+    compile's ``cost_analysis``), then one invoke of dt / n_steps per
+    timed step.  ``cost`` then also holds ``xla_flops`` (the harvest's
+    FLOPs of one step times the ranks), ``xla_flops_per_chip``,
+    ``peak_hbm_bytes`` and, on the card, ``mfu_xla`` (xla_flops per
+    second over the ranks' peak), as ``bench.py:436-445``.
 
     With torch.distributed's default process group initialized, every
     rank calls it and the step runs over a mesh of all its ranks
@@ -168,11 +174,16 @@ def time_config(batch: int, seq: int = 1024, n_steps: int = 20,
 
     reg = get_registry()
     t_c0 = time.perf_counter()
-    params, opt_state, loss = step(params, opt_state, data)
+    harvest = None
+    if cost_capture_enabled():
+        (params, opt_state, loss), harvest = harvest_cost(
+            step, params, opt_state, data)
+    else:
+        params, opt_state, loss = step(params, opt_state, data)
     losses = [loss]
     sync()
     compile_s = time.perf_counter() - t_c0
-    reg.record_compile("bench.train_step", compile_s)
+    reg.record_compile("bench.train_step", compile_s, cost=harvest)
     t0 = time.perf_counter()
     for _ in range(n_steps):
         params, opt_state, loss = step(params, opt_state, data)
@@ -195,6 +206,15 @@ def time_config(batch: int, seq: int = 1024, n_steps: int = 20,
             "step_ms": dt / n_steps * 1e3,
             "compile_seconds": round(compile_s, 3),
             "losses": [float(x) for x in losses]}
+    if harvest and harvest.get("xla_flops"):
+        # the harvest counts this rank's work: per chip, as XLA's
+        # per-partition count is
+        cost["xla_flops_per_chip"] = harvest["xla_flops"]
+        cost["xla_flops"] = harvest["xla_flops"] * n_chips
+        cost["peak_hbm_bytes"] = harvest.get("peak_hbm_bytes")
+        if on_card:
+            cost["mfu_xla"] = (cost["xla_flops"] * n_steps / dt
+                               / (n_chips * H100_BF16_PEAK_FLOPS))
     return tok_s, mfu, cost["losses"][-1], n_chips, cost
 
 
@@ -374,8 +394,10 @@ def parse_args(argv=None):
                     help="do not append this run's metric lines to the "
                          "perf ledger (tools/perfledger.py)")
     ap.add_argument("--autopilot", action="store_true",
-                    help="append a roofline-attribution JSON line; "
-                         f"raises: it waits for {AUTOPILOT_ITEM}")
+                    help="emit one extra JSON line attributing the "
+                         "programs this run registered (compute- vs "
+                         "HBM-bound against the card's ridge, ranked by "
+                         "headroom-weighted time share; tools/autopilot)")
     ap.add_argument("--device", default=None,
                     help="where to run: the card by default; 'cpu' runs "
                          "the CPU smoke configurations (the counterpart "
@@ -392,6 +414,22 @@ def emit(record) -> None:
     _EMITTED.append(record)
 
 
+def _maybe_autopilot(args) -> None:
+    """``--autopilot``: one extra JSON line, ``{"autopilot":
+    attribute_registry()}``, attributing the programs this run
+    registered; emitted through emit() so it rides into the ledger with
+    the metric lines (``bench.py:179-192``).  Best-effort."""
+    if not getattr(args, "autopilot", False):
+        return
+    try:
+        from ray_tpu_torch.tools.autopilot import attribute_registry
+
+        emit({"autopilot": attribute_registry()})
+    except Exception as e:  # noqa: BLE001 - attribution is best-effort
+        sys.stderr.write(f"bench: autopilot attribution failed: "
+                         f"{e!r}\n")
+
+
 def _ledger_append(args) -> None:
     """Persist this run's JSON lines into the port's perf ledger
     (tools/perfledger.py ``history_path``: BENCH_HISTORY_TORCH.jsonl,
@@ -399,6 +437,7 @@ def _ledger_append(args) -> None:
     terminal, as ``bench.py:195 _ledger_append`` does for the JAX
     package.  Best-effort: a ledger failure never breaks the bench
     contract of always printing its lines."""
+    _maybe_autopilot(args)
     if args.no_ledger or not _EMITTED:
         return
     try:
@@ -1064,6 +1103,19 @@ def main_train(args, dev: torch.device) -> None:
                 preset=args.preset or "tiny", mesh=args.mesh,
                 n_devices=args.chips, use_flash=False, device=dev,
                 **cfg_kw)
+    # the cost model's cross-check (bench.py:1268-1278): a harvested
+    # FLOP count far from the hand-counted 6*N*D says the formula (and
+    # the headline MFU) no longer describes the step
+    model_flops = cost.get("model_flops")
+    xla_flops = cost.get("xla_flops")
+    if model_flops and xla_flops:
+        rel = abs(xla_flops - model_flops) / model_flops
+        if rel > 0.05:
+            sys.stderr.write(
+                f"bench: WARNING hand-counted FLOPs diverge from the "
+                f"cost model by {rel:.1%} (model_flops={model_flops:.3e}"
+                f" vs xla_flops={xla_flops:.3e}/step) — trust mfu_xla, "
+                f"re-derive the 6*N*D formula\n")
     emit({
         "metric": ("gpt2_124m_train_tokens_per_sec_per_chip" if on_card
                    else "gpt2_tiny_cpu_smoke_tokens_per_sec"),
@@ -1075,11 +1127,13 @@ def main_train(args, dev: torch.device) -> None:
                    "mesh": ("data" if args.mesh == "data_fsdp"
                             and n_chips % 2 else args.mesh),
                    "mfu": round(mfu, 4) if mfu is not None else None,
-                   # the compiler's numbers of the JAX harness: the
-                   # port has no cost model yet (item 7.12)
-                   "model_flops": cost["model_flops"],
-                   "xla_flops": None, "mfu_xla": None,
-                   "peak_hbm_bytes": None,
+                   # the cost model's numbers next to the hand count
+                   # (device_stats.harvest_cost)
+                   "model_flops": model_flops,
+                   "xla_flops": xla_flops,
+                   "mfu_xla": (round(cost["mfu_xla"], 4)
+                               if cost.get("mfu_xla") else None),
+                   "peak_hbm_bytes": cost.get("peak_hbm_bytes"),
                    "compile_seconds": cost["compile_seconds"],
                    "loss": round(final_loss, 3),
                    "remat_policy": remat_policy,
@@ -1098,9 +1152,6 @@ def main(args=None, device: DeviceLike = None) -> None:
             f"--chips {args.chips} is above the process group's world "
             f"size {_world_size()}: start that many ranks "
             f"(torch.distributed.init_process_group) first")
-    if args.autopilot:
-        raise NotImplementedError(
-            f"--autopilot is not ported yet: {AUTOPILOT_ITEM}")
     dev = resolve_device(args.device or device)
     del _EMITTED[:]
     if args.decode:

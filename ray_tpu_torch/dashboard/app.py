@@ -20,11 +20,12 @@ the same request:
   GET /api/perf/programs | /api/perf/autopilot, POST /api/perf/profile
   GET /api/events, POST /api/workflows/events, GET /
 
-``/api/perf/autopilot`` reads ``tools/autopilot`` and
+``/api/perf/autopilot`` runs ``tools/autopilot`` over the merged
+program view (``?budget=`` sizes its next plan).
 ``/api/workflows/events`` reads ``workflow.events``, which the port does
-not have yet (ROADMAP.md queue 1 items 7.12 and 7.3): their import
-fails and the route answers aiohttp's 500, as the JAX package's answers
-when that import fails.
+not have yet (ROADMAP.md queue 1 item 7.3): its import fails and the
+route answers aiohttp's 500, as the JAX package's answers when that
+import fails.
 """
 
 from __future__ import annotations
@@ -47,8 +48,7 @@ def _merged_programs():
     "programs" block merged over this process's own (mostly empty)
     registry — on a name collision the busiest replica view wins.
     Shared by /api/perf/programs and /api/perf/autopilot.  Returns
-    (programs, per_deployment_blocks, devices).  The registry's cost
-    fields stay None until ROADMAP.md queue 1 item 7.12."""
+    (programs, per_deployment_blocks, devices)."""
     from ray_tpu_torch._private import device_stats as ds
 
     devices = ds.device_memory_stats()
@@ -153,11 +153,56 @@ def _find_trace(rid: str):
     return dict(snap, spans=spans)
 
 
-def _autopilot() -> dict:
-    """The JAX route's body ports with ``tools/autopilot`` (ROADMAP.md
-    queue 1 item 7.12).  Until then this import fails, and the route
-    answers as the JAX package's does when that import fails."""
-    from ray_tpu_torch.tools import autopilot  # noqa: F401 - item 7.12
+def _autopilot(budget: int = 8) -> dict:
+    """``/api/perf/autopilot``'s document (``ray_tpu/dashboard/app.py:
+    488-552``): the merged program view pushed through roofline
+    attribution (which program is the bottleneck, compute- vs
+    HBM-bound), with the tracebus p99 critical path of every live
+    fleet's retained requests and a fleet's pooled kvscope and
+    host-tier blocks as evidence, plus the ledger verdict and the next
+    planned sweep (``tools/autopilot``)."""
+    from ray_tpu_torch.tools.autopilot import attribution, verdict
+
+    programs, per_dep, _ = _merged_programs()
+    # request-side evidence: the tracebus p99 critical path
+    req_ev = None
+    try:
+        from ray_tpu_torch.serve.router import fleet_registry
+        from ray_tpu_torch.tools import tracebus
+
+        reqs = []
+        for fleet in fleet_registry().values():
+            reqs.extend(fleet.trace_records())
+        if reqs:
+            req_ev = tracebus.request_evidence({"requests": reqs})
+    except Exception:  # noqa: BLE001 - evidence optional
+        req_ev = None
+    # memory-side evidence: a live fleet's pooled kvscope block
+    # (cache-thrash waste) and its host-tier block (churn absorbed)
+    kv_ev = tier_ev = None
+    try:
+        from ray_tpu_torch.serve.router import fleet_registry
+
+        for fleet in fleet_registry().values():
+            fs = fleet.fleet_stats()
+            ks, kt = fs.get("kv_scope"), fs.get("kv_tier")
+            if ks and (ks.get("reprefill_waste_frac")
+                       or (kt or {}).get("tokens_restored")):
+                kv_ev = ks
+                if kt and kt.get("enabled"):
+                    tier_ev = kt
+                break
+    except Exception:  # noqa: BLE001 - evidence optional
+        kv_ev = tier_ev = None
+    att = attribution.attribute(programs, request_anatomy=req_ev,
+                                kv_scope=kv_ev, kv_tier=tier_ev)
+    try:
+        v = verdict.build_verdict(budget=budget, attribution=att)
+    except Exception as e:  # noqa: BLE001 - no ledger
+        v = {"error": f"{type(e).__name__}: {e}"[:300],
+             "attribution": att}
+    v["deployments"] = sorted(per_dep)
+    return v
 
 
 class DashboardActor:
@@ -384,7 +429,11 @@ class DashboardActor:
 
         r.add_get("/api/perf/programs", j(perf_programs))
 
-        r.add_get("/api/perf/autopilot", j(_autopilot))
+        async def perf_autopilot(req):
+            budget = int(req.query.get("budget", 8))
+            return json_response(await run(lambda: _autopilot(budget)))
+
+        r.add_get("/api/perf/autopilot", perf_autopilot)
 
         # On-demand profiler capture (util/state.py profile_device):
         # POST {"logdir": ..., "seconds": 1.0} traces this process for

@@ -20,7 +20,10 @@ that runs ``wgmma``.
 
 Dispatch is by tensor placement: a CPU tensor takes the plain PyTorch
 version (``*_reference``), a CUDA tensor launches the kernel or
-raises.  There is no fallback between the two.  ``flash_attention`` is
+raises.  There is no fallback between the two.  Each entry books its work
+(``flash_*_work``, the figures of its bound) into a cost harvest in
+force (``_private/device_stats.py``), whichever route runs.
+``flash_attention`` is
 differentiable through a ``torch.autograd.Function`` whose backward is
 the two backward kernels and nothing else: delta = rowsum(dO * O),
 which the JAX package computes outside Pallas, is computed by the dQ
@@ -34,6 +37,8 @@ import os
 from typing import Optional, Tuple
 
 import torch
+
+from ray_tpu_torch._private.device_stats import kernel_work
 
 #: head dims the kernel is instantiated for
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
@@ -114,6 +119,51 @@ def auto_blocks(T: int):
     if T <= 2048:
         return min(1024, T), T, 256, T
     return 1024, 1024, 256, 1024
+
+
+def visible_pairs(T: int, causal: bool) -> int:
+    """(query, key) pairs a (T, T) attention computes: the lower
+    triangle with the diagonal when causal, all T*T otherwise."""
+    return T * (T + 1) // 2 if causal else T * T
+
+
+def flash_fwd_work(bh: int, T: int, d: int, causal: bool,
+                   elem: int) -> Tuple[int, int]:
+    """(operations, bytes) of one forward kernel on (BH, T, D) tensors
+    of ``elem``-byte elements: 4*D operations a visible pair (S = QK^T
+    and P.V); q, k, v read and o written once, lse (f32) written once.
+    The kernel's bound and the cost model's count (kernel_work)."""
+    return (4 * bh * d * visible_pairs(T, causal),
+            4 * bh * T * d * elem + bh * T * 4)
+
+
+def flash_bwd_dq_work(bh: int, T: int, d: int, causal: bool,
+                      elem: int) -> Tuple[int, int]:
+    """(operations, bytes) of the dQ kernel: 6*D a visible pair (S, dP,
+    dS.K) and 2*D a row for delta = rowsum(dO * O); reads q, k, v, o,
+    dO, lse and writes dq and delta once each."""
+    mat, row = bh * T * d * elem, bh * T * 4
+    return (6 * bh * d * visible_pairs(T, causal) + 2 * bh * T * d,
+            6 * mat + 2 * row)
+
+
+def flash_bwd_dkv_work(bh: int, T: int, d: int, causal: bool,
+                       elem: int) -> Tuple[int, int]:
+    """(operations, bytes) of the dK/dV kernel: 8*D a visible pair (S,
+    dP, P^T.dO, dS^T.Q); reads q, k, v, dO, lse, delta and writes dk
+    and dv once each."""
+    mat, row = bh * T * d * elem, bh * T * 4
+    return 8 * bh * d * visible_pairs(T, causal), 6 * mat + 2 * row
+
+
+def flash_bwd_work(bh: int, T: int, d: int, causal: bool,
+                   elem: int) -> Tuple[int, int]:
+    """(operations, bytes) of the whole backward, each tensor read or
+    written once: the two kernels' operations (10*D a visible pair and
+    delta); reads q, k, v, o, dO, lse, writes dq, dk, dv."""
+    mat, row = bh * T * d * elem, bh * T * 4
+    return (10 * bh * d * visible_pairs(T, causal) + 2 * bh * T * d,
+            8 * mat + row)
 
 
 def _check_block(name: str, value: Optional[int]) -> None:
@@ -206,15 +256,18 @@ def flash_attention_fwd(q3, k3, v3, *, scale: Optional[float] = None,
     or raise."""
     _check_qkv(q3, k3, v3)
     scale = scale if scale is not None else 1.0 / math.sqrt(q3.shape[-1])
-    if q3.device.type == "cpu":
-        return flash_attention_fwd_reference(q3, k3, v3, scale=scale,
-                                             causal=causal)
-    BH, T, _ = q3.shape
-    o = torch.empty_like(q3)
-    lse = torch.empty((BH, 1, T), dtype=torch.float32, device=q3.device)
-    _launch("flash_fwd", "flash_fwd", "FLASH_FWD_LAUNCHES", (q3, k3, v3),
-            (o, lse), scale=scale, causal=causal)
-    return o, lse
+    BH, T, D = q3.shape
+    with kernel_work(*flash_fwd_work(BH, T, D, causal,
+                                     q3.element_size())):
+        if q3.device.type == "cpu":
+            return flash_attention_fwd_reference(q3, k3, v3, scale=scale,
+                                                 causal=causal)
+        o = torch.empty_like(q3)
+        lse = torch.empty((BH, 1, T), dtype=torch.float32,
+                          device=q3.device)
+        _launch("flash_fwd", "flash_fwd", "FLASH_FWD_LAUNCHES",
+                (q3, k3, v3), (o, lse), scale=scale, causal=causal)
+        return o, lse
 
 
 # ---------------------------------------------------------------------------
@@ -314,16 +367,19 @@ def flash_bwd_dq(q3, k3, v3, o3, do3, lse, *, scale: float,
     plain version; CUDA tensors launch the dQ kernel, which computes
     delta too, or raise."""
     _check_bwd_args(q3, k3, v3, do3, lse, o3=o3)
-    if q3.device.type == "cpu":
-        return flash_bwd_dq_reference(q3, k3, v3, o3, do3, lse,
-                                      scale=scale, causal=causal)
-    BH, T, _ = q3.shape
-    dq = torch.empty_like(q3)
-    delta = torch.empty((BH, 1, T), dtype=torch.float32, device=q3.device)
-    _launch("flash_bwd", "flash_bwd_dq", "FLASH_BWD_DQ_LAUNCHES",
-            (q3, k3, v3, o3, do3, lse), (delta, dq), scale=scale,
-            causal=causal)
-    return dq, delta
+    BH, T, D = q3.shape
+    with kernel_work(*flash_bwd_dq_work(BH, T, D, causal,
+                                        q3.element_size())):
+        if q3.device.type == "cpu":
+            return flash_bwd_dq_reference(q3, k3, v3, o3, do3, lse,
+                                          scale=scale, causal=causal)
+        dq = torch.empty_like(q3)
+        delta = torch.empty((BH, 1, T), dtype=torch.float32,
+                            device=q3.device)
+        _launch("flash_bwd", "flash_bwd_dq", "FLASH_BWD_DQ_LAUNCHES",
+                (q3, k3, v3, o3, do3, lse), (delta, dq), scale=scale,
+                causal=causal)
+        return dq, delta
 
 
 def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, *, scale: float,
@@ -332,15 +388,18 @@ def flash_bwd_dkv(q3, k3, v3, do3, lse, delta, *, scale: float,
     take the plain version, CUDA tensors launch the dK/dV kernel or
     raise."""
     _check_bwd_args(q3, k3, v3, do3, lse, delta=delta)
-    if q3.device.type == "cpu":
-        return flash_bwd_dkv_reference(q3, k3, v3, do3, lse, delta,
-                                       scale=scale, causal=causal)
-    dk = torch.empty_like(k3)
-    dv = torch.empty_like(v3)
-    _launch("flash_bwd", "flash_bwd_dkv", "FLASH_BWD_DKV_LAUNCHES",
-            (q3, k3, v3, do3, lse, delta), (dk, dv), scale=scale,
-            causal=causal)
-    return dk, dv
+    BH, T, D = q3.shape
+    with kernel_work(*flash_bwd_dkv_work(BH, T, D, causal,
+                                         q3.element_size())):
+        if q3.device.type == "cpu":
+            return flash_bwd_dkv_reference(q3, k3, v3, do3, lse, delta,
+                                           scale=scale, causal=causal)
+        dk = torch.empty_like(k3)
+        dv = torch.empty_like(v3)
+        _launch("flash_bwd", "flash_bwd_dkv", "FLASH_BWD_DKV_LAUNCHES",
+                (q3, k3, v3, do3, lse, delta), (dk, dv), scale=scale,
+                causal=causal)
+        return dk, dv
 
 
 def flash_attention_bwd(q3, k3, v3, o3, lse, do3, *,

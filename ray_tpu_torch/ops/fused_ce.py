@@ -22,7 +22,10 @@ The (N, V) logits never reach device memory in either pass.  Dispatch
 is by tensor placement, as for the flash kernels: a CPU tensor takes
 the plain PyTorch version (``*_reference``), which computes over whole
 f32 tensors what the kernels compute tile by tile, with their
-roundings; a CUDA tensor launches the kernel or raises.
+roundings; a CUDA tensor launches the kernel or raises.  Each entry
+books its work (``fused_ce_*_work``, the figures of its bound) into a
+cost harvest in force (``_private/device_stats.py``), whichever route
+runs.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+
+from ray_tpu_torch._private.device_stats import kernel_work
 
 #: the JAX package's tile sizes, sized for a TPU's VMEM; accepted and
 #: validated so one config drives both packages, they do not set the
@@ -128,6 +133,42 @@ def fused_ce_bwd_dw_reference(h, w, tgt, lse, g, valid_vocab: int
 # ---------------------------------------------------------------------------
 # Wrappers: CPU -> plain version, CUDA -> kernel or raise
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Work of each kernel: its bound and the cost model's count
+# ---------------------------------------------------------------------------
+
+def fused_ce_fwd_work(n: int, v: int, valid: int, d: int,
+                      elem: int) -> Tuple[int, int]:
+    """(operations, bytes) of the forward kernel on h (N, D) and w (V,
+    D) of ``elem``-byte elements: 2*N*valid*D operations (the logits of
+    the valid rows); h, the valid rows of w and the targets read once,
+    nll and lse (f32) written once."""
+    hw = (n + valid) * d * elem
+    return 2 * n * valid * d, hw + n * 4 + 2 * n * 4
+
+
+def fused_ce_bwd_dh_work(n: int, v: int, valid: int, d: int,
+                         elem: int) -> Tuple[int, int]:
+    """(operations, bytes) of the dH kernel: 4*N*valid*D (the logits
+    again and dlogits.w); reads h, w's valid rows, targets, lse and g,
+    writes dh (N, D) f32."""
+    hw = (n + valid) * d * elem
+    return 4 * n * valid * d, hw + 3 * n * 4 + n * d * 4
+
+
+def fused_ce_bwd_dw_work(n: int, v: int, valid: int, d: int,
+                         elem: int) -> Tuple[int, int]:
+    """(operations, bytes) of the dW kernel: 4*N*valid*D (the logits
+    again and dlogits^T.h); reads as dH, writes dw (V, D) f32."""
+    hw = (n + valid) * d * elem
+    return 4 * n * valid * d, hw + 3 * n * 4 + v * d * 4
+
+
+def _work(fn, h, w, valid_vocab: int):
+    return kernel_work(*fn(h.shape[0], w.shape[0], valid_vocab,
+                           h.shape[1], h.element_size()))
+
 
 def _check_args(h, w, tgt, valid_vocab: int, rows=()) -> None:
     if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
@@ -288,22 +329,24 @@ def fused_ce_fwd(h, w, tgt, valid_vocab: int
     package's ``_fwd``.  CPU tensors take the plain version; CUDA
     tensors launch the forward kernel or raise."""
     _check_args(h, w, tgt, valid_vocab)
-    if h.device.type == "cpu":
-        return fused_ce_fwd_reference(h, w, tgt, valid_vocab)
-    nll = torch.empty(h.shape[0], dtype=torch.float32, device=h.device)
-    lse = torch.empty_like(nll)
-    splits = 1
-    if h.dtype == torch.bfloat16:
-        splits = fused_ce_fwd_splits(h.shape[0], valid_vocab, torch.cuda.
-                                     get_device_properties(h.device).
-                                     multi_processor_count)
-    # each split's (max, sum, target logit) per row, combined on the card
-    # (unused with one split)
-    part = torch.empty((3, splits, h.shape[0]), dtype=torch.float32,
-                       device=h.device)
-    _launch("fused_ce_fwd", "FUSED_CE_FWD_LAUNCHES", (h, w, tgt),
-            (nll, lse, part), valid_vocab, splits)
-    return nll, lse
+    with _work(fused_ce_fwd_work, h, w, valid_vocab):
+        if h.device.type == "cpu":
+            return fused_ce_fwd_reference(h, w, tgt, valid_vocab)
+        nll = torch.empty(h.shape[0], dtype=torch.float32,
+                          device=h.device)
+        lse = torch.empty_like(nll)
+        splits = 1
+        if h.dtype == torch.bfloat16:
+            splits = fused_ce_fwd_splits(
+                h.shape[0], valid_vocab, torch.cuda.get_device_properties(
+                    h.device).multi_processor_count)
+        # each split's (max, sum, target logit) per row, combined on the
+        # card (unused with one split)
+        part = torch.empty((3, splits, h.shape[0]), dtype=torch.float32,
+                           device=h.device)
+        _launch("fused_ce_fwd", "FUSED_CE_FWD_LAUNCHES", (h, w, tgt),
+                (nll, lse, part), valid_vocab, splits)
+        return nll, lse
 
 
 def _plan_ints(h, rows: int) -> Tuple[int, int, int]:
@@ -320,26 +363,30 @@ def fused_ce_bwd_dh(h, w, tgt, lse, g, valid_vocab: int) -> torch.Tensor:
     (N,) float32 each.  CPU tensors take the plain version; CUDA
     tensors launch the dH kernel or raise."""
     _check_args(h, w, tgt, valid_vocab, (("lse", lse), ("g", g)))
-    if h.device.type == "cpu":
-        return fused_ce_bwd_dh_reference(h, w, tgt, lse, g, valid_vocab)
-    dh = torch.empty(h.shape, dtype=torch.float32, device=h.device)
-    _launch("fused_ce_bwd_dh", "FUSED_CE_BWD_DH_LAUNCHES",
-            (h, w, tgt, lse, g), (dh,), valid_vocab,
-            plan=_plan_ints(h, h.shape[0]))
-    return dh
+    with _work(fused_ce_bwd_dh_work, h, w, valid_vocab):
+        if h.device.type == "cpu":
+            return fused_ce_bwd_dh_reference(h, w, tgt, lse, g,
+                                             valid_vocab)
+        dh = torch.empty(h.shape, dtype=torch.float32, device=h.device)
+        _launch("fused_ce_bwd_dh", "FUSED_CE_BWD_DH_LAUNCHES",
+                (h, w, tgt, lse, g), (dh,), valid_vocab,
+                plan=_plan_ints(h, h.shape[0]))
+        return dh
 
 
 def fused_ce_bwd_dw(h, w, tgt, lse, g, valid_vocab: int) -> torch.Tensor:
     """dW (V, D) float32, as fused_ce_bwd_dh: CPU tensors take the
     plain version, CUDA tensors launch the dW kernel or raise."""
     _check_args(h, w, tgt, valid_vocab, (("lse", lse), ("g", g)))
-    if h.device.type == "cpu":
-        return fused_ce_bwd_dw_reference(h, w, tgt, lse, g, valid_vocab)
-    dw = torch.empty(w.shape, dtype=torch.float32, device=h.device)
-    _launch("fused_ce_bwd_dw", "FUSED_CE_BWD_DW_LAUNCHES",
-            (h, w, tgt, lse, g), (dw,), valid_vocab,
-            plan=_plan_ints(h, w.shape[0]))
-    return dw
+    with _work(fused_ce_bwd_dw_work, h, w, valid_vocab):
+        if h.device.type == "cpu":
+            return fused_ce_bwd_dw_reference(h, w, tgt, lse, g,
+                                             valid_vocab)
+        dw = torch.empty(w.shape, dtype=torch.float32, device=h.device)
+        _launch("fused_ce_bwd_dw", "FUSED_CE_BWD_DW_LAUNCHES",
+                (h, w, tgt, lse, g), (dw,), valid_vocab,
+                plan=_plan_ints(h, w.shape[0]))
+        return dw
 
 
 class _FusedCE(torch.autograd.Function):

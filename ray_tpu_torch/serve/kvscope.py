@@ -25,9 +25,8 @@ callbacks:
     (``_private/device_stats.device_memory_stats()``) and the serve
     programs' audited peak budget into a single ``headroom_bytes`` that
     an ``AdmissionPolicy(min_headroom_bytes=)`` gate can shed against.
-    The budget (``serve_program_budget_bytes``) is 0 until the port has
-    a static program auditor (ROADMAP.md queue 1 item 7.12), so the ledger
-    leans on the allocator view.
+    The budget (``serve_program_budget_bytes``) is the largest of
+    graftcheck's serve-path program budgets.
 
 Everything is perf_counter-clocked and kill-switched by ``RAYTPU_KVSCOPE=0``: a
 disabled scope costs one attribute check per hook.
@@ -373,11 +372,21 @@ def hbm_ledger(*, pool_bytes_per_chip: int = 0,
 
 
 def serve_program_budget_bytes() -> int:
-    """Worst-case audited peak over the serve-path programs (prefill /
-    decode / verify) — the static 'what the programs may transiently
-    need' term of the ledger.  The JAX package reads it from
-    graftcheck's program catalog; the port has no such auditor yet
-    (ROADMAP.md queue 1 item 7.12), so this is 0, the JAX package's own
-    best-effort value when graftcheck cannot be imported: the ledger
-    then leans on the allocator view alone."""
-    return 0
+    """Worst-case audited peak over graftcheck's serve-path programs
+    (prefill / decode / verify specs of
+    ``tools/graftcheck/programs.py``) — the static 'what the programs
+    may transiently need' term of the ledger.  Best effort: 0 when
+    graftcheck is unimportable (the ledger then leans on the allocator
+    view alone)."""
+    try:
+        from ray_tpu_torch.tools.graftcheck.programs import default_programs
+
+        budgets = [
+            (spec.per_chip_hbm_budget_bytes
+             or spec.hbm_budget_bytes or 0)
+            for spec in default_programs()
+            if any(tag in spec.name
+                   for tag in ("prefill", "decode", "verify"))]
+        return max(budgets, default=0)
+    except Exception:  # noqa: BLE001 - observability must not raise
+        return 0

@@ -796,6 +796,8 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
         @_batch(max_batch_size=max_batch_size,
                 batch_wait_timeout_s=batch_wait_timeout_s)
         async def _call_batch(self, prompts):
+            # host-side prompt normalization (python ints, no device fetch)
+            # graftcheck: disable=blocking-call-in-async(host-side int normalization)
             arrs = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
             lens = [int(a.shape[0]) for a in arrs]
             t0 = max(lens)
@@ -821,7 +823,9 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                     "scheduler='continuous' (the batch scheduler runs "
                     "one fused generate per micro-batch)")
             # request-level telemetry wraps the @batch queue, so the
-            # recorded latency includes the batch-collection wait
+            # recorded latency includes the batch-collection wait; the
+            # prompt is a host-side list: its length moves no device data
+            # graftcheck: disable=blocking-call-in-async(host-side length probe)
             n_prompt = int(np.asarray(prompt).reshape(-1).shape[0])
             rec = self._telemetry.record_enqueue(n_prompt)
             if n_prompt == 0 or \
@@ -1699,6 +1703,8 @@ def build_llm_deployment(family: str = "gpt2", preset: str = "nano",
                 if sampling != default_sp:
                     sp = sampling
             self._ensure_engine()
+            # host-side prompt normalization (python ints, no device fetch)
+            # graftcheck: disable=blocking-call-in-async(host-side int normalization)
             arr = np.asarray(prompt, np.int32).reshape(-1)
             if admission_policy is not None:
                 # telemetry's percentiles decide the shed BEFORE the

@@ -24,6 +24,12 @@ transition here.  Three sinks hang off those records:
    format as the JAX package's task timeline, so engine activity and
    task activity open in one Perfetto view.
 
+A completed request's e2e latency decomposes exactly into the
+critical-path components (``critical_path``; ``CRITICAL_PATH_COMPONENTS``):
+``router_wait_ms``, ``queue_wait_ms``, ``requeue_ms``, ``kv_fetch_ms``,
+``prefill_ms``, ``prefill_wait_ms``, ``handoff_ms``, ``inter_token_ms``
+and ``spec_rollback_ms``.
+
 Everything is host-side bookkeeping (dict/deque appends plus a
 histogram observe) timed around syncs the engine already performs; the
 prefill/decode programs are untouched and no device syncs are added.  When ``util/tracing.py`` is enabled, each request records a

@@ -10,7 +10,9 @@ train step's wall time decomposes into
 
     data_wait + h2d + dispatch + device_compute + compile + checkpoint
 
-on the shared ``perf_counter`` clock, with each leg clamped into the
+(the legs ``data_wait_ms``, ``h2d_ms``, ``dispatch_ms``,
+``device_compute_ms``, ``compile_ms`` and ``checkpoint_ms`` of
+``ANATOMY_COMPONENTS``) on the shared ``perf_counter`` clock, with each leg clamped into the
 step window so the components sum EXACTLY to the measured wall — a
 step that stalls on the input pipeline reads as ``data_wait``
 dominance, a recompile storm as ``compile``, a checkpoint pause as

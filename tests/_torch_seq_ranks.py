@@ -386,8 +386,9 @@ def _tp_engine_extras(ckpt, prompts, mesh, rank):
 def prog_tp_decode(rank, world, np_params, cases):
     """2 ranks, tensor=2: the paged decode and the prefix reuse of each
     family on this rank's blocks, then each family's continuous engine
-    under the mesh; and, on a data=2 mesh, this rank's rows of a
-    sharded Data batch."""
+    under the mesh, graftcheck's audit of the tensor-parallel decode
+    step; and, on a data=2 mesh, this rank's rows of a sharded Data
+    batch."""
     import torch
 
     from ray_tpu_torch import data
@@ -407,6 +408,15 @@ def prog_tp_decode(rank, world, np_params, cases):
                                  c["engine_new"], mesh, rank)}
     out["extras"] = _tp_engine_extras(cases["gpt2"]["ckpt"],
                                       cases["churn"], mesh, rank)
+    # graftcheck's tensor-parallel spec, which needs the ranks
+    from ray_tpu_torch.tools.graftcheck.programs import default_programs
+    from ray_tpu_torch.tools.graftcheck.trace_audit import audit_program
+
+    spec, = [s for s in default_programs()
+             if s.name == "gpt2_sharded_decode_step"]
+    violations, info = audit_program(spec)
+    out["graftcheck"] = {"violations": [str(v) for v in violations],
+                         "info": info}
     # the bench's decode path over the mesh, and alone
     from ray_tpu_torch.bench import time_decode
 

@@ -31,6 +31,8 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import re
+
 import pytest
 import torch
 
@@ -208,10 +210,17 @@ def test_decode_greedy_tokens_match_jax():
     pytest.param(["--decode", "--mesh", "tensor", "--chips", "4"],
                  ValueError, r"above the process group's world size 1",
                  id="argv2-item 7\\.7"),
-    pytest.param(["--autopilot"], NotImplementedError, r"item 7\.12",
-                 id="argv3-item 7\\.12"),
+    # ported (tools/autopilot): runs and emits its attribution line
+    pytest.param(["--autopilot", "--steps", "1", "--no-ledger"], None,
+                 r'^\{"autopilot": \{', id="argv3-item 7\\.12"),
 ])
-def test_unported_options_raise_naming_their_item(argv, exc, match):
+def test_unported_options_raise_naming_their_item(argv, exc, match,
+                                                  capsys):
+    if exc is None:
+        tbench.main(tbench.parse_args(argv), device="cpu")
+        last = capsys.readouterr().out.strip().splitlines()[-1]
+        assert re.match(match, last), last
+        return
     with pytest.raises(exc, match=match):
         tbench.main(tbench.parse_args(argv), device="cpu")
 

@@ -17,10 +17,11 @@ nature between two runtimes (:func:`_norm`):
 
 ``/metrics`` is compared line by line by metric name and labels (the
 node label normalised, the test process's own application metrics left
-out).  ``/api/perf/autopilot`` and
-``/api/workflows/events`` read modules the port lacks (ROADMAP.md queue 1
-items 7.12 and 7.3): the port's answers are held to an in-process JAX
-dashboard whose import of those modules fails.
+out).  ``/api/perf/autopilot`` is held to an in-process JAX dashboard on
+the same empty ledger and fresh program registries;
+``/api/workflows/events`` reads a module the port lacks (ROADMAP.md
+queue 1 item 7.3): its answer is held to a JAX dashboard whose import
+of that module fails.
 """
 
 import http.client
@@ -350,20 +351,32 @@ def test_profile_capture_matches_jax(dashboards, programs, tmp_path):
 
 
 def test_unported_routes_answer_as_jax_when_the_import_fails(
-        dashboards, programs, monkeypatch):
-    """``/api/perf/autopilot`` and ``/api/workflows/events`` against an
-    in-process JAX dashboard whose import of ``tools.autopilot`` and
+        dashboards, programs, monkeypatch, tmp_path):
+    """``/api/perf/autopilot`` (ported: tools/autopilot) against an
+    in-process JAX dashboard on the same empty ledger and fresh program
+    registries: the same 200 document, with and without ``?budget=``.
+    ``/api/workflows/events`` against a JAX dashboard whose import of
     ``workflow.events`` fails: both give aiohttp's 500."""
+    from ray_tpu._private import device_stats as jds
     from ray_tpu.dashboard.app import DashboardActor
+    from ray_tpu_torch._private import device_stats as tds
+    from ray_tpu_torch.dashboard.app import DashboardActor as TDashboard
 
-    monkeypatch.setitem(sys.modules, "ray_tpu.tools.autopilot", None)
+    monkeypatch.setenv("RAYTPU_BENCH_HISTORY", str(tmp_path / "h.jsonl"))
+    monkeypatch.setattr(jds, "_registry", jds.ProgramRegistry())
+    monkeypatch.setattr(tds, "_registry", tds.ProgramRegistry())
     monkeypatch.setitem(sys.modules, "ray_tpu.workflow.events", None)
-    jax_dash = DashboardActor("127.0.0.1", _free_port())
-    urls = {"jax": jax_dash.address(), "torch": dashboards["torch"]}
-    for method, path, body in (
-            ("GET", "/api/perf/autopilot", None),
-            ("GET", "/api/perf/autopilot?budget=2", None),
-            ("POST", "/api/workflows/events", {"name": "go"})):
-        got = _both(urls, method, path, body)
+    urls = {"jax": DashboardActor("127.0.0.1", _free_port()).address(),
+            "torch": TDashboard("127.0.0.1", 0).address()}
+    for path in ("/api/perf/autopilot", "/api/perf/autopilot?budget=2"):
+        got = _both(urls, "GET", path)
         assert got["torch"] == got["jax"]
-        assert got["torch"][0] == 500
+        assert got["torch"][0] == 200
+        doc = got["torch"][3]
+        assert doc["ok"] is True and doc["entries"] == 0
+        assert len(doc["plan"]["variants"]) == (2 if "budget" in path
+                                                else 8)
+    urls["torch"] = dashboards["torch"]
+    got = _both(urls, "POST", "/api/workflows/events", {"name": "go"})
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0] == 500

@@ -55,6 +55,13 @@ MAX_NEW = 4
 _JOVR = {"dtype": jnp.float32, "use_flash": False, "remat": False}
 _TOVR = {"dtype": torch.float32}
 HANDOFF = ("serve.kv_handoff_export", "serve.kv_handoff_install")
+#: the critical-path keys of every latency decomposition: e2e_ms and
+#: serve/telemetry.py's CRITICAL_PATH_COMPONENTS (graftcheck's
+#: contract-registry rule reads this literal)
+CRITICAL_PATH_KEYS = {"e2e_ms", "router_wait_ms", "queue_wait_ms",
+                      "requeue_ms", "kv_fetch_ms", "prefill_ms",
+                      "prefill_wait_ms", "handoff_ms",
+                      "inter_token_ms", "spec_rollback_ms"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -241,6 +248,8 @@ def test_engine_stats_match_the_jax_engine(ckpt, name):
         np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
     js, ts = assert_stats_match(j, t)
     assert ts["requests"]["finished"] == len(prompts)
+    assert set(ts["latency_anatomy"]["critical_path"]) == \
+        CRITICAL_PATH_KEYS
     assert ts["slo"]["breached"] is False
     assert set(ts["programs"]) >= {"serve.decode"} or \
         "serve.spec_verify" in ts["programs"]

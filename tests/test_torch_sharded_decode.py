@@ -355,3 +355,24 @@ def test_spec_tier_and_handoff_engines_under_the_mesh(tp):
         assert got[2]["kv_tier"][k] == want[2]["kv_tier"][k], k
     assert got[2]["kv_tier"]["hits"] > 0
     assert outs[1]["extras"]["followed"] > 0
+
+
+def test_graftcheck_sharded_decode_spec_on_the_ranks(tp):
+    """graftcheck's gpt2_sharded_decode_step (skipped below 2 ranks in
+    the one-process run) on each tensor=2 rank: clean, its
+    collectives dispatched, its per-rank peak under the per-chip budget
+    and under the whole paged step's (the pool is split)."""
+    from ray_tpu_torch.tools.graftcheck.programs import default_programs
+    from ray_tpu_torch.tools.graftcheck.trace_audit import audit_program
+
+    _, outs = tp
+    whole, = [s for s in default_programs()
+              if s.name == "gpt2_paged_decode_step"]
+    _, whole_info = audit_program(whole)
+    for out in outs:
+        g = out["graftcheck"]
+        assert g["violations"] == [], g
+        info = g["info"]
+        assert 0 < info["per_chip_hbm_bytes"] \
+            <= info["per_chip_hbm_budget_bytes"]
+        assert info["per_chip_hbm_bytes"] < whole_info["peak_hbm_bytes"]

@@ -549,7 +549,9 @@ def test_hbm_ledger_on_the_same_rows(seed):
         assert tkvscope.hbm_ledger(**kw) == jkvscope.hbm_ledger(**kw)
     assert tkvscope.hbm_ledger() == jkvscope.hbm_ledger()
     assert tkvscope.empty_kv_scope() == jkvscope.empty_kv_scope()
-    assert tkvscope.serve_program_budget_bytes() == 0
+    # the largest serve-path budget of graftcheck's catalog, 6 MiB
+    assert tkvscope.serve_program_budget_bytes() == \
+        jkvscope.serve_program_budget_bytes() == 6 * 2 ** 20
 
 
 # ---------------------------------------------------------------------------
@@ -557,23 +559,30 @@ def test_hbm_ledger_on_the_same_rows(seed):
 # ---------------------------------------------------------------------------
 
 
-def test_registry_counts_compiles_as_the_jax_registry_does():
+def test_registry_counts_compiles_as_the_jax_registry_does(monkeypatch):
     """The same calls through both registries: a tensor (an array in
     JAX) keys by shape and dtype, a numpy scalar by dtype, a Python int
-    by value, a generator (a PRNG key) by type, None not at all."""
+    by value, a generator (a PRNG key) by type, None not at all.  The
+    program is one product: the first signature's harvest (the port's
+    cost model; the JAX side compile's cost_analysis) counts its
+    2*M*N*K FLOPs in both, and both then give a live MFU."""
     import jax
     import jax.numpy as jnp
 
     from ray_tpu._private import device_stats as jds
 
+    # both harvests on (tests/conftest.py turns them off by default)
+    monkeypatch.setenv("RAYTPU_DEVICE_STATS_COST", "1")
     now = iter(np.arange(0.0, 100.0, 0.5)).__next__
     regs = {"j": jds.ProgramRegistry(storm_threshold=3, now=now),
             "t": tds.ProgramRegistry(storm_threshold=3, now=now)}
     storms = {"j": [], "t": []}
     fns = {}
+    prog = {"j": jax.jit(lambda d, *a, **kw: d["w"] @ d["w"].T),
+            "t": lambda d, *a, **kw: d["w"] @ d["w"].T}
     for k, reg in regs.items():
         reg.subscribe_storms(storms[k].append)
-        fns[k] = reg.instrument("serve.decode", lambda *a, **kw: 0)
+        fns[k] = reg.instrument("serve.decode", prog[k])
     key = jax.random.PRNGKey(0)
     gen = torch.Generator().manual_seed(0)
     calls = [((4, 8), "float32", 3, np.int32(1), None),
@@ -596,7 +605,11 @@ def test_registry_counts_compiles_as_the_jax_registry_does():
     assert set(st["serve.decode"]) == set(sj["serve.decode"])
     assert st["serve.decode"]["compile_events"] == 5
     assert storms["t"] == storms["j"] == ["serve.decode"]
-    assert st["serve.decode"]["mfu"] is None
+    # the first signature, (4, 8) float32: 2 * 4 * 4 * 8
+    assert st["serve.decode"]["xla_flops"] == \
+        sj["serve.decode"]["xla_flops"] == 256.0
+    assert st["serve.decode"]["mfu"] is not None
+    assert sj["serve.decode"]["mfu"] is not None
     assert regs["t"].programs() == regs["j"].programs()
 
 

@@ -256,15 +256,38 @@ def test_bench_appends_to_the_ports_ledger(monkeypatch, tmp_path):
     assert [_digest(f) for f in files] == before
 
 
-def test_bench_autopilot_still_raises_naming_item_7_12():
-    from ray_tpu_torch import bench as tbench
+def test_bench_autopilot_still_raises_naming_item_7_12(tmp_path,
+                                                        monkeypatch):
+    """Item 7.12 is ported: ``--autopilot`` no longer raises; it emits
+    ``{"autopilot": attribute_registry()}`` before the ledger append
+    (bench.py:179-200), naming bench.train_step with a class and a
+    headroom, and the line rides into the ledger."""
+    import contextlib
+    import io
 
-    assert tbench.AUTOPILOT_ITEM == \
-        "ROADMAP.md queue 1 item 7.12 (tools/autopilot)"
-    with pytest.raises(NotImplementedError,
-                       match=r"--autopilot is not ported yet: ROADMAP\.md "
-                             r"queue 1 item 7\.12 \(tools/autopilot\)$"):
-        tbench.main(tbench.parse_args(["--autopilot"]), device="cpu")
+    from ray_tpu_torch import bench as tbench
+    from ray_tpu_torch._private import device_stats as tds
+
+    assert not hasattr(tbench, "AUTOPILOT_ITEM")
+    hist = tmp_path / "hist.jsonl"
+    monkeypatch.setenv("RAYTPU_BENCH_HISTORY", str(hist))
+    # the cost harvest on (tests/conftest.py turns it off by default),
+    # and a registry of this run's programs alone
+    monkeypatch.setenv("RAYTPU_DEVICE_STATS_COST", "1")
+    monkeypatch.setattr(tds, "_registry", tds.ProgramRegistry())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        tbench.main(tbench.parse_args(["--autopilot", "--steps", "1",
+                                        "--preset", "nano"]),
+                    device="cpu")
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    att = line["autopilot"]
+    block = att["programs"]["bench.train_step"]
+    assert block["class"] in ("compute-bound", "hbm-bound")
+    assert block["headroom"] is not None
+    assert att["bottleneck"] == "bench.train_step"
+    assert tpl.load_history(str(hist))
 
 
 # ---------------------------------------------------------------------------

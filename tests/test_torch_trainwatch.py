@@ -456,20 +456,32 @@ def test_fetch_health_is_one_copy_of_exact_values():
 
 def test_registry_instrument_takes_n_devices():
     """Any device count is taken and recorded per program; the
-    snapshot keeps the JAX key set, its mfu None without a cost model
-    whatever the count."""
-    reg = tds.ProgramRegistry()
-    wrapped = reg.instrument("t.prog", lambda x: x + 1, n_devices=1)
-    assert wrapped(1) == 2
-    four = reg.instrument("t.sharded", lambda x: x * 2, n_devices=4)
-    assert four(3) == 6 and four(3) == 6   # a compile, an invoke
-    assert (reg.devices_of("t.prog"), reg.devices_of("t.sharded")) == (1, 4)
-    assert reg.devices_of("t.never") == 1
-    snap = reg.snapshot(prefix="t.", n_devices=4)
+    snapshot keeps the JAX key set.  The programs dispatch no tensor
+    work, so the harvest books no cost and mfu stays None, as the JAX
+    registry gives for the same calls (it harvests nothing from a
+    function it cannot lower)."""
+    from ray_tpu._private import device_stats as jds
+
+    snaps = {}
+    for k, mod in (("t", tds), ("j", jds)):
+        reg = mod.ProgramRegistry()
+        wrapped = reg.instrument("t.prog", lambda x: x + 1, n_devices=1)
+        assert wrapped(1) == 2
+        four = reg.instrument("t.sharded", lambda x: x * 2, n_devices=4)
+        assert four(3) == 6 and four(3) == 6   # a compile, an invoke
+        snaps[k] = reg.snapshot(prefix="t.", n_devices=4)
+        if k == "t":
+            assert (reg.devices_of("t.prog"),
+                    reg.devices_of("t.sharded")) == (1, 4)
+            assert reg.devices_of("t.never") == 1
+    snap = snaps["t"]
     assert snap["t.sharded"]["invokes"] == 1
     assert snap["t.sharded"]["compile_events"] == 1
-    assert snap["t.sharded"]["mfu"] is None
-    assert set(snap["t.sharded"]) == set(snap["t.prog"])
+    for key in ("mfu", "xla_flops", "bytes_accessed", "peak_hbm_bytes"):
+        assert snap["t.sharded"][key] is None
+        assert snaps["j"]["t.sharded"][key] is None
+    assert set(snap["t.sharded"]) == set(snap["t.prog"]) \
+        == set(snaps["j"]["t.sharded"])
 
 
 # ---------------------------------------------------------------------------
