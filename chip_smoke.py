@@ -366,6 +366,31 @@ Phases, each fatal on failure (any failure exits non-zero):
             ray_tpu_torch.tools.graftcheck --format json reports ok, 12
             programs audited (the tensor-parallel one skipped below its
             two ranks); (g) /api/perf/autopilot answered 200 in 12d.
+12l. rllib — RLlib's core on the port's runtime (init(num_gpus=1)): the
+            learner policy on the card, rollout workers CPU actors with
+            no grant: (a) PPO(cfg).train() x 3 at the repo's pixel pass
+            bar (release/workloads/ppo_pixels_learning.py: MinAtar
+            breakout 8x8, 2 workers x 8 envs, fragments of 128, batches
+            of 2048, minibatch 256, 4 epochs, hidden (128,)): each
+            iteration's time_this_iter_s, the learner's update ms (CUDA
+            events), env steps/s, finite losses; the learner's
+            parameters on the card, the workers' on the CPU
+            (CUDA_VISIBLE_DEVICES empty, no CUDA context); whether
+            gymnasium imports here (the phase needs none); (b) a learner
+            update at Atari scale (84x84x4 frames through the catalog's
+            Atari conv stack, hidden (256,), 5000 seeded rows, minibatch
+            500, 10 epochs, the reference's atari-ppo.yaml sizes): one
+            minibatch's loss and every gradient leaf on the card against
+            the CPU (f32, TF32 off), then learn_on_batch timed (ms,
+            minibatch steps/s, peak memory); (c) LSTM (cell 64) and
+            attention (dim 64, 4 heads, max_seq_len 16) policies on
+            RepeatPrev: one fragment from a CPU worker, the rollout's
+            stored logp against the learner's recompute on the card
+            (ratio 1), one update on the card; (d) Tuner("PPO"), one
+            trial of 1 iteration on CartPole-v1 granted the card: no
+            error, the JAX package's result keys.  No flash or fused-CE
+            kernel launches on this path (counts of 0, the kernels
+            line's "rllib" path).
 13. train-llama — llama-1b AdamW steps at B=8, T=2048, remat of the
             whole block, ce_impl="pallas": a warm-up and 5 timed steps
             (step ms, tokens/s, MFU, peak memory; 32 flash forwards, 16
@@ -8769,6 +8794,374 @@ def phase_observatory(torch, fa, fc, card: str, inputs, device="cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase rllib (12l): RLlib's core — PPO and Tune on the card
+# ---------------------------------------------------------------------------
+
+#: (a) the repo's pixel pass bar at its own configuration
+#: (release/workloads/ppo_pixels_learning.py:16-20): MinAtar breakout
+#: on an 8x8 board, 2 CPU workers x 8 envs, fragments of 128, batches
+#: of 2048 in minibatches of 256 over 4 epochs; RL_ITERS train() calls
+RL_PIXELS = dict(env="MinAtarBreakout", env_config={"size": 8},
+                 num_workers=2, num_envs_per_worker=8,
+                 rollout_fragment_length=128, train_batch_size=2048,
+                 num_sgd_iter=4, minibatch_size=256, hidden=(128,),
+                 lr=7e-4, entropy_coeff=0.02, seed=1)
+RL_ITERS = 3
+#: (b) an Atari-scale learner update at the sizes of the reference's
+#: rllib/tuned_examples/ppo/atari-ppo.yaml (train_batch_size 5000,
+#: sgd_minibatch_size 500, num_sgd_iter 10, clip_param 0.1,
+#: entropy_coeff 0.01): 84x84x4 frames, so the catalog's Atari conv
+#: stack ((16, 8, 4), (32, 4, 2), (64, 3, 2)), hidden (256,), Breakout's
+#: 4 actions; a seeded batch of RL_ATARI_ROWS rows, RL_ATARI_TIMED timed
+#: updates after one warm-up
+RL_ATARI = dict(obs_dim=84 * 84 * 4, n_actions=4, obs_shape=(84, 84, 4),
+                hidden=(256,), num_sgd_iter=10, minibatch_size=500,
+                clip_param=0.1, entropy_coeff=0.01)
+RL_ATARI_ROWS, RL_ATARI_TIMED = 5000, 2
+#: (b) one minibatch's loss and gradient, f32 with TF32 off, on the
+#: card against the port on the CPU: cuDNN's and the CPU's convolutions
+#: sum the same products in other orders; the loss within RL_LOSS_RTOL
+#: relative, each leaf within RL_GRAD_REL as ||card - cpu|| / ||cpu||
+RL_LOSS_RTOL = 1e-5
+RL_GRAD_REL = 1e-4
+#: (c) recurrent and attention policies on RepeatPrev (the JAX
+#: package's memory-task settings, tests/test_rllib_models.py): one
+#: fragment of 8 envs x 64 steps from a CPU worker, one update on the
+#: card; the rollout's stored logp against the learner's recompute on
+#: the card from the same weights (ratio 1) within RL_LOGP_TOL
+RL_SEQ_COMMON = dict(obs_dim=3, n_actions=3, hidden=(64,), max_seq_len=16,
+                     num_sgd_iter=6, minibatch_size=32, lr=1e-3,
+                     entropy_coeff=0.003)
+RL_SEQ = {"lstm": dict(use_lstm=True, lstm_cell_size=64),
+          "attention": dict(use_attention=True, attention_dim=64,
+                            attention_heads=4)}
+RL_LOGP_TOL = 1e-4
+#: (d) Tuner("PPO"): one trial of 1 iteration on CartPole-v1, granted
+#: the card
+RL_TUNE = dict(env="CartPole-v1", num_workers=1, num_envs_per_worker=4,
+               rollout_fragment_length=250, train_batch_size=1000,
+               training_iterations=1, seed=0)
+#: the JAX package's PPO result keys (ray_tpu/rllib/algorithm.py
+#: train(), ppo.py training_step, policy.py's update stats)
+RL_RESULT_KEYS = frozenset((
+    "policy_loss", "vf_loss", "entropy", "total_loss",
+    "timesteps_this_iter", "training_iteration", "timesteps_total",
+    "episode_reward_mean", "episodes_total", "time_this_iter_s"))
+
+
+def _probed_worker_cls():
+    """RolloutWorker with a ``probe()`` saying where it runs (defined
+    here, so it travels by value to the workers)."""
+    from ray_tpu_torch.rllib.rollout_worker import RolloutWorker
+
+    class ProbedRolloutWorker(RolloutWorker):
+        def probe(self):
+            import os
+
+            import torch
+
+            leaf = next(iter(self.policy.net.parameters()))
+            return {"pid": os.getpid(), "device": str(leaf.device),
+                    "CUDA_VISIBLE_DEVICES":
+                        os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "cuda_initialized": torch.cuda.is_initialized()}
+
+    return ProbedRolloutWorker
+
+
+def _rl_timed(torch, policy, on_card: bool, out: list):
+    """Wrap ``policy.learn_on_batch``: each call's wall (it ends in one
+    read of the stats) and, on the card, its CUDA-event ms into out."""
+    inner = policy.learn_on_batch
+
+    def learn(batch):
+        t0 = time.perf_counter()
+        if on_card:
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+        stats = inner(batch)
+        rec = {"wall_ms": (time.perf_counter() - t0) * 1e3}
+        if on_card:
+            e1.record()
+            e1.synchronize()
+            rec["ms"] = e0.elapsed_time(e1)
+        out.append(rec)
+        return stats
+
+    policy.learn_on_batch = learn
+
+
+def phase_rllib(torch, np, fa, card: str, device: str = "cuda",
+                pixels=None, iters: int = RL_ITERS, atari=None,
+                atari_rows: int = RL_ATARI_ROWS,
+                atari_timed: int = RL_ATARI_TIMED, seq_common=None,
+                fragment: int = 64, tune_cfg=None) -> dict:
+    """12l: RLlib's core on the port's runtime (``init(num_gpus=1)``),
+    the learner on the card, rollout workers CPU actors with no grant.
+    (a) ``PPO(cfg).train()`` x ``iters`` at RL_PIXELS: each iteration's
+    time_this_iter_s, the learner's update ms (CUDA events), env steps/s,
+    finite losses; the learner's parameters on the card, the workers' on
+    the CPU in processes with ``CUDA_VISIBLE_DEVICES=""``; whether
+    gymnasium imports here (the phase needs none).  (b) the learner
+    update at RL_ATARI on ``atari_rows`` seeded rows: one minibatch's
+    loss and every gradient leaf on the card against the CPU (f32, TF32
+    off), then ``learn_on_batch`` timed (ms, minibatch steps/s, peak
+    memory).  (c) LSTM and attention policies on RepeatPrev: one
+    fragment from a CPU worker, the stored logp against the card's
+    recompute, one update on the card.  (d) ``Tuner("PPO")`` at RL_TUNE,
+    one trial granted the card: no error, the JAX package's result
+    keys.  No flash or fused-CE kernel runs on this path: their counts,
+    zeroed before (a) and read after (c), are 0.  The sizes and
+    ``device="cpu"`` (the learner on the CPU, no grant) make a CPU dry
+    run."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.rllib import PPO, PPOConfig, worker_set
+    from ray_tpu_torch.rllib import sample_batch as sb
+    from ray_tpu_torch.rllib.policy import JaxPolicy, PolicySpec
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    learner_device = None if on_card else device
+    pixels = dict(RL_PIXELS, **(pixels or {}))
+    atari = dict(RL_ATARI, **(atari or {}))
+    seq_common = dict(RL_SEQ_COMMON, **(seq_common or {}))
+    tune_cfg = dict(RL_TUNE, **(tune_cfg or {}))
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    gym = _importable("gymnasium")
+    print(f"[rllib] gymnasium importable here: {gym[0]} ({gym[1]}); the "
+          f"phase's envs are the repo's own [{card}]", flush=True)
+    store = min(RUN_STORE_MAX, shutil.disk_usage("/dev/shm").free // 4) \
+        // 2**20 * 2**20
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rllib_")
+    results_env = os.environ.get("RAYTPU_RESULTS_DIR")
+    os.environ["RAYTPU_RESULTS_DIR"] = f"{tmp}/results"
+    probed = _probed_worker_cls()
+    plain_worker = worker_set.RolloutWorker
+    worker_set.RolloutWorker = probed
+    t0 = time.perf_counter()
+    rt.init(num_cpus=6, num_gpus=1 if on_card else 0,
+            object_store_memory=store)
+    print(f"[rllib] init in {time.perf_counter() - t0:.2f} s; "
+          f"cluster_resources {rt.cluster_resources()} [{card}]", flush=True)
+    out, bad = {}, []
+    try:
+        # (c)'s CPU workers start now and boot while (a) and (b) run
+        seq_specs = {k: PolicySpec(**seq_common, **v)
+                     for k, v in RL_SEQ.items()}
+        seq_remote = rt.remote(num_cpus=1, num_gpus=0)(probed)
+        seq_workers = {k: seq_remote.remote(
+            env="RepeatPrev", policy_spec=spec, num_envs=8,
+            rollout_fragment_length=fragment, seed=7 + i, num_threads=1)
+            for i, (k, spec) in enumerate(seq_specs.items())}
+
+        # (a) -------------------------------------------------------------
+        zero_counts(fa)
+        cfg = PPOConfig(**pixels, learner_device=learner_device)
+        t0 = time.perf_counter()
+        algo = PPO(cfg)
+        setup_s = time.perf_counter() - t0
+        try:
+            learns = []
+            _rl_timed(torch, algo.learner_policy, on_card, learns)
+            results = []
+            for _ in range(iters):
+                results.append(algo.train())
+            probes = rt.get([w.probe.remote()
+                             for w in algo.workers.workers], timeout=300)
+        finally:
+            algo.stop()
+        lp_dev = str(next(iter(algo.learner_policy.net.parameters())).device)
+        for r, lr in zip(results, learns):
+            print(f"[rllib] (a) iteration {r['training_iteration']}: "
+                  f"time_this_iter_s {r['time_this_iter_s']:.3f}, learner "
+                  f"update {lr.get('ms', float('nan')):.2f} ms (CUDA "
+                  f"events; {lr['wall_ms']:.2f} ms wall), env steps/s "
+                  f"{r['timesteps_this_iter'] / r['time_this_iter_s']:.0f}"
+                  f", losses policy {r['policy_loss']:.5f} vf "
+                  f"{r['vf_loss']:.5f} entropy {r['entropy']:.5f} total "
+                  f"{r['total_loss']:.5f}, episode_reward_mean "
+                  f"{r['episode_reward_mean']:.3f} [{card}]", flush=True)
+        print(f"[rllib] (a) PPO(cfg) set-up {setup_s:.2f} s (2 worker "
+              f"processes); the learner's parameters on {lp_dev}; the "
+              f"workers {probes} [{card}]", flush=True)
+        out["a"] = {"results": results, "learns": learns,
+                    "setup_s": setup_s, "learner_device": lp_dev,
+                    "workers": probes}
+        if on_card != lp_dev.startswith("cuda"):
+            bad.append(f"(a) the learner's parameters are on {lp_dev}")
+        if any(p["device"] != "cpu" or p["CUDA_VISIBLE_DEVICES"] != ""
+               or p["cuda_initialized"] for p in probes):
+            bad.append(f"(a) a worker is not a CPU actor: {probes}")
+        if len(results) != iters or any(
+                not np.isfinite(r[k]) for r in results for k in
+                ("policy_loss", "vf_loss", "entropy", "total_loss")):
+            bad.append(f"(a) results {results}")
+        if any(r["timesteps_this_iter"] < pixels["train_batch_size"]
+               for r in results):
+            bad.append("(a) an iteration took fewer steps than a batch")
+
+        # (b) -------------------------------------------------------------
+        spec = PolicySpec(**atari)
+        rng = np.random.default_rng(RL_PIXELS["seed"])
+        n = atari_rows
+        batch = SampleBatch({
+            sb.OBS: rng.random((n, *spec.obs_shape), dtype=np.float32),
+            sb.ACTIONS: rng.integers(0, spec.n_actions, n),
+            sb.ACTION_LOGP: np.log(rng.dirichlet(
+                np.ones(spec.n_actions), n).max(-1)).astype(np.float32),
+            sb.ADVANTAGES: rng.standard_normal(n, dtype=np.float32),
+            sb.VALUE_TARGETS: rng.standard_normal(n, dtype=np.float32)})
+        pol = JaxPolicy(spec, seed=0, device=learner_device)
+        ref = JaxPolicy(spec, seed=1, device="cpu")
+        ref.set_weights(pol.get_weights())
+        mini = batch.slice(0, spec.minibatch_size)
+        loss, _, grads = pol.loss_and_grads(mini.to_device(pol.device))
+        rloss, _, rgrads = ref.loss_and_grads(mini.to_device("cpu"))
+        loss, rloss = float(loss.detach()), float(rloss.detach())
+        loss_rel = abs(loss - rloss) / abs(rloss)
+        rels = [float((g.cpu() - r).norm() / r.norm().clamp_min(1e-30))
+                for g, r in zip(grads, rgrads)]
+        worst = max(range(len(rels)), key=rels.__getitem__)
+        print(f"[rllib] (b) one minibatch of {spec.minibatch_size} at "
+              f"{spec.obs_shape}, f32, TF32 off: loss card {loss:.6f}"
+              f" cpu {rloss:.6f} (rel {loss_rel:.2e}, tol "
+              f"{RL_LOSS_RTOL}); gradient leaves {len(rels)}, worst "
+              f"||card - cpu|| / ||cpu|| {rels[worst]:.2e} (leaf {worst}, "
+              f"tol {RL_GRAD_REL}) [{card}]", flush=True)
+        if not (loss_rel <= RL_LOSS_RTOL and max(rels) <= RL_GRAD_REL):
+            bad.append(f"(b) card vs CPU: loss rel {loss_rel:.2e}, "
+                       f"leaves {rels}")
+        del grads, rgrads, ref
+        times = []
+        _rl_timed(torch, pol, on_card, times)
+        pol.learn_on_batch(batch)                  # warm-up
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(atari_timed):
+            stats = pol.learn_on_batch(batch)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        steps = spec.num_sgd_iter * (n // min(spec.minibatch_size, n))
+        ms = [t.get("ms", t["wall_ms"]) for t in times[1:]]
+        print(f"[rllib] (b) learn_on_batch of {n} rows ({steps} minibatch "
+              f"steps): {', '.join(f'{m:.1f}' for m in ms)} ms "
+              f"({'CUDA events' if on_card else 'wall, CPU'}; walls "
+              f"{[round(t['wall_ms'], 1) for t in times[1:]]}), "
+              f"{steps / (min(ms) / 1e3):.0f} minibatch steps/s, peak "
+              f"memory {peak / 2**30:.2f} GiB, stats {stats} [{card}]",
+              flush=True)
+        out["b"] = {"ms": ms, "steps": steps, "peak_bytes": peak,
+                    "loss_rel": loss_rel, "worst_leaf_rel": rels[worst],
+                    "stats": stats}
+        if on_card:
+            # where an update's time goes: device time by kind against
+            # its wall (the host's share is the rest)
+            out["b"]["profile"] = profile_call(
+                torch, lambda: pol.learn_on_batch(batch),
+                "Atari-scale learn_on_batch", min(ms), card, "rllib")
+        if not all(np.isfinite(v) for v in stats.values()):
+            bad.append(f"(b) stats {stats}")
+        del pol, batch
+
+        # (c) -------------------------------------------------------------
+        out["c"] = {}
+        for kind, spec in seq_specs.items():
+            learner = JaxPolicy(spec, seed=3, device=learner_device)
+            w = seq_workers[kind]
+            rt.get(w.set_weights.remote(learner.get_weights()), timeout=300)
+            t0 = time.perf_counter()
+            frag = rt.get(w.sample.remote(), timeout=300)
+            sample_s = time.perf_counter() - t0
+            probe = rt.get(w.probe.remote(), timeout=60)
+            dev_batch = frag.to_device(learner.device)
+            seen = []
+            objective = learner._ppo_objective
+            learner._ppo_objective = \
+                lambda logp, *a: (seen.append(logp.detach()),
+                                  objective(logp, *a))[1]
+            with torch.no_grad():
+                learner._loss(learner.params, dev_batch)
+            del learner._ppo_objective
+            logp_err = float((seen[0] - dev_batch[sb.ACTION_LOGP]).abs()
+                             .max())
+            stats = learner.learn_on_batch(frag)
+            print(f"[rllib] (c) {kind}: a fragment {frag[sb.OBS].shape} "
+                  f"from a CPU worker ({probe['device']}, "
+                  f"CUDA_VISIBLE_DEVICES={probe['CUDA_VISIBLE_DEVICES']!r})"
+                  f" in {sample_s:.2f} s; stored vs recomputed logp on "
+                  f"{learner.device}: max |d| {logp_err:.2e} (tol "
+                  f"{RL_LOGP_TOL}); one update: {stats} [{card}]",
+                  flush=True)
+            out["c"][kind] = {"logp_err": logp_err, "stats": stats,
+                              "sample_s": sample_s}
+            if not logp_err <= RL_LOGP_TOL:
+                bad.append(f"(c) {kind}: logp off by {logp_err:.2e}")
+            if not all(np.isfinite(v) for v in stats.values()):
+                bad.append(f"(c) {kind}: stats {stats}")
+            if probe["device"] != "cpu" or probe["CUDA_VISIBLE_DEVICES"]:
+                bad.append(f"(c) {kind}: worker {probe}")
+        out["counts"] = read_counts(fa)
+        print(f"[rllib] kernel launches over (a)-(c): {out['counts']} "
+              f"[{card}]", flush=True)
+        if any(out["counts"].values()):
+            bad.append(f"kernel launches {out['counts']}")
+        for w in seq_workers.values():
+            rt.kill(w)
+
+        # (d) -------------------------------------------------------------
+        t0 = time.perf_counter()
+        grid = tune.Tuner(
+            "PPO", param_space=dict(tune_cfg, learner_device=learner_device),
+            tune_config=tune.TuneConfig(max_concurrent_trials=1),
+            resources_per_trial={"CPU": 1, "GPU": 1} if on_card
+            else {"CPU": 1}).fit()
+        wall = time.perf_counter() - t0
+        trial = grid.trials[0]
+        res = trial.last_result or {}
+        missing = sorted(RL_RESULT_KEYS - set(res))
+        print(f"[rllib] (d) Tuner('PPO') (the trial granted "
+              f"{'the card' if on_card else 'no card'}; its learner's "
+              f"default device raises without one): status {trial.status}, "
+              f"error {trial.error!r}, training_iteration "
+              f"{res.get('training_iteration')}, timesteps_total "
+              f"{res.get('timesteps_total')}, JAX keys missing {missing}, "
+              f"wall {wall:.1f} s [{card}]", flush=True)
+        out["d"] = {"wall_s": wall, "error": repr(trial.error),
+                    "missing": missing}
+        if trial.error is not None or missing or \
+                res.get("training_iteration") != 1:
+            bad.append(f"(d) trial error {trial.error!r}, missing keys "
+                       f"{missing}, result {res}")
+    finally:
+        worker_set.RolloutWorker = plain_worker
+        rt.shutdown()
+        if results_env is None:
+            os.environ.pop("RAYTPU_RESULTS_DIR", None)
+        else:
+            os.environ["RAYTPU_RESULTS_DIR"] = results_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[rllib] phase wall {out['wall_s']:.1f} s [{card}]", flush=True)
+    if bad:
+        fail("[rllib] " + "; ".join(bad))
+    return out
+
+
 class _PhaseClock:
     """``tick(name)`` prints the wall since the last tick (the phase
     just run) and since the script's first phase."""
@@ -8878,6 +9271,8 @@ def main() -> int:
         "ledger": bench_cli["ledger"],
         "dashboard_autopilot": serve_http["dashboard"]["autopilot"]})
     tick("observatory")
+    rllib = phase_rllib(torch, np, fa, card)
+    tick("rllib")
     train_llama = phase_train_llama(torch, fa, fc, card)
     tick("train-llama")
     train_tele = phase_train_telemetry(torch, np, fa, card)
@@ -8906,6 +9301,7 @@ def main() -> int:
                    "seq_pipe_tp": seq_pipe["counts"].get(name, 0),
                    "train_tune": train_tune["counts"][name],
                    "vision": vision["counts"].get(name, 0),
+                   "rllib": rllib["counts"].get(name, 0),
                    "train_llama": train_llama["counts"][name],
                    "train_telemetry": train_tele["counts"][name]}
         return {"launches": sum(by_path.values()),

@@ -10,7 +10,10 @@ card twice); `status` prints the cluster resource summary; `stop` kills
 nodes started on this host.  The address and pid files live under
 ``tempfile.gettempdir()/raytpu_torch/``, apart from the JAX package's
 ``/tmp/raytpu/``, so that neither package's `stop` signals the other's
-nodes.  `rllib` raises NotImplementedError naming ``RLLIB_ITEM``.
+nodes.  `rllib train|evaluate|algorithms` runs the port's RLlib
+(``ray_tpu_torch/rllib/``): the learner on the card unless the config
+sets ``learner_device``, the rollout workers CPU actors; an algorithm
+not ported yet raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -220,23 +223,158 @@ def main(argv=None) -> int:
         pj.set_defaults(fn=cmd_job, job_cmd=name)
 
     p_rllib = sub.add_parser(
-        "rllib", help="RLlib's CLI (not ported: raises naming RLLIB_ITEM)")
-    p_rllib.add_argument("rllib_cmd", help="train, evaluate or algorithms")
-    p_rllib.add_argument("rest", nargs=argparse.REMAINDER)
-    p_rllib.set_defaults(fn=_rllib_not_ported)
+        "rllib", help="train / evaluate RLlib algorithms by name "
+                      "(reference: the `rllib` CLI)")
+    rl_sub = p_rllib.add_subparsers(dest="rllib_cmd", required=True)
+    p_rt = rl_sub.add_parser("train")
+    p_rt.add_argument("--run", required=True,
+                      help="registry name, e.g. PPO (see "
+                           "`rllib algorithms`)")
+    p_rt.add_argument("--env", required=True,
+                      help="env id, e.g. CartPole-v1")
+    p_rt.add_argument("--stop-iters", type=int, default=10,
+                      dest="stop_iters")
+    p_rt.add_argument("--stop-reward", type=float, default=None,
+                      dest="stop_reward")
+    p_rt.add_argument("--config", default="{}",
+                      help="JSON of Config field overrides")
+    p_rt.add_argument("--checkpoint-dir", default="",
+                      dest="checkpoint_dir",
+                      help="save the final state here")
+    p_rt.set_defaults(fn=cmd_rllib_train)
+    p_re = rl_sub.add_parser("evaluate")
+    p_re.add_argument("checkpoint", help="path from `rllib train "
+                                         "--checkpoint-dir`")
+    p_re.add_argument("--run", required=True)
+    p_re.add_argument("--env", required=True)
+    p_re.add_argument("--episodes", type=int, default=10)
+    p_re.add_argument("--config", default="{}")
+    p_re.set_defaults(fn=cmd_rllib_evaluate)
+    p_ra = rl_sub.add_parser("algorithms",
+                             help="list registered algorithm names")
+    p_ra.set_defaults(fn=cmd_rllib_algorithms)
 
     args = parser.parse_args(argv)
     return args.fn(args)
 
 
-#: what the rllib subcommands wait for
-RLLIB_ITEM = "ROADMAP.md queue 1 item 7.13 (rllib/)"
+def _build_algorithm(args, overrides=None):
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib.registry import get_algorithm_class
+
+    cls, cfg_cls = get_algorithm_class(args.run, return_config=True)
+    if overrides is None:
+        overrides = json.loads(args.config)
+    overrides.pop("env", None)       # --env wins over a config "env"
+    # logical-CPU headroom: rollout workers + a lazy eval worker must
+    # co-schedule even on a 1-core box (they are IO/step-bound)
+    ray_tpu_torch.init(num_cpus=max(4, (os.cpu_count() or 1) * 2))
+    return cls(cfg_cls(env=args.env, **overrides))
 
 
-def _rllib_not_ported(args) -> int:
-    raise NotImplementedError(
-        f"`rllib {args.rllib_cmd}` runs on the JAX package's rllib, "
-        f"which is not ported yet: {RLLIB_ITEM}")
+def cmd_rllib_train(args) -> int:
+    import ray_tpu_torch
+
+    algo = _build_algorithm(args)
+    try:
+        for _ in range(args.stop_iters):
+            result = algo.train()
+            print(json.dumps({
+                k: result.get(k) for k in
+                ("training_iteration", "timesteps_total",
+                 "episode_reward_mean", "episodes_total")},
+                default=float), flush=True)
+            reward = result.get("episode_reward_mean")
+            if (args.stop_reward is not None and reward is not None
+                    and reward == reward        # not NaN
+                    and reward >= args.stop_reward):
+                break
+        if args.checkpoint_dir:
+            path = algo.save(args.checkpoint_dir)
+            print(f"checkpoint saved: {path}")
+    finally:
+        algo.stop()
+        ray_tpu_torch.shutdown()
+    return 0
+
+
+def cmd_rllib_evaluate(args) -> int:
+    import ray_tpu_torch
+
+    # evaluation uses only the dedicated eval worker — don't spin up
+    # the full rollout gang unless the user asked for it
+    overrides = json.loads(args.config)
+    overrides.setdefault("num_workers", 0)
+    algo = _build_algorithm(args, overrides)
+    try:
+        algo.restore(args.checkpoint)
+        algo.config.evaluation_num_episodes = args.episodes
+        try:
+            result = algo.evaluate()
+        except NotImplementedError:
+            # no dedicated eval worker (A3C): greedy in-process rollout
+            # through the policy's action surface
+            result = _greedy_rollout_eval(algo, args.env,
+                                          args.episodes)
+        print(json.dumps(result, default=float))
+    finally:
+        algo.stop()
+        ray_tpu_torch.shutdown()
+    return 0
+
+
+def _greedy_rollout_eval(algo, env_id: str, episodes: int):
+    import numpy as np
+
+    from ray_tpu_torch.rllib.rollout_worker import _make_env
+
+    policy = getattr(algo, "policy", None) \
+        or getattr(algo, "learner_policy", None)
+    if policy is None or not hasattr(policy, "compute_actions"):
+        raise SystemExit(
+            f"{type(algo).__name__} exposes no evaluable policy")
+    # greedy where the policy offers it (JaxPolicy)
+    act_fn = getattr(policy, "compute_deterministic_actions",
+                     policy.compute_actions)
+    env = _make_env(env_id, None)
+    space = getattr(env, "action_space", None)
+    discrete = space is None or getattr(space, "n", None) is not None
+    low = np.asarray(getattr(space, "low", -1.0))
+    high = np.asarray(getattr(space, "high", 1.0))
+    returns = []
+    try:
+        for ep in range(episodes):
+            obs, _ = env.reset(seed=10_000 + ep)
+            total = 0.0
+            for _ in range(10_000):
+                acts = act_fn(
+                    np.asarray(obs, np.float32).ravel()[None])
+                a = np.asarray(acts[0] if isinstance(acts, tuple)
+                               else acts)
+                if discrete:
+                    env_a = int(a.ravel()[0])
+                else:
+                    # continuous policies act in [-1, 1]; rescale to
+                    # the env bounds (worker-side convention)
+                    env_a = (low + (a.reshape(space.shape) + 1.0)
+                             * 0.5 * (high - low))
+                obs, r, term, trunc, _ = env.step(env_a)
+                total += float(r)
+                if term or trunc:
+                    break
+            returns.append(total)
+    finally:
+        env.close() if hasattr(env, "close") else None
+    return {"episode_reward_mean": float(np.mean(returns)),
+            "episodes": episodes, "mode": "greedy_rollout"}
+
+
+def cmd_rllib_algorithms(_args) -> int:
+    from ray_tpu_torch.rllib.registry import registered_algorithms
+
+    for name in registered_algorithms():
+        print(name)
+    return 0
 
 
 def _attached(args):

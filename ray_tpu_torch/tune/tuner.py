@@ -1,10 +1,11 @@
 """Tuner — the public tune API (reference analog: tune/tuner.py:220
 Tuner.fit; tune/tune.py:130 run).
 
-A copy of ``ray_tpu/tune/tuner.py``.  Launching an RLlib algorithm
-by name raises NotImplementedError naming ROADMAP.md's item for
-``rllib/``; results default to ``~/ray_tpu_torch_results`` (the
-reference's ``~/ray_tpu_results``), or ``RAYTPU_RESULTS_DIR``.
+A copy of ``ray_tpu/tune/tuner.py``.  An RLlib algorithm launched by
+name resolves through the port's registry (``rllib/registry.py``: an
+algorithm not ported yet raises NotImplementedError naming its ROADMAP
+item); results default to ``~/ray_tpu_torch_results`` (the reference's
+``~/ray_tpu_results``), or ``RAYTPU_RESULTS_DIR``.
 """
 
 from __future__ import annotations
@@ -18,9 +19,6 @@ from ray_tpu_torch.tune.schedulers import TrialScheduler
 from ray_tpu_torch.tune.search import BasicVariantGenerator
 from ray_tpu_torch.tune.trial import Trial
 from ray_tpu_torch.tune.trial_runner import TrialRunner
-
-#: the ROADMAP item that launching an algorithm by name waits for
-RLLIB_ITEM = "ROADMAP.md queue 1 item 7.13 (rllib/)"
 
 
 @dataclasses.dataclass
@@ -200,12 +198,18 @@ class Tuner:
 
 
 def _algorithm_trainable(name: str) -> Callable:
-    """Function trainable for a registry algorithm (the reference
-    resolves ``name`` through ``rllib.registry`` and delegates to
-    ``Algorithm.as_trainable``).  RLlib is not ported yet."""
-    raise NotImplementedError(
-        f"Tuner({name!r}): launching an RLlib algorithm by name is not "
-        f"ported yet: {RLLIB_ITEM}")
+    """Function trainable for a registry algorithm — delegates to
+    Algorithm.as_trainable (ONE adapter); trial-config keys are the
+    algorithm's Config fields plus ``training_iterations`` (default
+    10) bounding the loop.  The learner sits on the trial's card
+    (``resources_per_trial={"GPU": 1, ...}``) unless the trial config
+    sets ``learner_device``; its rollout workers are CPU actors."""
+    from ray_tpu_torch.rllib.registry import get_algorithm_class
+
+    cls, cfg_cls = get_algorithm_class(name, return_config=True)
+    fn = cls.as_trainable(cfg_cls())
+    fn.__name__ = name
+    return fn
 
 
 def run(trainable: Callable, *, config: Optional[Dict[str, Any]] = None,

@@ -142,7 +142,9 @@ def test_port_files_exist():
             # the device plane and the mixture of experts
             *PARALLEL_FILES, "ray_tpu_torch/models/moe.py",
             # Train and Tune, and the MLP their tests train
-            *TRAIN_TUNE_FILES, "ray_tpu_torch/models/mlp.py"} <= names
+            *TRAIN_TUNE_FILES, "ray_tpu_torch/models/mlp.py",
+            # RLlib's core
+            *RLLIB_FILES} <= names
 
 
 #: the Data and AIR layers: besides the rest, none of them imports
@@ -174,6 +176,14 @@ TRAIN_TUNE_FILES = tuple(
     [f"ray_tpu_torch/tune/{m}.py" for m in (
         "__init__", "callback", "logger", "schedulers", "search", "syncer",
         "trainable_adapter", "trial", "trial_runner", "tuner")])
+
+
+#: RLlib's core: the in-repo envs, PPO and the CLI run where gymnasium
+#: is not installed (it is imported only for an env id not in the repo)
+RLLIB_FILES = tuple(f"ray_tpu_torch/rllib/{m}.py" for m in (
+    "__init__", "algorithm", "connectors", "envs", "filters", "models",
+    "pg", "policy", "ppo", "registry", "replay_buffer", "rollout_worker",
+    "sample_batch", "vector_env", "worker_set"))
 
 
 def _module_level_roots(path: Path):
@@ -213,6 +223,13 @@ def test_parallel_imports_no_torch_at_module_level(rel):
 def test_train_and_tune_import_no_torch_at_module_level(rel):
     bad = [(line, mod) for line, mod in _module_level_roots(ROOT / rel)
            if mod in ("torch", "jax", "ray_tpu")]
+    assert not bad, f"{rel} imports {bad} at module level"
+
+
+@pytest.mark.parametrize("rel", RLLIB_FILES)
+def test_rllib_imports_no_gymnasium_at_module_level(rel):
+    bad = [(line, mod) for line, mod in _module_level_roots(ROOT / rel)
+           if mod in ("gymnasium", "gym", "jax", "ray_tpu")]
     assert not bad, f"{rel} imports {bad} at module level"
 
 
@@ -301,6 +318,20 @@ def test_train_and_tune_import_no_torch():
     assert not roots & {"torch", "jax", "jaxlib", "ray_tpu"}
     roots = _fresh_imports("from ray_tpu_torch.train import adamw")
     assert "torch" in roots and not roots & {"jax", "ray_tpu"}
+
+
+def test_rllib_imports_no_torch_until_an_algorithm_is_used():
+    """The registry (the CLI's `rllib algorithms`, Tune's launch by
+    name) loads neither torch nor gymnasium; an algorithm loads torch
+    and still no gymnasium."""
+    roots = _fresh_imports(
+        "import ray_tpu_torch.rllib; "
+        "from ray_tpu_torch.rllib.registry import registered_algorithms")
+    assert "ray_tpu_torch" in roots
+    assert not roots & {"torch", "gymnasium", "jax", "ray_tpu"}
+    roots = _fresh_imports("from ray_tpu_torch.rllib import PPO, A3C")
+    assert "torch" in roots
+    assert not roots & {"gymnasium", "jax", "ray_tpu"}
 
 
 def test_data_and_air_import_no_torch_pyarrow_or_pandas():

@@ -273,7 +273,8 @@ def test_unsupported_accelerator_options_raise(runtimes, opts, match):
 
 def test_init_names_num_gpus_and_unported_parts(runtimes):
     """What still raises: the JAX package's accelerator option names the
-    port's, and the rllib CLI names its ROADMAP.md item.  The dashboard
+    port's, and the rllib CLI names the ROADMAP.md item of an algorithm
+    not ported yet.  The dashboard
     starts (on a free port) and answers with this runtime's node
     (test_torch_dashboard.py holds every route to the JAX package's)."""
     import json
@@ -285,10 +286,12 @@ def test_init_names_num_gpus_and_unported_parts(runtimes):
 
     with pytest.raises(ValueError, match="num_gpus"):
         ray_tpu_torch.init(num_tpus=1)
-    for sub in (["algorithms"], ["train", "--run", "PPO", "--env", "x"],
-                ["evaluate", "ckpt", "--run", "PPO", "--env", "x"]):
+    for sub, part in ((["train", "--run", "DQN", "--env", "x"], "b"),
+                      (["evaluate", "ckpt", "--run", "SAC", "--env", "x"],
+                       "c"),
+                      (["train", "--run", "Dreamer", "--env", "x"], "d")):
         with pytest.raises(NotImplementedError,
-                           match=r"queue 1 item 7\.13 \(rllib/\)"):
+                           match=rf"queue 1 item 7\.13 \({part}\)"):
             cli.main(["rllib", *sub])
     url = start_dashboard(port=0)
     try:

@@ -292,8 +292,8 @@ def test_unported_and_foreign_options_raise(runtimes):
                  "LightGBMTrainer", "HuggingFaceTrainer"):
         with pytest.raises(NotImplementedError, match=r"item 7\.8b"):
             getattr(ttrain, name)(lambda config: None)
-    with pytest.raises(NotImplementedError, match=r"item 7\.13"):
-        ttune.Tuner("PPO")
+    with pytest.raises(NotImplementedError, match=r"item 7\.13 \(b\)"):
+        ttune.Tuner("DQN")
     with pytest.raises(ValueError, match="num_tpus is the JAX package's"):
         WorkerGroup(1, {"CPU": 1, "TPU": 1})
     grid = ttune.Tuner(lambda config: None,
